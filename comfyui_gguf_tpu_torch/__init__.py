@@ -1,0 +1,40 @@
+"""comfyui-gguf-tpu, PyTorch/CUDA port for the NVIDIA H100.
+
+A second package beside the JAX reference ``comfyui_gguf_tpu``, with the
+same module layout. The main path so far is the flux denoise: GGUF file →
+planar weights → w8a8 conversion → flux forward → Euler sampler, with
+hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls and
+flash attention. Entry points run on the card unless the caller asks for
+the CPU, where each kernel's plain PyTorch version runs instead.
+"""
+
+__version__ = "0.1.0"
+
+# public API, imported lazily so that metadata-only imports stay light
+_PUBLIC = {
+    "GGUFReader": ".gguf.reader",
+    "GGUFWriter": ".gguf.writer",
+    "gguf_sd_loader": ".loader",
+    "to_torch_params": ".loader",
+    "load_diffusion_model": ".pipeline",
+    "DiffusionModel": ".pipeline",
+    "QuantConfig": ".nn.layers",
+    "quantized_matmul": ".ops.qmatmul",
+    "i8_matmul": ".ops.i8mm",
+    "dot_product_attention": ".nn.attention",
+    "PlanarQuant": ".quant.planar",
+    "planarize": ".quant.planar",
+    "params_from_numpy": ".interop",
+}
+
+
+def __getattr__(name):
+    if name in _PUBLIC:
+        import importlib
+
+        mod = importlib.import_module(_PUBLIC[name], __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = list(_PUBLIC)

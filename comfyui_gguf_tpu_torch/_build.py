@@ -1,0 +1,162 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use they are
+compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
+started together — and linked into one shared library under ``_build/``
+(git-ignored), named by a digest of the sources, flags and compiler so a
+changed source or toolkit rebuilds and an unchanged one loads at once. The
+library is loaded with ``ctypes``; pointers travel as ``c_void_p`` and
+every entry returns ``cudaGetLastError()``, which ``check`` turns into an
+exception.
+
+Nothing here runs at import: the CPU tests import every module, and there
+is no ``nvcc`` without the CUDA toolkit.
+
+Each kernel wrapper also counts its launches here (``count``), so a run can
+show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("qmm.cu", "i8mm.cu", "flash_attn.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
+    # act_from, stream
+    "qmm_launch": [_VP] * 6 + [_I] * 9 + [_VP],
+    # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, act_from, stream
+    "i8mm_launch": [_VP] * 6 + [_I] * 6 + [_VP],
+    # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
+    "flash_attn_launch": [_VP] * 4 + [_I] * 5
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
+}
+
+# launches per kernel since the last reset_launch_counts()
+LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "i8mm": 0, "flash_attn": 0}
+
+# what the last build in this process did (read by chip_smoke.py)
+BUILD_REPORT: dict = {}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def count(kernel: str) -> None:
+    LAUNCHES[kernel] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def _digest(exe: str) -> str:
+    """Digest of the sources, the flags and the compiler (its path and its
+    ``--version``), so a new toolkit rebuilds."""
+    version = subprocess.run([exe, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256(" ".join((exe, *NVCC_FLAGS, version)).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link the shared library;
+    returns its path (an existing build of the same sources is reused)."""
+    exe = nvcc()
+    target = BUILD_DIR / f"libgguf_kernels_{_digest(exe)}.so"
+    if target.exists():
+        BUILD_REPORT.update(cached=True, path=str(target))
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"tmp_{os.getpid()}_{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for src in SOURCES:
+        obj = work / (src + ".o")
+        cmd = [exe, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / src),
+               "-o", str(obj)]
+        procs[src] = (obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    ptxas, errors = {}, []
+    for src, (obj, p) in procs.items():
+        out, err = p.communicate()
+        ptxas[src] = [ln for ln in (out + err).splitlines()
+                      if "ptxas" in ln or "registers" in ln]
+        if p.returncode != 0:
+            errors.append(f"{src}:\n{out}{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    t_compile = time.perf_counter() - t0
+    tmp_lib = work / "lib.so"
+    link = subprocess.run(
+        [exe, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+         *[str(obj) for obj, _ in procs.values()]],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp_lib, target)
+    shutil.rmtree(work, ignore_errors=True)
+    BUILD_REPORT.update(cached=False, path=str(target),
+                        compile_s=t_compile,
+                        total_s=time.perf_counter() - t0, ptxas=ptxas)
+    return target
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

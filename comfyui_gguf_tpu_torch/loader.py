@@ -1,0 +1,214 @@
+"""GGUF → PyTorch state-dict loading (port of comfyui_gguf_tpu/loader.py).
+
+* Stage 1, ``gguf_sd_loader``: file → ``{key: QTensor}`` lazy records over
+  the file mmap, with architecture detection/validation, prefix stripping,
+  ``comfy.gguf.orig_shape`` metadata and the 1-D BF16 fix — nothing is
+  decoded yet.
+* Stage 2, ``to_torch_params``: conforming 2-D quantized weights are
+  re-tiled once into the planar layout (quant/planar.py) and stay packed on
+  the device; everything else is dequantized to a dense tensor. Scale and
+  offset planes stay float32.
+
+Text-encoder loading (tokenizer metadata, key maps, mmproj sidecars) comes
+with the text-encoder slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .archs import IMG_ARCH_LIST, TXT_ARCH_LIST, VIS_TYPE_LIST, detect_arch
+from .gguf.constants import GGML_QUANT_SIZES, GGMLQuantizationType
+from .gguf.reader import GGUFReader
+from .maps import unpermute_gqa_rows
+from .nn.layers import DEFAULT_CONFIG, QuantConfig
+from .quant import codecs
+from .quant.planar import planarize
+
+Q = GGMLQuantizationType
+log = logging.getLogger(__name__)
+
+_PASSTHROUGH = {Q.F32, Q.F16}
+
+
+@dataclasses.dataclass
+class QTensor:
+    """Lazy on-disk tensor: packed payload + logical shape + qtype."""
+
+    name: str
+    qtype: GGMLQuantizationType
+    shape: tuple[int, ...]  # logical, numpy/torch order
+    data: np.ndarray  # mmap view: packed (n_blocks, ts) or typed array
+    is_largest_weight: bool = False
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.qtype not in _PASSTHROUGH
+
+    @property
+    def numel(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+    def dequantize(self, dtype=np.float32) -> np.ndarray:
+        """Full host-side decode to the logical shape."""
+        out = codecs.dequantize(self.data, self.qtype, self.shape)
+        return out.astype(dtype, copy=False)
+
+    def permute_rows(self, n_head: int) -> "QTensor":
+        """GQA un-permute on whole rows (every row is whole blocks)."""
+        r = self.shape[0]
+        flat = np.ascontiguousarray(self.data).reshape(r, -1)
+        out = unpermute_gqa_rows(flat, n_head).reshape(self.data.shape)
+        return dataclasses.replace(self, data=np.ascontiguousarray(out))
+
+
+def _squeeze_trailing_ones(shape: tuple[int, ...]) -> tuple[int, ...]:
+    shape = list(shape)
+    while len(shape) > 2 and shape[-1] == 1:
+        shape.pop()
+    return tuple(shape)
+
+
+def gguf_sd_loader(path: str,
+                   handle_prefix: str | None = "model.diffusion_model.",
+                   return_arch: bool = False, is_text_model: bool = False,
+                   reader: GGUFReader | None = None):
+    """GGUF file → ``{key: QTensor}`` (reference loader.py:51-141).
+
+    Detects/validates the architecture (sd.cpp / "pig" / "cow" compat files
+    by key fingerprints), strips the state-dict prefix, honours
+    ``comfy.gguf.orig_shape`` metadata, eagerly decodes 1-D BF16 tensors and
+    marks the largest quantized tensor.
+    """
+    reader = reader or GGUFReader(path)
+
+    has_prefix = False
+    if handle_prefix is not None:
+        names = {t.name for t in reader.tensors}
+        has_prefix = any(n.startswith(handle_prefix) for n in names)
+    tensors = []
+    for t in reader.tensors:
+        sd_key = t.name
+        if has_prefix:
+            if not sd_key.startswith(handle_prefix):
+                continue
+            sd_key = sd_key[len(handle_prefix):]
+        tensors.append((sd_key, t))
+
+    compat = None
+    arch_str = reader.get_str("general.architecture")
+    type_str = reader.get_str("general.type")
+    if arch_str in (None, "pig", "cow"):
+        if is_text_model:
+            raise ValueError(
+                f"This gguf file is incompatible with llama.cpp "
+                f"(no/containers-only architecture metadata): {path}")
+        compat = "sd.cpp" if arch_str is None else arch_str
+        try:
+            arch_str = detect_arch({k for k, _ in tensors}).arch
+        except ValueError as e:
+            raise ValueError(
+                f"This model is not currently supported - ({e})") from None
+    elif is_text_model and arch_str not in TXT_ARCH_LIST:
+        if type_str not in VIS_TYPE_LIST:
+            raise ValueError(
+                f"Unexpected text model architecture in GGUF file: "
+                f"{arch_str!r}")
+    elif not is_text_model and arch_str not in IMG_ARCH_LIST:
+        raise ValueError(
+            f"Unexpected architecture type in GGUF file: {arch_str!r}")
+    if compat:
+        log.warning("gguf loaded in compatibility mode %r [arch:%s]",
+                    compat, arch_str)
+
+    state_dict: dict[str, QTensor] = {}
+    undecodable: list[tuple[str, GGMLQuantizationType]] = []
+    for sd_key, t in tensors:
+        shape = reader.get_orig_shape(t.name)
+        if shape is None:
+            shape = t.shape
+            # stable-diffusion.cpp SDXL stores proj layers as (N, M, 1, 1)
+            if compat == "sd.cpp" and arch_str == "sdxl" and sd_key.endswith(
+                    (".proj_in.weight", ".proj_out.weight")):
+                shape = _squeeze_trailing_ones(shape)
+        qt = QTensor(name=t.name, qtype=t.qtype, shape=tuple(shape),
+                     data=t.data)
+        # IQ1/IQ2/IQ3 need llama.cpp codebook tables: collected, so ONE
+        # load-time error names the full set
+        if not codecs.can_decode(qt.qtype):
+            undecodable.append((t.name, qt.qtype))
+            continue
+        # 1-D tensors shouldn't stay quantized — BF16 fix
+        if len(shape) <= 1 and t.qtype == Q.BF16:
+            qt = QTensor(name=t.name, qtype=Q.F32, shape=tuple(shape),
+                         data=qt.dequantize(np.float32))
+        state_dict[sd_key] = qt
+    if undecodable:
+        names = ", ".join(f"{n!r} [{q.name}]" for n, q in undecodable)
+        codecs.require_decoder(
+            undecodable[0][1],
+            context=f"{len(undecodable)} tensor(s): {names}")
+
+    quant_keys = [k for k, v in state_dict.items() if v.is_quantized]
+    if quant_keys:
+        kmax = max(quant_keys, key=lambda k: state_dict[k].numel)
+        state_dict[kmax].is_largest_weight = True
+
+    if return_arch:
+        return state_dict, arch_str
+    return state_dict
+
+
+def _planarizable(qt: QTensor) -> bool:
+    if not qt.is_quantized or len(qt.shape) != 2:
+        return False
+    block, _ = GGML_QUANT_SIZES[qt.qtype]
+    k = qt.shape[1]
+    if qt.qtype not in codecs.COMPONENT_EXTRACTORS:
+        return False
+    # planarize pads K to a 512 multiple, so any block-aligned row width
+    # re-tiles — but for small K the pad would bloat storage past dense
+    # bf16; keep those eager-dequantized
+    return k % block == 0 and (k % 512 == 0 or k >= 1024)
+
+
+def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
+                                                          dtype=dtype)
+
+
+def to_torch_params(sd: dict[str, QTensor],
+                    cfg: QuantConfig = DEFAULT_CONFIG,
+                    device="cuda") -> dict[str, object]:
+    """QTensor dict → device tensors: PlanarQuant for conforming 2-D
+    quantized weights, dense tensors for the rest (the reference's
+    ``to_jax_params`` policy). Runs on the card unless ``device`` says
+    otherwise; raises if CUDA is asked for and absent."""
+    device = resolve_device(device)
+    params: dict[str, object] = {}
+    for key, qt in sd.items():
+        if not qt.is_quantized:
+            arr = qt.dequantize(np.float32)
+            # F32-stored tensors are the converter's high-precision set
+            # (modulation tables, pos encodings); keep them f32 unless
+            # they're actually large
+            keep_f32 = (arr.ndim <= 1
+                        or (qt.qtype == Q.F32 and arr.size < (1 << 20)))
+            dt = torch.float32 if keep_f32 else cfg.compute_dtype
+            params[key] = _tensor(arr, dt, device)
+        elif _planarizable(qt):
+            params[key] = planarize(qt.data, qt.qtype, qt.shape,
+                                    device=device)
+        else:
+            arr = qt.dequantize(np.float32)
+            dt = torch.float32 if arr.ndim <= 1 else cfg.dequant_dtype
+            params[key] = _tensor(arr, dt, device)
+    return params

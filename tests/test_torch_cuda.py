@@ -1,0 +1,156 @@
+"""The PyTorch port's CUDA kernels against their plain PyTorch versions.
+
+Each kernel (K1 nib4 and K2 int8 fused dequant-matmul, K4 w8a8 matmul, K7
+flash attention) runs on the card beside its plain version on the same
+inputs, at small shapes that cover the ragged edges: M=1, M not a multiple
+of the tile, K padded, R not a multiple of 128, the GELU tail, odd key
+lengths, Lq != Lk and strided views. Whether a card exists is decided inside
+the ``cuda`` fixture, so every worker collects the same tests; without a
+card they skip. Run them on the card with
+``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest`` (the
+repo's conftest imports jax, which the card's machine need not have).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from comfyui_gguf_tpu_torch import _build
+from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
+from comfyui_gguf_tpu_torch.nn.attention import (flash_attn_cuda,
+                                                 plain_attention)
+from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda, plain_i8mm
+from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
+                                                qmm_cuda)
+from comfyui_gguf_tpu_torch.quant import codecs, planar
+from comfyui_gguf_tpu_torch.quant.i8 import requantize_i8
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / (b.norm() + 1e-12))
+
+
+def _bf16_ulp(t):
+    """Spacing of bf16 values at |t| (8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _planar(qtype, R, K, seed, device):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((R, K), dtype=np.float32)
+    return planar.planarize(codecs.quantize(w, qtype), qtype, (R, K),
+                            device=device)
+
+
+QMM_CASES = [
+    # qtype, M, R, K, bias, act_from_col
+    (Q.Q4_K, 1, 384, 512, True, None),
+    (Q.Q4_K, 37, 200, 2432, False, 0),
+    (Q.Q4_0, 130, 256, 1024, True, 128),
+    (Q.Q2_K, 5, 128, 512, True, None),
+    (Q.Q8_0, 37, 384, 512, True, 256),
+    (Q.Q6_K, 200, 256, 1024, False, None),
+    (Q.Q5_1, 16, 128, 512, True, 0),
+]
+
+
+@pytest.mark.parametrize("qtype,M,R,K,bias,act", QMM_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_qmm_kernel_matches_plain(cuda, qtype, M, R, K, bias, act):
+    pq = _planar(qtype, R, K, seed=int(qtype), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((R,), generator=g, device=cuda) if bias else None)
+    before = dict(_build.LAUNCHES)
+    got = qmm_cuda(x, pq, bias=b, act_from_col=act)
+    torch.cuda.synchronize()
+    want = plain_quantized_matmul(x, pq, bias=b, act_from_col=act)
+    key = "qmm_nib4" if pq.layout == "nib4" else "qmm_int8"
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert got.shape == (M, R) and got.dtype == torch.bfloat16
+    assert _rel_l2(got, want) < 5e-3
+
+
+def test_qmm_kernel_on_stacked_view(cuda):
+    a = _planar(Q.Q4_K, 256, 1024, seed=1, device=cuda)
+    b = _planar(Q.Q4_K, 256, 1024, seed=2, device=cuda)
+    st = planar.PlanarQuant(
+        qs=torch.stack([a.qs, b.qs]), scales=torch.stack([a.scales,
+                                                          b.scales]),
+        offsets=torch.stack([a.offsets, b.offsets]), qtype=a.qtype,
+        layout=a.layout, group_size=a.group_size, zero_point=a.zero_point,
+        shape=a.shape)
+    x = torch.randn((64, 1024), device=cuda).to(torch.bfloat16)
+    view = st[1]
+    assert (view.qs.untyped_storage().data_ptr()
+            == st.qs.untyped_storage().data_ptr())
+    got = qmm_cuda(x, view)
+    assert _rel_l2(got, plain_quantized_matmul(x, b)) < 5e-3
+
+
+I8_CASES = [
+    # M, R, K, bias, act_from_col
+    (1, 256, 512, True, None),
+    (37, 200, 2432, True, 0),
+    (300, 384, 1024, False, 256),
+    (129, 128, 3072, True, None),
+]
+
+
+@pytest.mark.parametrize("M,R,K,bias,act", I8_CASES, ids=str)
+def test_i8mm_kernel_matches_plain(cuda, M, R, K, bias, act):
+    ip = requantize_i8(_planar(Q.Q4_K, R, K, seed=M, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((R,), generator=g, device=cuda) if bias else None)
+    got = i8mm_cuda(x, ip, bias=b, act_from_col=act)
+    torch.cuda.synchronize()
+    want = plain_i8mm(x, ip, bias=b, act_from_col=act)
+    # the integer accumulation is exact: only the f32 epilogue's rounding
+    # may differ, which moves a bf16 result by at most one ulp
+    assert bool(((got.float() - want.float()).abs()
+                 <= torch.maximum(_bf16_ulp(got), _bf16_ulp(want))).all())
+
+
+ATTN_CASES = [
+    # B, H, Lq, Lk, D
+    (1, 2, 128, 128, 128),
+    (2, 3, 77, 77, 64),
+    (1, 2, 250, 131, 128),
+    (1, 1, 5, 300, 64),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", ATTN_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, B, H, Lq, Lk, D):
+    g = torch.Generator(device=cuda).manual_seed(Lq * 7 + Lk)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    scale = D ** -0.5
+    got = flash_attn_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Lq, D)
+    assert _rel_l2(got, plain_attention(q, k, v, scale)) < 1e-2
+
+
+def test_flash_kernel_on_strided_views(cuda):
+    B, L, H, D = 1, 96, 4, 64
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attn_cuda(q, k, v, 0.125)
+    want = plain_attention(q, k, v, 0.125)
+    assert _rel_l2(got, want) < 1e-2
