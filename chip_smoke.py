@@ -4,37 +4,52 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--depth-double N] [--depth-single N] [--steps N]
+                          [--t5-layers N]
 
-It drives the port's main path — the flux denoise of ``bench.py``'s
-configuration — on the card through the entry points a user calls, and
-fails (non-zero exit, no result line) on any failed phase:
+It drives the port's main paths — the flux denoise of ``bench.py``'s
+configuration, and flux text-to-image end to end (tokenizers, T5-xxl and
+CLIP-L encode, denoise, VAE decode) — on the card through the entry points
+a user calls, and fails (non-zero exit, no result line) on any failed phase:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
 2. build: the CUDA kernels are compiled from ``comfyui_gguf_tpu_torch/csrc``
    (one nvcc per source, in parallel) and loaded;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs at the main path's shapes, with its time (CUDA events over a CUDA
+   inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
    PyTorch library call computing the same product, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the H100 SXM peak);
-4. tiny end to end: a small flux GGUF mixing Q4_K, Q8_0 and Q6_K tensors,
-   written with the port's own writer, goes through
-   ``load_diffusion_model`` on the card and on the CPU (plain path), then a
-   few Euler steps, planar and after ``requantize_i8()``; the card's
-   latents must match the CPU's;
-5. main path: flux-dev width (hidden 3072, 24 heads, 4096 image + 512 text
-   tokens at 1024²) with random Q4_K weights from a seed, full depth
+4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
+   Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
+   steps, planar and after ``requantize_i8()``; (b) a tiny ``FluxPipeline``
+   (flux GGUF, 2-layer T5 Q8_0 GGUF with tokenizer metadata, CLIP and VAE
+   safetensors with ``vocab.json``/``merges.txt``, all written by the port's
+   own writers) through ``FluxPipeline.load`` and ``generate``, with and
+   without ``attention_i8`` at a size inside the int8 gate, then img2img,
+   inpainting and a Kontext reference once each;
+5. denoise path: flux-dev width (hidden 3072, 24 heads, 4096 image + 512
+   text tokens at 1024²) with random Q4_K weights from a seed, full depth
    (19 + 38 blocks) and bench.py's 20 Euler steps on ``flux_schedule``
    unless the flags cut them, for two requests, on the bf16-fused tree and
-   on the w8a8 tree. Launch counts are reset just before and read just
-   after; a kernel of the path with no launch fails, and so does a w8a8
-   final latent more than 2e-2 (relative L2) from the bf16-fused one of
-   the same request. One more w8a8 forward
-   runs under ``torch.profiler`` for the device-time breakdown.
+   on the w8a8 tree; a w8a8 final latent more than 2e-2 (relative L2) from
+   the bf16-fused one of the same request fails. One more w8a8 forward
+   runs under ``torch.profiler`` for the device-time breakdown;
+6. text-to-image path: a ``FluxPipeline`` of seed-made parts at published
+   widths — the w8a8 flux-dev tree of phase 5, T5-v1.1-xxl (24 layers,
+   Q8_0, made on the card), CLIP-L, the 16-channel AutoencoderKL, synthetic
+   32128-piece and 49408-entry vocabularies — generates two prompts at
+   1024² with the default attention, then again under
+   ``attention_i8("pv")`` and ``attention_i8("qk")``. Stage times, peak
+   memory and launch counts are printed; a missing launch fails, and so
+   does an int8-attention latent or image more than 3e-2 (relative L2)
+   from the default-attention one of the same request;
+7. the GEMM probe tool ``tools_i8_microbench_cuda.py`` runs as a user runs
+   it.
 
-The last lines are the card's ``nvidia-smi`` name and power limit, the
-kernel table as JSON, then ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each driven path and read just
+after. The last lines are the card's ``nvidia-smi`` name and power limit,
+the kernel table as JSON, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,6 +63,10 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+from comfyui_gguf_tpu_torch._timing import (  # noqa: E402
+    event_ms, graph_ms, rel_l2)
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 and int8 tensor rates
 PEAK_BYTES = 3.35e12
@@ -56,6 +75,15 @@ PEAK_INT8 = 1979e12
 
 # most relative L2 allowed between the w8a8 and bf16-fused final latents
 LATENT_DELTA_MAX = 2e-2
+# most relative L2 allowed between an int8-attention final latent or image
+# and the default-attention one of the same request
+I8ATTN_DELTA_MAX = 3e-2
+# special-function results (exp) per SM per clock, compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic-instruction throughput table)
+SFU_PER_SM_CLK = 16
+
+PROMPTS = ("a photo of a cat sitting on the moon",
+           "an oil painting of a lighthouse in a storm at night")
 
 SOURCES = {
     "qmm_nib4": ("comfyui_gguf_tpu_torch/csrc/qmm.cu",
@@ -66,6 +94,16 @@ SOURCES = {
              "comfyui_gguf_tpu/ops/i8mm.py:70"),
     "flash_attn": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                    "comfyui_gguf_tpu/nn/attention.py:168"),
+    "i8attn_pv": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
+                  "comfyui_gguf_tpu/ops/i8attn.py:113"),
+    "i8attn_qk": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
+                  "comfyui_gguf_tpu/ops/i8attn.py:113"),
+    "gemm_probe_bf16": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
+                        "tools_i8_microbench.py:37"),
+    "gemm_probe_s8": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
+                      "tools_i8_microbench.py:37"),
+    "gemm_probe_w8a8": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
+                        "tools_i8_microbench.py:66"),
 }
 
 
@@ -73,57 +111,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def rel_l2(a, b) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / (b.norm() + 1e-30))
-
-
 def bound(nbytes: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
+    return bound_t(nbytes, ops / peak_ops)
+
+
+def bound_t(nbytes: float, t_ops: float):
+    """(ms, "bytes" | "operations") from the bytes moved and the seconds
+    the operations take at the card's peak for their types."""
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def graph_ms(fns, reps: int = 10) -> float:
-    """Mean device time of one call, from CUDA events around a CUDA graph
-    that replays ``reps`` rounds of ``fns`` (a list cycled through, e.g.
-    copies of a weight that together exceed the L2 cache)."""
-    import torch
-
-    s = torch.cuda.Stream()
-    s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        for f in fns:  # warm up (and build) outside the capture
-            f()
-    torch.cuda.current_stream().wait_stream(s)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            for f in fns:
-                f()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    g.replay()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / (reps * len(fns))
-
-
-def event_ms(fn, reps: int = 3) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def library_ms(fn):
@@ -141,7 +138,7 @@ def library_ms(fn):
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_phase(dev):
+def kernel_phase(dev, sfu_per_s):
     import torch
 
     from comfyui_gguf_tpu_torch.gguf.constants import (
@@ -149,6 +146,11 @@ def kernel_phase(dev):
     from comfyui_gguf_tpu_torch.models.testing import random_planar
     from comfyui_gguf_tpu_torch.nn.attention import (flash_attn_cuda,
                                                      plain_attention)
+    from comfyui_gguf_tpu_torch.ops import gemm_probe as gp
+    from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
+                                                   i8_attention_cuda_q,
+                                                   plain_i8_attention_q,
+                                                   quantize_attn_inputs)
     from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda_q, plain_i8mm
     from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
                                                     qmm_cuda)
@@ -162,11 +164,13 @@ def kernel_phase(dev):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    def qmm_case(name, kernel, qtype, M, K, R, act, n_copies, tol):
+    def qmm_case(name, kernel, qtype, M, K, R, act, n_copies, tol,
+                 with_bias=True):
         ws = [random_planar(qtype, (R, K), gen, device=dev)
               for _ in range(n_copies)]
         x = randn(M, K)
-        bias = torch.randn(R, generator=gen, device=dev) * 0.1
+        bias = (torch.randn(R, generator=gen, device=dev) * 0.1
+                if with_bias else None)
         got = qmm_cuda(x, ws[0], bias=bias, act_from_col=act)
         want = plain_quantized_matmul(x, ws[0], bias=bias, act_from_col=act)
         torch.cuda.synchronize()
@@ -179,7 +183,8 @@ def kernel_phase(dev):
         wd = dequantize_kmajor(ws[0], torch.bfloat16).contiguous()
         lib = library_ms(lambda: torch.matmul(x, wd))
         del wd
-        nbytes = ws[0].nbytes_packed + 2 * M * K + 4 * R + 2 * M * R
+        nbytes = (ws[0].nbytes_packed + 2 * M * K + 2 * M * R
+                  + (4 * R if with_bias else 0))
         b_ms, b_by = bound(nbytes, 2.0 * M * K * R, PEAK_BF16)
         rows.append(dict(name=name, kernel=kernel, shape=f"M={M} K={K} R={R}",
                          max_abs_err=float((got.float() - want.float())
@@ -243,6 +248,107 @@ def kernel_phase(dev):
                          library="scaled_dot_product_attention",
                          bound_ms=b_ms, bound_by=b_by))
 
+    def i8attn_case(name, mode, B, H, L):
+        """K6 on prepared operands (the prep is timed beside it), against
+        the plain version at the kernel's own key-tile size."""
+        D, pv = 128, mode == "pv"
+        q, v = randn(B, H, L, D), randn(B, H, L, D)
+        k = randn(B, H, L, D) + 1.0  # a token mean for the prep to remove
+        scale = D ** -0.5
+        ops = quantize_attn_inputs(q, k, v, scale, pv_int8=pv)
+        got = i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv)
+        want = plain_i8_attention_q(
+            *ops, pv_int8=pv, block_kv=KERNEL_BLOCK_KV).to(
+                torch.bfloat16).reshape(B, H, L, D)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        exact = rel_l2(got, plain_attention(q, k, v, scale))
+        ok = (bool(torch.isfinite(got).all()) and err <= 2e-3
+              and exact <= 3.5e-2)
+        ms = graph_ms([lambda: i8_attention_cuda_q(*ops, B=B, H=H,
+                                                   pv_int8=pv)])
+        prep = graph_ms([lambda: quantize_attn_inputs(q, k, v, scale,
+                                                      pv_int8=pv)])
+        plain = event_ms(lambda: plain_i8_attention_q(
+            *ops, pv_int8=pv, block_kv=KERNEL_BLOCK_KV), reps=2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
+        BH = B * H
+        # s8 q and k, s8 or bf16 v, the f32 scales, the bf16 output
+        nbytes = (BH * L * D * (2 + (1 if pv else 2)) + 4 * BH * (2 * L + D)
+                  + 2 * BH * L * D)
+        half = 2.0 * BH * L * L * D
+        t_ops = half / PEAK_INT8 + half / (PEAK_INT8 if pv else PEAK_BF16)
+        b_ms, b_by = bound_t(nbytes, t_ops)
+        rows.append(dict(name=name, kernel=f"i8attn_{mode}",
+                         shape=f"B={B} H={H} L={L} D={D}",
+                         max_abs_err=float((got.float() - want.float())
+                                           .abs().max()),
+                         rel_l2=err, rel_l2_vs_exact=exact,
+                         tol="rel L2 <= 2e-3 vs plain at 64-key tiles, "
+                             "<= 3.5e-2 vs exact attention",
+                         ok=ok, ms=ms, prep_ms=prep, plain_ms=plain,
+                         library_ms=lib,
+                         library="scaled_dot_product_attention on the bf16 "
+                                 "q/k/v",
+                         bound_ms=b_ms, bound_by=b_by,
+                         exp_floor_ms=BH * L * L / sfu_per_s * 1e3))
+
+    def probe_case(name, kernel, run, want, exact, lib_fn, lib, nbytes,
+                   peak):
+        """K8 at both block-tile widths; the faster one is the row's time."""
+        M, K, R = 4096, 3072, 12288
+        got = {bn: run(bn) for bn in gp.TILES}
+        torch.cuda.synchronize()
+        errs = {bn: rel_l2(o, want) for bn, o in got.items()}
+        ok = all(bool(torch.isfinite(o).all()) for o in got.values()) and (
+            all(torch.equal(o, want) for o in got.values()) if exact
+            else max(errs.values()) <= 5e-3)
+        tile_ms = {bn: graph_ms([lambda bn=bn: run(bn)]) for bn in gp.TILES}
+        best = min(tile_ms, key=tile_ms.get)
+        b_ms, b_by = bound(nbytes, 2.0 * M * K * R, peak)
+        rows.append(dict(name=name, kernel=kernel,
+                         shape=f"M={M} K={K} R={R} bn={best}",
+                         max_abs_err=max(float((o.float() - want.float())
+                                               .abs().max())
+                                         for o in got.values()),
+                         rel_l2=max(errs.values()),
+                         tol="equal" if exact else "rel L2 <= 5e-3", ok=ok,
+                         ms=tile_ms[best], tile_ms=tile_ms,
+                         plain_ms=None, library_ms=library_ms(lib_fn),
+                         library=lib, bound_ms=b_ms, bound_by=b_by))
+        return rows[-1]
+
+    def probe_cases():
+        M, K, R = 4096, 3072, 12288
+        xb, wb = randn(M, K), randn(K, R)
+        x8 = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (K, R), generator=gen, device=dev,
+                           dtype=torch.int8)
+        xs = torch.rand((M, 128), generator=gen, device=dev) * 1e-3 + 1e-3
+        ws = torch.rand((1, R), generator=gen, device=dev) * 1e-3 + 1e-3
+        r = probe_case("gemm_probe_bf16", "gemm_probe_bf16",
+                       lambda bn: gp.probe_bf16(xb, wb, bn=bn),
+                       gp.plain_probe_bf16(xb, wb), False,
+                       lambda: torch.matmul(xb, wb), "torch.matmul",
+                       2 * (M * K + K * R + M * R), PEAK_BF16)
+        r["plain_ms"] = event_ms(lambda: gp.plain_probe_bf16(xb, wb))
+        r = probe_case("gemm_probe_s8", "gemm_probe_s8",
+                       lambda bn: gp.probe_s8(x8, w8, bn=bn),
+                       gp.plain_probe_s8(x8, w8), True,
+                       lambda: torch._int_mm(x8, w8),
+                       "torch._int_mm (s8 x s8 -> s32, no bf16 cast)",
+                       M * K + K * R + 2 * M * R, PEAK_INT8)
+        r["plain_ms"] = event_ms(lambda: gp.plain_probe_s8(x8, w8))
+        r = probe_case("gemm_probe_w8a8", "gemm_probe_w8a8",
+                       lambda bn: gp.probe_w8a8(x8, w8, xs, ws, bn=bn),
+                       gp.plain_probe_w8a8(x8, w8, xs, ws), True,
+                       lambda: torch._int_mm(x8, w8),
+                       "torch._int_mm (s8 x s8 -> s32 only, no rescale)",
+                       M * K + K * R + 4 * (M + R) + 2 * M * R, PEAK_INT8)
+        r["plain_ms"] = event_ms(lambda: gp.plain_probe_w8a8(x8, w8, xs, ws))
+
     # K1: double-block modulation at M=1 (weights cold: 4 copies > L2)
     qmm_case("qmm_nib4 mod M=1 3072->18432 Q4_K", "qmm_nib4", Q.Q4_K,
              1, 3072, 18432, None, 4, 5e-3)
@@ -265,6 +371,22 @@ def kernel_phase(dev):
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
     attn_case("flash_attn cross Lq=4096 Lk=512 D=128", 1, 24, 4096, 512,
               128)
+    # K2 at the T5-xxl shapes (M = 512 tokens, no bias; enough copies of
+    # each weight to exceed the L2 cache, as 24 layers of them do)
+    qmm_case("qmm_int8 T5 q/k/v/o M=512 4096->4096 Q8_0", "qmm_int8", Q.Q8_0,
+             512, 4096, 4096, None, 4, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 T5 wi M=512 4096->10240 Q8_0", "qmm_int8", Q.Q8_0,
+             512, 4096, 10240, None, 2, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 T5 wo M=512 10240->4096 Q8_0", "qmm_int8", Q.Q8_0,
+             512, 10240, 4096, None, 2, 5e-3, with_bias=False)
+    # K6: the flux joint shape, a gated length that is no multiple of a
+    # 512- or 1024-key tile, and a small batched shape; both modes
+    for mode in ("pv", "qk"):
+        i8attn_case(f"i8attn_{mode} flux L=4608 D=128", mode, 1, 24, 4608)
+        i8attn_case(f"i8attn_{mode} L=4480 D=128", mode, 1, 24, 4480)
+        i8attn_case(f"i8attn_{mode} B=2 H=4 L=512 D=128", mode, 2, 4, 512)
+    # K8: the probes at the tool's problem size
+    probe_cases()
     return rows
 
 
@@ -342,8 +464,113 @@ def tiny_e2e_phase(dev):
     return out
 
 
+def tiny_pipeline_phase(dev):
+    """A tiny FluxPipeline from files written by the port's own writers,
+    through ``FluxPipeline.load`` and ``generate``; card against CPU."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.attention import attention_i8
+    from comfyui_gguf_tpu_torch.pipeline import FluxPipeline
+
+    # head dim 128 and 256 image + 256 text tokens: inside the int8 gate
+    dims = testing.TinyFluxDims(hidden=512, heads=4, ctx=512, vec=64,
+                                depth_double=1, depth_single=2,
+                                axes_dim=(16, 56, 56))
+    size, t5_len, steps = 256, 256, 2
+    n_attn = (dims.depth_double + dims.depth_single) * steps
+    with tempfile.TemporaryDirectory() as tmp:
+        unet = os.path.join(tmp, "tiny_flux.gguf")
+        testing.write_flux_gguf(
+            testing.flux_state_dict(dims, seed=0), unet,
+            lambda k, v: testing.flux_block_qtype(k, v, Q.Q4_K))
+        t5 = os.path.join(tmp, "tiny_t5.gguf")
+        testing.write_t5_gguf(
+            testing.t5_state_dict(testing.T5Dims(
+                d_model=dims.ctx, d_kv=64, n_heads=8, d_ff=1024, n_layers=2,
+                vocab=128), seed=1),
+            t5, qtype=Q.Q8_0, tokenizer=testing.unigram_spec(128))
+        clip_dir = os.path.join(tmp, "clip")
+        os.mkdir(clip_dir)
+        clip = os.path.join(clip_dir, "clip_l.safetensors")
+        _safetensors.save_file(testing.clip_state_dict(testing.CLIPDims(
+            hidden=128, n_layers=2, n_heads=2, intermediate=256, vocab=600,
+            max_positions=77, proj=dims.vec), seed=2), clip)
+        testing.write_clip_vocab(clip_dir, *testing.clip_vocab(600))
+        vae = os.path.join(tmp, "tiny_ae.safetensors")
+        _safetensors.save_file(testing.vae_state_dict(testing.VAEDims(
+            z_channels=dims.in_ch // 4, base_ch=32), seed=3), vae)
+        gpu = FluxPipeline.load(unet, t5, clip, vae)
+        cpu = FluxPipeline.load(unet, t5, clip, vae, device="cpu")
+
+    kw = dict(width=size, height=size, steps=steps, max_t5_len=t5_len)
+    img = gpu.generate(PROMPTS[0], seed=3, **kw)  # the user's call
+    if img.shape != (size, size, 3) or not bool((img == img).all()):
+        raise SystemExit("tiny pipeline: generate gave a misshapen or "
+                         "non-finite image")
+    noise = torch.randn((1, size // 8, size // 8, dims.in_ch // 4),
+                        generator=torch.Generator().manual_seed(3))
+    out = {}
+    for mode in ("", "pv", "qk"):
+        with attention_i8(mode):
+            _build.reset_launch_counts()
+            a = gpu.generate_from_noise(PROMPTS[0], noise, **kw)
+            counts = dict(_build.LAUNCHES)
+            b = cpu.generate_from_noise(PROMPTS[0], noise, **kw)
+        err = rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+        out[mode or "bf16"] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  tiny pipeline attention_i8({mode!r}): {size}² image, card vs "
+            f"CPU plain rel L2 {err:.3e}, launches {counts}")
+        if not err <= 3e-2:
+            raise SystemExit(f"tiny pipeline ({mode!r}) disagrees with the "
+                             f"CPU plain path: rel L2 {err}")
+        want = {"flash_attn": 0 if mode else n_attn,
+                "i8attn_pv": n_attn if mode == "pv" else 0,
+                "i8attn_qk": n_attn if mode == "qk" else 0}
+        for k, n in want.items():
+            if counts[k] != n:
+                raise SystemExit(f"tiny pipeline ({mode!r}): {counts[k]} "
+                                 f"launches of {k}, expected {n}")
+        if counts["qmm_int8"] < 14:  # 7 linears x 2 T5 layers
+            raise SystemExit("tiny pipeline: the T5 launched no qmm_int8")
+
+    # the other request kinds once each (the VAE encode runs on the card):
+    # img2img, inpainting with handed-in step noise, a Kontext reference
+    rng = torch.Generator().manual_seed(4)
+    init = torch.rand((size, size, 3), generator=rng).numpy()
+    mask = np.zeros((size, size), dtype=np.float32)
+    mask[: size // 2] = 1.0
+
+    def step_noise(i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            100 + i))
+
+    kinds = {"img2img": dict(init_image=init, denoise=0.5),
+             "inpaint": dict(init_image=init, denoise=1.0, inpaint_mask=mask,
+                             step_noise=step_noise),
+             "kontext": dict(ref_images=[init])}
+    kw["steps"] = 4
+    for kind, extra in kinds.items():
+        _build.reset_launch_counts()
+        a = gpu.generate_from_noise(PROMPTS[1], noise, **kw, **extra)
+        counts = dict(_build.LAUNCHES)
+        b = cpu.generate_from_noise(PROMPTS[1], noise, **kw, **extra)
+        err = rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+        out[kind] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  tiny pipeline {kind}: card vs CPU plain rel L2 {err:.3e}, "
+            f"{counts['flash_attn']} flash_attn launches")
+        if not err <= 3e-2 or counts["flash_attn"] == 0:
+            raise SystemExit(f"tiny pipeline {kind} disagrees with the CPU "
+                             f"plain path: rel L2 {err}")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phase 5: main path at flux-dev width
+# phase 5: the denoise path at flux-dev width
 # ---------------------------------------------------------------------------
 
 def main_path_phase(dev, depth_double, depth_single, steps):
@@ -437,7 +664,7 @@ def main_path_phase(dev, depth_double, depth_single, steps):
                          f"L2 {worst} > {LATENT_DELTA_MAX}")
     res["profile_w8a8_forward"] = profile_forward(
         model, requests[0], res["w8a8"]["s_per_step"][-1])
-    return res
+    return res, model
 
 
 def profile_forward(model, inputs, step_s):
@@ -481,14 +708,166 @@ def profile_forward(model, inputs, step_s):
                 top_other_ms=dict(top))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: text to image at published widths
+# ---------------------------------------------------------------------------
+
+def text_to_image_phase(dev, model, steps, t5_layers):
+    """``FluxPipeline.generate`` over seed-made full-width parts: the w8a8
+    flux tree of phase 5, T5-xxl Q8_0, CLIP-L and the 16-channel VAE."""
+    import dataclasses
+
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import clip, t5, testing, vae
+    from comfyui_gguf_tpu_torch.nn.attention import attention_i8
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import FluxPipeline, TextEncoder
+    from comfyui_gguf_tpu_torch.tokenizer import UnigramTokenizer
+    from comfyui_gguf_tpu_torch.tokenizer.clip_bpe import CLIPBPETokenizer
+
+    device = torch.device(dev)
+    t0 = time.perf_counter()
+    t5_dims = dataclasses.replace(testing.T5_XXL_DIMS, n_layers=t5_layers)
+    t5_params = testing.t5_random_params(t5_dims, qtype=Q.Q8_0, seed=10,
+                                         device=dev)
+    t5_enc = TextEncoder(
+        "t5", t5_params, t5.T5Config.from_state_dict(t5_params),
+        UnigramTokenizer(testing.unigram_spec(t5_dims.vocab)), QuantConfig(),
+        device)
+    clip_params = testing.clip_random_params(testing.CLIP_L_DIMS, seed=11,
+                                             device=dev)
+    clip_cfg = clip.CLIPTextConfig.from_state_dict(clip_params)
+    clip_enc = TextEncoder(
+        "clip_l", clip_params, clip_cfg,
+        CLIPBPETokenizer(*testing.clip_vocab(testing.CLIP_L_DIMS.vocab)),
+        QuantConfig(), device)
+    vae_params = testing.vae_random_params(testing.FLUX_VAE_DIMS, seed=12,
+                                           device=dev)
+    vae_cfg = vae.VAEConfig.from_state_dict(vae_params)
+    torch.cuda.synchronize()
+    pipe = FluxPipeline(model, t5_enc, clip_enc, vae_params, vae_cfg)
+    n_blocks = model.config.depth_double + model.config.depth_single
+    log(f"  T5-xxl width, {t5_layers} of 24 layers Q8_0; CLIP-L "
+        f"{clip_cfg.n_layers} layers (pooling at eos id "
+        f"{clip_cfg.eos_token_id}); VAE z={vae_cfg.z_channels} base "
+        f"{vae_cfg.base_ch} x {vae_cfg.ch_mult}; flux {n_blocks} blocks "
+        f"w8a8; built in {time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights")
+
+    res = {"steps": steps, "t5_layers": t5_layers, "runs": []}
+    launches = {k: 0 for k in _build.LAUNCHES}
+    base = {}
+    for mode in ("", "pv", "qk"):
+        for pi, prompt in enumerate(PROMPTS):
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            with attention_i8(mode):
+                img = pipe.generate(prompt, width=1024, height=1024,
+                                    steps=steps, seed=pi)
+            counts = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            lat = pipe.last_latent.float()
+            tm = dict(pipe.last_timings)
+            img_t = torch.from_numpy(img)
+            if (img.shape != (1024, 1024, 3) or lat.shape != (1, 128, 128, 16)
+                    or not bool(torch.isfinite(img_t).all())
+                    or not bool(torch.isfinite(lat).all())
+                    or float(img_t.min()) < 0 or float(img_t.max()) > 1):
+                raise SystemExit(f"text to image ({mode!r}, prompt {pi}): "
+                                 f"misshapen or non-finite output")
+            run = dict(mode=mode or "bf16", prompt=pi, timings_s=tm,
+                       s_per_step=tm["denoise_s"] / steps,
+                       peak_gib=peak, launches=counts,
+                       image_std=float(img_t.std()))
+            if mode:
+                run["latent_rel_delta_vs_bf16_attn"] = rel_l2(lat, base[pi][0])
+                run["image_rel_delta_vs_bf16_attn"] = rel_l2(img_t,
+                                                             base[pi][1])
+            else:
+                base[pi] = (lat, img_t)
+            res["runs"].append(run)
+            for k, n in counts.items():
+                launches[k] += n
+            log(f"  attention {mode or 'bf16'} prompt {pi}: tokenize "
+                f"{tm['tokenize_s']:.4f}s, T5 {tm['t5_s']:.4f}s, CLIP "
+                f"{tm['clip_s']:.4f}s, denoise {tm['denoise_s']:.3f}s "
+                f"({run['s_per_step'] * 1e3:.1f} ms/step), VAE decode "
+                f"{tm['vae_s']:.4f}s, image {tm['total_s']:.3f}s; peak "
+                f"{peak:.2f} GiB; launches {counts}"
+                + (f"; vs bf16 attention: latent rel L2 "
+                   f"{run['latent_rel_delta_vs_bf16_attn']:.3e}, image "
+                   f"{run['image_rel_delta_vs_bf16_attn']:.3e}"
+                   if mode else ""))
+            n_attn = n_blocks * steps
+            want = {"flash_attn": 0 if mode else n_attn,
+                    "i8attn_pv": n_attn if mode == "pv" else 0,
+                    "i8attn_qk": n_attn if mode == "qk" else 0}
+            for k, n in want.items():
+                if counts[k] != n:
+                    raise SystemExit(
+                        f"text to image ({mode!r}): {counts[k]} launches of "
+                        f"{k}, expected {n}")
+            if counts["qmm_int8"] < 7 * t5_layers:
+                raise SystemExit(
+                    f"text to image: {counts['qmm_int8']} launches of "
+                    f"qmm_int8, the T5 alone needs {7 * t5_layers}")
+            for k in ("qmm_nib4", "i8mm"):
+                if counts[k] == 0:
+                    raise SystemExit(f"text to image launched no {k}")
+            worst = max(run.get("latent_rel_delta_vs_bf16_attn", 0.0),
+                        run.get("image_rel_delta_vs_bf16_attn", 0.0))
+            if not worst <= I8ATTN_DELTA_MAX:
+                raise SystemExit(
+                    f"attention_i8({mode!r}) moved the result by rel L2 "
+                    f"{worst} > {I8ATTN_DELTA_MAX}")
+    # the decode alone: its time and the memory it adds over the weights
+    lat = pipe.last_latent
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dec_ms = event_ms(lambda: vae.decode_auto(vae_params, vae_cfg, lat),
+                      reps=1)
+    res["vae_decode_ms"] = dec_ms
+    res["vae_decode_peak_over_held_gib"] = (
+        torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"  VAE decode 1024² untiled alone: {dec_ms:.1f} ms, peak "
+        f"{res['vae_decode_peak_over_held_gib']:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held")
+    res["launches"] = launches
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the GEMM probe tool, as a user runs it
+# ---------------------------------------------------------------------------
+
+def probe_tool_phase():
+    from comfyui_gguf_tpu_torch import _build
+    import tools_i8_microbench_cuda as tool
+
+    _build.reset_launch_counts()
+    rc = tool.main()
+    counts = dict(_build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"tools_i8_microbench_cuda.py exited with {rc}")
+    for k in ("gemm_probe_bf16", "gemm_probe_s8", "gemm_probe_w8a8"):
+        if counts[k] == 0:
+            raise SystemExit(f"the probe tool launched no {k}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
     ap.add_argument("--depth-single", type=int, default=38)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--t5-layers", type=int, default=24)
     args = ap.parse_args()
 
-    sys.path.insert(0, HERE)
     import torch
 
     from comfyui_gguf_tpu_torch import _build
@@ -500,12 +879,20 @@ def main() -> int:
     dev = "cuda"
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+
+    def nvidia_smi(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+
+    smi = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_per_s = SFU_PER_SM_CLK * n_sm * sm_mhz * 1e6
     log(f"[1 device] {name} x{count}; nvidia-smi: {smi}; torch "
-        f"{torch.__version__} CUDA {torch.version.cuda}")
+        f"{torch.__version__} CUDA {torch.version.cuda}; {n_sm} SMs, max SM "
+        f"clock {sm_mhz:.0f} MHz -> {sfu_per_s / 1e12:.2f} T exp/s")
 
     log("[2 build]")
     _build.lib()
@@ -520,31 +907,57 @@ def main() -> int:
                 if "Used" in ln:
                     log(f"  {src}: {ln.split(':', 1)[1].strip()}")
 
-    log("[3 kernels vs plain at the main path's shapes]")
-    rows = kernel_phase(dev)
+    log("[3 kernels vs plain at the main paths' shapes]")
+    rows = kernel_phase(dev, sfu_per_s)
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        extra = ""
+        if "prep_ms" in r:
+            extra = (f" | prep {r['prep_ms']:.4f} ms, exp floor "
+                     f"{r['exp_floor_ms']:.4f} ms, vs exact attention "
+                     f"{r['rel_l2_vs_exact']:.2e}")
+        if "tile_ms" in r:
+            extra = " | by tile width " + ", ".join(
+                f"bn={bn}: {ms:.4f} ms" for bn, ms in r["tile_ms"].items())
         log(f"  {r['name']}: {'ok' if r['ok'] else 'FAIL'} "
             f"rel_l2={r['rel_l2']:.2e} max_abs={r['max_abs_err']:.3e} "
             f"({r['tol']}) | kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
 
-    log("[4 tiny end to end: mixed Q4_K/Q8_0/Q6_K GGUF, card vs CPU]")
+    log("[4a tiny end to end: mixed Q4_K/Q8_0/Q6_K GGUF, card vs CPU]")
     tiny = tiny_e2e_phase(dev)
+    log("[4b tiny FluxPipeline from files, card vs CPU, with and without "
+        "attention_i8]")
+    tiny_pipe = tiny_pipeline_phase(dev)
 
-    log("[5 main path at flux-dev width]")
-    main_res = main_path_phase(dev, args.depth_double, args.depth_single,
-                               args.steps)
+    log("[5 denoise path at flux-dev width]")
+    main_res, model = main_path_phase(dev, args.depth_double,
+                                      args.depth_single, args.steps)
 
-    launches = dict(main_res["launches"])
-    # K2's path is the mixed-format file of phase 4 (bench's tree is Q4_K)
-    launches["qmm_int8"] = (tiny["planar"]["launches"]["qmm_int8"]
-                            + tiny["w8a8"]["launches"]["qmm_int8"])
+    log("[6 text to image at published widths]")
+    t2i = text_to_image_phase(dev, model, args.steps, args.t5_layers)
+    del model
+    torch.cuda.empty_cache()
+
+    log("[7 the GEMM probe tool]")
+    tool_counts = probe_tool_phase()
+
+    # launches of each kernel over the driven paths (every path had its
+    # counts set to 0 just before it and read just after)
+    launches = {k: 0 for k in _build.LAUNCHES}
+    for counts in (tiny["planar"]["launches"], tiny["w8a8"]["launches"],
+                   *(v["launches"] for v in tiny_pipe.values()),
+                   main_res["launches"], t2i["launches"], tool_counts):
+        for k, n in counts.items():
+            launches[k] += n
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise SystemExit(f"no driven path launched {idle}")
     kernels = []
     for r in rows:
         src, replaces = SOURCES[r["kernel"]]

@@ -1,10 +1,11 @@
 """comfyui-gguf-tpu, PyTorch/CUDA port for the NVIDIA H100.
 
 A second package beside the JAX reference ``comfyui_gguf_tpu``, with the
-same module layout. The main path so far is the flux denoise: GGUF file →
-planar weights → w8a8 conversion → flux forward → Euler sampler, with
-hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls and
-flash attention. Entry points run on the card unless the caller asks for
+same module layout. The main path is flux text-to-image: tokenizers → T5
+and CLIP-L encode → GGUF file → planar weights → w8a8 conversion → flux
+forward → Euler sampler → VAE decode, with hand-written CUDA kernels
+(``csrc/``) for the fused quantized matmuls, flash attention and int8 flash
+attention. Entry points run on the card unless the caller asks for
 the CPU, where each kernel's plain PyTorch version runs instead.
 """
 
@@ -16,12 +17,20 @@ _PUBLIC = {
     "GGUFWriter": ".gguf.writer",
     "gguf_sd_loader": ".loader",
     "to_torch_params": ".loader",
+    "gguf_clip_loader": ".loader",
     "load_diffusion_model": ".pipeline",
+    "load_text_encoder": ".pipeline",
+    "load_text_encoders": ".pipeline",
+    "load_vae": ".pipeline",
     "DiffusionModel": ".pipeline",
+    "TextEncoder": ".pipeline",
+    "FluxPipeline": ".pipeline",
     "QuantConfig": ".nn.layers",
     "quantized_matmul": ".ops.qmatmul",
     "i8_matmul": ".ops.i8mm",
     "dot_product_attention": ".nn.attention",
+    "attention_i8": ".nn.attention",
+    "i8_dot_product_attention": ".ops.i8attn",
     "PlanarQuant": ".quant.planar",
     "planarize": ".quant.planar",
     "params_from_numpy": ".interop",

@@ -30,7 +30,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmm.cu", "i8mm.cu", "flash_attn.cu")
+SOURCES = ("qmm.cu", "i8mm.cu", "flash_attn.cu", "i8attn.cu",
+           "gemm_probe.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -46,10 +47,20 @@ _SIGNATURES = {
     # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
     "flash_attn_launch": [_VP] * 4 + [_I] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
+    # qq, qs, kq, ks, v, vs, out, B, H, Lq, Lk, D, pv_int8, strides[6],
+    # stream
+    "i8attn_launch": [_VP] * 7 + [_I] * 6
+    + [ctypes.POINTER(ctypes.c_longlong), _VP],
+    # x, w, out, M, K, R, bn, stream
+    "gemm_probe_bf16_launch": [_VP] * 3 + [_I] * 4 + [_VP],
+    # x, w, xs, ws, out, M, K, R, xs_stride, bn, stream
+    "gemm_probe_s8_launch": [_VP] * 5 + [_I] * 5 + [_VP],
 }
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "i8mm": 0, "flash_attn": 0}
+LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "i8mm": 0, "flash_attn": 0,
+            "i8attn_pv": 0, "i8attn_qk": 0, "gemm_probe_bf16": 0,
+            "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
 
 # what the last build in this process did (read by chip_smoke.py)
 BUILD_REPORT: dict = {}

@@ -9,8 +9,14 @@ nothing of the reference package:
 * a **planar** leaf has ``qs``, ``scales``, ``offsets``, ``qtype``,
   ``layout``, ``group_size``, ``zero_point`` and ``shape``;
 * an **int8** leaf has ``qs``, ``scales``, ``qtype`` and ``shape``;
-* a plain array is a dense weight;
+* a plain array is a dense weight: the float32 leaves of a T5, CLIP or VAE
+  tree, a bfloat16 flux embedder, a conv weight, which is (O, I, kh, kw)
+  in both packages;
 * a nested dict is a stacked group (or any subtree).
+
+So one numpy tree serves both packages, whichever model it belongs to:
+the flux trees, a T5 tree with Q8_0 planar linears, dense CLIP and VAE
+state dicts.
 
 The planar byte layout is the same in both packages, so the carry is a
 copy. bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``

@@ -9,14 +9,16 @@
   the device; everything else is dequantized to a dense tensor. Scale and
   offset planes stay float32.
 
-Text-encoder loading (tokenizer metadata, key maps, mmproj sidecars) comes
-with the text-encoder slice of the port.
+``gguf_clip_loader`` is the text-encoder entry: key maps, tokenizer
+metadata (``TokenizerSpec``) and the early decode of huge token embeddings.
+The mmproj sidecar of the vision-language encoders is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import re
 
 import numpy as np
 import torch
@@ -25,7 +27,8 @@ from ._device import resolve_device
 from .archs import IMG_ARCH_LIST, TXT_ARCH_LIST, VIS_TYPE_LIST, detect_arch
 from .gguf.constants import GGML_QUANT_SIZES, GGMLQuantizationType
 from .gguf.reader import GGUFReader
-from .maps import unpermute_gqa_rows
+from .maps import (LLAMA_SD_MAP, T5_SD_MAP, sd_map_replace,
+                   unpermute_gqa_rows)
 from .nn.layers import DEFAULT_CONFIG, QuantConfig
 from .quant import codecs
 from .quant.planar import planarize
@@ -165,6 +168,130 @@ def gguf_sd_loader(path: str,
     if return_arch:
         return state_dict, arch_str
     return state_dict
+
+
+# ---------------------------------------------------------------------------
+# tokenizer metadata recovery: structured data for the native tokenizers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenizerSpec:
+    """Tokenizer rebuilt from GGUF ``tokenizer.ggml.*`` metadata."""
+
+    model: str  # "t5" (unigram) | "gpt2" (byte-level BPE)
+    tokens: list[str]
+    scores: list[float] | None
+    token_types: list[int] | None  # llama.cpp: 1=normal 2=unk 3=control 6=byte
+    merges: list[str] | None = None
+    bos_id: int | None = None
+    eos_id: int | None = None
+    pad_id: int | None = None
+    unk_id: int | None = None
+    add_space_prefix: bool = True
+    remove_extra_whitespaces: bool = False
+    add_bos: bool = False
+    add_eos: bool = True
+
+
+def gguf_tokenizer_spec(reader: GGUFReader) -> TokenizerSpec | None:
+    model = reader.get_str("tokenizer.ggml.model")
+    tokens = reader.get_list("tokenizer.ggml.tokens")
+    if model is None or tokens is None:
+        return None
+    g = reader
+    return TokenizerSpec(
+        model=model,
+        tokens=list(tokens),
+        scores=g.get_list("tokenizer.ggml.scores")
+        if g.get_field("tokenizer.ggml.scores") else None,
+        token_types=g.get_list("tokenizer.ggml.token_type")
+        if g.get_field("tokenizer.ggml.token_type") else None,
+        merges=g.get_list("tokenizer.ggml.merges")
+        if g.get_field("tokenizer.ggml.merges") else None,
+        bos_id=g.get_int("tokenizer.ggml.bos_token_id"),
+        eos_id=g.get_int("tokenizer.ggml.eos_token_id"),
+        pad_id=g.get_int("tokenizer.ggml.padding_token_id"),
+        unk_id=g.get_int("tokenizer.ggml.unknown_token_id"),
+        add_space_prefix=bool(
+            g.get_bool("tokenizer.ggml.add_space_prefix") in (None, True)
+        ),
+        remove_extra_whitespaces=bool(
+            g.get_bool("tokenizer.ggml.remove_extra_whitespaces") or False
+        ),
+        # when the converter wrote no add_* keys, default per tokenizer
+        # model like llama.cpp: SPM/llama → BOS yes / EOS no; T5 (unigram
+        # here is t5-style) → BOS no / EOS yes; BPE → neither
+        add_bos=_tok_flag(g, "tokenizer.ggml.add_bos_token",
+                          default=(model == "llama")),
+        add_eos=_tok_flag(g, "tokenizer.ggml.add_eos_token",
+                          default=(model in ("t5", "unigram"))),
+    )
+
+
+def _tok_flag(reader, key: str, default: bool) -> bool:
+    v = reader.get_bool(key)
+    return default if v is None else bool(v)
+
+
+_QUANT_SUFFIX_RE = re.compile(
+    r"[-_]?(?:ud-)?i?q[0-9]_[a-z0-9_\-]{1,8}$", re.IGNORECASE
+)
+
+
+def strip_quant_suffix(name: str) -> str:
+    """Drop a trailing quant tag (``-Q4_K_M`` etc.) from a model filename."""
+    m = _QUANT_SUFFIX_RE.search(name)
+    return name[: m.start()] if m else name
+
+
+# ---------------------------------------------------------------------------
+# text-encoder entry
+# ---------------------------------------------------------------------------
+
+BIG_EMBED_VOCAB = 64 * 1024  # dequant-early threshold
+
+
+def gguf_clip_loader(path: str):
+    """Load a text-encoder GGUF: remap keys, recover tokenizer metadata,
+    eagerly decode huge token embeddings.
+
+    Returns ``(state_dict, arch, TokenizerSpec | None)``.
+    """
+    # ONE metadata parse: big-vocab tokenizer KV decode (32k-256k
+    # python-loop string entries) is the expensive part of reading
+    reader = GGUFReader(path)
+    sd, arch = gguf_sd_loader(path, return_arch=True, is_text_model=True,
+                              reader=reader)
+    tok = gguf_tokenizer_spec(reader)
+    temb_key = "token_embd.weight"
+
+    if arch in ("t5", "t5encoder"):
+        if temb_key in sd and sd[temb_key].is_quantized:
+            log.warning("dequantizing %s early (big-embed guard)", temb_key)
+            sd[temb_key] = _dense(sd[temb_key], np.float16)
+        sd = sd_map_replace(sd, T5_SD_MAP)
+    elif arch in ("llama", "qwen2vl", "qwen3", "qwen3vl"):
+        if temb_key in sd and sd[temb_key].shape[0] >= BIG_EMBED_VOCAB:
+            log.warning("dequantizing %s early (big-embed guard)", temb_key)
+            sd[temb_key] = _dense(sd[temb_key], np.float16)
+        sd = sd_map_replace(sd, LLAMA_SD_MAP)
+        if arch == "llama":
+            # L3 / Mistral GQA layout
+            for k in list(sd.keys()):
+                if k.endswith(("q_proj.weight", "q_proj.bias")):
+                    sd[k] = sd[k].permute_rows(32)
+                elif k.endswith(("k_proj.weight", "k_proj.bias")):
+                    sd[k] = sd[k].permute_rows(8)
+        if arch == "qwen2vl":
+            raise NotImplementedError(
+                "the mmproj sidecar of qwen2vl text encoders is not ported "
+                "yet (it comes with the qwen_image slice)")
+    return sd, arch, tok
+
+
+def _dense(qt: QTensor, dtype) -> QTensor:
+    return QTensor(name=qt.name, qtype=Q.F32 if dtype == np.float32 else Q.F16,
+                   shape=qt.shape, data=qt.dequantize(dtype))
 
 
 def _planarizable(qt: QTensor) -> bool:

@@ -1,5 +1,7 @@
-"""Synthetic flux builders for tests, smoke runs and benches (PyTorch port
-of the flux part of comfyui_gguf_tpu/models/testing.py).
+"""Synthetic builders for tests, smoke runs and benches (PyTorch port of the
+flux, T5, CLIP and VAE parts of comfyui_gguf_tpu/models/testing.py): flux
+trees and files, T5 / CLIP-L / AutoencoderKL parameter trees at tiny and at
+published widths, and synthetic vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
 (``torch.Generator``) at the real planar layout, so a full-width tree is
@@ -60,10 +62,12 @@ def _format_of(qtype):
 
 
 def random_planar(qtype, shape: tuple[int, int], gen: torch.Generator,
-                  device="cuda", stack: int | None = None) -> PlanarQuant:
+                  device="cuda", stack: int | None = None,
+                  scale: float = 0.01) -> PlanarQuant:
     """Random PlanarQuant with the exact layout of a real weight, made on
     ``device`` from ``gen``. ``stack=n`` prepends a depth axis of n (the
-    stack_flux_params layout) without building per-block copies."""
+    stack_flux_params layout) without building per-block copies. ``scale``
+    is the standard deviation of the scale and offset planes."""
     device = resolve_device(device)
     R, K = shape
     kp = -(-K // 512) * 512  # planarize pads K to a 512 multiple
@@ -81,7 +85,7 @@ def random_planar(qtype, shape: tuple[int, int], gen: torch.Generator,
 
     def plane():
         return torch.randn((*lead, kp // gs, rp), generator=gen,
-                           device=device, dtype=torch.float32) * 0.01
+                           device=device, dtype=torch.float32) * scale
 
     scales = plane()
     offsets = plane() if has_offsets else None
@@ -260,3 +264,375 @@ def write_flux_gguf(sd: dict, path: str, qtype_of) -> None:
             w.add_tensor(pfx + k, codecs.quantize(v, qtype), raw_dtype=qtype,
                          raw_shape=v.shape)
     w.write_to_file(str(path))
+
+
+# ---------------------------------------------------------------------------
+# text encoders and VAE
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class T5Dims:
+    d_model: int = 64
+    d_kv: int = 16
+    n_heads: int = 4
+    d_ff: int = 128
+    n_layers: int = 2
+    vocab: int = 16
+    rel_buckets: int = 32
+
+
+# t5-v1_1-xxl encoder (flux / sd3 conditioning)
+T5_XXL_DIMS = T5Dims(d_model=4096, d_kv=64, n_heads=64, d_ff=10240,
+                     n_layers=24, vocab=32128, rel_buckets=32)
+
+_T5_REL = "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+
+
+def _t5_linear_shapes(d: T5Dims):
+    inner = d.n_heads * d.d_kv
+    return {"layer.0.SelfAttention.q": (inner, d.d_model),
+            "layer.0.SelfAttention.k": (inner, d.d_model),
+            "layer.0.SelfAttention.v": (inner, d.d_model),
+            "layer.0.SelfAttention.o": (d.d_model, inner),
+            "layer.1.DenseReluDense.wi_0": (d.d_ff, d.d_model),
+            "layer.1.DenseReluDense.wi_1": (d.d_ff, d.d_model),
+            "layer.1.DenseReluDense.wo": (d.d_model, d.d_ff)}
+
+
+def t5_state_dict(dims: T5Dims, seed: int = 0,
+                  scale: float = 0.05) -> dict[str, np.ndarray]:
+    """Random T5 encoder state dict (numpy float32, HF key naming)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*s):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    sd = {"shared.weight": t(dims.vocab, dims.d_model),
+          "encoder.final_layer_norm.weight": t(dims.d_model) + 1,
+          _T5_REL: t(dims.rel_buckets, dims.n_heads)}
+    for i in range(dims.n_layers):
+        p = f"encoder.block.{i}."
+        for name, shape in _t5_linear_shapes(dims).items():
+            sd[f"{p}{name}.weight"] = t(*shape)
+        sd[p + "layer.0.layer_norm.weight"] = t(dims.d_model) + 1
+        sd[p + "layer.1.layer_norm.weight"] = t(dims.d_model) + 1
+    return sd
+
+
+def t5_random_params(dims: T5Dims, qtype=Q.Q8_0, seed: int = 0,
+                     device="cuda") -> dict:
+    """T5 encoder params with random packed linears made directly on
+    ``device`` (a full-width tree is never built on the host). The token
+    embedding is dense bf16, as ``gguf_clip_loader`` leaves it; scale planes
+    are sized so that each linear keeps unit-variance inputs near unit
+    variance."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+    params = {"shared.weight": dense(dims.vocab, dims.d_model),
+              "encoder.final_layer_norm.weight": dense(dims.d_model) + 1,
+              _T5_REL: dense(dims.rel_buckets, dims.n_heads).to(
+                  torch.float32)}
+    for i in range(dims.n_layers):
+        p = f"encoder.block.{i}."
+        for name, (r, k) in _t5_linear_shapes(dims).items():
+            params[f"{p}{name}.weight"] = random_planar(
+                qtype, (r, k), gen, device=device,
+                scale=1.0 / (73.0 * k ** 0.5))
+        params[p + "layer.0.layer_norm.weight"] = dense(dims.d_model) + 1
+        params[p + "layer.1.layer_norm.weight"] = dense(dims.d_model) + 1
+    return params
+
+
+_T5_GGUF_NAMES = {
+    "shared": "token_embd", "encoder.final_layer_norm": "enc.output_norm",
+    "layer.0.SelfAttention.relative_attention_bias": "attn_rel_b",
+    "layer.0.SelfAttention.q": "attn_q", "layer.0.SelfAttention.k": "attn_k",
+    "layer.0.SelfAttention.v": "attn_v", "layer.0.SelfAttention.o": "attn_o",
+    "layer.0.layer_norm": "attn_norm", "layer.1.layer_norm": "ffn_norm",
+    "layer.1.DenseReluDense.wi_0": "ffn_gate",
+    "layer.1.DenseReluDense.wi_1": "ffn_up",
+    "layer.1.DenseReluDense.wo": "ffn_down",
+    "encoder.block.": "enc.blk.",
+}
+
+
+def write_t5_gguf(sd: dict, path: str, qtype=Q.Q8_0, tokenizer=None) -> None:
+    """Write an HF-named T5 state dict as a llama.cpp-named ``t5`` GGUF:
+    2-D weights in ``qtype`` (the relative-bias table and the norms stay
+    float32), plus the ``tokenizer.ggml.*`` metadata of ``tokenizer`` (a
+    ``loader.TokenizerSpec``) that ``gguf_tokenizer_spec`` reads back."""
+    from ..gguf.writer import GGUFWriter
+
+    w = GGUFWriter("t5")
+    if tokenizer is not None:
+        w.add_string("tokenizer.ggml.model", tokenizer.model)
+        w.add_array("tokenizer.ggml.tokens", list(tokenizer.tokens))
+        if tokenizer.scores is not None:
+            w.add_array("tokenizer.ggml.scores",
+                        [float(x) for x in tokenizer.scores])
+        if tokenizer.token_types is not None:
+            w.add_array("tokenizer.ggml.token_type",
+                        [int(x) for x in tokenizer.token_types])
+        for key, val in (("eos_token_id", tokenizer.eos_id),
+                         ("padding_token_id", tokenizer.pad_id),
+                         ("unknown_token_id", tokenizer.unk_id)):
+            if val is not None:
+                w.add_uint32("tokenizer.ggml." + key, int(val))
+        w.add_bool("tokenizer.ggml.add_eos_token", bool(tokenizer.add_eos))
+    for k, v in sd.items():
+        for hf, gg in _T5_GGUF_NAMES.items():
+            k = k.replace(hf, gg)
+        quant = (v.ndim == 2 and "attn_rel_b" not in k
+                 and v.shape[1] % 32 == 0)
+        if quant:
+            w.add_tensor(k, codecs.quantize(v, qtype), raw_dtype=qtype,
+                         raw_shape=v.shape)
+        else:
+            w.add_tensor(k, np.ascontiguousarray(v, np.float32))
+    w.write_to_file(str(path))
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPDims:
+    hidden: int = 64
+    n_layers: int = 2
+    n_heads: int = 1  # CLIPTextConfig.from_state_dict infers hidden // 64
+    intermediate: int = 96
+    vocab: int = 24
+    max_positions: int = 16
+    proj: int | None = 32  # text_projection out-features (None: absent)
+
+
+# OpenAI CLIP ViT-L/14 text tower (flux's pooled conditioning)
+CLIP_L_DIMS = CLIPDims(hidden=768, n_layers=12, n_heads=12,
+                       intermediate=3072, vocab=49408, max_positions=77,
+                       proj=768)
+
+
+def _clip_shapes(d: CLIPDims) -> dict[str, tuple]:
+    h = d.hidden
+    out = {"text_model.embeddings.token_embedding.weight": (d.vocab, h),
+           "text_model.embeddings.position_embedding.weight":
+               (d.max_positions, h),
+           "text_model.final_layer_norm.weight": (h,),
+           "text_model.final_layer_norm.bias": (h,)}
+    if d.proj is not None:
+        out["text_projection.weight"] = (d.proj, h)
+    for i in range(d.n_layers):
+        p = f"text_model.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[f"{p}.self_attn.{n}.weight"] = (h, h)
+            out[f"{p}.self_attn.{n}.bias"] = (h,)
+        for n in ("layer_norm1", "layer_norm2"):
+            out[f"{p}.{n}.weight"] = (h,)
+            out[f"{p}.{n}.bias"] = (h,)
+        out[f"{p}.mlp.fc1.weight"] = (d.intermediate, h)
+        out[f"{p}.mlp.fc1.bias"] = (d.intermediate,)
+        out[f"{p}.mlp.fc2.weight"] = (h, d.intermediate)
+        out[f"{p}.mlp.fc2.bias"] = (h,)
+    return out
+
+
+def _is_norm_gain(key: str) -> bool:
+    return "norm" in key and key.endswith(".weight")
+
+
+def clip_state_dict(dims: CLIPDims, seed: int = 0,
+                    scale: float = 0.05) -> dict[str, np.ndarray]:
+    """Random CLIP text-tower state dict (numpy float32, HF key naming)."""
+    rng = np.random.default_rng(seed)
+    return {k: ((rng.standard_normal(shape) * scale).astype(np.float32)
+                + (1 if _is_norm_gain(k) else 0))
+            for k, shape in _clip_shapes(dims).items()}
+
+
+def clip_random_params(dims: CLIPDims, seed: int = 0, device="cuda") -> dict:
+    """Dense float32 CLIP params made on ``device`` from a seed."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, shape in _clip_shapes(dims).items():
+        std = 0.02 if len(shape) == 1 else shape[-1] ** -0.5
+        t = torch.randn(shape, generator=gen, device=device) * std
+        out[k] = t + 1 if _is_norm_gain(k) else t
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEDims:
+    z_channels: int = 4
+    base_ch: int = 32
+    ch_mult: tuple[int, ...] = (1, 1, 1, 1)
+    num_res_blocks: int = 1
+
+
+# the 16-channel flux AutoencoderKL (ae.safetensors)
+FLUX_VAE_DIMS = VAEDims(z_channels=16, base_ch=128, ch_mult=(1, 2, 4, 4),
+                        num_res_blocks=2)
+
+
+def _vae_shapes(d: VAEDims) -> dict[str, tuple]:
+    """Every tensor of an sgm-format AutoencoderKL of this geometry."""
+    out = {}
+
+    def conv(name, o, i, k=3):
+        out[f"{name}.weight"] = (o, i, k, k)
+        out[f"{name}.bias"] = (o,)
+
+    def norm(name, c):
+        out[f"{name}.weight"] = (c,)
+        out[f"{name}.bias"] = (c,)
+
+    def resnet(p, cin, cout):
+        norm(f"{p}.norm1", cin)
+        conv(f"{p}.conv1", cout, cin)
+        norm(f"{p}.norm2", cout)
+        conv(f"{p}.conv2", cout, cout)
+        if cin != cout:
+            conv(f"{p}.nin_shortcut", cout, cin, 1)
+
+    chans = [d.base_ch * m for m in d.ch_mult]
+    top, z = chans[-1], d.z_channels
+    conv("decoder.conv_in", top, z)
+    norm("decoder.norm_out", chans[0])
+    conv("decoder.conv_out", 3, chans[0])
+    conv("encoder.conv_in", chans[0], 3)
+    norm("encoder.norm_out", top)
+    conv("encoder.conv_out", 2 * z, top)
+    for side in ("decoder.mid", "encoder.mid"):
+        resnet(f"{side}.block_1", top, top)
+        norm(f"{side}.attn_1.norm", top)
+        for n in ("q", "k", "v", "proj_out"):
+            conv(f"{side}.attn_1.{n}", top, top, 1)
+        resnet(f"{side}.block_2", top, top)
+    n_levels = len(d.ch_mult)
+    cur = top
+    for i in reversed(range(n_levels)):
+        for j in range(d.num_res_blocks + 1):
+            resnet(f"decoder.up.{i}.block.{j}", cur, chans[i])
+            cur = chans[i]
+        if i > 0:
+            conv(f"decoder.up.{i}.upsample.conv", cur, cur)
+    cur = chans[0]
+    for i in range(n_levels):
+        for j in range(d.num_res_blocks):
+            resnet(f"encoder.down.{i}.block.{j}", cur, chans[i])
+            cur = chans[i]
+        if i < n_levels - 1:
+            conv(f"encoder.down.{i}.downsample.conv", cur, cur)
+    return out
+
+
+def vae_state_dict(dims: VAEDims, seed: int = 0,
+                   scale: float = 0.05) -> dict[str, np.ndarray]:
+    """Random sgm-format AutoencoderKL state dict (numpy float32): conv
+    weights N(0, scale²), unit norm gains, zero biases."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in _vae_shapes(dims).items():
+        if len(shape) == 4:
+            out[k] = (rng.standard_normal(shape) * scale).astype(np.float32)
+        else:
+            out[k] = (np.ones if _is_norm_gain(k) else np.zeros)(
+                shape, np.float32)
+    return out
+
+
+def vae_random_params(dims: VAEDims, seed: int = 0, device="cuda") -> dict:
+    """Dense float32 VAE params made on ``device`` from a seed (conv
+    weights scaled by fan-in so activations stay bounded at full depth)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, shape in _vae_shapes(dims).items():
+        if len(shape) == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
+            out[k] = torch.randn(shape, generator=gen,
+                                 device=device) * fan_in ** -0.5
+        elif _is_norm_gain(k):
+            out[k] = torch.ones(shape, device=device)
+        else:
+            out[k] = torch.zeros(shape, device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# synthetic vocabularies
+# ---------------------------------------------------------------------------
+
+SMOKE_WORDS = ("a", "photo", "of", "cat", "sitting", "on", "the", "moon",
+               "an", "oil", "painting", "lighthouse", "in", "storm", "at",
+               "night", "red", "fox", "snow", "city", "street", "rain")
+
+
+def unigram_spec(vocab_size: int = 64, words=SMOKE_WORDS):
+    """A synthetic T5-style ``TokenizerSpec`` of exactly ``vocab_size``
+    pieces: <pad>, </s>, <unk>, whole-word pieces for ``words``, the
+    printable ASCII characters (so any ASCII prompt segments), then unused
+    filler pieces."""
+    from ..loader import TokenizerSpec
+
+    tokens = ["<pad>", "</s>", "<unk>"]
+    scores = [0.0, 0.0, 0.0]
+    types = [3, 3, 2]
+    pieces = ["▁"] + ["▁" + w for w in words] \
+        + [chr(c) for c in range(33, 127)]
+    for rank, piece in enumerate(pieces):
+        if len(tokens) == vocab_size:
+            break
+        tokens.append(piece)
+        # whole words beat their spellings; shorter ranks score higher
+        scores.append(-1.0 - 0.01 * rank if len(piece) > 1 else -8.0)
+        types.append(1)
+    while len(tokens) < vocab_size:
+        tokens.append(f"<unused_{len(tokens)}>")
+        scores.append(0.0)
+        types.append(5)
+    return TokenizerSpec(model="t5", tokens=tokens, scores=scores,
+                         token_types=types, eos_id=1, pad_id=0, unk_id=2)
+
+
+def clip_vocab(vocab_size: int = 49408, words=SMOKE_WORDS):
+    """A synthetic CLIP BPE vocabulary ``(vocab, merges)`` of exactly
+    ``vocab_size`` entries in the real file's order: the 256 byte symbols,
+    their end-of-word forms, the merge products of ``words``, filler, and
+    the two specials last (so <|endoftext|> has the highest id, 49407 at
+    the real size). Truncated to the symbols that fit when ``vocab_size``
+    is small."""
+    from ..tokenizer.bpe import bytes_to_unicode
+
+    syms = list(bytes_to_unicode().values())
+    tokens = syms + [s + "</w>" for s in syms]
+    merges = []
+    for wd in words:
+        parts = list(wd[:-1]) + [wd[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = f"{parts[0]} {parts[1]}"
+            merged = parts[0] + parts[1]
+            if pair not in merges:
+                merges.append(pair)
+                tokens.append(merged)
+            parts = [merged] + parts[2:]
+    room = vocab_size - 2
+    if len(tokens) > room:  # a tiny vocabulary keeps ASCII and drops merges
+        keep = [t for t in tokens[:512] if t[0].isascii()][:room]
+        tokens, merges = keep, []
+    tokens = list(dict.fromkeys(tokens))
+    while len(tokens) < room:
+        tokens.append(f"<filler_{len(tokens)}>")
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    return {t: i for i, t in enumerate(tokens)}, merges
+
+
+def write_clip_vocab(directory: str, vocab: dict, merges: list) -> None:
+    """``vocab.json`` and ``merges.txt`` as HF ships them."""
+    import json
+    import os
+
+    with open(os.path.join(directory, "vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(directory, "merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")

@@ -5,23 +5,66 @@
 cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
-  ``csrc/flash_attn.cu`` (K7), bf16, D in {64, 128}.
+  ``csrc/flash_attn.cu`` (K7): bf16 CUDA tensors, head dim 64 or 128. Any
+  other head dim or dtype on the card raises ``NotImplementedError`` (no
+  route exists for it yet); the same call on CPU tensors takes the plain
+  version.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
   ``jax.nn.dot_product_attention``: f32 logits, f32 softmax, probabilities
   in the value dtype, f32-accumulated probs·v.
+* ``attention_i8(mode)`` — a scope that routes eligible self-attention calls
+  through the int8 flash-attention kernel (ops/i8attn.py, K6): "pv" both
+  products in int8, "qk" the QK product only, "" off. The default comes
+  from ``GGUF_TPU_ATTN_I8`` (the reference's variable, name kept). The
+  scope is read at call time, on every call; nothing caches the route.
 
 The reference's splash/flash block-size and padding machinery is specific
-to the TPU kernels and has no counterpart: the CUDA kernel masks the ragged
-key tile itself.
+to the TPU kernels and has no counterpart: the CUDA kernels mask the ragged
+key tile themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import os
 
 import torch
 
 from .. import _build
+
+# int8 attention: "pv" = full int8 (QK + PV), "qk" = QK only
+# (accuracy-conservative), "" = off. Env default; override per scope with
+# `attention_i8(...)`.
+_I8_ALLOWED = ("", "qk", "pv", "0", "1")
+
+
+def _i8_env_default() -> str:
+    v = os.environ.get("GGUF_TPU_ATTN_I8", "")
+    if v not in _I8_ALLOWED:
+        raise ValueError(
+            f"GGUF_TPU_ATTN_I8={v!r}: expected one of {_I8_ALLOWED} "
+            "('pv'/'1' full int8, 'qk' QK-dot only, ''/'0' off)")
+    return v
+
+
+_I8_MODE: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "gguf_attn_i8", default=_i8_env_default())
+
+
+@contextlib.contextmanager
+def attention_i8(mode: str = "pv"):
+    """Route eligible self-attention calls through the int8 kernel for
+    the enclosed scope. mode: "pv" (full int8) | "qk" (QK dot only) |
+    "" (off)."""
+    if mode not in _I8_ALLOWED:
+        raise ValueError(f"attention_i8 mode {mode!r}")
+    tok = _I8_MODE.set(mode)
+    try:
+        yield
+    finally:
+        _I8_MODE.reset(tok)
 
 
 def plain_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -56,7 +99,9 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
         raise NotImplementedError("the flash kernel takes bfloat16 q/k/v")
     if D not in (64, 128):
         raise NotImplementedError(
-            f"head dim {D}: the flash kernel has instances for 64 and 128")
+            f"head dim {D}: the flash kernel has instances for 64 and 128, "
+            f"and the card has no other attention route yet (CPU tensors "
+            f"take plain_attention)")
     if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D) or Lk < 1:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -80,7 +125,10 @@ def dot_product_attention(q, k, v, scale: float | None = None):
     """q/k/v: (B, H, L, D) heads-major -> (B, H, Lq, D).
 
     Softmax scale defaults to D^-0.5. CUDA tensors launch the flash kernel;
-    CPU tensors take the plain version.
+    CPU tensors take the plain version. Under ``attention_i8`` a call inside
+    the int8 gate (ops/i8attn.py ``i8_attention_ok``) takes the int8 path
+    instead — its kernel on the card, its plain version on the CPU; a call
+    outside the gate is not affected.
     """
     D = q.shape[-1]
     if scale is None:
@@ -89,6 +137,14 @@ def dot_product_attention(q, k, v, scale: float | None = None):
     # bf16 latents); harmonize on the query dtype
     k = k.to(q.dtype)
     v = v.to(q.dtype)
+    i8_mode = _I8_MODE.get()
+    if i8_mode not in ("", "0"):
+        from ..ops.i8attn import i8_attention_ok, i8_dot_product_attention
+
+        if i8_attention_ok(q, k):
+            return i8_dot_product_attention(
+                q, k, v, scale=float(scale),
+                pv_int8=i8_mode in ("pv", "1"))
     if q.is_cuda:
         return flash_attn_cuda(q, k, v, float(scale))
     return plain_attention(q, k, v, float(scale))

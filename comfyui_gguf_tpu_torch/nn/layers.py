@@ -7,8 +7,12 @@ routes them through the fused kernels (ops/). Dense 2-D weights take a
 plain ``torch.matmul`` with f32 accumulation, as the reference leaves them
 to XLA. Norms keep f32 statistics.
 
-Not in this slice: the tensor-parallel branches (the parallelism slice) and
-LoRA-patched weights (the LoRA slice), which raise ``NotImplementedError``.
+Images keep the reference's channel-minor (B, H, W, C) order at every public
+function; ``conv2d`` hands them to ``F.conv2d`` as channels-last views.
+
+Not ported yet: ``conv3d``, the tensor-parallel branches (the parallelism
+slice) and LoRA-patched weights (the LoRA slice), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -140,3 +144,76 @@ def rms_norm(x: torch.Tensor, weight=None, *, eps: float = 1e-6,
     if weight is not None:
         y = y * (materialize(weight, torch.float32) + offset)
     return y.to(x.dtype)
+
+
+def embedding(ids: torch.Tensor, table, *,
+              cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """ids: int (...,) -> (..., D). table: dense (V, D), or a packed
+    (V, D) weight, of which only the looked-up rows are dequantized (to
+    ``cfg.dequant_dtype``), never the whole table."""
+    _no_lora(table)
+    ids = ids.to(torch.long)
+    if isinstance(table, I8Planar):
+        sub = I8Planar(qs=table.qs[:, ids.reshape(-1)],
+                       scales=table.scales[..., ids.reshape(-1)],
+                       qtype=table.qtype,
+                       shape=(ids.numel(), table.shape[1]))
+        rows = dequantize_i8(sub, cfg.dequant_dtype)
+        return rows.reshape(*ids.shape, table.shape[1])
+    if isinstance(table, PlanarQuant):
+        flat = ids.reshape(-1)
+        sub = dataclasses.replace(
+            table, qs=table.qs[:, flat], scales=table.scales[:, flat],
+            offsets=(None if table.offsets is None
+                     else table.offsets[:, flat]),
+            shape=(flat.numel(), table.shape[1]))
+        rows = planar_dequantize(sub, cfg.dequant_dtype)
+        return rows.reshape(*ids.shape, table.shape[1])
+    return table[ids]
+
+
+def group_norm(x: torch.Tensor, weight=None, bias=None, *,
+               num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over channel-minor (B, ..., C) input, f32 statistics over
+    each group's positions and channels, written out in the reference's
+    order of operations."""
+    c = x.shape[-1]
+    xf = x.to(torch.float32).reshape(x.shape[0], -1, num_groups,
+                                     c // num_groups)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    xf = xf - mu
+    var = xf.square().mean(dim=(1, 3), keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).reshape(x.shape)
+    if weight is not None:
+        y = y * materialize(weight, torch.float32)
+    if bias is not None:
+        y = y + materialize(bias, torch.float32)
+    return y.to(x.dtype)
+
+
+def conv2d(x: torch.Tensor, weight, bias=None, *, stride=1, padding=0,
+           cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """2-D conv, (B, H, W, C) activations, weight (O, I, kh, kw) dense or
+    packed. Operands are rounded to ``cfg.compute_dtype`` and accumulated
+    in f32. ``padding`` is an int or ((top, bottom), (left, right)).
+
+    The reference computes this outside any hand-written kernel, and so
+    does the port: ``F.conv2d`` on a channels-last view.
+    """
+    cd = cfg.compute_dtype
+    w = materialize(weight, cd)
+    xc = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of channels-last storage
+    if not isinstance(padding, int):
+        (pt, pb), (pl, pr) = padding
+        xc = F.pad(xc, (pl, pr, pt, pb))
+        padding = 0
+    if x.is_cuda:
+        out = F.conv2d(xc, w.contiguous(memory_format=torch.channels_last),
+                       stride=stride, padding=padding)
+    else:  # the CPU has no f32-accumulating bf16 conv: widen the operands
+        out = F.conv2d(xc.to(torch.float32), w.to(torch.float32),
+                       stride=stride, padding=padding)
+    out = out.permute(0, 2, 3, 1).to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out

@@ -1,5 +1,6 @@
 from .flow_match import (
     euler_sample,
+    euler_sample_inpaint,
     flux_schedule,
     linear_schedule,
     sample_flow,
@@ -7,4 +8,4 @@ from .flow_match import (
 )
 
 __all__ = ["flux_schedule", "linear_schedule", "shift_sigmas",
-           "euler_sample", "sample_flow"]
+           "euler_sample", "euler_sample_inpaint", "sample_flow"]

@@ -1,7 +1,7 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions.
 
-Each kernel (K1 nib4 and K2 int8 fused dequant-matmul, K4 w8a8 matmul, K7
-flash attention) runs on the card beside its plain version on the same
+Each kernel (K1 nib4 and K2 int8 fused dequant-matmul, K4 w8a8 matmul, K6
+int8 flash attention, K7 flash attention, K8 GEMM probes) runs on the card beside its plain version on the same
 inputs, at small shapes that cover the ragged edges: M=1, M not a multiple
 of the tile, K padded, R not a multiple of 128, the GELU tail, odd key
 lengths, Lq != Lk and strided views. Whether a card exists is decided inside
@@ -19,6 +19,10 @@ from comfyui_gguf_tpu_torch import _build
 from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.nn.attention import (flash_attn_cuda,
                                                  plain_attention)
+from comfyui_gguf_tpu_torch.ops import gemm_probe
+from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
+                                               i8_attention_cuda,
+                                               plain_i8_attention)
 from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda, plain_i8mm
 from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
                                                 qmm_cuda)
@@ -154,3 +158,72 @@ def test_flash_kernel_on_strided_views(cuda):
     got = flash_attn_cuda(q, k, v, 0.125)
     want = plain_attention(q, k, v, 0.125)
     assert _rel_l2(got, want) < 1e-2
+
+
+I8ATTN_CASES = [
+    # B, H, Lq, Lk (a ragged last key tile, Lq != Lk, one tile, many tiles)
+    (1, 2, 128, 128),
+    (2, 3, 77, 77),
+    (1, 2, 250, 131),
+    (1, 1, 5, 300),
+    (2, 4, 512, 512),
+]
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("B,H,Lq,Lk", I8ATTN_CASES, ids=str)
+def test_i8attn_kernel_matches_plain(cuda, B, H, Lq, Lk, pv_int8):
+    D = 128
+    g = torch.Generator(device=cuda).manual_seed(Lq * 7 + Lk)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16() + 1
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    scale = D ** -0.5
+    key = "i8attn_pv" if pv_int8 else "i8attn_qk"
+    before = _build.LAUNCHES[key]
+    got = i8_attention_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1
+    assert got.shape == (B, H, Lq, D) and got.dtype == torch.bfloat16
+    # the integers agree; exp and the f32 summation order differ, which can
+    # move a quantized probability by one step of 1/127
+    want = plain_i8_attention(q, k, v, scale=scale, pv_int8=pv_int8,
+                              block_kv=KERNEL_BLOCK_KV)
+    assert _rel_l2(got, want) < 2e-3
+    # and the int8 path stays near exact attention
+    assert _rel_l2(got, plain_attention(q, k, v, scale)) < 3.5e-2
+
+
+def test_i8attn_kernel_on_strided_views(cuda):
+    B, L, H, D = 1, 192, 4, 128
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for pv in (True, False):
+        got = i8_attention_cuda(q, k, v, scale=D ** -0.5, pv_int8=pv)
+        want = plain_i8_attention(q, k, v, scale=D ** -0.5, pv_int8=pv,
+                                  block_kv=KERNEL_BLOCK_KV)
+        assert got.permute(0, 2, 1, 3).is_contiguous()
+        assert _rel_l2(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("bn", gemm_probe.TILES)
+def test_gemm_probe_kernels_match_plain(cuda, bn):
+    M, K, R = 256, 320, 512
+    g = torch.Generator(device=cuda).manual_seed(bn)
+    xb = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    wb = torch.randn((K, R), generator=g, device=cuda).bfloat16()
+    got = gemm_probe.probe_bf16(xb, wb, bn=bn)
+    assert _rel_l2(got, gemm_probe.plain_probe_bf16(xb, wb)) < 5e-3
+    x8 = torch.randint(-127, 128, (M, K), generator=g, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (K, R), generator=g, device=cuda,
+                       dtype=torch.int8)
+    # exact integer sums: the casts are the same, so the results are equal
+    got = gemm_probe.probe_s8(x8, w8, bn=bn)
+    assert torch.equal(got, gemm_probe.plain_probe_s8(x8, w8))
+    xs = torch.rand((M, 128), generator=g, device=cuda) + 0.5
+    ws = torch.rand((1, R), generator=g, device=cuda) + 0.5
+    got = gemm_probe.probe_w8a8(x8, w8, xs, ws, bn=bn)
+    assert torch.equal(got, gemm_probe.plain_probe_w8a8(x8, w8, xs, ws))
+    got1 = gemm_probe.probe_w8a8(x8, w8, xs[:, :1].contiguous(), ws, bn=bn)
+    assert torch.equal(got1, got)
