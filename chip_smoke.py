@@ -19,7 +19,9 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
    PyTorch library call computing the same product, and the bound (the
-   larger of bytes over 3.35 TB/s and operations over the H100 SXM peak);
+   larger of bytes over 3.35 TB/s and operations over the H100 SXM peak).
+   K1/K2 run through both of their bodies (split-K for M <= 8, wgmma
+   above), and the split-K body must give the same bits twice;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; (b) a tiny ``FluxPipeline``
@@ -33,13 +35,13 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    (19 + 38 blocks) and bench.py's 20 Euler steps on ``flux_schedule``
    unless the flags cut them, for two requests, on the bf16-fused tree and
    on the w8a8 tree; a w8a8 final latent more than 2e-2 (relative L2) from
-   the bf16-fused one of the same request fails. One more w8a8 forward
-   runs under ``torch.profiler`` for the device-time breakdown;
+   the bf16-fused one of the same request fails. One more forward of each
+   tree runs under ``torch.profiler`` for the device-time breakdown;
 6. text-to-image path: a ``FluxPipeline`` of seed-made parts at published
    widths — the w8a8 flux-dev tree of phase 5, T5-v1.1-xxl (24 layers,
    Q8_0, made on the card), CLIP-L, the 16-channel AutoencoderKL, synthetic
    32128-piece and 49408-entry vocabularies — generates two prompts at
-   1024² with the default attention, then again under
+   1024² with the default attention, then the second again under
    ``attention_i8("pv")`` and ``attention_i8("qk")``. Stage times, peak
    memory and launch counts are printed; a missing launch fails, and so
    does an int8-attention latent or image more than 3e-2 (relative L2)
@@ -88,8 +90,12 @@ PROMPTS = ("a photo of a cat sitting on the moon",
 SOURCES = {
     "qmm_nib4": ("comfyui_gguf_tpu_torch/csrc/qmm.cu",
                  "comfyui_gguf_tpu/ops/qmatmul.py:97"),
-    "qmm_int8": ("comfyui_gguf_tpu_torch/csrc/qmm.cu",
+    "qmm_int8": ("comfyui_gguf_tpu_torch/csrc/qmm_int8.cu",
                  "comfyui_gguf_tpu/ops/qmatmul.py:169"),
+    "qmm_nib4_smallm": ("comfyui_gguf_tpu_torch/csrc/qmm_smallm.cu",
+                        "comfyui_gguf_tpu/ops/qmatmul.py:97"),
+    "qmm_int8_smallm": ("comfyui_gguf_tpu_torch/csrc/qmm_smallm.cu",
+                        "comfyui_gguf_tpu/ops/qmatmul.py:169"),
     "i8mm": ("comfyui_gguf_tpu_torch/csrc/i8mm.cu",
              "comfyui_gguf_tpu/ops/i8mm.py:70"),
     "flash_attn": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
@@ -152,8 +158,9 @@ def kernel_phase(dev, sfu_per_s):
                                                    plain_i8_attention_q,
                                                    quantize_attn_inputs)
     from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda_q, plain_i8mm
-    from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
-                                                    qmm_cuda)
+    from comfyui_gguf_tpu_torch.ops.qmatmul import (SMALL_M_MAX,
+                                                    plain_quantized_matmul,
+                                                    qmm_cuda, qmm_route)
     from comfyui_gguf_tpu_torch.quant.i8 import quantize_rows, requantize_i8
     from comfyui_gguf_tpu_torch.quant.planar import dequantize_kmajor
 
@@ -166,8 +173,15 @@ def kernel_phase(dev, sfu_per_s):
 
     def qmm_case(name, kernel, qtype, M, K, R, act, n_copies, tol,
                  with_bias=True):
+        """K1/K2 through the body the dispatch picks for M (``kernel`` must
+        name it); the split-K body is also launched twice and must give the
+        same bits."""
         ws = [random_planar(qtype, (R, K), gen, device=dev)
               for _ in range(n_copies)]
+        small = qmm_route(M, ws[0].padded_in, R,
+                          ws[0].layout == "nib4") == "smallm"
+        if small != kernel.endswith("_smallm"):
+            raise SystemExit(f"{name}: the dispatch did not pick {kernel}")
         x = randn(M, K)
         bias = (torch.randn(R, generator=gen, device=dev) * 0.1
                 if with_bias else None)
@@ -176,6 +190,9 @@ def kernel_phase(dev, sfu_per_s):
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         ok = bool(torch.isfinite(got).all()) and err <= tol
+        if small:
+            again = qmm_cuda(x, ws[0], bias=bias, act_from_col=act)
+            ok = ok and torch.equal(got, again)
         ms = graph_ms([lambda w=w: qmm_cuda(x, w, bias=bias,
                                             act_from_col=act) for w in ws])
         plain = event_ms(lambda: plain_quantized_matmul(
@@ -349,9 +366,33 @@ def kernel_phase(dev, sfu_per_s):
                        M * K + K * R + 4 * (M + R) + 2 * M * R, PEAK_INT8)
         r["plain_ms"] = event_ms(lambda: gp.plain_probe_w8a8(x8, w8, xs, ws))
 
-    # K1: double-block modulation at M=1 (weights cold: 4 copies > L2)
-    qmm_case("qmm_nib4 mod M=1 3072->18432 Q4_K", "qmm_nib4", Q.Q4_K,
+    # K1 split-K body: the double-block modulation at M=1 (weights cold:
+    # enough copies to exceed the L2), batched at M=2 and at the limit, and
+    # the single-block modulation
+    qmm_case("qmm_nib4 mod M=1 3072->18432 Q4_K", "qmm_nib4_smallm", Q.Q4_K,
              1, 3072, 18432, None, 4, 5e-3)
+    qmm_case("qmm_nib4 mod M=2 3072->18432 Q4_K", "qmm_nib4_smallm", Q.Q4_K,
+             2, 3072, 18432, None, 2, 5e-3)
+    qmm_case(f"qmm_nib4 mod M={SMALL_M_MAX} 3072->18432 Q4_K",
+             "qmm_nib4_smallm", Q.Q4_K, SMALL_M_MAX, 3072, 18432, None, 2,
+             5e-3)
+    qmm_case("qmm_nib4 mod M=1 3072->9216 Q4_K", "qmm_nib4_smallm", Q.Q4_K,
+             1, 3072, 9216, None, 4, 5e-3)
+    qmm_case("qmm_nib4 ragged M=3 2992->3000 Q4_K gelu@1500",
+             "qmm_nib4_smallm", Q.Q4_K, 3, 2992, 3000, 1500, 2, 5e-3)
+    # K2 split-K body: a Q6_K modulation of a mixed file
+    qmm_case("qmm_int8 mod M=1 3072->18432 Q6_K", "qmm_int8_smallm", Q.Q6_K,
+             1, 3072, 18432, None, 2, 5e-3)
+    qmm_case("qmm_int8 ragged M=3 2992->3000 Q5_K gelu@1500",
+             "qmm_int8_smallm", Q.Q5_K, 3, 2992, 3000, 1500, 2, 5e-3)
+    # the wgmma body at its smallest M, and ragged (odd M, R no multiple of
+    # 128, K < Kp)
+    qmm_case(f"qmm_nib4 mod M={SMALL_M_MAX + 1} 3072->18432 Q4_K",
+             "qmm_nib4", Q.Q4_K, SMALL_M_MAX + 1, 3072, 18432, None, 2, 5e-3)
+    qmm_case("qmm_nib4 ragged M=131 2992->3000 Q4_K gelu@1500", "qmm_nib4",
+             Q.Q4_K, 131, 2992, 3000, 1500, 1, 5e-3)
+    qmm_case("qmm_int8 ragged M=131 2992->3000 Q5_K gelu@1500", "qmm_int8",
+             Q.Q5_K, 131, 2992, 3000, 1500, 1, 5e-3)
     # K1 on the bf16-fused path: img qkv and the single-block linear1
     qmm_case("qmm_nib4 qkv M=4096 3072->9216 Q4_K", "qmm_nib4", Q.Q4_K,
              4096, 3072, 9216, None, 1, 5e-3)
@@ -413,7 +454,7 @@ def tiny_e2e_phase(dev):
             return None
         if "img_mod" in key or ".modulation." in key or "attn.proj" in key:
             return Q.Q8_0
-        if "txt_mod" in key or "mlp.2" in key or "linear2" in key:
+        if "mlp.2" in key or "linear2" in key:
             return Q.Q6_K
         return q
 
@@ -455,8 +496,12 @@ def tiny_e2e_phase(dev):
         if not finite or err > 3e-2:
             raise SystemExit(f"tiny end to end ({tree}) disagrees with the "
                              f"CPU plain path: rel L2 {err}")
-    need = {"planar": ("qmm_nib4", "qmm_int8", "flash_attn"),
-            "w8a8": ("qmm_int8", "i8mm", "flash_attn")}
+    # Q4_K txt_mod and Q8_0 img_mod at M=1 take the split-K bodies, the
+    # token-facing Q4_K / Q8_0 / Q6_K linears the wgmma bodies
+    need = {"planar": ("qmm_nib4", "qmm_int8", "qmm_nib4_smallm",
+                       "qmm_int8_smallm", "flash_attn"),
+            "w8a8": ("qmm_nib4_smallm", "qmm_int8_smallm", "i8mm",
+                     "flash_attn")}
     for tree, kernels in need.items():
         for k in kernels:
             if out[tree]["launches"][k] == 0:
@@ -645,6 +690,10 @@ def main_path_phase(dev, depth_double, depth_single, steps):
         log(f"  {tree}: request times {', '.join(f'{s:.3f}s' for s in secs)}"
             f" -> {secs[-1] / steps * 1e3:.1f} ms/step (second request); "
             f"launches {res[tree]['launches']}")
+        before = dict(_build.LAUNCHES)  # the profiled forward is not a path
+        res[f"profile_{tree}_forward"] = profile_forward(
+            model, requests[0], secs[-1] / steps, tree)
+        _build.LAUNCHES.update(before)
     launches = dict(_build.LAUNCHES)
     res["launches"] = launches
     res["latent_rel_delta_w8a8_vs_bf16"] = [
@@ -654,7 +703,7 @@ def main_path_phase(dev, depth_double, depth_single, steps):
     log(f"  final-latent rel delta w8a8 vs bf16-fused: "
         f"{res['latent_rel_delta_w8a8_vs_bf16']}; max_memory_allocated "
         f"{res['max_memory_allocated_gib']:.2f} GiB; launches {launches}")
-    for k in ("qmm_nib4", "i8mm", "flash_attn"):
+    for k in ("qmm_nib4", "qmm_nib4_smallm", "i8mm", "flash_attn"):
         if launches[k] == 0:
             raise SystemExit(f"main path launched no {k}")
     # the accuracy cost of 8-bit activations at full width (PERF.md §2)
@@ -662,13 +711,11 @@ def main_path_phase(dev, depth_double, depth_single, steps):
     if not worst <= LATENT_DELTA_MAX:
         raise SystemExit(f"w8a8 final latent differs from bf16-fused by rel "
                          f"L2 {worst} > {LATENT_DELTA_MAX}")
-    res["profile_w8a8_forward"] = profile_forward(
-        model, requests[0], res["w8a8"]["s_per_step"][-1])
     return res, model
 
 
-def profile_forward(model, inputs, step_s):
-    """Device time of one w8a8 forward by kernel family, from
+def profile_forward(model, inputs, step_s, tree):
+    """Device time of one forward of ``tree`` by kernel family, from
     torch.profiler; busy share = kernel time / the timed step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -678,7 +725,9 @@ def profile_forward(model, inputs, step_s):
                              ProfilerActivity.CUDA]) as prof:
         model.forward(img, ids, txt, tids, ts, y, g)
         torch.cuda.synchronize()
-    fams = {"qmm_kernel": "K1/K2 qmm", "i8mm_kernel": "K4 i8mm",
+    fams = {"qmm_wgmma_kernel": "K1/K2 qmm (wgmma)",
+            "qmm_smallm_kernel": "K1/K2 qmm (split-K)",
+            "i8mm_kernel": "K4 i8mm",
             "flash_fwd_kernel": "K7 flash_attn"}
     by_fam, others = {}, {}
     for e in prof.key_averages():
@@ -697,7 +746,7 @@ def profile_forward(model, inputs, step_s):
         by_fam[fam] = by_fam.get(fam, 0.0) + us / 1e3
     total = sum(by_fam.values())
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profiled w8a8 forward: device {total:.1f} ms of a "
+    log(f"  profiled {tree} forward: device {total:.1f} ms of a "
         f"{step_s * 1e3:.1f} ms step (busy share "
         f"{total / (step_s * 1e3):.2f})")
     for fam, ms in sorted(by_fam.items(), key=lambda kv: -kv[1]):
@@ -763,6 +812,8 @@ def text_to_image_phase(dev, model, steps, t5_layers):
     base = {}
     for mode in ("", "pv", "qk"):
         for pi, prompt in enumerate(PROMPTS):
+            if mode and pi == 0:
+                continue  # int8 attention: the second prompt only
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launch_counts()
             with attention_i8(mode):
@@ -815,7 +866,7 @@ def text_to_image_phase(dev, model, steps, t5_layers):
                 raise SystemExit(
                     f"text to image: {counts['qmm_int8']} launches of "
                     f"qmm_int8, the T5 alone needs {7 * t5_layers}")
-            for k in ("qmm_nib4", "i8mm"):
+            for k in ("qmm_nib4_smallm", "i8mm"):
                 if counts[k] == 0:
                     raise SystemExit(f"text to image launched no {k}")
             worst = max(run.get("latent_rel_delta_vs_bf16_attn", 0.0),

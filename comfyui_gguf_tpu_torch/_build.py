@@ -30,18 +30,22 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmm.cu", "i8mm.cu", "flash_attn.cu", "i8attn.cu",
-           "gemm_probe.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_smallm.cu", "i8mm.cu",
+           "flash_attn.cu", "i8attn.cu", "gemm_probe.cu")
+HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, act_from,
+    # token sub-tiles, stream
+    "qmm_wgmma_nib4_launch": [_VP] * 6 + [_I] * 9 + [_VP],
+    "qmm_wgmma_int8_launch": [_VP] * 6 + [_I] * 9 + [_VP],
     # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
-    # act_from, stream
-    "qmm_launch": [_VP] * 6 + [_I] * 9 + [_VP],
+    # act_from, K split, stream
+    "qmm_smallm_launch": [_VP] * 6 + [_I] * 10 + [_VP],
     # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, act_from, stream
     "i8mm_launch": [_VP] * 6 + [_I] * 6 + [_VP],
     # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
@@ -58,7 +62,8 @@ _SIGNATURES = {
 }
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "i8mm": 0, "flash_attn": 0,
+LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
+            "qmm_int8_smallm": 0, "i8mm": 0, "flash_attn": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
 

@@ -1,9 +1,12 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// The kernels use the warp-level tensor-core path (ldmatrix + mma.sync):
-// m16n8k16 for bf16 with an f32 accumulator, m16n8k32 for s8 with an
-// exact s32 accumulator. The asynchronous warpgroup path (wgmma + TMA) is
-// left for the performance work that follows the bring-up.
+// Two tensor-core paths live here. The warp-level one (ldmatrix + mma.sync:
+// m16n8k16 for bf16 with an f32 accumulator, m16n8k32 for s8 with an exact
+// s32 accumulator) serves the w8a8 matmul, the attention kernels and the
+// GEMM probes. The asynchronous warpgroup one (TMA loads completing on
+// mbarriers, wgmma.mma_async with the A operand in registers and the B
+// operand read from a 128-byte-swizzled shared tile) serves the fused
+// dequant-matmul of qmm.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -105,6 +108,133 @@ __device__ __forceinline__ void epilogue_store2(
     p[0] = __float2bfloat16(v0);
     if (has1) p[1] = __float2bfloat16(v1);
   }
+}
+
+// ---- asynchronous warpgroup path: mbarrier, TMA, wgmma --------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes freshly initialised barriers visible to the TMA unit and to the
+// other threads (follow with __syncthreads()).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to wait for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spins until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box, global -> shared; `tmap` is the address of a CUtensorMap
+// in kernel-parameter space, (c0, c1) the box origin (c0 innermost).
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major bf16 operand tile stored as
+// rows of 32 elements (64 bytes) with the 64-byte swizzle, 512-byte aligned
+// (what a TMA box of 32 bf16 columns with CU_TENSOR_MAP_SWIZZLE_64B
+// writes): 8-row groups 512 bytes apart. `tile` is a shared-state-space
+// address; the second k16 slice of the tile is the descriptor plus 2.
+__device__ __forceinline__ uint64_t wgmma_desc_k64(uint32_t tile) {
+  return static_cast<uint64_t>((tile & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{32} << 32) | (uint64_t{2} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::);
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N));
+}
+
+// Keeps registers that an in-flight wgmma still reads (or writes) allocated
+// and ordered up to this point. Like the wgmma fences above it orders only
+// against other asm statements: the shared-memory tiles a wgmma reads are
+// written by TMA alone and handed over through mbarriers, so ordinary loads
+// may move across them.
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r));
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r));
+}
+
+// d(64 x 128, f32) += a(64 x 16 bf16, registers) * b(16 x 128 bf16, shared,
+// K-major). One warpgroup; warp w holds rows 16w..16w+15 of a and d in the
+// mma.sync m16n8k16 fragment layout: a[0] = (row g, k 2t..2t+1), a[1] =
+// (row g+8, same k), a[2], a[3] = the same rows at k+8; d[4i..4i+1] = (row
+// g, columns 8i+2t..+1), d[4i+2..4i+3] = (row g+8, same columns), with
+// g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace gguf_cuda

@@ -7,287 +7,86 @@
 // view of the stacked tensors.
 //
 //   out[m, r] = epi( sum_k x[m, k] * W[k, r] ),
-//   W[k, r]   = s[k/gs, r] * (q[k, r] - zp) + o[k/gs, r]
+//   W[k, r]   = bf16( s[k/gs, r] * (q[k, r] - zp) + o[k/gs, r] )
 //
 // Layout (the reference package's planar layout, kept as is): codes are
 // K-major. nib4: byte row j holds k=j in its low nibble and k=j+Kp/2 in its
-// high nibble. int8: one zero-point-folded code per element.
+// high nibble. int8: one zero-point-folded code per element. The weight is
+// dequantized in f32 with separately rounded multiply and add, then rounded
+// to bf16, so it equals the plain version's dense bf16 weight bit for bit.
 //
-// What bounds it: at the w8a8 path's M=1 modulation projections, bytes (the
-// packed weight is read once, ~5.6 bits per weight with f32 scales); on
-// the bf16-fused path at M=4096, bf16 tensor-core operations. Design: each
-// 256-thread block owns a 128x128 output tile and walks K in steps of 64
-// logical rows through a 3-stage cp.async pipeline: per step the x tile,
-// the raw code tile and the scale/offset rows it needs arrive in shared
-// memory while earlier steps compute. The step's codes are then unpacked
-// and scaled into a bf16 weight tile in shared memory (the dense weight
-// never reaches global memory) and feed mma.sync m16n8k16 with an f32
-// accumulator. Every code byte is read once per 128-row M-tile (a nib4 byte
-// feeds both of its k rows), so at M <= 128 the weight streams exactly
-// once.
-#include "common.cuh"
+// Two bodies, chosen by the wrapper from M alone. Both unpack the same way
+// (qmm_common.cuh): a byte permute drops a code into the low byte of
+// 0x4B000000, which is the float 2^23 + code; f32 arithmetic takes it from
+// there; cvt.rn.bf16x2.f32 packs two weights into one operand register.
+//
+// The wgmma body (qmm_wgmma.cuh; this file holds its nib4 instances,
+// qmm_int8.cu its int8 instances, so that they compile side by side), for M
+// above the small-M limit; bound by bf16 tensor-core operations.
+//   The problem is transposed, out^T = W^T x^T, so that the dequantized
+// weight is the A operand of wgmma and is fed from registers: it never takes
+// a trip through shared memory and no warp waits for another warp's
+// unpacking. x is the B operand, K-major, and arrives by TMA as 64-byte-
+// swizzled 32-column tiles exactly as the wgmma descriptor reads them. (The
+// alternative, dequant warps writing a swizzled MN-major B tile, costs a
+// shared-memory store and load per weight element and a hand-over barrier
+// per tile; the first measurement of this form gave no reason to try it.)
+// A k16 slice needs no permuted k order: a thread pairs the low nibbles of
+// two adjacent code rows (k, k+1) for the low slice and the high nibbles of
+// the same two bytes for the slice Kp/2 further on, which multiplies a
+// second x tile fetched from column Kp/2 + k. The out-features, though, are
+// permuted inside a tile: wgmma rows g and g+8 of a warp are two adjacent
+// columns of the weight, so a thread reads its codes two bytes at a time
+// and stores its results two bf16 at a time.
+//   One persistent block per SM walks a list of output tiles of 128
+// out-features x (128 or 256) tokens, token tiles fastest so that the x
+// tiles of a wave stay in L2. A 256-token tile unpacks every weight element
+// once for two wgmma (measured: the unpack's ALU work does not hide behind
+// the tensor cores, it adds to them), a 128-token tile leaves a shorter
+// last wave; the wrapper picks per shape. The block has three warpgroups
+// and moves registers with setmaxnreg: the producer's keeps 40 a thread,
+// the two consumers' take 232. One producer lane issues the TMA boxes of a
+// K step of 64 (two x tiles, the raw code tile with the 128-byte swizzle,
+// the scale and offset rows) into a 5-stage ring; mbarriers carry "full"
+// and "empty", and there is no block-wide barrier in the K loop. Each
+// consumer warpgroup owns 64 out-features: per step it unpacks four A
+// fragments and issues one group of 4 (or 8) m64n128k16 wgmma; fragments
+// are double-buffered over steps, so a step is unpacked while the group
+// before it runs, and a stage is released when the group that read it has
+// retired. Ragged edges: TMA zero-fills x past M and past K (the tensor
+// map's extents are M and K, not the padded ones); columns past R are
+// masked in the epilogue.
+//
+// The split-K body (qmm_smallm.cu), for M <= 8; bound by bytes: the packed
+// weight is read once. A 256-thread block owns a 128-column strip and a
+// slice of K; the M <= 8 rows of x sit in shared memory as bf16. A warp
+// streams 8-byte code loads of 16 rows at a time, unpacks them into the same
+// register A fragments and multiplies with mma.sync m16n8k16, x as the
+// 8-column B operand, so 1 <= M <= 8 all cost the same. The K split is a
+// thread-block cluster along K: every block reduces its 4 row lanes in a
+// fixed order into shared memory, and rank 0 adds the ranks' partial sums
+// in rank order through distributed shared memory and runs the epilogue.
+// No atomics: two launches give the same bits.
+#include "qmm_wgmma.cuh"
 
 using namespace gguf_cuda;
 
-namespace {
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;  // logical k rows per step
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int XS = BK + 8;   // smem row stride (bf16) of the x tile
-constexpr int WS = BN + 8;   // smem row stride (bf16) of the weight tile
-constexpr int RS = BN + 16;  // smem row stride (bytes) of the raw codes
-constexpr int X_BYTES = BM * XS * 2;
-constexpr int Q_BYTES = BK * RS;            // up to 64 code rows
-constexpr int S_BYTES = 4 * BN * 4;         // up to 4 scale rows, f32
-constexpr int STAGE_BYTES = X_BYTES + Q_BYTES + 2 * S_BYTES;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BK * WS * 2;
-
-template <bool NIB4, bool HAS_OFF>
-__global__ void __launch_bounds__(THREADS)
-qmm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
-           const uint8_t* __restrict__ qs,       // (Kp/2 or Kp, Rp)
-           const float* __restrict__ scales,     // (Kp/gs, Rp)
-           const float* __restrict__ offsets,    // (Kp/gs, Rp) | null
-           const float* __restrict__ bias,       // (R) | null
-           __nv_bfloat16* __restrict__ out,      // (M, R)
-           int M, int K, int Kp, int R, int Rp, int gs, float zp,
-           int act_from) {
-  // code rows per step, and rows of codes each thread unpacks (4 columns)
-  constexpr int QROWS = NIB4 ? BK / 2 : BK;
-  constexpr int CR = QROWS / 8;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* ws_s =
-      reinterpret_cast<__nv_bfloat16*>(smem + STAGES * STAGE_BYTES);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 2;  // 2 x 64 rows
-  const int warp_n = warp & 3;   // 4 x 32 columns
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int half = Kp / 2;
-  const int n_steps = Kp / BK;
-  // scale rows per step: nib4 holds QROWS/gs for the low nibbles, then as
-  // many for the high nibbles; int8 holds QROWS/gs
-  const int g_per = QROWS / gs;
-  const int n_grp = NIB4 ? 2 * g_per : g_per;
-
-  auto xs_of = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * STAGE_BYTES);
-  };
-  auto qs_of = [&](int st) { return smem + st * STAGE_BYTES + X_BYTES; };
-  auto sc_of = [&](int st, int plane) {
-    return reinterpret_cast<float*>(smem + st * STAGE_BYTES + X_BYTES +
-                                    Q_BYTES + plane * S_BYTES);
-  };
-
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int st = step % STAGES;
-      const int j0 = step * QROWS;  // first code row of the step
-      __nv_bfloat16* xd = xs_of(st);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = tid + i * THREADS;
-        const int row = v >> 3;
-        const int c = (v & 7) * 8;
-        int k;
-        if constexpr (NIB4) {
-          k = c < BK / 2 ? j0 + c : half + j0 + (c - BK / 2);
-        } else {
-          k = j0 + c;
-        }
-        const int m = m0 + row;
-        const bool ok = m < M && k + 8 <= K;
-        cp_async_16(xd + row * XS + c,
-                    ok ? x + static_cast<size_t>(m) * K + k : x,
-                    ok ? 16 : 0);
-      }
-      uint8_t* qd = qs_of(st);
-#pragma unroll
-      for (int i = 0; i < QROWS * 8 / THREADS; ++i) {
-        const int v = tid + i * THREADS;
-        const int row = v >> 3;
-        const int c = (v & 7) * 16;
-        cp_async_16(qd + row * RS + c,
-                    qs + static_cast<size_t>(j0 + row) * Rp + n0 + c, 16);
-      }
-      if (tid < n_grp * 32) {
-        const int r = tid >> 5;
-        const int c = (tid & 31) * 4;
-        const int g = (NIB4 && r >= g_per) ? (half + j0) / gs + r - g_per
-                                           : j0 / gs + r;
-        cp_async_16(sc_of(st, 0) + r * BN + c,
-                    scales + static_cast<size_t>(g) * Rp + n0 + c, 16);
-        if constexpr (HAS_OFF) {
-          cp_async_16(sc_of(st, 1) + r * BN + c,
-                      offsets + static_cast<size_t>(g) * Rp + n0 + c, 16);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  // unpack: thread (cg, rg) owns columns cg*4..+3 of code rows rg*CR..+CR-1
-  const int cg = tid & 31;
-  const int rg = tid >> 5;
-  auto dequant = [&](int st) {
-    const uint8_t* qd = qs_of(st);
-    const int lg = (rg * CR) / gs;  // local scale row (low nibble / int8)
-    const float4 s_lo = *reinterpret_cast<const float4*>(
-        sc_of(st, 0) + lg * BN + cg * 4);
-    float4 o_lo = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 s_hi = s_lo, o_hi = o_lo;
-    if constexpr (HAS_OFF) {
-      o_lo = *reinterpret_cast<const float4*>(sc_of(st, 1) + lg * BN +
-                                              cg * 4);
-    }
-    if constexpr (NIB4) {
-      s_hi = *reinterpret_cast<const float4*>(sc_of(st, 0) +
-                                              (g_per + lg) * BN + cg * 4);
-      if constexpr (HAS_OFF) {
-        o_hi = *reinterpret_cast<const float4*>(
-            sc_of(st, 1) + (g_per + lg) * BN + cg * 4);
-      }
-    }
-    const float slo[4] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w};
-    const float olo[4] = {o_lo.x, o_lo.y, o_lo.z, o_lo.w};
-    const float shi[4] = {s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-    const float ohi[4] = {o_hi.x, o_hi.y, o_hi.z, o_hi.w};
-#pragma unroll
-    for (int i = 0; i < CR; ++i) {
-      const int r = rg * CR + i;
-      const uint32_t word =
-          *reinterpret_cast<const uint32_t*>(qd + r * RS + cg * 4);
-      float lo[4], hi[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t byte = (word >> (8 * b)) & 0xFFu;
-        if constexpr (NIB4) {
-          lo[b] = slo[b] * (static_cast<float>(byte & 0xFu) - zp);
-          hi[b] = shi[b] * (static_cast<float>(byte >> 4) - zp);
-          if constexpr (HAS_OFF) {
-            lo[b] += olo[b];
-            hi[b] += ohi[b];
-          }
-        } else {
-          lo[b] = slo[b] * static_cast<float>(static_cast<int8_t>(byte));
-          if constexpr (HAS_OFF) lo[b] += olo[b];
-        }
-      }
-      __nv_bfloat162 p0 = __floats2bfloat162_rn(lo[0], lo[1]);
-      __nv_bfloat162 p1 = __floats2bfloat162_rn(lo[2], lo[3]);
-      uint2 u;
-      u.x = *reinterpret_cast<uint32_t*>(&p0);
-      u.y = *reinterpret_cast<uint32_t*>(&p1);
-      *reinterpret_cast<uint2*>(&ws_s[r * WS + cg * 4]) = u;
-      if constexpr (NIB4) {
-        p0 = __floats2bfloat162_rn(hi[0], hi[1]);
-        p1 = __floats2bfloat162_rn(hi[2], hi[3]);
-        u.x = *reinterpret_cast<uint32_t*>(&p0);
-        u.y = *reinterpret_cast<uint32_t*>(&p1);
-        *reinterpret_cast<uint2*>(&ws_s[(BK / 2 + r) * WS + cg * 4]) = u;
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage `step` landed; compute(step-1) finished
-    const int st = step % STAGES;
-    dequant(st);
-    issue(step + STAGES - 1);  // into the stage compute(step-1) released
-    __syncthreads();  // weight tile complete
-    const __nv_bfloat16* xt = xs_of(st);
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int row = warp_m * 64 + mi * 16 + (lane & 15);
-        ldmatrix_x4(af[mi], &xt[row * XS + ks * 16 + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t bf[4];
-        const int krow = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = warp_n * 32 + nj * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(bf, &ws_s[krow * WS + col]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16_16816(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_bf16_16816(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int m = m0 + warp_m * 64 + mi * 16 + (lane >> 2);
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + warp_n * 32 + ni * 8 + (lane & 3) * 2;
-      epilogue_store2(out, bias, act_from, M, R, m, n, acc[mi][ni][0],
-                      acc[mi][ni][1]);
-      epilogue_store2(out, bias, act_from, M, R, m + 8, n, acc[mi][ni][2],
-                      acc[mi][ni][3]);
-    }
-  }
-}
-
-template <bool NIB4, bool HAS_OFF>
-cudaError_t launch(const void* x, const void* qs, const void* scales,
-                   const void* offsets, const void* bias, void* out, int M,
-                   int K, int Kp, int R, int Rp, int gs, int zp, int act_from,
-                   cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_kernel<NIB4, HAS_OFF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((R + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_kernel<NIB4, HAS_OFF><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-      static_cast<const float*>(scales), static_cast<const float*>(offsets),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, K,
-      Kp, R, Rp, gs, static_cast<float>(zp), act_from);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // Plain C entry (bound with ctypes). Shapes are checked by the Python
 // wrapper: Kp % 512 == 0, Rp % 128 == 0, R <= Rp, K <= Kp, K % 8 == 0,
-// gs in {16, 32}, all pointers 16-byte aligned. Returns cudaGetLastError().
-extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
-                          const void* offsets, const void* bias, void* out,
-                          int M, int K, int Kp, int R, int Rp, int gs, int zp,
-                          int nib4, int act_from, void* stream) {
+// gs in {16, 32}, offsets only with zero point 0, all pointers 16-byte
+// aligned. `nt` (1 or 2) is the number of 128-token sub-tiles of an output
+// tile. Returns the launch's CUDA error code.
+extern "C" int qmm_wgmma_nib4_launch(const void* x, const void* qs,
+                                     const void* scales, const void* offsets,
+                                     const void* bias, void* out, int M,
+                                     int K, int Kp, int R, int Rp, int gs,
+                                     int zp, int act_from, int nt,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nib4) {
-    return offsets ? launch<true, true>(x, qs, scales, offsets, bias, out, M,
-                                        K, Kp, R, Rp, gs, zp, act_from, s)
-                   : launch<true, false>(x, qs, scales, offsets, bias, out,
-                                         M, K, Kp, R, Rp, gs, zp, act_from,
-                                         s);
-  }
-  return offsets ? launch<false, true>(x, qs, scales, offsets, bias, out, M,
-                                       K, Kp, R, Rp, gs, zp, act_from, s)
-                 : launch<false, false>(x, qs, scales, offsets, bias, out, M,
-                                        K, Kp, R, Rp, gs, zp, act_from, s);
+  return offsets ? launch_wgmma<true, true>(x, qs, scales, offsets, bias, out,
+                                            M, K, Kp, R, Rp, gs, zp, act_from,
+                                            nt, s)
+                 : launch_wgmma<true, false>(x, qs, scales, offsets, bias,
+                                             out, M, K, Kp, R, Rp, gs, zp,
+                                             act_from, nt, s);
 }

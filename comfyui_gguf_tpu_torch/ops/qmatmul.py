@@ -2,9 +2,14 @@
 
 Two implementations of one function, ``epi(x @ W^T)`` with W kept packed:
 
-* ``qmm_cuda`` — wrapper of the hand-written CUDA kernel ``csrc/qmm.cu``
-  (K1 for the nib4 layout, K2 for the int8 layout). The dense weight never
+* ``qmm_cuda`` — wrapper of the hand-written CUDA kernels of ``csrc/qmm.cu``,
+  ``qmm_int8.cu`` and ``qmm_smallm.cu`` (K1 for the nib4 layout, K2 for the
+  int8 layout). The dense weight never
   reaches device memory; bias and GELU-tanh run on the f32 accumulator.
+  Two kernel bodies, picked from the shape alone by ``qmm_route``: a
+  weight-streaming split-K body for M <= ``SMALL_M_MAX`` rows of x (bound by
+  the bytes of the packed weight) and a TMA + ``wgmma`` body for every larger
+  M (bound by tensor-core operations).
 * ``plain_quantized_matmul`` — the plain PyTorch version, the counterpart
   of the reference's ``xla_qmm`` + ``_host_epilogue``: dequantize to a
   dense weight, one f32-accumulated matmul, then the unfused epilogue.
@@ -71,6 +76,78 @@ def plain_quantized_matmul(x, pq: PlanarQuant, *,
         bias, act_from_col, lora_h, lora_up)
 
 
+# --- the dispatch rule and the host arithmetic of the two kernel bodies ---
+
+SMALL_M_MAX = 8  # rows of x the split-K body takes (the N of its mma)
+N_SM = 132  # SMs of the card the grids are sized for (H100 SXM)
+_STRIP = 128  # columns per split-K block
+_SMALLM_BLOCKS = 2 * N_SM  # blocks wanted: 2 a SM (tools_qmm_cuda.py)
+_SMALLM_SMEM_MAX = 96 * 1024  # leaves room for two blocks a SM
+WGMMA_TILE = (128, 128)  # (tokens, out-features) of a wgmma sub-tile
+# time of a 128-token tile spent unpacking the weight, relative to its
+# tensor-core time (measured on the H100 with tools_qmm_cuda.py)
+_UNPACK_SHARE = 1.5
+
+
+def smallm_plan(m: int, kp: int, r: int, nib4: bool):
+    """(split, shared-memory bytes) of the split-K launch, or None where
+    that body does not take the shape.
+
+    A block owns a 128-column strip and ``1/split`` of the code rows
+    (Kp/2 rows for nib4, Kp for int8; slices are whole units of 16 rows);
+    the ``split`` blocks of a strip form one cluster (at most 8). The split
+    is the smallest that puts 2 blocks on each SM, or else the largest
+    whose x slice (8 rows of bf16, 8 elements of padding a row, one plane
+    per nibble) fits in shared memory beside the 4 KB of partial sums.
+    """
+    if not 1 <= m <= SMALL_M_MAX:
+        return None
+    code_rows = kp // 2 if nib4 else kp
+    strips = -(-r // _STRIP)
+    best = None
+    for split in range(1, 9):
+        if code_rows % (16 * split):
+            continue
+        x_bytes = ((2 if nib4 else 1) * SMALL_M_MAX
+                   * (code_rows // split + 8) * 2)
+        red_bytes = 4 * SMALL_M_MAX * _STRIP * 4
+        smem = max(x_bytes, red_bytes) + SMALL_M_MAX * _STRIP * 4
+        if smem > _SMALLM_SMEM_MAX:
+            continue
+        best = (split, smem)
+        if strips * split >= _SMALLM_BLOCKS:
+            break
+    return best
+
+
+def qmm_route(m: int, kp: int, r: int, nib4: bool) -> str:
+    """Which kernel body takes (M, padded K, R, layout): "smallm" or
+    "wgmma"."""
+    return "smallm" if smallm_plan(m, kp, r, nib4) is not None else "wgmma"
+
+
+def wgmma_plan(m: int, r: int) -> tuple[int, int, int, int]:
+    """(token sub-tiles, token tiles, out-feature tiles, persistent blocks)
+    of the wgmma launch.
+
+    An output tile is 128 out-features by ``nt`` x 128 tokens, nt 1 or 2;
+    one block a SM walks tiles t, t + blocks, ...; tile t covers token tile
+    t % token_tiles of out-feature tile t // token_tiles. A 256-token tile
+    unpacks each weight element once for twice the tokens, a 128-token tile
+    leaves a shorter last wave: the choice is the smaller modelled time,
+    waves x (nt + ``_UNPACK_SHARE``).
+    """
+    r_tiles = -(-r // WGMMA_TILE[1])
+
+    def cost(nt):
+        tiles = -(-m // (nt * WGMMA_TILE[0])) * r_tiles
+        return -(-tiles // N_SM) * (nt + _UNPACK_SHARE)
+
+    nt = 2 if m > WGMMA_TILE[0] and cost(2) < cost(1) else 1
+    m_tiles = -(-m // (nt * WGMMA_TILE[0]))
+    return nt, m_tiles, r_tiles, min(m_tiles * r_tiles, N_SM)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned (a copy only where it is not)."""
     t = t.contiguous()
@@ -79,7 +156,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
              act_from_col: int | None = None, out_dtype=None) -> torch.Tensor:
-    """Launch the fused dequant-matmul kernel (K1 nib4 / K2 int8).
+    """Launch the fused dequant-matmul kernel (K1 nib4 / K2 int8), the
+    body ``qmm_route`` names for the shape.
 
     x: (..., K) CUDA tensor (cast to bf16, as the kernel's operands are);
     pq: 2-D planar weight (a depth slice of a stacked one is fine).
@@ -100,9 +178,11 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
     if pq.qs.dtype != want_q or pq.scales.dtype != torch.float32:
         raise TypeError(f"planar dtypes {pq.qs.dtype}/{pq.scales.dtype}")
     if (kp % 512 or rp % 128 or R > rp or K > kp or K % 8
-            or gs not in (16, 32)):
+            or gs not in (16, 32)
+            or (pq.offsets is not None and pq.zero_point)):
         raise ValueError(f"untileable planar weight: shape {pq.shape}, "
-                         f"padded ({kp}, {rp}), group {gs}")
+                         f"padded ({kp}, {rp}), group {gs}, zero point "
+                         f"{pq.zero_point}")
     for t in (pq.qs, pq.scales, pq.offsets):
         if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("planar tensors must be contiguous on x's "
@@ -124,15 +204,25 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         if any(t is not None and t.data_ptr() % 16 for t in ptrs):
             raise ValueError("planar tensors must be 16-byte aligned")
         lib = _build.lib()
-        rc = lib.qmm_launch(
-            x2.data_ptr(), pq.qs.data_ptr(), pq.scales.data_ptr(),
-            None if pq.offsets is None else pq.offsets.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(),
-            m, K, kp, R, rp, gs, int(pq.zero_point), int(nib4),
-            -1 if act_from_col is None else int(act_from_col),
-            ctypes.c_void_p(_build.stream_handle(dev)))
-        _build.check(rc, "qmm_launch")
-        _build.count("qmm_nib4" if nib4 else "qmm_int8")
+        ptrs = (x2.data_ptr(), pq.qs.data_ptr(), pq.scales.data_ptr(),
+                None if pq.offsets is None else pq.offsets.data_ptr(),
+                None if b is None else b.data_ptr(), out.data_ptr())
+        dims = (m, K, kp, R, rp, gs, int(pq.zero_point))
+        act = -1 if act_from_col is None else int(act_from_col)
+        stream = ctypes.c_void_p(_build.stream_handle(dev))
+        name = "qmm_nib4" if nib4 else "qmm_int8"
+        plan = smallm_plan(m, kp, R, nib4)
+        if plan is not None:
+            rc = lib.qmm_smallm_launch(*ptrs, *dims, int(nib4), act, plan[0],
+                                       stream)
+            _build.check(rc, "qmm_smallm_launch")
+            _build.count(name + "_smallm")
+        else:
+            launch = (lib.qmm_wgmma_nib4_launch if nib4
+                      else lib.qmm_wgmma_int8_launch)
+            rc = launch(*ptrs, *dims, act, wgmma_plan(m, R)[0], stream)
+            _build.check(rc, "qmm_wgmma_launch")
+            _build.count(name)
     return out.reshape(*lead, R).to(out_dtype or x.dtype)
 
 

@@ -4,7 +4,8 @@ Each kernel (K1 nib4 and K2 int8 fused dequant-matmul, K4 w8a8 matmul, K6
 int8 flash attention, K7 flash attention, K8 GEMM probes) runs on the card beside its plain version on the same
 inputs, at small shapes that cover the ragged edges: M=1, M not a multiple
 of the tile, K padded, R not a multiple of 128, the GELU tail, odd key
-lengths, Lq != Lk and strided views. Whether a card exists is decided inside
+lengths, Lq != Lk and strided views. K1/K2 run through both of their
+bodies (split-K for M <= 8, wgmma above) over every format of each layout. Whether a card exists is decided inside
 the ``cuda`` fixture, so every worker collects the same tests; without a
 card they skip. Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest`` (the
@@ -24,8 +25,10 @@ from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
                                                i8_attention_cuda,
                                                plain_i8_attention)
 from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda, plain_i8mm
-from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
-                                                qmm_cuda)
+from comfyui_gguf_tpu_torch.ops.qmatmul import (SMALL_M_MAX,
+                                                plain_quantized_matmul,
+                                                qmm_cuda, qmm_route,
+                                                smallm_plan)
 from comfyui_gguf_tpu_torch.quant import codecs, planar
 from comfyui_gguf_tpu_torch.quant.i8 import requantize_i8
 
@@ -71,21 +74,86 @@ QMM_CASES = [
 ]
 
 
-@pytest.mark.parametrize("qtype,M,R,K,bias,act", QMM_CASES,
-                         ids=lambda v: getattr(v, "name", str(v)))
-def test_qmm_kernel_matches_plain(cuda, qtype, M, R, K, bias, act):
-    pq = _planar(qtype, R, K, seed=int(qtype), device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(M)
+def _qmm_key(pq, M):
+    """The launch counter of the body that takes this shape."""
+    key = "qmm_nib4" if pq.layout == "nib4" else "qmm_int8"
+    small = qmm_route(M, pq.padded_in, pq.shape[0],
+                      pq.layout == "nib4") == "smallm"
+    return key + "_smallm" if small else key
+
+
+def _check_qmm(cuda, pq, M, K, R, bias, act, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
     b = (torch.randn((R,), generator=g, device=cuda) if bias else None)
+    key = _qmm_key(pq, M)
     before = dict(_build.LAUNCHES)
     got = qmm_cuda(x, pq, bias=b, act_from_col=act)
     torch.cuda.synchronize()
     want = plain_quantized_matmul(x, pq, bias=b, act_from_col=act)
-    key = "qmm_nib4" if pq.layout == "nib4" else "qmm_int8"
     assert _build.LAUNCHES[key] == before[key] + 1
     assert got.shape == (M, R) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
     assert _rel_l2(got, want) < 5e-3
+    return x, b, got
+
+
+@pytest.mark.parametrize("qtype,M,R,K,bias,act", QMM_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_qmm_kernel_matches_plain(cuda, qtype, M, R, K, bias, act):
+    pq = _planar(qtype, R, K, seed=int(qtype), device=cuda)
+    _check_qmm(cuda, pq, M, K, R, bias, act, seed=M)
+
+
+# every format each layout holds (group sizes 16 and 32, with and without
+# offsets), through both bodies: M up to SMALL_M_MAX takes the split-K
+# body, every larger M the wgmma body
+NIB4_TYPES = [Q.Q4_0, Q.Q4_1, Q.Q4_K, Q.Q2_K]
+INT8_TYPES = [Q.Q5_0, Q.Q5_1, Q.Q8_0, Q.Q3_K, Q.Q5_K, Q.Q6_K, Q.IQ4_NL,
+              Q.IQ4_XS]
+QMM_MS = [1, 2, 3, SMALL_M_MAX, SMALL_M_MAX + 1, 65, 200]
+
+
+@pytest.mark.parametrize("M", QMM_MS)
+@pytest.mark.parametrize("qtype", NIB4_TYPES + INT8_TYPES,
+                         ids=lambda q: q.name)
+def test_qmm_bodies_formats_and_rows(cuda, qtype, M):
+    # R is no multiple of 128 and K is padded (K < Kp): the ragged edges
+    R, K = 328, 768
+    pq = _planar(qtype, R, K, seed=int(qtype) + 100, device=cuda)
+    for bias, act in ((True, None), (False, 0), (True, 136)):
+        _check_qmm(cuda, pq, M, K, R, bias, act, seed=M)
+
+
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q6_K], ids=lambda q: q.name)
+@pytest.mark.parametrize("M", [1, 130])
+def test_qmm_every_tile_position(cuda, qtype, M):
+    """A one-hot x row picks single weight rows: each output must equal the
+    dequantized bf16 weight exactly, at every k and column of the tiles (a
+    wrong swizzle or fragment order cannot hide in a sum)."""
+    R, K = 256, 1024
+    pq = _planar(qtype, R, K, seed=7, device=cuda)
+    w = planar.dequantize_kmajor(pq, torch.bfloat16)  # (K, R)
+    picks = ([torch.arange(k0, k0 + 128) for k0 in range(0, K, 128)]
+             if M > 1 else
+             [torch.tensor([k]) for k in (0, 1, 517, K // 2, K - 1)])
+    for ks in picks:
+        ks = ks.to(cuda)
+        x = torch.zeros((M, K), device=cuda, dtype=torch.bfloat16)
+        x[torch.arange(ks.numel(), device=cuda), ks] = 1.0
+        got = qmm_cuda(x, pq)
+        assert torch.equal(got[: ks.numel()], w[ks])
+        assert not bool(got[ks.numel():].any())
+
+
+def test_qmm_smallm_is_deterministic(cuda):
+    pq = _planar(Q.Q4_K, 1024, 3072, seed=3, device=cuda)
+    x = torch.randn((4, 3072), device=cuda).to(torch.bfloat16)
+    assert smallm_plan(4, pq.padded_in, 1024, True)[0] > 1  # a real K split
+    a = qmm_cuda(x, pq)
+    b = qmm_cuda(x, pq)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_qmm_kernel_on_stacked_view(cuda):

@@ -7,6 +7,12 @@ inputs: formats Q4_K / Q4_0 (nib4) and Q8_0 (int8), K=512 and a padded
 K=2432, M in {1, 37}, with and without bias, GELU on no column, all columns
 or a tail. Tolerance: 1e-5 relative L2 with f32 dequant (only the summation
 order differs), 1e-2 with bf16 operands and output (bf16 rounding points).
+
+The CUDA kernels run only on the card, but what their wrapper decides on
+the host is plain Python and is tested here: which of the two kernel bodies
+takes a shape, the K split and shared memory of the split-K body, the tile
+list of the wgmma body, and the nibble arithmetic both bodies unpack with,
+each against a numpy statement of it.
 """
 
 import jax.numpy as jnp
@@ -19,8 +25,10 @@ from comfyui_gguf_tpu.ops import qmatmul as jqmm
 from comfyui_gguf_tpu.quant import planar as jplanar
 from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.interop import params_from_numpy
-from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
-                                                quantized_matmul)
+from comfyui_gguf_tpu_torch.ops.qmatmul import (N_SM, SMALL_M_MAX,
+                                                plain_quantized_matmul,
+                                                qmm_route, quantized_matmul,
+                                                smallm_plan, wgmma_plan)
 from comfyui_gguf_tpu_torch.quant import codecs
 
 torch.set_num_threads(2)
@@ -92,3 +100,142 @@ def test_cpu_dispatch_is_the_plain_version():
     b = plain_quantized_matmul(xt, pq, bias=torch.from_numpy(bias),
                                act_from_col=0)
     assert torch.equal(a, b)
+
+
+# --- the host side of the two CUDA kernel bodies ---------------------------
+
+# (M, K, R, layout) of every fused dequant-matmul on the main paths: flux
+# modulations (M = batch), flux token-facing linears, T5-xxl linears
+MAIN_PATH_SHAPES = [
+    (1, 3072, 18432, "nib4", "smallm"), (1, 3072, 9216, "nib4", "smallm"),
+    (2, 3072, 18432, "nib4", "smallm"), (4, 3072, 18432, "int8", "smallm"),
+    (1, 3072, 6144, "int8", "smallm"),
+    (4096, 3072, 9216, "nib4", "wgmma"), (512, 3072, 9216, "nib4", "wgmma"),
+    (4608, 3072, 21504, "nib4", "wgmma"), (4608, 15360, 3072, "nib4", "wgmma"),
+    (4608, 3072, 3072, "int8", "wgmma"), (512, 4096, 4096, "int8", "wgmma"),
+    (512, 4096, 10240, "int8", "wgmma"), (512, 10240, 4096, "int8", "wgmma"),
+]
+
+
+@pytest.mark.parametrize("M,K,R,layout,want", MAIN_PATH_SHAPES, ids=str)
+def test_dispatch_at_main_path_shapes(M, K, R, layout, want):
+    kp = -(-K // 512) * 512
+    assert qmm_route(M, kp, R, layout == "nib4") == want
+
+
+@pytest.mark.parametrize("layout", ["nib4", "int8"])
+def test_dispatch_edge_is_m_alone(layout):
+    nib4 = layout == "nib4"
+    for kp, r in ((512, 128), (3072, 18432), (15360, 3072), (10240, 4096)):
+        assert qmm_route(SMALL_M_MAX, kp, r, nib4) == "smallm"
+        assert qmm_route(SMALL_M_MAX + 1, kp, r, nib4) == "wgmma"
+        assert smallm_plan(0, kp, r, nib4) is None
+    # an x slice too long for shared memory even at the largest split goes
+    # to the wgmma body instead of failing
+    assert qmm_route(1, 1 << 20, 128, nib4) == "wgmma"
+
+
+def _np_smallm_smem(kp, nib4, split):
+    """Shared memory of the split-K body, stated on its own: the x slice
+    (8 rows of bf16, one plane per nibble, 8 elements of padding a row) or
+    the four row lanes' f32 partial sums, whichever is larger, plus one
+    8 x 128 f32 tile of partial sums for the cluster."""
+    rows = np.int64(kp // 2 if nib4 else kp) // split
+    x_bytes = (2 if nib4 else 1) * 8 * (rows + 8) * 2
+    return int(max(x_bytes, 4 * 8 * 128 * 4) + 8 * 128 * 4)
+
+
+@pytest.mark.parametrize("M", [1, 3, SMALL_M_MAX])
+@pytest.mark.parametrize("kp", [512, 2560, 3072, 4096, 10240, 15360])
+@pytest.mark.parametrize("r", [128, 3000, 9216, 18432])
+@pytest.mark.parametrize("layout", ["nib4", "int8"])
+def test_smallm_plan_arithmetic(M, kp, r, layout):
+    nib4 = layout == "nib4"
+    split, smem = smallm_plan(M, kp, r, nib4)
+    rows = kp // 2 if nib4 else kp
+    assert 1 <= split <= 8  # a cluster holds at most 8 blocks
+    assert rows % (16 * split) == 0  # whole 16-row units per block
+    assert smem == _np_smallm_smem(kp, nib4, split) <= 96 * 1024
+    strips = -(-r // 128)
+    # the smallest split that gives every SM two blocks, else the largest
+    # the shape allows
+    ok = [s for s in range(1, 9) if rows % (16 * s) == 0
+          and _np_smallm_smem(kp, nib4, s) <= 96 * 1024]
+    filled = [s for s in ok if strips * s >= 2 * N_SM]
+    assert split == (filled[0] if filled else ok[-1])
+
+
+@pytest.mark.parametrize("M,R", [(9, 18432), (131, 3000), (512, 4096),
+                                 (512, 10240), (4096, 9216), (4608, 3072),
+                                 (4608, 21504), (200, 328)], ids=str)
+def test_wgmma_plan_covers_the_output_once(M, R):
+    nt, m_tiles, r_tiles, blocks = wgmma_plan(M, R)
+    assert nt in (1, 2) and (nt == 1 or M > 128)
+    assert blocks == min(m_tiles * r_tiles, N_SM)
+    # walk the tile list as the persistent blocks do and mark what is
+    # written: every output element exactly once
+    hit = np.zeros((M, R), dtype=np.int32)
+    for b in range(blocks):
+        for t in range(b, m_tiles * r_tiles, blocks):
+            m0, r0 = (t % m_tiles) * 128 * nt, (t // m_tiles) * 128
+            hit[m0: m0 + 128 * nt, r0: r0 + 128] += 1
+    assert (hit == 1).all()
+    # and the choice of nt is the smaller modelled time
+    def waves(n):
+        return -(-(-(-M // (128 * n)) * r_tiles) // N_SM)
+    assert (nt == 2) == (M > 128 and waves(2) * 3.5 < waves(1) * 2.5)
+
+
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q4_0, Q.Q8_0, Q.Q6_K],
+                         ids=lambda q: q.name)
+def test_kernel_unpack_arithmetic_is_the_plain_dequant(qtype):
+    """The kernels turn a code into 2^23 + code by byte permutation and then
+    use f32 operations only: (f - (2^23 + zp)) * s [+ o], or for nibble
+    codes with offsets fma(s, f, -s * 2^23) + o. Both must give the plain
+    version's weight bit for bit, before and after the bf16 rounding."""
+    from comfyui_gguf_tpu_torch.quant import planar
+
+    rng = np.random.default_rng(int(qtype))
+    w = rng.standard_normal((128, 512), dtype=np.float32)
+    pq = planar.planarize(codecs.quantize(w, qtype), qtype, (128, 512))
+    want = planar.dequantize_padded(pq).numpy()
+    codes = planar.unpack_codes(pq).numpy().astype(np.int64)
+    s = np.repeat(pq.scales.numpy(), pq.group_size, axis=0)
+    magic = np.float32(2.0 ** 23)
+    if pq.layout == "int8":
+        f = (np.uint32(0x4B000000) | (codes + 128).astype(np.uint32)).view(
+            np.float32)
+        got = (f - np.float32(magic + 128)) * s
+    else:
+        f = (np.uint32(0x4B000000) | codes.astype(np.uint32)).view(np.float32)
+        if pq.offsets is None:
+            got = (f - np.float32(magic + pq.zero_point)) * s
+        else:
+            assert pq.zero_point == 0  # what the fused form relies on
+            # fma with one rounding, in float64: s * f is exact there
+            got = (s.astype(np.float64) * f.astype(np.float64)
+                   - s.astype(np.float64) * float(magic)).astype(np.float32)
+    if pq.offsets is not None:
+        got = got + np.repeat(pq.offsets.numpy(), pq.group_size, axis=0)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert torch.equal(torch.from_numpy(got).to(torch.bfloat16),
+                       torch.from_numpy(want).to(torch.bfloat16))
+
+
+def test_nib4_rows_pair_with_x_columns_half_apart():
+    """A nib4 code row j feeds k = j (low nibble) and k = j + Kp/2 (high
+    nibble): summing the two half-products, as the kernels do with two x
+    tiles, is the whole product."""
+    jp, pq, x, _ = _case(Q.Q4_K, 2432, 5, seed=11)
+    from comfyui_gguf_tpu_torch.quant import planar
+
+    w = planar.dequantize_padded(pq).numpy().astype(np.float64)  # (Kp, Rp)
+    kp = w.shape[0]
+    xp = np.zeros((5, kp))
+    xp[:, :2432] = x  # x is zero past K, as the kernels' loads fill it
+    lo = xp[:, : kp // 2] @ w[: kp // 2]
+    hi = xp[:, kp // 2:] @ w[kp // 2:]
+    want = plain_quantized_matmul(torch.from_numpy(x), pq,
+                                  dequant_dtype=torch.float32).numpy()
+    assert _rel_l2((lo + hi)[:, :R], want) < 1e-5
