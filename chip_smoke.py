@@ -14,14 +14,19 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
 2. build: the CUDA kernels are compiled from ``comfyui_gguf_tpu_torch/csrc``
-   (one nvcc per source, in parallel) and loaded;
+   (one nvcc per source, in parallel) and loaded; ``ptxas`` registers and
+   the dynamic shared memory of the w8a8 and flash-attention kernels are
+   printed;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
    PyTorch library call computing the same product, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the H100 SXM peak).
    K1/K2 run through both of their bodies (split-K for M <= 8, wgmma
-   above), and the split-K body must give the same bits twice;
+   above), and the split-K body must give the same bits twice; K4 runs at
+   both of its tile widths, the one ``i8mm_plan`` picks giving the row's
+   time, and its library call reads the int8 weight in the TN form
+   cuBLASLt's int8 path takes;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; (b) a tiny ``FluxPipeline``
@@ -158,7 +163,8 @@ def kernel_phase(dev, sfu_per_s):
                                                    plain_i8_attention_q,
                                                    quantize_attn_inputs)
     from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda_q, plain_i8mm
-    from comfyui_gguf_tpu_torch.ops.qmatmul import (SMALL_M_MAX,
+    from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
+                                                    i8mm_plan,
                                                     plain_quantized_matmul,
                                                     qmm_cuda, qmm_route)
     from comfyui_gguf_tpu_torch.quant.i8 import quantize_rows, requantize_i8
@@ -213,33 +219,47 @@ def kernel_phase(dev, sfu_per_s):
                          bound_ms=b_ms, bound_by=b_by))
 
     def i8_case(name, M, K, R, act):
+        """K4 at both tile widths (each within 1 bf16 ulp of the plain
+        version); the row's time is the width ``i8mm_plan`` picks."""
         ip = requantize_i8(random_planar(Q.Q4_K, (R, K), gen, device=dev))
         x = randn(M, K)
         bias = torch.randn(R, generator=gen, device=dev) * 0.1
         xq, xs = quantize_rows(x)
-        got = i8mm_cuda_q(xq, xs, ip, bias=bias, act_from_col=act)
         want = plain_i8mm(x, ip, bias=bias, act_from_col=act)
-        torch.cuda.synchronize()
-        gf, wf = got.float(), want.float()
-        _, e = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
-        ulp = torch.ldexp(torch.ones_like(gf), e - 8)
-        n_over = int(((gf - wf).abs() > ulp).sum())
-        ok = bool(torch.isfinite(got).all()) and n_over == 0
-        ms = graph_ms([lambda: i8mm_cuda_q(xq, xs, ip, bias=bias,
-                                           act_from_col=act)])
+        wf = want.float()
+        n_over, err, rel = 0, 0.0, 0.0
+        ok = True
+        for bn in I8MM_WIDTHS:
+            got = i8mm_cuda_q(xq, xs, ip, bias=bias, act_from_col=act, bn=bn)
+            torch.cuda.synchronize()
+            gf = got.float()
+            _, e = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
+            ulp = torch.ldexp(torch.ones_like(gf), e - 8)
+            n_over += int(((gf - wf).abs() > ulp).sum())
+            err = max(err, float((gf - wf).abs().max()))
+            rel = max(rel, rel_l2(got, want))
+            ok = ok and bool(torch.isfinite(got).all())
+        ok = ok and n_over == 0
+        tile_ms = {bn: graph_ms([lambda bn=bn: i8mm_cuda_q(
+            xq, xs, ip, bias=bias, act_from_col=act, bn=bn)])
+            for bn in I8MM_WIDTHS}
+        pick = i8mm_plan(M, R)[0]
         plain = event_ms(lambda: plain_i8mm(x, ip, bias=bias,
                                             act_from_col=act))
-        wq = ip.qs[:K, :R].contiguous()
-        lib = library_ms(lambda: torch._int_mm(xq, wq))
-        del wq
+        # the fair yardstick: B in the TN form cuBLASLt's int8 path reads,
+        # the (R, K) K-contiguous codes seen as (K, R); no copy
+        w_rk = ip.qs[:R, :K]
+        lib = library_ms(lambda: torch._int_mm(xq, w_rk.t()))
         nbytes = M * K + 4 * M + ip.nbytes_packed + 4 * R + 2 * M * R
         b_ms, b_by = bound(nbytes, 2.0 * M * K * R, PEAK_INT8)
-        rows.append(dict(name=name, kernel="i8mm", shape=f"M={M} K={K} R={R}",
-                         max_abs_err=float((gf - wf).abs().max()),
-                         rel_l2=rel_l2(got, want), over_1ulp=n_over,
-                         tol="<= 1 bf16 ulp", ok=ok, ms=ms, plain_ms=plain,
+        rows.append(dict(name=name, kernel="i8mm",
+                         shape=f"M={M} K={K} R={R} bn={pick}",
+                         max_abs_err=err, rel_l2=rel, over_1ulp=n_over,
+                         tol="<= 1 bf16 ulp at both widths", ok=ok,
+                         ms=tile_ms[pick], tile_ms=tile_ms, plain_ms=plain,
                          library_ms=lib,
-                         library="torch._int_mm (s8 x s8 -> s32 only)",
+                         library="torch._int_mm(xq, w_rk.t()) (s8 x s8 -> "
+                                 "s32 only, TN)",
                          bound_ms=b_ms, bound_by=b_by))
 
     def attn_case(name, B, H, Lq, Lk, D):
@@ -343,6 +363,9 @@ def kernel_phase(dev, sfu_per_s):
                            dtype=torch.int8)
         w8 = torch.randint(-127, 128, (K, R), generator=gen, device=dev,
                            dtype=torch.int8)
+        # the library yardstick reads B in TN form: an (R, K) K-contiguous
+        # copy of w8, made once, seen as (K, R)
+        w8_rk = w8.t().contiguous()
         xs = torch.rand((M, 128), generator=gen, device=dev) * 1e-3 + 1e-3
         ws = torch.rand((1, R), generator=gen, device=dev) * 1e-3 + 1e-3
         r = probe_case("gemm_probe_bf16", "gemm_probe_bf16",
@@ -354,15 +377,17 @@ def kernel_phase(dev, sfu_per_s):
         r = probe_case("gemm_probe_s8", "gemm_probe_s8",
                        lambda bn: gp.probe_s8(x8, w8, bn=bn),
                        gp.plain_probe_s8(x8, w8), True,
-                       lambda: torch._int_mm(x8, w8),
-                       "torch._int_mm (s8 x s8 -> s32, no bf16 cast)",
+                       lambda: torch._int_mm(x8, w8_rk.t()),
+                       "torch._int_mm(x8, w8_rk.t()) (s8 x s8 -> s32, TN, "
+                       "no bf16 cast)",
                        M * K + K * R + 2 * M * R, PEAK_INT8)
         r["plain_ms"] = event_ms(lambda: gp.plain_probe_s8(x8, w8))
         r = probe_case("gemm_probe_w8a8", "gemm_probe_w8a8",
                        lambda bn: gp.probe_w8a8(x8, w8, xs, ws, bn=bn),
                        gp.plain_probe_w8a8(x8, w8, xs, ws), True,
-                       lambda: torch._int_mm(x8, w8),
-                       "torch._int_mm (s8 x s8 -> s32 only, no rescale)",
+                       lambda: torch._int_mm(x8, w8_rk.t()),
+                       "torch._int_mm(x8, w8_rk.t()) (s8 x s8 -> s32 only, "
+                       "TN, no rescale)",
                        M * K + K * R + 4 * (M + R) + 2 * M * R, PEAK_INT8)
         r["plain_ms"] = event_ms(lambda: gp.plain_probe_w8a8(x8, w8, xs, ws))
 
@@ -407,6 +432,9 @@ def kernel_phase(dev, sfu_per_s):
     i8_case("i8mm linear2 M=4608 15360->3072", 4608, 15360, 3072, None)
     i8_case("i8mm img qkv M=4096 3072->9216", 4096, 3072, 9216, None)
     i8_case("i8mm img mlp.0 M=4096 3072->12288 gelu", 4096, 3072, 12288, 0)
+    # K4 on the text stream of the double blocks (512 tokens)
+    i8_case("i8mm txt qkv M=512 3072->9216", 512, 3072, 9216, None)
+    i8_case("i8mm txt mlp.0 M=512 3072->12288 gelu", 512, 3072, 12288, 0)
     # K7: flux joint attention, an odd length at D=64, and Lq != Lk
     attn_case("flash_attn flux L=4608 D=128", 1, 24, 4608, 4608, 128)
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
@@ -957,6 +985,12 @@ def main() -> int:
             for ln in lines:
                 if "Used" in ln:
                     log(f"  {src}: {ln.split(':', 1)[1].strip()}")
+    lib = _build.lib()
+    log("  dynamic shared memory a block: i8mm.cu "
+        + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
+        + "; flash_attn.cu "
+        + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
+                    for d in (128, 64)))
 
     log("[3 kernels vs plain at the main paths' shapes]")
     rows = kernel_phase(dev, sfu_per_s)

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_smallm.cu", "i8mm.cu",
            "flash_attn.cu", "i8attn.cu", "gemm_probe.cu")
-HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh")
+HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,8 +46,9 @@ _SIGNATURES = {
     # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
     # act_from, K split, stream
     "qmm_smallm_launch": [_VP] * 6 + [_I] * 10 + [_VP],
-    # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, act_from, stream
-    "i8mm_launch": [_VP] * 6 + [_I] * 6 + [_VP],
+    # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, out row stride,
+    # act_from, tile width, stream
+    "i8mm_launch": [_VP] * 6 + [_I] * 8 + [_VP],
     # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
     "flash_attn_launch": [_VP] * 4 + [_I] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
@@ -55,6 +56,9 @@ _SIGNATURES = {
     # stream
     "i8attn_launch": [_VP] * 7 + [_I] * 6
     + [ctypes.POINTER(ctypes.c_longlong), _VP],
+    # dynamic shared memory of a launch: tile width / head dim
+    "i8mm_smem_bytes": [_I],
+    "flash_attn_smem_bytes": [_I],
     # x, w, out, M, K, R, bn, stream
     "gemm_probe_bf16_launch": [_VP] * 3 + [_I] * 4 + [_VP],
     # x, w, xs, ws, out, M, K, R, xs_stride, bn, stream
@@ -130,7 +134,8 @@ def build() -> Path:
     for src, (obj, p) in procs.items():
         out, err = p.communicate()
         ptxas[src] = [ln for ln in (out + err).splitlines()
-                      if "ptxas" in ln or "registers" in ln]
+                      if "ptxas" in ln or "registers" in ln
+                      or "spill" in ln]
         if p.returncode != 0:
             errors.append(f"{src}:\n{out}{err}")
     if errors:

@@ -7,232 +7,300 @@
 //   out[b, h, i, :] = softmax_j(scale * q[b, h, i, :] . k[b, h, j, :]) v[b, h, j, :]
 //
 // What bounds it: bf16 tensor-core operations (4·L²·D per head at flux's
-// L = 4608, D = 128). Design (FlashAttention-2 on the warp-level tensor
-// cores): a 128-thread block owns 64 query rows of one (b, h), 16 per warp,
-// with q held in registers as mma A fragments. It walks the keys in tiles
-// of 64: K and V tiles arrive in shared memory by cp.async into two
-// buffers, the next tile's copy in flight while this one computes; S stays
-// in registers, the online softmax keeps the
-// running max m, sum l and the f32 output accumulator per row, and P feeds
-// the P·V product straight from registers (the S accumulator layout is the
-// A-operand layout). No L×L tensor touches global memory. Keys past Lk are
-// zero-filled and masked to -inf; query rows past Lq are not stored.
+// L = 4608, D = 128), and beside them the exponentials of the softmax (one
+// per score, on the special-function units at a quarter of the rate the
+// tensor cores need at D = 128). Design (FlashAttention on Hopper's
+// asynchronous units): a block owns 128 query rows of one (b, h); a
+// producer warp loads them once by TMA and then streams the keys and values
+// in tiles of 128 through a 2-stage ring of shared tiles (TMA, 128-byte
+// swizzle, K and V completing on their own mbarriers), so the scores can
+// start before V lands. Two consumer warpgroups own 64 query rows each:
+// S = Q·Kᵀ is a wgmma with both operands in shared memory (K is K-major
+// because D is contiguous), the online softmax (base 2, scale folded in)
+// runs on the S accumulator in registers and keeps the running max, sum
+// and the f32 output accumulator per row, and O += P·V takes P as the
+// register-fed A operand (the S accumulator layout converts to bf16 A
+// fragments in place) and V from shared memory with the transpose bit (V is
+// MN-major). No L×L tensor touches global memory, and every q/k/v byte is
+// read from global memory once per block. Neither a deeper ring (3 stages,
+// K and V released apart) nor the two warpgroups taking turns at the tensor
+// cores made it faster on the H100; what holds it is in PERF.md. Keys past Lk are zero-filled by
+// TMA and masked to -inf; query rows past Lq are not stored. q/k/v may be
+// strided views: their tensor maps are 4-D (D, L, H, B).
 #include "common.cuh"
+#include "tma.cuh"
 
 using namespace gguf_cuda;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;
+constexpr int BQ = 128;      // query rows a block (2 consumer warpgroups)
+constexpr int BKV = 128;     // keys a tile
+constexpr int CHUNK = 64;    // d values a 128-byte swizzle row holds
+constexpr int THREADS = 384; // 2 consumer warpgroups + the producer's
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int H, int Lq, int Lk,
-                 long long qb, long long qh, long long ql, long long kb,
-                 long long kh, long long kl, long long vb, long long vh,
-                 long long vl, long long ob, long long oh, long long ol,
+struct FShape {
+  static constexpr int NC = D / CHUNK;       // d chunks a row
+  static constexpr int CHUNK_Q = BQ * 128;   // bytes of one d chunk of Q
+  static constexpr int CHUNK_KV = BKV * 128; // ... of K or V
+  static constexpr int Q_BYTES = NC * CHUNK_Q;
+  static constexpr int KV_BYTES = NC * CHUNK_KV;  // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 128;
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+  if constexpr (D == 128) {
+    wgmma_m64n128k16_rs_tb(o, a, desc_v);
+  } else {
+    wgmma_m64n64k16_rs_tb(o, a, desc_v);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
+                 const __grid_constant__ CUtensorMap tm_k,  // (D, Lk, H, B)
+                 const __grid_constant__ CUtensorMap tm_v,  // (D, Lk, H, B)
+                 __nv_bfloat16* __restrict__ out, int Lq, int Lk,
+                 long long ob, long long oh, long long ol,
                  float scale_log2) {
-  constexpr int ST = D + 8;  // smem row stride (bf16)
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-  constexpr int TILE = BKV * ST;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* ks_s = smem;             // 2 x (BKV, ST)
-  __nv_bfloat16* vs_s = smem + 2 * TILE;  // 2 x (BKV, ST)
+  using S = FShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* q_s = smem;                        // NC x (BQ, 128 B)
+  uint8_t* k_s = q_s + S::Q_BYTES;            // 2 stages x NC x (BKV, 128 B)
+  uint8_t* v_s = k_s + 2 * S::KV_BYTES;       // the same
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + 2 * S::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + 2;
+  uint64_t* empty = v_full + 2;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
+  const int n_kv = (Lk + BKV - 1) / BKV;
 
-  const __nv_bfloat16* qp = q + b * qb + h * qh;
-  const __nv_bfloat16* kp = k + b * kb + h * kh;
-  const __nv_bfloat16* vp = v + b * vb + h * vh;
-
-  // tile of 64 rows x D from a (rows, D) view with row stride ls
-  auto copy_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
-                       long long ls, int r0, int n_rows) {
-#pragma unroll
-    for (int i = 0; i < BKV * VEC / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int row = idx / VEC;
-      const int c = (idx % VEC) * 8;
-      const int r = r0 + row;
-      const bool ok = r < n_rows;
-      const __nv_bfloat16* g = src + (ok ? r * ls + c : 0);
-      cp_async_16(&dst[row * ST + c], g, ok ? 16 : 0);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 256);
     }
-  };
-
-  // q tile -> registers (A fragments), staged through the K buffer
-  copy_tile(ks_s, qp, ql, q0, Lq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int row = warp * 16 + (lane & 15);
-    ldmatrix_x4(qf[kk], &ks_s[row * ST + kk * 16 + (lane >> 4) * 8]);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.0f;
-  const float neg_inf = -__int_as_float(0x7f800000);
-  float m_run[2] = {neg_inf, neg_inf};
-  float l_run[2] = {0.0f, 0.0f};
-
-  const int n_tiles = (Lk + BKV - 1) / BKV;
-  __syncthreads();  // the q staging in ks_s is consumed
-  auto issue = [&](int t) {
-    if (t < n_tiles) {
-      copy_tile(ks_s + (t & 1) * TILE, kp, kl, t * BKV, Lk);
-      copy_tile(vs_s + (t & 1) * TILE, vp, vl, t * BKV, Lk);
-    }
-    cp_async_commit();
-  };
-  issue(0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * BKV;
-    issue(t + 1);  // into the buffer tile t-1 released
-    cp_async_wait<1>();
-    __syncthreads();  // tile t landed for every thread
-    const __nv_bfloat16* kt = ks_s + (t & 1) * TILE;
-    const __nv_bfloat16* vt = vs_s + (t & 1) * TILE;
-
-    // S = q kᵀ for this warp's 16 rows x 64 keys
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < BKV / 16; ++nj) {
-        uint32_t bf[4];
-        const int kr = nj * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(bf, &kt[kr * ST + kk * 16 + ((lane >> 3) & 1) * 8]);
-        mma_bf16_16816(s[2 * nj], qf[kk], bf[0], bf[1]);
-        mma_bf16_16816(s[2 * nj + 1], qf[kk], bf[2], bf[3]);
+  if (warp >= 8) {
+    // ---- producer warpgroup: one lane issues every load ------------------
+    // (register pool: 40 * 128 + 232 * 256 = 168 * 384, as in qmm_wgmma.cuh)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, S::Q_BYTES);
+      for (int c = 0; c < S::NC; ++c)
+        tma_load_4d(q_s + c * S::CHUNK_Q, &tm_q, q_full, c * CHUNK, q0, h,
+                    b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j & 1;
+        mbar_wait(&empty[st], ((j >> 1) & 1) ^ 1);
+        uint8_t* kd = k_s + st * S::KV_BYTES;
+        uint8_t* vd = v_s + st * S::KV_BYTES;
+        mbar_arrive_expect_tx(&k_full[st], S::KV_BYTES);
+        for (int c = 0; c < S::NC; ++c)
+          tma_load_4d(kd + c * S::CHUNK_KV, &tm_k, &k_full[st], c * CHUNK,
+                      j * BKV, h, b);
+        mbar_arrive_expect_tx(&v_full[st], S::KV_BYTES);
+        for (int c = 0; c < S::NC; ++c)
+          tma_load_4d(vd + c * S::CHUNK_KV, &tm_v, &v_full[st], c * CHUNK,
+                      j * BKV, h, b);
       }
     }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows 64*wg .. 64*wg+63 -------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2;
+    const int w = warp & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t qa = smem_u32(q_s) + wg * 64 * 128;
+    const uint32_t kb = smem_u32(k_s);
+    const uint32_t vb = smem_u32(v_s);
+    const float neg_inf = -__int_as_float(0x7f800000);
 
-    // online softmax (base 2, scale folded in); rows g and g+8 of the warp
-    float mx[2] = {m_run[0], m_run[1]};
+    // o[4i + 2r + c] = row g + 8r, column 8i + 2t + c of this warp's rows
+    float o[D / 2];
 #pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-      const int c = kv0 + ni * 8 + (lane & 3) * 2;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m_run[2] = {neg_inf, neg_inf};
+    float l_run[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j & 1;
+      const uint32_t ph = (j >> 1) & 1;
+      const uint32_t kt = kb + st * S::KV_BYTES;
+      const uint32_t vt = vb + st * S::KV_BYTES;
+
+      // S = Q Kᵀ: 64 rows x 128 keys, k over D in steps of 16
+      float s[64];
+      mbar_wait(&k_full[st], ph);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = c + (j & 1) < Lk;
-        s[ni][j] = valid ? s[ni][j] * scale_log2 : neg_inf;
-        mx[j >> 1] = fmaxf(mx[j >> 1], s[ni][j]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16_ss(
+            s, wgmma_desc_k128(qa + (kk >> 2) * S::CHUNK_Q) + 2 * (kk & 3),
+            wgmma_desc_k128(kt + (kk >> 2) * S::CHUNK_KV) + 2 * (kk & 3),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(s[i]);
+
+      // online softmax (base 2, scale folded in); rows g and g+8
+      const int kv0 = j * BKV;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+      if (kv0 + BKV > Lk) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= Lk) s[i] = neg_inf;
       }
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+        l_run[r] *= corr[r];
+      }
+      // P as bf16 A fragments: keys 16kk .. 16kk+15 are S columns blocks
+      // 2kk and 2kk+1, i.e. s[8kk .. 8kk+7]
+      uint32_t pf[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          p[e] = exp2f(s[8 * kk + e] - mx[(e >> 1) & 1]);
+        l_run[0] += (p[0] + p[1]) + (p[4] + p[5]);
+        l_run[1] += (p[2] + p[3]) + (p[6] + p[7]);
+        pf[kk][0] = pack_bf16x2(p[0], p[1]);
+        pf[kk][1] = pack_bf16x2(p[2], p[3]);
+        pf[kk][2] = pack_bf16x2(p[4], p[5]);
+        pf[kk][3] = pack_bf16x2(p[6], p[7]);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: 16 keys a step; V's d chunks lie CHUNK_KV apart
+      mbar_wait(&v_full[st], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_pv<D>(o, pf[kk],
+                    wgmma_desc_mn128(vt + kk * 16 * 128, S::CHUNK_KV));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(pf[kk][e]);
+      mbar_arrive(&empty[st]);
     }
-    float corr[2];
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= corr[r];
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
-    uint32_t pf[BKV / 16][4];
-#pragma unroll
-    for (int ni = 0; ni < BKV / 8; ++ni) {
-      const float p0 = exp2f(s[ni][0] - mx[0]);
-      const float p1 = exp2f(s[ni][1] - mx[0]);
-      const float p2 = exp2f(s[ni][2] - mx[1]);
-      const float p3 = exp2f(s[ni][3] - mx[1]);
-      l_run[0] += p0 + p1;
-      l_run[1] += p2 + p3;
-      __nv_bfloat162 lo = __floats2bfloat162_rn(p0, p1);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(p2, p3);
-      // S tile ni is half of the k16 A fragment (ni / 2) of P·V
-      pf[ni >> 1][(ni & 1) * 2] = *reinterpret_cast<uint32_t*>(&lo);
-      pf[ni >> 1][(ni & 1) * 2 + 1] = *reinterpret_cast<uint32_t*>(&hi);
-    }
+    const float inv0 = 1.0f / l_run[0];
+    const float inv1 = 1.0f / l_run[1];
+    const int row0 = q0 + wg * 64 + w * 16 + g;
+    __nv_bfloat16* op = out + b * ob + h * oh;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bf[4];
-        const int kr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(bf, &vt[kr * ST + nd * 16 + (lane >> 4) * 8]);
-        mma_bf16_16816(o[2 * nd], pf[kk], bf[0], bf[1]);
-        mma_bf16_16816(o[2 * nd + 1], pf[kk], bf[2], bf[3]);
+      const int c = i * 8 + 2 * t;
+      if (row0 < Lq) {
+        *reinterpret_cast<__nv_bfloat162*>(op + row0 * ol + c) =
+            __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      }
+      if (row0 + 8 < Lq) {
+        *reinterpret_cast<__nv_bfloat162*>(op + (row0 + 8) * ol + c) =
+            __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
       }
     }
-    __syncthreads();  // tile t consumed before its buffer is refilled
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  const float inv0 = 1.0f / l_run[0];
-  const float inv1 = 1.0f / l_run[1];
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  __nv_bfloat16* op = out + b * ob + h * oh;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int c = i * 8 + (lane & 3) * 2;
-    if (row0 < Lq) {
-      *reinterpret_cast<__nv_bfloat162*>(op + row0 * ol + c) =
-          __floats2bfloat162_rn(o[i][0] * inv0, o[i][1] * inv0);
-    }
-    if (row0 + 8 < Lq) {
-      *reinterpret_cast<__nv_bfloat162*>(op + (row0 + 8) * ol + c) =
-          __floats2bfloat162_rn(o[i][2] * inv1, o[i][3] * inv1);
-    }
-  }
+// 4-D tensor map of a (B, H, L, D) bf16 view with element strides (sb, sh,
+// sl) and unit stride along D; box: one 64-value d chunk of `rows` rows.
+// A dimension of extent 1 is never stepped, so it takes the stride D.
+template <int D>
+bool make_bhld_map(CUtensorMap* map, const void* base, int B, int H, int L,
+                   const long long* st, int rows) {
+  const long long sb = B > 1 ? st[0] : D;
+  const long long sh = H > 1 ? st[1] : D;
+  const long long sl = L > 1 ? st[2] : D;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {CHUNK, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int Lq, int Lk, const long long* st,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = 4 * BKV * (D + 8) * 2;
+  using S = FShape<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::SMEM);
   if (attr != cudaSuccess) return attr;
+  CUtensorMap tm_q, tm_k, tm_v;
+  bool ok = make_bhld_map<D>(&tm_q, q, B, H, Lq, st, BQ);
+  ok = ok && make_bhld_map<D>(&tm_k, k, B, H, Lk, st + 3, BKV);
+  ok = ok && make_bhld_map<D>(&tm_v, v, B, H, Lk, st + 6, BKV);
+  if (!ok) return cudaErrorInvalidValue;
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      H, Lq, Lk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+  flash_fwd_kernel<D><<<grid, THREADS, S::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Lq, Lk, st[9],
+      st[10], st[11], scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Dynamic shared memory of a launch at head dim D (0 for another D).
+extern "C" int flash_attn_smem_bytes(int D) {
+  return D == 128 ? FShape<128>::SMEM : D == 64 ? FShape<64>::SMEM : 0;
+}
+
 // Plain C entry (bound with ctypes). q/k/v/out are (B, H, L, D) views with
 // unit stride along D; strides[12] = (b, h, l) element strides of q, k, v
 // and out. The wrapper checks D in {64, 128}, Lk >= 1, 16-byte alignment of
-// every row. Returns cudaGetLastError().
+// every row (TMA's rule for the base and the strides). Returns
+// cudaGetLastError().
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int H, int Lq, int Lk,
                                  int D, const long long* strides, float scale,

@@ -5,208 +5,284 @@
 // by pallas_i8mm_indexed; the stacked case is this kernel launched on block
 // i's view).
 //
-//   acc[m, r] = sum_k xq[m, k] * wq[k, r]              (exact, s32)
+//   acc[m, r] = sum_k xq[m, k] * wq[r, k]              (exact, s32)
 //   out[m, r] = epi( float(acc) * xs[m] * ws[r] )
 //
 // What bounds it: int8 tensor-core operations at the flux token shapes
-// (M = 4096..4608, K = 3072..15360). Design: each 256-thread block owns a
-// 128x128 output tile and walks K in steps of 64 bytes through a 4-stage
-// cp.async pipeline (three steps of x and raw weight tiles in flight while
-// one computes). mma.sync m16n8k32 wants four consecutive k of one column
-// per register, but the weights are K-major, so each step transposes its
-// raw tile 4x4 bytes at a time with __byte_perm into an n-major tile. That
-// tile has unpadded 64-byte rows whose 16-byte chunks are XOR-swizzled, so
-// both the transposed stores and the ldmatrix reads spread over the
-// shared-memory banks. The f32 rescale and the shared epilogue (bias,
-// GELU-tanh from a column) run on the accumulator before one bf16 store.
+// (M = 512..4608, K = 3072..15360). Design: a persistent warp-specialised
+// wgmma GEMM. One block a SM walks output tiles of 128 tokens x BN
+// out-features (BN = 256, or 128 where that leaves a shorter last wave;
+// ops/qmatmul.py i8mm_plan). A producer warp keeps a ring of shared tiles
+// (3 stages at BN = 256, 4 at 128) full with TMA loads (128 bytes of k a
+// stage: x (128, 128) and w (BN, 128), both K-major with the 128-byte
+// swizzle, completing on mbarriers); two consumer warpgroups of 64 tokens each run
+// wgmma m64nBNk32 s8 on them with both operands read from shared memory,
+// so no byte passes through registers before the tensor cores. The weight
+// is stored out-feature-major (quant/i8.py), the K-major form that s8
+// wgmma takes. Ragged M and K < Kp are zero-filled by TMA (x's tensor map
+// has the extents (M, K)). The f32 rescale in the plain version's order and
+// the shared epilogue (bias, GELU-tanh from a column) run on the
+// accumulator; each warpgroup writes its bf16 rows into a swizzled tile of
+// shared memory, and one TMA store (clipped at M and R) takes them to
+// global memory while the warpgroup goes on to the next tile's products.
+// The tile's column scales, bias and row scales reach shared memory while
+// its first products run. Left to global stores of the registers and to
+// loads of the scales at the end of the tile, the epilogue took as long as
+// the matrix work.
 #include "common.cuh"
+#include "tma.cuh"
 
 using namespace gguf_cuda;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;  // k bytes per step
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;
-constexpr int XS = BK + 16;   // x tile row stride (bytes), padded
-constexpr int RS = BN + 16;   // raw weight tile row stride (bytes), padded
-constexpr int X_BYTES = BM * XS;
-constexpr int R_BYTES = BK * RS;
-constexpr int SMEM_BYTES = STAGES * (X_BYTES + R_BYTES) + BN * BK;
+constexpr int BM = 128;      // tokens per tile (2 consumer warpgroups x 64)
+constexpr int BK = 128;      // bytes of k per stage (one swizzle row)
+constexpr int THREADS = 384; // 2 consumer warpgroups + the producer's
+constexpr int X_TILE = BM * BK;
 
-// 16-byte chunk of row n of the n-major tile that holds logical chunk c
-__device__ __forceinline__ int swz(int n, int c) {
-  return c ^ (((n >> 1) ^ (n >> 3)) & 3);
+template <int BN>
+struct Shape {
+  static constexpr int STAGES = BN == 256 ? 3 : 4;
+  static constexpr int STAGE = X_TILE + BN * BK;
+  // one warpgroup's 64 output rows, bf16, as BN / 64 column blocks of
+  // (64 rows, 128 bytes) with the 128-byte swizzle
+  static constexpr int OUT_WG = 64 * BN * 2;
+  // one warpgroup's epilogue operands: ws and bias of the tile's BN
+  // columns, xs of its 64 rows (f32)
+  static constexpr int EPI_WG = (2 * BN + 64) * 4;
+  static constexpr int SMEM =
+      1024 + STAGES * STAGE + 2 * (OUT_WG + EPI_WG) + 128;
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 256) {
+    wgmma_m64n256k32_s8(d, da, db);
+  } else {
+    wgmma_m64n128k32_s8(d, da, db);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-i8mm_kernel(const int8_t* __restrict__ xq,  // (M, K)
-            const float* __restrict__ xs,   // (M)
-            const int8_t* __restrict__ wq,  // (Kp, Rp)
-            const float* __restrict__ ws,   // (Rp)
-            const float* __restrict__ bias, // (R) | null
-            __nv_bfloat16* __restrict__ out,  // (M, R)
-            int M, int K, int Kp, int R, int Rp, int act_from) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* x_s = smem;                             // STAGES x (BM, XS)
-  int8_t* r_s = smem + STAGES * X_BYTES;          // STAGES x (BK, RS)
-  int8_t* w_s = r_s + STAGES * R_BYTES;           // (BN, BK) swizzled
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+i8mm_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) s8
+            const __grid_constant__ CUtensorMap tm_w,  // (Rp, Kp) s8
+            const __grid_constant__ CUtensorMap tm_o,  // (M, R) bf16
+            const float* __restrict__ xs,              // (M)
+            const float* __restrict__ ws,              // (Rp)
+            const float* __restrict__ bias,            // (R) | null
+            int M, int R, int n_steps, int act_from, int m_tiles,
+            int n_tiles) {
+  using S = Shape<BN>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* out_s = smem + STAGES * S::STAGE;
+  float* epi_s = reinterpret_cast<float*>(out_s + 2 * S::OUT_WG);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(epi_s) + 2 * S::EPI_WG);
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int warp_m = warp >> 2;  // 2 x 64 rows
-  const int warp_n = warp & 3;   // 4 x 32 columns
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int n_steps = Kp / BK;
+  const int lane = tid & 31;
 
-  auto issue = [&](int step) {
-    if (step < n_steps) {
-      const int st = step % STAGES;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int v = tid + i * THREADS;
-        const int row = v >> 2;
-        const int c = (v & 3) * 16;
-        const int k = step * BK + c;
-        const int m = m0 + row;
-        const bool ok = m < M && k + 16 <= K;
-        cp_async_16(x_s + st * X_BYTES + row * XS + c,
-                    ok ? xq + static_cast<size_t>(m) * K + k : xq,
-                    ok ? 16 : 0);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int v = tid + i * THREADS;
-        const int row = v >> 3;
-        const int c = (v & 7) * 16;
-        cp_async_16(r_s + st * R_BYTES + row * RS + c,
-                    wq + static_cast<size_t>(step * BK + row) * Rp + n0 + c,
-                    16);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
-    cp_async_commit();
-  };
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  // raw (k, n) tile -> n-major swizzled tile: each thread transposes two
-  // 4x4 byte blocks (k-quads kq0+j*4, n-quad nq)
-  const int nq = (warp & 3) * 8 + (lane >> 2);
-  const int kq0 = (warp >> 2) * 8 + (lane & 3);
-  auto transpose = [&](int st) {
-    const int8_t* raw = r_s + st * R_BYTES;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kq = kq0 + j * 4;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[i] = *reinterpret_cast<const uint32_t*>(
-            raw + (kq * 4 + i) * RS + nq * 4);
-      }
-      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-      const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410),
-                               __byte_perm(t0, t2, 0x7632),
-                               __byte_perm(t1, t3, 0x5410),
-                               __byte_perm(t1, t3, 0x7632)};
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int n = nq * 4 + b;
-        // k bytes kq*4..+3 = word (kq & 3) of logical chunk kq >> 2
-        *reinterpret_cast<uint32_t*>(
-            w_s + n * BK + swz(n, kq >> 2) * 16 + (kq & 3) * 4) = col[b];
-      }
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage `step` landed; compute(step-1) finished
-    const int st = step % STAGES;
-    transpose(st);
-    issue(step + STAGES - 1);  // into the stage compute(step-1) released
-    __syncthreads();  // n-major tile complete
-    const int8_t* xt = x_s + st * X_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int row = warp_m * 64 + mi * 16 + (lane & 15);
-        ldmatrix_x4(af[mi], xt + row * XS + ks * 32 + (lane >> 4) * 16);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t bf[4];
-        const int n = warp_n * 32 + nj * 16 + (lane >> 4) * 8 + (lane & 7);
-        const int c = ks * 2 + ((lane >> 3) & 1);
-        ldmatrix_x4(bf, w_s + n * BK + swz(n, c) * 16);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_s8_16832(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_s8_16832(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+  if (warp >= 8) {
+    // ---- producer warpgroup: one lane keeps the ring full ----------------
+    // The block starts at 168 registers a thread (65536 / 384); the three
+    // idle warps are part of that pool, so the consumers' request below
+    // can complete (40 * 128 + 232 * 256 = 168 * 384).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < m_tiles * n_tiles;
+           tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * BM;
+        const int r0 = (tile / m_tiles) * BN;
+        for (int ks = 0; ks < n_steps; ++ks) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = smem + stage * S::STAGE;
+          mbar_arrive_expect_tx(&full[stage], S::STAGE);
+          tma_load_2d(st, &tm_x, &full[stage], ks * BK, m0);
+          tma_load_2d(st + X_TILE, &tm_w, &full[stage], ks * BK, r0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-  }
+  } else {
+    // ---- consumers: warpgroup wg owns tokens 64*wg .. 64*wg+63 -----------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2;
+    const int w = warp & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint32_t smem_base = smem_u32(smem);
+    uint8_t* ot = out_s + wg * S::OUT_WG;
+    float* ep = epi_s + wg * (S::EPI_WG / 4);  // ws [BN], bias [BN], xs [64]
+    const int wtid = tid & 127;
+    const bool leader = wtid == 0;  // issues the warpgroup's stores
 
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < m_tiles * n_tiles;
+         tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * BM;
+      const int r0 = (tile / m_tiles) * BN;
+      int acc[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int m = m0 + warp_m * 64 + mi * 16 + (lane >> 2);
-    const float xs0 = m < M ? xs[m] : 0.0f;
-    const float xs1 = m + 8 < M ? xs[m + 8] : 0.0f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      int release = -1;  // stage whose wgmma may still be in flight
+
+      for (int ks = 0; ks < n_steps; ++ks) {
+        mbar_wait(&full[stage], phase);
+        // uniform across the warp, so the descriptors stay uniform
+        const uint32_t st = __shfl_sync(
+            0xFFFFFFFFu, smem_base + stage * S::STAGE, 0);
+        const uint64_t da = wgmma_desc_k128(st + wg * 64 * BK);
+        const uint64_t db = wgmma_desc_k128(st + X_TILE);
+        wgmma_fence();
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + warp_n * 32 + ni * 8 + (lane & 3) * 2;
-      const float ws0 = ws[n];
-      const float ws1 = ws[n + 1];
-      const int* a = acc[mi][ni];
-      // (acc * xs) * ws, rounded at each step as the plain version does
-      auto rs = [](int v, float s, float w) {
-        return __fmul_rn(__fmul_rn(__int2float_rn(v), s), w);
+        for (int kk = 0; kk < BK / 32; ++kk)
+          wgmma_s8<BN>(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        if (ks == 0) {
+          // the epilogue's operands, while the first products run (the
+          // last tile's epilogue has read them: it ended at a barrier)
+          for (int i = wtid; i < BN; i += 128) {
+            const int n = r0 + i;
+            ep[i] = n < R ? ws[n] : 0.0f;
+            ep[BN + i] = bias != nullptr && n < R ? bias[n] : 0.0f;
+          }
+          if (wtid < 64) {
+            const int m = m0 + wg * 64 + wtid;
+            ep[2 * BN + wtid] = m < M ? xs[m] : 0.0f;
+          }
+        }
+        // the group of the step before has retired: its stage is free
+        wgmma_wait<1>();
+        if (release >= 0) mbar_arrive(&empty[release]);
+        release = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+      mbar_arrive(&empty[release]);
+
+      // acc[4i + 2h + c] = out[m + 8h][r0 + 8i + 2t + c]; rows m, m + 8
+      // are rows r, r + 8 of the warpgroup's output tile
+      const int r = w * 16 + g;
+      // (acc * xs) * ws, rounded at each step as the plain version does,
+      // then + bias and GELU from column act_from; columns past R are
+      // clipped by the store
+      auto value = [&](int v, float s, int c) {
+        float y = __fmul_rn(__fmul_rn(__int2float_rn(v), s), ep[c]);
+        if (bias != nullptr) y = __fadd_rn(y, ep[BN + c]);
+        return act_from >= 0 && r0 + c >= act_from ? gelu_tanh(y) : y;
       };
-      epilogue_store2(out, bias, act_from, M, R, m, n, rs(a[0], xs0, ws0),
-                      rs(a[1], xs0, ws1));
-      epilogue_store2(out, bias, act_from, M, R, m + 8, n,
-                      rs(a[2], xs1, ws0), rs(a[3], xs1, ws1));
+      if (leader) bulk_wait_read<0>();  // the last tile's rows have left ot
+      named_bar_sync(1 + wg, 128);      // ... and ep is written
+      const float xs0 = ep[2 * BN + r];
+      const float xs1 = ep[2 * BN + r + 8];
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int n = 8 * i + 2 * t;  // the tile's column
+        // 16-byte unit i % 8 of row r in column block i / 8, swizzled by
+        // r % 8 (the same for row r + 8)
+        uint8_t* p = ot + (i >> 3) * (64 * 128) + r * 128 +
+                     (((i & 7) ^ (r & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(p) =
+            pack_bf16x2(value(acc[4 * i], xs0, n),
+                        value(acc[4 * i + 1], xs0, n + 1));
+        *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+            pack_bf16x2(value(acc[4 * i + 2], xs1, n),
+                        value(acc[4 * i + 3], xs1, n + 1));
+      }
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      if (leader) {
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_store_2d(&tm_o, ot + c * (64 * 128), r0 + 64 * c,
+                       m0 + 64 * wg);
+        bulk_commit();
+      }
     }
+    if (leader) bulk_wait<0>();  // the stores have read shared memory
   }
+}
+
+template <int BN>
+cudaError_t launch(const void* xq, const void* xs, const void* wq,
+                   const void* ws, const void* bias, void* out, int M, int K,
+                   int Kp, int R, int Rp, int ldo, int act_from,
+                   cudaStream_t stream) {
+  using S = Shape<BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      i8mm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tm_x, tm_w, tm_o;
+  bool ok = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, BM,
+                     BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  ok = ok && make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, Rp, Kp,
+                      BN, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  // (M, R) rows ldo apart: the extents are (M, ldo), where the columns
+  // past R are the rows' own padding
+  ok = ok && make_map(&tm_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, M,
+                      ldo, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok) return cudaErrorInvalidValue;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int n_tiles = (R + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  i8mm_kernel<BN><<<grid, THREADS, S::SMEM, stream>>>(
+      tm_x, tm_w, tm_o, static_cast<const float*>(xs),
+      static_cast<const float*>(ws), static_cast<const float*>(bias), M, R,
+      (K + BK - 1) / BK, act_from, m_tiles, n_tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Dynamic shared memory of a launch at tile width bn (0 for another bn).
+extern "C" int i8mm_smem_bytes(int bn) {
+  return bn == 256 ? Shape<256>::SMEM : bn == 128 ? Shape<128>::SMEM : 0;
+}
+
 // Plain C entry (bound with ctypes). Shapes are checked by the Python
-// wrapper: Kp % 64 == 0, Rp % 128 == 0, R <= Rp, K <= Kp, K % 16 == 0, all
-// pointers 16-byte aligned. Returns cudaGetLastError().
+// wrapper: wq (Rp, Kp) with Kp % 128 == 0, Rp % 128 == 0, R <= Rp, K <= Kp,
+// K % 16 == 0 and the output's row stride ldo >= R a multiple of 8 (TMA's
+// 16-byte row strides), bn 128 or 256, every pointer 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int i8mm_launch(const void* xq, const void* xs, const void* wq,
                            const void* ws, const void* bias, void* out, int M,
-                           int K, int Kp, int R, int Rp, int act_from,
-                           void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      i8mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((R + BN - 1) / BN, (M + BM - 1) / BM);
-  i8mm_kernel<<<grid, THREADS, SMEM_BYTES,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(wq), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, K,
-      Kp, R, Rp, act_from);
-  return static_cast<int>(cudaGetLastError());
+                           int K, int Kp, int R, int Rp, int ldo,
+                           int act_from, int bn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 256)
+    return static_cast<int>(launch<256>(xq, xs, wq, ws, bias, out, M, K, Kp,
+                                        R, Rp, ldo, act_from, s));
+  if (bn == 128)
+    return static_cast<int>(launch<128>(xq, xs, wq, ws, bias, out, M, K, Kp,
+                                        R, Rp, ldo, act_from, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

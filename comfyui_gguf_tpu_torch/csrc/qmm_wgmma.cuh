@@ -3,9 +3,8 @@
 // (qmm_int8.cu) compile side by side.
 #pragma once
 
-#include <cuda.h>
-
 #include "qmm_common.cuh"
+#include "tma.cuh"
 
 namespace gguf_cuda {
 namespace {
@@ -268,58 +267,6 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
     }
   }
 }
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so nothing links libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Row-major 2-D tensor (rows, cols) of `esize`-byte elements, box (box_rows,
-// box_cols); out-of-bounds elements of a box are filled with zeros.
-bool make_map(CUtensorMap* map, CUtensorMapDataType dt, int esize,
-              const void* base, uint64_t rows, uint64_t cols,
-              uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle sw) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * esize};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, dt, 2, const_cast<void*>(base), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
-  }();
-  return n;
-}
-
 
 template <bool NIB4, bool HAS_OFF, int NT>
 cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,

@@ -19,7 +19,8 @@ the flux trees, a T5 tree with Q8_0 planar linears, dense CLIP and VAE
 state dicts.
 
 The planar byte layout is the same in both packages, so the carry is a
-copy. bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+copy; the int8 codes are the same values, stored transposed in the port
+((Rp, Kp), out-feature-major), so they are transposed once. bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) travel as their 16-bit patterns.
 """
 
@@ -59,7 +60,8 @@ def _leaf(v, device):
             group_size=int(v.group_size), zero_point=int(v.zero_point),
             shape=tuple(int(d) for d in v.shape))
     if all(hasattr(v, f) for f in _I8_FIELDS):
-        return I8Planar(qs=tensor_from_numpy(v.qs, device),
+        return I8Planar(qs=tensor_from_numpy(np.swapaxes(v.qs, -1, -2),
+                                             device),
                         scales=tensor_from_numpy(v.scales, device),
                         qtype=int(v.qtype),
                         shape=tuple(int(d) for d in v.shape))

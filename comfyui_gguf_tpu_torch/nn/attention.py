@@ -77,10 +77,12 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 def _row_aligned(t: torch.Tensor) -> torch.Tensor:
-    """A view whose rows start on 16 bytes (D contiguous); a copy only
-    where the given view is not."""
+    """A view whose rows start on 16 bytes (D contiguous) and whose other
+    strides are non-zero (the kernel's tensor maps step by them); a copy
+    only where the given view is not."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in t.stride()[:-1]))
+          and all(s % 8 == 0 and (s > 0 or n == 1)
+                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
     return t if ok else t.contiguous()
 
 

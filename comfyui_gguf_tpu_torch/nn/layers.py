@@ -154,7 +154,7 @@ def embedding(ids: torch.Tensor, table, *,
     _no_lora(table)
     ids = ids.to(torch.long)
     if isinstance(table, I8Planar):
-        sub = I8Planar(qs=table.qs[:, ids.reshape(-1)],
+        sub = I8Planar(qs=table.qs[ids.reshape(-1)],
                        scales=table.scales[..., ids.reshape(-1)],
                        qtype=table.qtype,
                        shape=(ids.numel(), table.shape[1]))

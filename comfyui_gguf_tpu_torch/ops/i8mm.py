@@ -6,7 +6,8 @@ accumulator, and one f32 rescale ``acc·xs[m]·ws[r]`` precedes the shared
 epilogue (bias, then GELU-tanh from a column).
 
 * ``i8mm_cuda`` — wrapper of the hand-written CUDA kernel ``csrc/i8mm.cu``
-  (K4; on a depth-stacked weight it runs on block i's view, which is what
+  (K4, a TMA + ``wgmma`` GEMM whose tile width ``ops.qmatmul.i8mm_plan``
+  picks; on a depth-stacked weight it runs on block i's view, which is what
   the reference's ``pallas_i8mm_indexed`` (K5) did by scalar prefetch).
 * ``plain_i8mm`` — the plain PyTorch version (the reference's
   ``xla_i8mm``), on IDENTICAL integer operands.
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..quant.i8 import I8Planar, quantize_rows
-from .qmatmul import _aligned
+from .qmatmul import I8MM_WIDTHS, _aligned, i8mm_plan
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +51,7 @@ def plain_i8mm(x: torch.Tensor, ip: I8Planar, *, out_dtype=None, bias=None,
     if kp != K:
         x2 = F.pad(x2, (0, kp - K))
     xq, xs = quantize_rows(x2)
-    acc = torch.matmul(xq.to(torch.float64), ip.qs.to(torch.float64))
+    acc = torch.matmul(xq.to(torch.float64), ip.qs.to(torch.float64).t())
     accf = acc.to(torch.float32) * xs * ip.scales.to(torch.float32)
     accf = accf[:, :R]
     if lora_h is not None:
@@ -84,20 +85,26 @@ def i8mm_cuda(x: torch.Tensor, ip: I8Planar, *, bias=None,
 
 
 def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
-                bias=None, act_from_col: int | None = None) -> torch.Tensor:
+                bias=None, act_from_col: int | None = None,
+                bn: int | None = None) -> torch.Tensor:
     """The K4 launch on already-quantized rows: xq (M, K) int8, xs (M, 1)
-    float32 -> (M, R) bf16."""
+    float32 -> (M, R) bf16. ``bn`` (128 or 256) overrides the tile width
+    that ``i8mm_plan`` picks. The kernel stores its rows by TMA, whose row
+    strides are multiples of 16 bytes: where R is not a multiple of 8 the
+    result is a view of rows padded to one."""
     R, K = ip.shape
     dev = xq.device
     if ip.qs.dim() != 2:
         raise ValueError(f"i8mm takes a 2-D weight, got qs "
                          f"{tuple(ip.qs.shape)} (index a stacked weight)")
-    kp, rp = ip.qs.shape
+    rp, kp = ip.qs.shape
     if ip.qs.dtype != torch.int8 or ip.scales.dtype != torch.float32:
         raise TypeError(f"i8 dtypes {ip.qs.dtype}/{ip.scales.dtype}")
-    if kp % 64 or rp % 128 or R > rp or K > kp or K % 16:
+    if kp % 128 or rp % 128 or R > rp or K > kp or K % 16:
         raise ValueError(f"untileable int8 weight: shape {ip.shape}, "
-                         f"padded ({kp}, {rp})")
+                         f"padded ({rp}, {kp})")
+    if bn is not None and bn not in I8MM_WIDTHS:
+        raise ValueError(f"tile width {bn} not in {I8MM_WIDTHS}")
     for t in (ip.qs, ip.scales):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("int8 weight tensors must be contiguous, "
@@ -107,7 +114,8 @@ def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
                          f"(M, {K})")
     xq, xs = _aligned(xq), _aligned(xs.to(torch.float32))
     m = xq.shape[0]
-    out = torch.empty((m, R), dtype=torch.bfloat16, device=dev)
+    ldo = -(-R // 8) * 8
+    out = torch.empty((m, ldo), dtype=torch.bfloat16, device=dev)
     if m:
         b = None
         if bias is not None:
@@ -117,12 +125,13 @@ def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
         rc = _build.lib().i8mm_launch(
             xq.data_ptr(), xs.data_ptr(), ip.qs.data_ptr(),
             ip.scales.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), m, K, kp, R, rp,
+            out.data_ptr(), m, K, kp, R, rp, ldo,
             -1 if act_from_col is None else int(act_from_col),
+            bn or i8mm_plan(m, R)[0],
             ctypes.c_void_p(_build.stream_handle(dev)))
         _build.check(rc, "i8mm_launch")
         _build.count("i8mm")
-    return out
+    return out[:, :R]
 
 
 def i8_matmul(x: torch.Tensor, ip: I8Planar, *, out_dtype=None, bias=None,

@@ -148,6 +148,38 @@ def wgmma_plan(m: int, r: int) -> tuple[int, int, int, int]:
     return nt, m_tiles, r_tiles, min(m_tiles * r_tiles, N_SM)
 
 
+I8MM_TILE_M = 128  # tokens per K4 tile (2 consumer warpgroups x 64)
+I8MM_WIDTHS = (256, 128)  # out-features per K4 tile
+# time of a 128-wide K4 tile relative to half a 256-wide one: 1.09-1.13 at
+# equal waves on the H100 (tools_i8mm_flash_cuda.py times both widths),
+# rounded up for the x tiles a narrow tile reads twice as often (at K =
+# 15360 x outgrows the L2, and the narrow tile lost about 9% where waves
+# alone favoured it)
+_NARROW_COST = 1.2
+
+
+def i8mm_plan(m: int, r: int) -> tuple[int, int, int, int]:
+    """(out-feature tile width, token tiles, out-feature tiles, persistent
+    blocks) of the w8a8 kernel's launch (K4, ``csrc/i8mm.cu``).
+
+    An output tile is 128 tokens by 256 or 128 out-features; one block a SM
+    walks the tiles. A 256-wide tile reads each x tile once for twice the
+    out-features, a 128-wide one leaves a shorter last wave where tiles are
+    few (flux's 512-token text stream: 144 tiles at 256 wide, 1.09 waves).
+    The choice is the smaller modelled time, waves x the time of one tile
+    (2 for 256 wide, ``_NARROW_COST`` for 128), with ties to 256.
+    """
+    m_tiles = -(-m // I8MM_TILE_M)
+
+    def cost(bn):
+        tiles = m_tiles * -(-r // bn)
+        return -(-tiles // N_SM) * (2 if bn == 256 else _NARROW_COST)
+
+    bn = 128 if cost(128) < cost(256) else 256
+    n_tiles = -(-r // bn)
+    return bn, m_tiles, n_tiles, min(m_tiles * n_tiles, N_SM)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned (a copy only where it is not)."""
     t = t.contiguous()

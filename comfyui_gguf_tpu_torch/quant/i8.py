@@ -3,7 +3,11 @@
 Port of ``comfyui_gguf_tpu/quant/i8.py``. Already-loaded planar weights are
 converted once into
 
-    w[k, r] ~= ws[r] * wq[k, r]        wq int8, ws float32 per OUT column
+    w[k, r] ~= ws[r] * wq[r, k]        wq int8, ws float32 per OUT column
+
+The codes and scales are the reference's, bit for bit; only the storage is
+transposed: ``wq`` is out-feature-major (K contiguous), the layout that
+Hopper's s8 ``wgmma`` and cuBLASLt's int8 path both read directly.
 
 and activations are quantized per token row at matmul time
 (x[m, :] ~= xs[m] * xq[m, :]), so the contraction runs in s8 with an exact
@@ -35,10 +39,10 @@ _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 @dataclasses.dataclass(frozen=True)
 class I8Planar:
-    """Per-column-int8 K-major weight for the w8a8 path.
+    """Per-column-int8 out-feature-major weight for the w8a8 path.
 
     Fields may carry a leading depth axis (a depth-stacked group):
-      qs: (Kp, Rp) int8 or (depth, Kp, Rp)
+      qs: (Rp, Kp) int8 or (depth, Rp, Kp) — K contiguous
       scales: (1, Rp) float32 or (depth, 1, Rp) — per out-column
     ``shape`` is the LOGICAL torch-order (out=R, in=K); Kp/Rp keep the
     source PlanarQuant's padding (pad rows/columns requantize to 0).
@@ -60,11 +64,11 @@ class I8Planar:
 
     @property
     def padded_out(self) -> int:
-        return self.qs.shape[-1]
+        return self.qs.shape[-2]
 
     @property
     def padded_in(self) -> int:
-        return self.qs.shape[-2]
+        return self.qs.shape[-1]
 
     @property
     def nbytes_packed(self) -> int:
@@ -77,43 +81,45 @@ class I8Planar:
                                    scales=self.scales[i])
 
 
-def _req_slice(p: PlanarQuant):
-    """One 2-D planar weight -> (wq int8 (Kp, Rp), ws float32 (1, Rp))."""
-    w = dequantize_padded(p)
+def _req_slice(p: PlanarQuant, wq_out: torch.Tensor) -> torch.Tensor:
+    """One 2-D planar weight: writes its int8 codes, transposed, into
+    ``wq_out`` (Rp, Kp) and returns the scales (1, Rp) float32."""
+    w = dequantize_padded(p)  # (Kp, Rp)
     ws = torch.clamp(w.abs().amax(dim=0, keepdim=True),
                      min=_SCALE_FLOOR) * _INV127.to(w.device)
-    wq = torch.round(w / ws).to(torch.int8)
-    return wq, ws
+    wq_out.copy_(torch.round(w / ws).t())
+    return ws
 
 
 def requantize_i8(pq: PlanarQuant) -> I8Planar:
     """PlanarQuant -> I8Planar (2-D or depth-stacked).
 
-    A stacked weight converts one depth slice at a time into preallocated
-    int8 storage, so the dense float32 transient is one block's worth.
+    Each depth slice converts into preallocated int8 storage, so the dense
+    float32 transient is one block's worth.
     """
-    if pq.qs.dim() == 2:
-        wq, ws = _req_slice(pq)
-        return I8Planar(qs=wq, scales=ws, qtype=pq.qtype, shape=pq.shape)
-    depth = pq.qs.shape[0]
     kp, rp = pq.padded_in, pq.padded_out
+    lead = pq.qs.shape[:-2]
     dev = pq.qs.device
-    wq = torch.empty((depth, kp, rp), dtype=torch.int8, device=dev)
-    ws = torch.empty((depth, 1, rp), dtype=torch.float32, device=dev)
-    for i in range(depth):
-        wq[i], ws[i] = _req_slice(pq[i])
+    wq = torch.empty((*lead, rp, kp), dtype=torch.int8, device=dev)
+    if not lead:
+        ws = _req_slice(pq, wq)
+    else:
+        ws = torch.empty((*lead, 1, rp), dtype=torch.float32, device=dev)
+        for i in range(lead[0]):
+            ws[i] = _req_slice(pq[i], wq[i])
     return I8Planar(qs=wq, scales=ws, qtype=pq.qtype, shape=pq.shape)
-
-
-def dequantize_kmajor_i8(ip: I8Planar, dtype=torch.float32) -> torch.Tensor:
-    """Dense (K, R) logical-domain weight."""
-    w = ip.qs.to(torch.float32) * ip.scales.to(torch.float32)
-    return w[..., : ip.in_features, : ip.out_features].to(dtype)
 
 
 def dequantize_i8(ip: I8Planar, dtype=torch.float32) -> torch.Tensor:
     """Dense logical torch-order (out=R, in=K) weight."""
-    return dequantize_kmajor_i8(ip, dtype).transpose(-1, -2)
+    w = ip.qs.to(torch.float32) * ip.scales.to(torch.float32).transpose(-1,
+                                                                         -2)
+    return w[..., : ip.out_features, : ip.in_features].to(dtype)
+
+
+def dequantize_kmajor_i8(ip: I8Planar, dtype=torch.float32) -> torch.Tensor:
+    """Dense (K, R) logical-domain weight."""
+    return dequantize_i8(ip, dtype).transpose(-1, -2)
 
 
 def quantize_rows(x2: torch.Tensor):

@@ -5,7 +5,9 @@ int8 flash attention, K7 flash attention, K8 GEMM probes) runs on the card besid
 inputs, at small shapes that cover the ragged edges: M=1, M not a multiple
 of the tile, K padded, R not a multiple of 128, the GELU tail, odd key
 lengths, Lq != Lk and strided views. K1/K2 run through both of their
-bodies (split-K for M <= 8, wgmma above) over every format of each layout. Whether a card exists is decided inside
+bodies (split-K for M <= 8, wgmma above) over every format of each layout;
+K4 through both of its tile widths. One-hot rows check every tile position
+of K1/K2/K4 bit for bit. Whether a card exists is decided inside
 the ``cuda`` fixture, so every worker collects the same tests; without a
 card they skip. Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest`` (the
@@ -24,13 +26,15 @@ from comfyui_gguf_tpu_torch.ops import gemm_probe
 from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
                                                i8_attention_cuda,
                                                plain_i8_attention)
-from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda, plain_i8mm
-from comfyui_gguf_tpu_torch.ops.qmatmul import (SMALL_M_MAX,
+from comfyui_gguf_tpu_torch.ops.i8mm import (i8mm_cuda, i8mm_cuda_q,
+                                            plain_i8mm)
+from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
                                                 plain_quantized_matmul,
                                                 qmm_cuda, qmm_route,
                                                 smallm_plan)
 from comfyui_gguf_tpu_torch.quant import codecs, planar
-from comfyui_gguf_tpu_torch.quant.i8 import requantize_i8
+from comfyui_gguf_tpu_torch.quant.i8 import (I8Planar, quantize_rows,
+                                             requantize_i8)
 
 torch.set_num_threads(2)
 
@@ -197,6 +201,77 @@ def test_i8mm_kernel_matches_plain(cuda, M, R, K, bias, act):
                  <= torch.maximum(_bf16_ulp(got), _bf16_ulp(want))).all())
 
 
+def _check_i8(cuda, ip, M, bias, act, bn=None, seed=0):
+    R, K = ip.shape
+    g = torch.Generator(device=cuda).manual_seed(M * 31 + seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((R,), generator=g, device=cuda) if bias else None)
+    xq, xs = quantize_rows(x)
+    before = _build.LAUNCHES["i8mm"]
+    got = i8mm_cuda_q(xq, xs, ip, bias=b, act_from_col=act, bn=bn)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["i8mm"] == before + 1
+    want = plain_i8mm(x, ip, bias=b, act_from_col=act)
+    assert got.shape == (M, R) and got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs()
+                 <= torch.maximum(_bf16_ulp(got), _bf16_ulp(want))).all())
+
+
+@pytest.mark.parametrize("R,qtype", [(328, Q.Q4_K), (333, Q.Q8_0)],
+                         ids=str)
+@pytest.mark.parametrize("bn", I8MM_WIDTHS)
+@pytest.mark.parametrize("M", [1, 37, 129, 300])
+def test_i8mm_tile_widths_and_ragged_edges(cuda, M, bn, R, qtype):
+    # R is no multiple of 128 or 256 (333: nor of 8, so the kernel writes
+    # rows padded to 336), K < Kp (2432 pads to 2560), GELU from a column
+    # inside a tile, with and without bias
+    K = 2432
+    ip = requantize_i8(_planar(qtype, R, K, seed=M + bn, device=cuda))
+    assert ip.padded_in > K
+    for bias, act in ((True, None), (False, 0), (True, 136), (False, 300)):
+        _check_i8(cuda, ip, M, bias, act, bn)
+
+
+def test_i8mm_kernel_on_stacked_view(cuda):
+    a, b = (requantize_i8(_planar(Q.Q4_K, 384, 1024, seed=s, device=cuda))
+            for s in (1, 2))
+    st = I8Planar(qs=torch.stack([a.qs, b.qs]),
+                  scales=torch.stack([a.scales, b.scales]), qtype=a.qtype,
+                  shape=a.shape)
+    view = st[1]
+    assert (view.qs.untyped_storage().data_ptr()
+            == st.qs.untyped_storage().data_ptr())
+    x = torch.randn((200, 1024), device=cuda).to(torch.bfloat16)
+    got = i8mm_cuda(x, view, act_from_col=64)
+    want = plain_i8mm(x, b, act_from_col=64)
+    assert bool(((got.float() - want.float()).abs()
+                 <= torch.maximum(_bf16_ulp(got), _bf16_ulp(want))).all())
+
+
+@pytest.mark.parametrize("bn", I8MM_WIDTHS)
+def test_i8mm_every_tile_position(cuda, bn):
+    """Rows that are 127 at one k and 0 elsewhere quantize to xs = 1 and
+    xq = 127 there, so output (m, r) is the int8 weight at (r, k) times 127,
+    rescaled by ws[r] with one rounding: bit for bit, at every k and column
+    of the tiles (a wrong swizzle or fragment order cannot hide in a
+    sum)."""
+    R, K = 384, 1024
+    ip = requantize_i8(_planar(Q.Q6_K, R, K, seed=9, device=cuda))
+    wq = ip.qs[:R, :K].float()
+    ws = ip.scales[0, :R]
+    M = 130  # a full token tile and a ragged one of zero rows
+    rows = torch.arange(128, device=cuda)
+    for k0 in range(0, K, 128):
+        x = torch.zeros((M, K), device=cuda, dtype=torch.bfloat16)
+        x[rows, k0 + rows] = 127
+        xq, xs = quantize_rows(x)
+        assert bool((xs[:128] == 1.0).all())
+        got = i8mm_cuda_q(xq, xs, ip, bn=bn)
+        want = ((127 * wq[:, k0:k0 + 128]).t() * ws).to(torch.bfloat16)
+        assert torch.equal(got[:128], want)
+        assert not bool(got[128:].any())
+
+
 ATTN_CASES = [
     # B, H, Lq, Lk, D
     (1, 2, 128, 128, 128),
@@ -226,6 +301,44 @@ def test_flash_kernel_on_strided_views(cuda):
     got = flash_attn_cuda(q, k, v, 0.125)
     want = plain_attention(q, k, v, 0.125)
     assert _rel_l2(got, want) < 1e-2
+
+
+FLASH_EDGES = [
+    # B, H, Lq, Lk, D: ragged query and key tiles, Lk below one 128-key
+    # tile, cross attention over several key tiles, B > 1, Lk = 1, Lq = 1
+    (2, 2, 300, 300, 128),
+    (1, 3, 257, 100, 64),
+    (2, 2, 130, 513, 128),
+    (3, 1, 64, 1, 128),
+    (1, 2, 1, 200, 64),
+    (2, 4, 640, 77, 64),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", FLASH_EDGES, ids=str)
+def test_flash_kernel_edges(cuda, B, H, Lq, Lk, D):
+    g = torch.Generator(device=cuda).manual_seed(Lq * 3 + Lk + D)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    before = _build.LAUNCHES["flash_attn"]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn"] == before + 1
+    assert got.shape == (B, H, Lq, D) and bool(torch.isfinite(got).all())
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_on_qkv_views(cuda, D):
+    """q/k/v as the strided (B, L, 3, H, D) views of one fused projection,
+    at a length that is no multiple of the tiles."""
+    B, L, H = 2, 200, 3
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
 
 
 I8ATTN_CASES = [

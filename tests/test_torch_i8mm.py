@@ -3,13 +3,16 @@
 * ``quantize_rows`` gives the same int8 codes and scales (round half to
   even, the scale floor, a true division by 127);
 * ``requantize_i8`` gives the same int8 weights and per-column scales as the
-  reference's (compiled) conversion;
+  reference's (compiled) conversion, bit for bit; the port stores the codes
+  transposed, (Rp, Kp) with K contiguous, and ``interop`` carries the
+  reference's (Kp, Rp) codes into that layout;
 * the plain w8a8 matmul matches ``xla_i8mm`` and the Pallas kernel in
   interpret mode. Integers are exact; the float32 output agrees to 1e-5
   relative L2 (the integer sums are exact and the rescale and epilogue run
   in the same order; only the f32 rounding of tanh may differ).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +26,8 @@ from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.interop import params_from_numpy
 from comfyui_gguf_tpu_torch.ops.i8mm import i8_matmul, plain_i8mm
 from comfyui_gguf_tpu_torch.quant import codecs, planar
-from comfyui_gguf_tpu_torch.quant.i8 import (convert_tree_i8,
+from comfyui_gguf_tpu_torch.nn.layers import QuantConfig, embedding
+from comfyui_gguf_tpu_torch.quant.i8 import (convert_tree_i8, dequantize_i8,
                                              is_modulation_key,
                                              quantize_rows, requantize_i8)
 
@@ -63,25 +67,90 @@ def test_requantize_identical(qtype):
     jp, tp = _pair(qtype, 200, 1536, seed=int(qtype))
     ji = ji8.requantize_i8(jp)
     ti = requantize_i8(tp)
-    np.testing.assert_array_equal(ti.qs.numpy(), np.asarray(ji.qs))
+    # the same codes, stored out-feature-major: (Rp, Kp), K contiguous
+    assert ti.qs.shape == np.asarray(ji.qs).T.shape and ti.qs.is_contiguous()
+    np.testing.assert_array_equal(ti.qs.numpy(), np.asarray(ji.qs).T)
     np.testing.assert_array_equal(ti.scales.numpy(), np.asarray(ji.scales))
     assert ti.shape == ji.shape and ti.qtype == ji.qtype
+    assert (ti.padded_in, ti.padded_out) == (ji.padded_in, ji.padded_out)
+    np.testing.assert_array_equal(
+        dequantize_i8(ti).numpy(),
+        np.asarray(ji8.dequantize_i8(ji, jnp.float32)))
+
+
+def _stacked(*ps):
+    a = ps[0]
+    return planar.PlanarQuant(
+        qs=torch.stack([p.qs for p in ps]),
+        scales=torch.stack([p.scales for p in ps]),
+        offsets=torch.stack([p.offsets for p in ps]), qtype=a.qtype,
+        layout=a.layout, group_size=a.group_size, zero_point=a.zero_point,
+        shape=a.shape)
 
 
 def test_requantize_stacked_matches_slices():
     _, a = _pair(Q.Q4_K, 128, 512, seed=1)
     _, b = _pair(Q.Q4_K, 128, 512, seed=2)
-    st = planar.PlanarQuant(
-        qs=torch.stack([a.qs, b.qs]), scales=torch.stack([a.scales,
-                                                          b.scales]),
-        offsets=torch.stack([a.offsets, b.offsets]), qtype=a.qtype,
-        layout=a.layout, group_size=a.group_size, zero_point=a.zero_point,
-        shape=a.shape)
-    si = requantize_i8(st)
+    si = requantize_i8(_stacked(a, b))
+    assert si.qs.shape == (2, a.padded_out, a.padded_in)
     for i, p in enumerate((a, b)):
         pi = requantize_i8(p)
         assert torch.equal(si.qs[i], pi.qs)
         assert torch.equal(si.scales[i], pi.scales)
+
+
+def test_stacked_slices_are_views():
+    _, a = _pair(Q.Q4_K, 200, 512, seed=3)
+    _, b = _pair(Q.Q4_K, 200, 512, seed=4)
+    si = requantize_i8(_stacked(a, b))
+    view = si[1]
+    assert view.qs.untyped_storage().data_ptr() == \
+        si.qs.untyped_storage().data_ptr()
+    assert view.qs.data_ptr() == si.qs.data_ptr() + si.qs[0].numel()
+    # each slice is itself (Rp, Kp) with K contiguous: the kernel's operand
+    assert view.qs.is_contiguous() and view.scales.is_contiguous()
+    assert (view.padded_out, view.padded_in) == (a.padded_out, a.padded_in)
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["2d", "stacked"])
+def test_interop_carries_reference_i8(stacked):
+    jps = [_pair(Q.Q4_K, 200, 1024, seed=s)[0] for s in (5, 6)]
+    if stacked:
+        ji = ji8.I8Planar(
+            qs=jnp.stack([ji8.requantize_i8(p).qs for p in jps]),
+            scales=jnp.stack([ji8.requantize_i8(p).scales for p in jps]),
+            qtype=jps[0].qtype, shape=jps[0].shape)
+    else:
+        ji = ji8.requantize_i8(jps[0])
+    tree = {"w": jax.tree.map(np.asarray, ji)}
+    ti = params_from_numpy(tree, device="cpu")["w"]
+    want = np.swapaxes(np.asarray(ji.qs), -1, -2)
+    assert ti.qs.shape == want.shape and ti.qs.is_contiguous()
+    np.testing.assert_array_equal(ti.qs.numpy(), want)
+    np.testing.assert_array_equal(ti.scales.numpy(), np.asarray(ji.scales))
+    assert (ti.padded_in, ti.padded_out) == (ji.padded_in, ji.padded_out)
+    if stacked:
+        for i in range(2):
+            np.testing.assert_array_equal(
+                dequantize_i8(ti[i]).numpy(),
+                np.asarray(ji8.dequantize_i8(ji8.requantize_i8(jps[i]),
+                                             jnp.float32)))
+
+
+@pytest.mark.parametrize("qtype", [Q.Q8_0, Q.Q4_K], ids=lambda q: q.name)
+def test_embedding_on_int8_table(qtype):
+    rng = np.random.default_rng(11)
+    table = rng.standard_normal((40, 512)).astype(np.float32)
+    ids = rng.integers(0, 40, (2, 7)).astype(np.int32)
+    jp = jplanar.planarize(codecs.quantize(table, qtype), JQ(int(qtype)),
+                           table.shape)
+    ji = ji8.requantize_i8(jp)
+    ti = params_from_numpy({"t": jax.tree.map(np.asarray, ji)}, "cpu")["t"]
+    got = embedding(torch.from_numpy(ids), ti,
+                    cfg=QuantConfig(dequant_dtype=torch.float32))
+    want = np.asarray(ji8.dequantize_i8(ji, jnp.float32))[ids]
+    assert got.shape == (2, 7, 512)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("M", [1, 37])

@@ -12,7 +12,8 @@ The CUDA kernels run only on the card, but what their wrapper decides on
 the host is plain Python and is tested here: which of the two kernel bodies
 takes a shape, the K split and shared memory of the split-K body, the tile
 list of the wgmma body, and the nibble arithmetic both bodies unpack with,
-each against a numpy statement of it.
+each against a numpy statement of it; so is the tile plan of the w8a8
+kernel (K4, ``i8mm_plan``).
 """
 
 import jax.numpy as jnp
@@ -25,7 +26,8 @@ from comfyui_gguf_tpu.ops import qmatmul as jqmm
 from comfyui_gguf_tpu.quant import planar as jplanar
 from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.interop import params_from_numpy
-from comfyui_gguf_tpu_torch.ops.qmatmul import (N_SM, SMALL_M_MAX,
+from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, N_SM,
+                                                SMALL_M_MAX, i8mm_plan,
                                                 plain_quantized_matmul,
                                                 qmm_route, quantized_matmul,
                                                 smallm_plan, wgmma_plan)
@@ -184,6 +186,35 @@ def test_wgmma_plan_covers_the_output_once(M, R):
     def waves(n):
         return -(-(-(-M // (128 * n)) * r_tiles) // N_SM)
     assert (nt == 2) == (M > 128 and waves(2) * 3.5 < waves(1) * 2.5)
+
+
+# (M, R, the width the plan must pick): flux's w8a8 linears, text stream
+# (M = 512) and image stream / single blocks (M = 4096, 4608), and small
+# ragged shapes
+I8MM_PLANS = [(512, 9216, 128), (512, 12288, 128), (512, 3072, 128),
+              (4096, 9216, 256), (4096, 12288, 256), (4096, 3072, 256),
+              (4608, 21504, 256), (4608, 3072, 256), (1, 256, 128),
+              (300, 328, 128), (129, 200, 128)]
+
+
+@pytest.mark.parametrize("M,R,bn", I8MM_PLANS, ids=str)
+def test_i8mm_plan_picks_by_waves(M, R, bn):
+    width, m_tiles, n_tiles, blocks = i8mm_plan(M, R)
+    assert width == bn and width in I8MM_WIDTHS
+    assert (m_tiles, n_tiles) == (-(-M // 128), -(-R // width))
+    assert blocks == min(m_tiles * n_tiles, N_SM)
+    # the pick is never modelled slower than the other width: waves of
+    # tiles, a 256-wide tile costing 2 and a 128-wide one 1.2
+    def cost(w):
+        return -(-(m_tiles * -(-R // w)) // N_SM) * (2 if w == 256 else 1.2)
+    assert cost(width) <= cost(384 - width)
+    # and the persistent walk writes every output element exactly once
+    hit = np.zeros((M, R), dtype=np.int32)
+    for b in range(blocks):
+        for t in range(b, m_tiles * n_tiles, blocks):
+            m0, r0 = (t % m_tiles) * 128, (t // m_tiles) * width
+            hit[m0: m0 + 128, r0: r0 + width] += 1
+    assert (hit == 1).all()
 
 
 @pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q4_0, Q.Q8_0, Q.Q6_K],
