@@ -14,9 +14,9 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
 2. build: the CUDA kernels are compiled from ``comfyui_gguf_tpu_torch/csrc``
-   (one nvcc per source, in parallel) and loaded; ``ptxas`` registers and
-   the dynamic shared memory of the w8a8 and flash-attention kernels are
-   printed;
+   (one nvcc per source, in parallel) and loaded; ``ptxas`` registers (and,
+   for the int8 attention, its prep and the GEMM probes, spills) and the
+   dynamic shared memory of the TMA-fed kernels are printed;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
@@ -26,7 +26,10 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    above), and the split-K body must give the same bits twice; K4 runs at
    both of its tile widths, the one ``i8mm_plan`` picks giving the row's
    time, and its library call reads the int8 weight in the TN form
-   cuBLASLt's int8 path takes;
+   cuBLASLt's int8 path takes; K6 runs at head dims 128, 256 and 512 (its
+   split instance) on the operands of its prep kernel, which is held against the plain prep (q
+   and v codes and their scales equal, k codes within one step, two
+   launches equal) and timed beside it;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; (b) a tiny ``FluxPipeline``
@@ -50,7 +53,8 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    ``attention_i8("pv")`` and ``attention_i8("qk")``. Stage times, peak
    memory and launch counts are printed; a missing launch fails, and so
    does an int8-attention latent or image more than 3e-2 (relative L2)
-   from the default-attention one of the same request;
+   from the default-attention one of the same request. One forward under
+   ``attention_i8("pv")`` runs under ``torch.profiler`` beside phase 5's;
 7. the GEMM probe tool ``tools_i8_microbench_cuda.py`` runs as a user runs
    it.
 
@@ -109,6 +113,8 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
     "i8attn_qk": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
+    "i8attn_prep": ("comfyui_gguf_tpu_torch/csrc/i8attn_prep.cu",
+                    "comfyui_gguf_tpu/ops/i8attn.py:76"),
     "gemm_probe_bf16": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
                         "tools_i8_microbench.py:37"),
     "gemm_probe_s8": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
@@ -158,9 +164,12 @@ def kernel_phase(dev, sfu_per_s):
     from comfyui_gguf_tpu_torch.nn.attention import (flash_attn_cuda,
                                                      plain_attention)
     from comfyui_gguf_tpu_torch.ops import gemm_probe as gp
-    from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
-                                                   i8_attention_cuda_q,
+    from comfyui_gguf_tpu_torch.ops.i8attn import (i8_attention_cuda_q,
+                                                   kernel_block_kv,
+                                                   kernel_operands,
                                                    plain_i8_attention_q,
+                                                   plain_operands,
+                                                   prep_cuda,
                                                    quantize_attn_inputs)
     from comfyui_gguf_tpu_torch.ops.i8mm import i8mm_cuda_q, plain_i8mm
     from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
@@ -285,17 +294,19 @@ def kernel_phase(dev, sfu_per_s):
                          library="scaled_dot_product_attention",
                          bound_ms=b_ms, bound_by=b_by))
 
-    def i8attn_case(name, mode, B, H, L):
-        """K6 on prepared operands (the prep is timed beside it), against
-        the plain version at the kernel's own key-tile size."""
-        D, pv = 128, mode == "pv"
+    def i8attn_case(name, mode, B, H, L, D=128):
+        """K6 on the operands of its prep kernel, against the plain version
+        at the kernel's own key tile; the prep kernel and the plain prep
+        (``quantize_attn_inputs``) are timed beside it."""
+        pv, bkv = mode == "pv", kernel_block_kv(D)
         q, v = randn(B, H, L, D), randn(B, H, L, D)
         k = randn(B, H, L, D) + 1.0  # a token mean for the prep to remove
         scale = D ** -0.5
-        ops = quantize_attn_inputs(q, k, v, scale, pv_int8=pv)
+        ops = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
         got = i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv)
+        pops = plain_operands(*ops, pv_int8=pv)
         want = plain_i8_attention_q(
-            *ops, pv_int8=pv, block_kv=KERNEL_BLOCK_KV).to(
+            *pops, pv_int8=pv, block_kv=bkv).to(
                 torch.bfloat16).reshape(B, H, L, D)
         torch.cuda.synchronize()
         err = rel_l2(got, want)
@@ -304,10 +315,12 @@ def kernel_phase(dev, sfu_per_s):
               and exact <= 3.5e-2)
         ms = graph_ms([lambda: i8_attention_cuda_q(*ops, B=B, H=H,
                                                    pv_int8=pv)])
-        prep = graph_ms([lambda: quantize_attn_inputs(q, k, v, scale,
-                                                      pv_int8=pv)])
+        prep = graph_ms([lambda: prep_cuda(q, k, v, scale=scale,
+                                           pv_int8=pv)])
+        prep_plain = graph_ms([lambda: quantize_attn_inputs(
+            q, k, v, scale, pv_int8=pv)])
         plain = event_ms(lambda: plain_i8_attention_q(
-            *ops, pv_int8=pv, block_kv=KERNEL_BLOCK_KV), reps=2)
+            *pops, pv_int8=pv, block_kv=bkv), reps=2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
         BH = B * H
@@ -322,14 +335,62 @@ def kernel_phase(dev, sfu_per_s):
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
                          rel_l2=err, rel_l2_vs_exact=exact,
-                         tol="rel L2 <= 2e-3 vs plain at 64-key tiles, "
-                             "<= 3.5e-2 vs exact attention",
-                         ok=ok, ms=ms, prep_ms=prep, plain_ms=plain,
+                         tol=f"rel L2 <= 2e-3 vs plain at {bkv}-key tiles, "
+                             f"<= 3.5e-2 vs exact attention",
+                         ok=ok, ms=ms, prep_ms=prep,
+                         prep_plain_ms=prep_plain, plain_ms=plain,
                          library_ms=lib,
                          library="scaled_dot_product_attention on the bf16 "
                                  "q/k/v",
                          bound_ms=b_ms, bound_by=b_by,
                          exp_floor_ms=BH * L * L / sfu_per_s * 1e3))
+
+    def prep_case(name, mode, B, H, L, D=128):
+        """The prep kernel against the plain prep: q and v codes and their
+        scales equal, k codes within one step (torch sums k's mean in
+        another order; the share that differs is recorded), two launches
+        equal."""
+        pv = mode == "pv"
+        q, v = randn(B, H, L, D), randn(B, H, L, D)
+        k = randn(B, H, L, D) + 1.0
+        scale = D ** -0.5
+        got = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
+        again = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
+        want = kernel_operands(*quantize_attn_inputs(q, k, v, scale,
+                                                     pv_int8=pv),
+                               pv_int8=pv)
+        torch.cuda.synchronize()
+        dk = (got[2].int() - want[2].int()).abs()
+        k_share = float(dk.count_nonzero()) / dk.numel()
+        ks_rel = float(((got[3] - want[3]).abs()
+                        / want[3].abs().clamp_min(1e-30)).max())
+        v_eq = (torch.equal(got[4], want[4]) if pv else
+                torch.equal(got[4].reshape(want[4].shape), want[4]))
+        ok = (all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(got[0], want[0])
+              and torch.equal(got[1], want[1])
+              and torch.equal(got[5], want[5]) and v_eq
+              and int(dk.max()) <= 1 and k_share <= 1e-3
+              and ks_rel <= 1e-6)
+        ms = graph_ms([lambda: prep_cuda(q, k, v, scale=scale, pv_int8=pv)])
+        plain = graph_ms([lambda: quantize_attn_inputs(q, k, v, scale,
+                                                       pv_int8=pv)])
+        BH = B * H
+        # q, k and ("pv") v read once (bf16); the s8 codes, the scales
+        # written once
+        nbytes = (2 * BH * L * D * (3 if pv else 2)
+                  + BH * L * D * (3 if pv else 2) + 4 * BH * (2 * L + D))
+        b_ms, b_by = bound_t(nbytes, 0.0)
+        rows.append(dict(name=name, kernel="i8attn_prep",
+                         shape=f"B={B} H={H} L={L} D={D}",
+                         max_abs_err=float(dk.max()), rel_l2=0.0,
+                         k_codes_off_by_one=k_share, ks_max_rel=ks_rel,
+                         tol="q, v codes and qs, vs equal; k codes within 1 "
+                             "on <= 1e-3 of them, ks within 1e-6 relative; "
+                             "two launches equal",
+                         ok=ok, ms=ms, plain_ms=plain, library_ms=None,
+                         library="none (no one PyTorch call quantizes)",
+                         bound_ms=b_ms, bound_by=b_by))
 
     def probe_case(name, kernel, run, want, exact, lib_fn, lib, nbytes,
                    peak):
@@ -363,8 +424,8 @@ def kernel_phase(dev, sfu_per_s):
                            dtype=torch.int8)
         w8 = torch.randint(-127, 128, (K, R), generator=gen, device=dev,
                            dtype=torch.int8)
-        # the library yardstick reads B in TN form: an (R, K) K-contiguous
-        # copy of w8, made once, seen as (K, R)
+        # the s8 probes read w (R, K), K contiguous (the model's int8 weight
+        # layout), and so does the library yardstick, seen as (K, R): TN
         w8_rk = w8.t().contiguous()
         xs = torch.rand((M, 128), generator=gen, device=dev) * 1e-3 + 1e-3
         ws = torch.rand((1, R), generator=gen, device=dev) * 1e-3 + 1e-3
@@ -375,21 +436,22 @@ def kernel_phase(dev, sfu_per_s):
                        2 * (M * K + K * R + M * R), PEAK_BF16)
         r["plain_ms"] = event_ms(lambda: gp.plain_probe_bf16(xb, wb))
         r = probe_case("gemm_probe_s8", "gemm_probe_s8",
-                       lambda bn: gp.probe_s8(x8, w8, bn=bn),
-                       gp.plain_probe_s8(x8, w8), True,
+                       lambda bn: gp.probe_s8(x8, w8_rk, bn=bn),
+                       gp.plain_probe_s8(x8, w8_rk), True,
                        lambda: torch._int_mm(x8, w8_rk.t()),
                        "torch._int_mm(x8, w8_rk.t()) (s8 x s8 -> s32, TN, "
                        "no bf16 cast)",
                        M * K + K * R + 2 * M * R, PEAK_INT8)
-        r["plain_ms"] = event_ms(lambda: gp.plain_probe_s8(x8, w8))
+        r["plain_ms"] = event_ms(lambda: gp.plain_probe_s8(x8, w8_rk))
         r = probe_case("gemm_probe_w8a8", "gemm_probe_w8a8",
-                       lambda bn: gp.probe_w8a8(x8, w8, xs, ws, bn=bn),
-                       gp.plain_probe_w8a8(x8, w8, xs, ws), True,
+                       lambda bn: gp.probe_w8a8(x8, w8_rk, xs, ws, bn=bn),
+                       gp.plain_probe_w8a8(x8, w8_rk, xs, ws), True,
                        lambda: torch._int_mm(x8, w8_rk.t()),
                        "torch._int_mm(x8, w8_rk.t()) (s8 x s8 -> s32 only, "
                        "TN, no rescale)",
                        M * K + K * R + 4 * (M + R) + 2 * M * R, PEAK_INT8)
-        r["plain_ms"] = event_ms(lambda: gp.plain_probe_w8a8(x8, w8, xs, ws))
+        r["plain_ms"] = event_ms(lambda: gp.plain_probe_w8a8(x8, w8_rk, xs,
+                                                             ws))
 
     # K1 split-K body: the double-block modulation at M=1 (weights cold:
     # enough copies to exceed the L2), batched at M=2 and at the limit, and
@@ -449,11 +511,21 @@ def kernel_phase(dev, sfu_per_s):
     qmm_case("qmm_int8 T5 wo M=512 10240->4096 Q8_0", "qmm_int8", Q.Q8_0,
              512, 10240, 4096, None, 2, 5e-3, with_bias=False)
     # K6: the flux joint shape, a gated length that is no multiple of a
-    # 512- or 1024-key tile, and a small batched shape; both modes
+    # 512- or 1024-key tile, a small batched shape, head dim 256 at the flux
+    # length (12 heads of the same width), and head dim 512 (the split
+    # instance of every head dim past 256; no ported model has one, so a
+    # small shape); both modes. Its prep kernel against the plain prep at
+    # the flux shape and at D = 256 and 512.
     for mode in ("pv", "qk"):
         i8attn_case(f"i8attn_{mode} flux L=4608 D=128", mode, 1, 24, 4608)
         i8attn_case(f"i8attn_{mode} L=4480 D=128", mode, 1, 24, 4480)
         i8attn_case(f"i8attn_{mode} B=2 H=4 L=512 D=128", mode, 2, 4, 512)
+        i8attn_case(f"i8attn_{mode} H=12 L=4608 D=256", mode, 1, 12, 4608,
+                    256)
+        i8attn_case(f"i8attn_{mode} H=4 L=2048 D=512", mode, 1, 4, 2048, 512)
+        prep_case(f"i8attn_prep {mode} flux L=4608 D=128", mode, 1, 24, 4608)
+    prep_case("i8attn_prep pv H=12 L=4608 D=256", "pv", 1, 12, 4608, 256)
+    prep_case("i8attn_prep pv H=4 L=2048 D=512", "pv", 1, 4, 2048, 512)
     # K8: the probes at the tool's problem size
     probe_cases()
     return rows
@@ -603,7 +675,8 @@ def tiny_pipeline_phase(dev):
                              f"CPU plain path: rel L2 {err}")
         want = {"flash_attn": 0 if mode else n_attn,
                 "i8attn_pv": n_attn if mode == "pv" else 0,
-                "i8attn_qk": n_attn if mode == "qk" else 0}
+                "i8attn_qk": n_attn if mode == "qk" else 0,
+                "i8attn_prep": n_attn if mode else 0}
         for k, n in want.items():
             if counts[k] != n:
                 raise SystemExit(f"tiny pipeline ({mode!r}): {counts[k]} "
@@ -739,7 +812,7 @@ def main_path_phase(dev, depth_double, depth_single, steps):
     if not worst <= LATENT_DELTA_MAX:
         raise SystemExit(f"w8a8 final latent differs from bf16-fused by rel "
                          f"L2 {worst} > {LATENT_DELTA_MAX}")
-    return res, model
+    return res, model, requests[0]
 
 
 def profile_forward(model, inputs, step_s, tree):
@@ -755,8 +828,13 @@ def profile_forward(model, inputs, step_s, tree):
         torch.cuda.synchronize()
     fams = {"qmm_wgmma_kernel": "K1/K2 qmm (wgmma)",
             "qmm_smallm_kernel": "K1/K2 qmm (split-K)",
-            "i8mm_kernel": "K4 i8mm",
-            "flash_fwd_kernel": "K7 flash_attn"}
+            "gemm_wgmma_kernel": "K4 i8mm",
+            "flash_fwd_kernel": "K7 flash_attn",
+            "i8attn_kernel": "K6 i8attn",
+            "prep_reduce_kernel": "K6 prep",
+            "prep_quant_kernel": "K6 prep",
+            "prep_fold_kernel": "K6 prep",
+            "prep_quant_wide_kernel": "K6 prep"}
     by_fam, others = {}, {}
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", None)
@@ -789,9 +867,11 @@ def profile_forward(model, inputs, step_s, tree):
 # phase 6: text to image at published widths
 # ---------------------------------------------------------------------------
 
-def text_to_image_phase(dev, model, steps, t5_layers):
+def text_to_image_phase(dev, model, request, steps, t5_layers):
     """``FluxPipeline.generate`` over seed-made full-width parts: the w8a8
-    flux tree of phase 5, T5-xxl Q8_0, CLIP-L and the 16-channel VAE."""
+    flux tree of phase 5, T5-xxl Q8_0, CLIP-L and the 16-channel VAE; then
+    one forward of phase 5's ``request`` under ``attention_i8("pv")``
+    profiled."""
     import dataclasses
 
     import torch
@@ -884,7 +964,8 @@ def text_to_image_phase(dev, model, steps, t5_layers):
             n_attn = n_blocks * steps
             want = {"flash_attn": 0 if mode else n_attn,
                     "i8attn_pv": n_attn if mode == "pv" else 0,
-                    "i8attn_qk": n_attn if mode == "qk" else 0}
+                    "i8attn_qk": n_attn if mode == "qk" else 0,
+                    "i8attn_prep": n_attn if mode else 0}
             for k, n in want.items():
                 if counts[k] != n:
                     raise SystemExit(
@@ -903,6 +984,15 @@ def text_to_image_phase(dev, model, steps, t5_layers):
                 raise SystemExit(
                     f"attention_i8({mode!r}) moved the result by rel L2 "
                     f"{worst} > {I8ATTN_DELTA_MAX}")
+            if mode == "pv":
+                # where the int8-attention step goes (phase 5 profiles the
+                # default attention); the profiled forward is not a path
+                before = dict(_build.LAUNCHES)
+                with attention_i8(mode):
+                    res["profile_w8a8_i8attn_pv_forward"] = profile_forward(
+                        model, request, run["s_per_step"],
+                        "w8a8 attention_i8('pv')")
+                _build.LAUNCHES.update(before)
     # the decode alone: its time and the memory it adds over the weights
     lat = pipe.last_latent
     torch.cuda.synchronize()
@@ -982,15 +1072,29 @@ def main() -> int:
         log(f"  nvcc {rep['compile_s']:.2f}s (parallel), total "
             f"{rep['total_s']:.2f}s")
         for src, lines in rep["ptxas"].items():
+            spills = [ln.strip() for ln in lines if "spill" in ln]
             for ln in lines:
                 if "Used" in ln:
                     log(f"  {src}: {ln.split(':', 1)[1].strip()}")
+            if src in ("i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu"):
+                for ln in spills:
+                    log(f"  {src}: {ln}")
+            elif any(not ln.startswith("0 bytes stack frame, 0 bytes spill "
+                                       "stores, 0 bytes spill loads")
+                     for ln in spills):
+                log(f"  {src}: spills or stack: {spills}")
     lib = _build.lib()
-    log("  dynamic shared memory a block: i8mm.cu "
+    log("  dynamic shared memory a block: i8mm.cu and gemm_probe.cu (one "
+        "body, gemm_wgmma.cuh) "
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
         + "; flash_attn.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
-                    for d in (128, 64)))
+                    for d in (128, 64))
+        + "; i8attn.cu "
+        + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
+                    for d in (128, 256, 512) for m in ("pv", "qk"))
+        + " (i8attn_prep.cu: static shared memory only, in the ptxas "
+          "lines)")
 
     log("[3 kernels vs plain at the main paths' shapes]")
     rows = kernel_phase(dev, sfu_per_s)
@@ -999,9 +1103,14 @@ def main() -> int:
                else f"{r['library_ms']:.4f}")
         extra = ""
         if "prep_ms" in r:
-            extra = (f" | prep {r['prep_ms']:.4f} ms, exp floor "
+            extra = (f" | prep kernel {r['prep_ms']:.4f} ms (plain prep "
+                     f"{r['prep_plain_ms']:.4f} ms), exp floor "
                      f"{r['exp_floor_ms']:.4f} ms, vs exact attention "
                      f"{r['rel_l2_vs_exact']:.2e}")
+        if "k_codes_off_by_one" in r:
+            extra = (f" | k codes one step off: share "
+                     f"{r['k_codes_off_by_one']:.3e}, ks max rel "
+                     f"{r['ks_max_rel']:.2e}")
         if "tile_ms" in r:
             extra = " | by tile width " + ", ".join(
                 f"bn={bn}: {ms:.4f} ms" for bn, ms in r["tile_ms"].items())
@@ -1021,11 +1130,12 @@ def main() -> int:
     tiny_pipe = tiny_pipeline_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
-    main_res, model = main_path_phase(dev, args.depth_double,
-                                      args.depth_single, args.steps)
+    main_res, model, request = main_path_phase(dev, args.depth_double,
+                                               args.depth_single, args.steps)
 
     log("[6 text to image at published widths]")
-    t2i = text_to_image_phase(dev, model, args.steps, args.t5_layers)
+    t2i = text_to_image_phase(dev, model, request, args.steps,
+                              args.t5_layers)
     del model
     torch.cuda.empty_cache()
 

@@ -31,8 +31,9 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_smallm.cu", "i8mm.cu",
-           "flash_attn.cu", "i8attn.cu", "gemm_probe.cu")
-HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "tma.cuh")
+           "flash_attn.cu", "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
+HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "gemm_wgmma.cuh",
+           "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -52,13 +53,18 @@ _SIGNATURES = {
     # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
     "flash_attn_launch": [_VP] * 4 + [_I] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
-    # qq, qs, kq, ks, v, vs, out, B, H, Lq, Lk, D, pv_int8, strides[6],
-    # stream
-    "i8attn_launch": [_VP] * 7 + [_I] * 6
+    # qq, qs, kq, ks, v, vs, out, B, H, Lq, Lk, Lkp, D, pv_int8,
+    # strides[6], stream
+    "i8attn_launch": [_VP] * 7 + [_I] * 7
     + [ctypes.POINTER(ctypes.c_longlong), _VP],
-    # dynamic shared memory of a launch: tile width / head dim
+    # q, k, v, strides[9], B, H, Lq, Lk, Lkp, D, pv_int8, qscale, qq, qs,
+    # kq, ks, vt, vs, scratch, n_chunks, stream
+    "i8attn_prep_launch": [_VP] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+    + [_I] * 7 + [ctypes.c_float] + [_VP] * 7 + [_I, _VP],
+    # dynamic shared memory of a launch: tile width / head dim (and mode)
     "i8mm_smem_bytes": [_I],
     "flash_attn_smem_bytes": [_I],
+    "i8attn_smem_bytes": [_I, _I],
     # x, w, out, M, K, R, bn, stream
     "gemm_probe_bf16_launch": [_VP] * 3 + [_I] * 4 + [_VP],
     # x, w, xs, ws, out, M, K, R, xs_stride, bn, stream
@@ -68,7 +74,8 @@ _SIGNATURES = {
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "qmm_int8_smallm": 0, "i8mm": 0, "flash_attn": 0,
-            "i8attn_pv": 0, "i8attn_qk": 0, "gemm_probe_bf16": 0,
+            "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
+            "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
 
 # what the last build in this process did (read by chip_smoke.py)
@@ -181,3 +188,13 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def row_aligned(t):
+    """A view of tensor ``t`` whose rows start on 16 bytes (unit stride
+    along the last dim) and whose other strides are non-zero (the kernels'
+    tensor maps step by them); a copy only where the given view is not."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % 8 == 0 and (s > 0 or n == 1)
+                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
+    return t if ok else t.contiguous()

@@ -1,12 +1,12 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Two tensor-core paths live here. The warp-level one (ldmatrix + mma.sync:
-// m16n8k16 for bf16 with an f32 accumulator, m16n8k32 for s8 with an exact
-// s32 accumulator) serves the int8 attention kernel, the split-K body of the
-// fused dequant-matmul and the GEMM probes. The asynchronous warpgroup one
-// (TMA loads completing on mbarriers, wgmma.mma_async with operands read
-// from swizzled shared tiles or, for A, from registers) serves the wgmma
-// body of the fused dequant-matmul, the w8a8 matmul and flash attention.
+// Two tensor-core paths live here. The warp-level one (mma.sync m16n8k16,
+// bf16 with an f32 accumulator) serves the split-K body of the fused
+// dequant-matmul. The asynchronous warpgroup one (TMA loads completing on
+// mbarriers, wgmma.mma_async with operands read from swizzled shared tiles
+// or, for A, from registers) serves every other kernel: the wgmma body of
+// the fused dequant-matmul, the w8a8 matmul and the GEMM probes, flash
+// attention and int8 flash attention.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,22 +19,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 b16 matrices; lane l supplies the row address of matrix l/8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // d += a(16x16 bf16, row) * b(16x8 bf16, col), f32 accumulate.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                const uint32_t (&a)[4],
@@ -44,33 +28,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a(16x32 s8, row) * b(32x8 s8, col), exact s32 accumulate.
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global->shared copy; src_bytes = 0 fills the destination with 0.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -166,10 +123,28 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
       : "memory");
 }
 
+// The same as a 3-D box; (c0, c1, c2) its origin, c0 innermost.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Named barrier `id` (1..15; 0 is __syncthreads()) over `n` threads, a
 // multiple of 32.
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Arrives at named barrier `id` (counted among its `n` threads) without
+// waiting for it.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // One 2-D TMA box, shared -> global, into the current bulk async-group;
@@ -182,6 +157,18 @@ __device__ __forceinline__ void tma_store_2d(const void* tmap,
       "[%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(src)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same as a 4-D box; the tensor map's extents clip it.
+__device__ __forceinline__ void tma_store_4d(const void* tmap,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -523,6 +510,320 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d(64 x 64, s32) += a(64 x 32 s8) * b(32 x 64 s8), both read from shared
+// memory through K-major descriptors. The accumulator layout is the bf16
+// one of wgmma_m64n128k16_rs, 8 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d(64 x 128, s32) += a(64 x 32 s8, registers) * b(32 x 128 s8, shared,
+// K-major). Warp w holds rows 16w..16w+15 of a in the mma.sync m16n8k32
+// fragment layout: a[0] = (row g, k 4t..4t+3), a[1] = (row g+8, same k),
+// a[2], a[3] = the same rows at k+16, each register four s8 values, lowest
+// k in the lowest byte.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d(64 x 64, s32) += a(64 x 32 s8, registers, the fragment layout of
+// wgmma_m64n128k32_s8_rs) * b(32 x 64 s8, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same products that overwrite d (scale-d false): d is written only, so
+// the registers it held are free for other values before the product is
+// issued, and the compiler need not order their writes against it.
+
+// d = a * b, as wgmma_m64n128k32_s8.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_z(int (&d)[64],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d = a * b, as wgmma_m64n64k32_s8.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_z(int (&d)[32],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d = a * b, as wgmma_m64n128k32_s8_rs.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs_z(int (&d)[64],
+                                                         const uint32_t (&a)[4],
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+// d = a * b, as wgmma_m64n64k32_s8_rs.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs_z(int (&d)[32],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+// d(64 x 256, f32) += a(64 x 16 bf16, shared, K-major) * b(16 x 256 bf16,
+// shared, MN-major: N contiguous, so the instruction's transpose bit is
+// set).
+__device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d(64 x 128, f32) += a(64 x 16 bf16, shared, K-major) * b(16 x 128 bf16,
+// shared, MN-major, transpose bit set).
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 }  // namespace gguf_cuda

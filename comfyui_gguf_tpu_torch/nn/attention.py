@@ -76,16 +76,6 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
     return out.to(q.dtype)
 
 
-def _row_aligned(t: torch.Tensor) -> torch.Tensor:
-    """A view whose rows start on 16 bytes (D contiguous) and whose other
-    strides are non-zero (the kernel's tensor maps step by them); a copy
-    only where the given view is not."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 and (s > 0 or n == 1)
-                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
-    return t if ok else t.contiguous()
-
-
 def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
     """Launch the flash-attention kernel (K7).
 
@@ -107,7 +97,7 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
     if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D) or Lk < 1:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
+    q, k, v = (_build.row_aligned(t) for t in (q, k, v))
     out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16,
                       device=q.device).permute(0, 2, 1, 3)
     if Lq:

@@ -1,19 +1,23 @@
 """GEMM rate probes (PyTorch port of the kernels of tools_i8_microbench.py).
 
-Plain tiled matmuls without quantization epilogues, to read what the
-tensor cores reach on x (M, K) row-major times w (K, R) K-major:
+Plain matmuls without quantization epilogues, to read what the tensor
+cores reach on x (M, K) row-major times w:
 
 * ``probe_bf16`` — bf16 x bf16 -> f32, cast to bf16 (the reference's
-  ``make_plain`` at bf16);
+  ``make_plain`` at bf16); w (K, R) row-major, as the reference feeds it;
 * ``probe_s8`` — s8 x s8 -> s32, cast to bf16, no scales (``make_plain`` at
-  int8);
-* ``probe_w8a8`` — s8 x s8 -> s32, then ``acc·xs[m]·ws[r]`` -> bf16
-  (``make_w8a8``); xs is (M, 1) or (M, n) with the scale in column 0.
+  int8); w (R, K), K contiguous: the out-feature-major layout of the
+  model's int8 weights (quant/i8.py) and the only B form s8 ``wgmma``
+  reads, so ``out = x @ w.T``;
+* ``probe_w8a8`` — s8 x s8 -> s32 on the same (R, K) w, then
+  ``acc·xs[m]·ws[r]`` -> bf16 (``make_w8a8``); xs is (M, 1) or (M, n) with
+  the scale in column 0.
 
 Each is a wrapper of a hand-written CUDA kernel of ``csrc/gemm_probe.cu``
-(K8) with a block tile of 128 x ``bn`` (128 or 256), and has a plain
-PyTorch version beside it. A probe dispatches by device alone: CUDA tensors
-launch the kernel, CPU tensors take the plain version.
+(K8: the persistent TMA + ``wgmma`` GEMM of the w8a8 matmul) with a block
+tile of 128 x ``bn`` (128 or 256), and has a plain PyTorch version beside
+it. A probe dispatches by device alone: CUDA tensors launch the kernel, CPU
+tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -40,25 +44,29 @@ def _int_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def plain_probe_s8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact integer product, cast s32 -> f32 -> bf16."""
-    return _int_product(x, w).to(torch.float32).to(torch.bfloat16)
+    """Exact integer product x @ w.T (w (R, K)), cast s32 -> f32 -> bf16."""
+    return _int_product(x, w.t()).to(torch.float32).to(torch.bfloat16)
 
 
 def plain_probe_w8a8(x, w, xs, ws) -> torch.Tensor:
-    """Exact integer product, then (acc·xs[m])·ws[r] in f32 -> bf16."""
-    acc = _int_product(x, w).to(torch.float32)
+    """Exact integer product x @ w.T (w (R, K)), then (acc·xs[m])·ws[r] in
+    f32 -> bf16."""
+    acc = _int_product(x, w.t()).to(torch.float32)
     return (acc * xs[:, :1].to(torch.float32)
             * ws.reshape(1, -1).to(torch.float32)).to(torch.bfloat16)
 
 
 def _check(x, w, dtype, bn):
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"probe shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    """(M, K, R) of a probe: w is (K, R) at bf16, (R, K) at s8."""
+    kdim = 1 if dtype == torch.int8 else 0
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[kdim]:
+        raise ValueError(f"probe shapes {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} ({'R, K' if kdim else 'K, R'})")
     if x.dtype != dtype or w.dtype != dtype:
         raise TypeError(f"probe operands must be {dtype}, got {x.dtype} and "
                         f"{w.dtype}")
     M, K = x.shape
-    R = w.shape[1]
+    R = w.shape[1 - kdim]
     if bn not in TILES:
         raise ValueError(f"block tile width {bn}: have {TILES}")
     if M % 128 or K % 64 or R % 256:
@@ -107,7 +115,7 @@ def probe_s8(x: torch.Tensor, w: torch.Tensor, bn: int = 128):
 def probe_w8a8(x, w, xs, ws, bn: int = 128):
     if not x.is_cuda:
         return plain_probe_w8a8(x, w, xs, ws)
-    M, R = x.shape[0], w.shape[1]
+    M, R = x.shape[0], w.shape[0]
     if (xs.dtype != torch.float32 or xs.dim() != 2 or xs.shape[0] != M
             or xs.stride(1) != 1):
         raise ValueError(f"xs {xs.dtype} {tuple(xs.shape)}: want float32 "

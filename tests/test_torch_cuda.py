@@ -1,15 +1,17 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions.
 
 Each kernel (K1 nib4 and K2 int8 fused dequant-matmul, K4 w8a8 matmul, K6
-int8 flash attention, K7 flash attention, K8 GEMM probes) runs on the card beside its plain version on the same
-inputs, at small shapes that cover the ragged edges: M=1, M not a multiple
-of the tile, K padded, R not a multiple of 128, the GELU tail, odd key
-lengths, Lq != Lk and strided views. K1/K2 run through both of their
-bodies (split-K for M <= 8, wgmma above) over every format of each layout;
-K4 through both of its tile widths. One-hot rows check every tile position
-of K1/K2/K4 bit for bit. Whether a card exists is decided inside
-the ``cuda`` fixture, so every worker collects the same tests; without a
-card they skip. Run them on the card with
+int8 flash attention and its prep, K7 flash attention, K8 GEMM probes)
+runs on the card beside its plain version on the same inputs, at small
+shapes that cover the ragged edges: M=1, M not a multiple of the tile, K
+padded, R not a multiple of 128, the GELU tail, odd key lengths, Lq != Lk
+and strided views; K6 at head dims 128 and 256 and in its split instance
+(384, 512). K1/K2 run through
+both of their bodies (split-K for M <= 8, wgmma above) over every format
+of each layout; K4 through both of its tile widths. One-hot rows check
+every tile position of K1/K2/K4 bit for bit. Whether a card exists is
+decided inside the ``cuda`` fixture, so every worker collects the same
+tests; without a card they skip. Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest`` (the
 repo's conftest imports jax, which the card's machine need not have).
 """
@@ -23,9 +25,12 @@ from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.nn.attention import (flash_attn_cuda,
                                                  plain_attention)
 from comfyui_gguf_tpu_torch.ops import gemm_probe
-from comfyui_gguf_tpu_torch.ops.i8attn import (KERNEL_BLOCK_KV,
-                                               i8_attention_cuda,
-                                               plain_i8_attention)
+from comfyui_gguf_tpu_torch.ops.i8attn import (i8_attention_cuda,
+                                               kernel_block_kv,
+                                               kernel_operands,
+                                               plain_i8_attention,
+                                               prep_cuda,
+                                               quantize_attn_inputs)
 from comfyui_gguf_tpu_torch.ops.i8mm import (i8mm_cuda, i8mm_cuda_q,
                                             plain_i8mm)
 from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
@@ -342,54 +347,141 @@ def test_flash_kernel_on_qkv_views(cuda, D):
 
 
 I8ATTN_CASES = [
-    # B, H, Lq, Lk (a ragged last key tile, Lq != Lk, one tile, many tiles)
+    # B, H, Lq, Lk: a ragged last key tile, Lq != Lk, one tile, many tiles,
+    # Lk below one tile and no multiple of 16
     (1, 2, 128, 128),
     (2, 3, 77, 77),
     (1, 2, 250, 131),
     (1, 1, 5, 300),
     (2, 4, 512, 512),
+    (1, 2, 200, 45),
 ]
 
 
-@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
-@pytest.mark.parametrize("B,H,Lq,Lk", I8ATTN_CASES, ids=str)
-def test_i8attn_kernel_matches_plain(cuda, B, H, Lq, Lk, pv_int8):
-    D = 128
-    g = torch.Generator(device=cuda).manual_seed(Lq * 7 + Lk)
+def _qkv(cuda, B, H, Lq, Lk, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    # a token mean for the prep to remove
     k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16() + 1
     v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    return q, k, v
+
+
+def _check_i8attn(q, k, v, pv_int8):
+    B, H, Lq, D = q.shape
     scale = D ** -0.5
     key = "i8attn_pv" if pv_int8 else "i8attn_qk"
-    before = _build.LAUNCHES[key]
+    before = dict(_build.LAUNCHES)
     got = i8_attention_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[key] == before + 1
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert _build.LAUNCHES["i8attn_prep"] == before["i8attn_prep"] + 1
     assert got.shape == (B, H, Lq, D) and got.dtype == torch.bfloat16
-    # the integers agree; exp and the f32 summation order differ, which can
-    # move a quantized probability by one step of 1/127
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    # the integers agree (but for k codes one step apart where the mean's
+    # summation order differs); exp and the f32 summation order differ,
+    # which can move a quantized probability by one step of 1/127
     want = plain_i8_attention(q, k, v, scale=scale, pv_int8=pv_int8,
-                              block_kv=KERNEL_BLOCK_KV)
+                              block_kv=kernel_block_kv(D))
     assert _rel_l2(got, want) < 2e-3
     # and the int8 path stays near exact attention
     assert _rel_l2(got, plain_attention(q, k, v, scale)) < 3.5e-2
 
 
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("B,H,Lq,Lk", I8ATTN_CASES, ids=str)
+def test_i8attn_kernel_matches_plain(cuda, B, H, Lq, Lk, pv_int8):
+    _check_i8attn(*_qkv(cuda, B, H, Lq, Lk, 128, Lq * 7 + Lk), pv_int8)
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("B,H,Lq,Lk", I8ATTN_CASES, ids=str)
+def test_i8attn_kernel_d256_matches_plain(cuda, B, H, Lq, Lk, pv_int8):
+    _check_i8attn(*_qkv(cuda, B, H, Lq, Lk, 256, Lq * 5 + Lk), pv_int8)
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("B,H,Lq,Lk", [(1, 2, 250, 131), (2, 2, 77, 300),
+                                       (1, 1, 5, 45)], ids=str)
+def test_i8attn_kernel_split_head_dims_match_plain(cuda, B, H, Lq, Lk, D,
+                                                   pv_int8):
+    """Head dims past 256 run the split instance (a block a 128-column
+    part of the output, Q and K streamed in 128-byte chunks)."""
+    _check_i8attn(*_qkv(cuda, B, H, Lq, Lk, D, Lq * 3 + Lk + D), pv_int8)
+
+
 def test_i8attn_kernel_on_strided_views(cuda):
-    B, L, H, D = 1, 192, 4, 128
-    qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16()
+    for D in (128, 256, 384):
+        B, L, H = 2, 192, 3
+        qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        for pv in (True, False):
+            _check_i8attn(q, k, v, pv)
+
+
+PREP_CASES = [
+    # B, H, Lq, Lk, D
+    (1, 2, 96, 96, 128),
+    (2, 3, 77, 200, 128),
+    (1, 2, 130, 45, 256),
+    (2, 2, 512, 512, 256),
+    (1, 24, 1024, 1024, 128),
+    (1, 2, 130, 45, 384),
+    (2, 2, 200, 333, 512),
+]
+
+
+def _check_prep(q, k, v, pv_int8):
+    D = q.shape[-1]
+    scale = D ** -0.5
+    before = _build.LAUNCHES["i8attn_prep"]
+    got = prep_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
+    again = prep_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["i8attn_prep"] == before + 2
+    want = kernel_operands(*quantize_attn_inputs(q, k, v, scale,
+                                                 pv_int8=pv_int8),
+                           pv_int8=pv_int8)
+    # two launches, the same bits (no atomics)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    qq, qs, kq, ks, vk, vs = got
+    # q's and v's codes and scales: the plain prep's, bit for bit
+    assert torch.equal(qq, want[0]) and torch.equal(qs, want[1])
+    assert torch.equal(vs, want[5])
+    if pv_int8:
+        assert torch.equal(vk, want[4])
+    else:
+        assert torch.equal(vk.reshape(want[4].shape), want[4])
+    # k after its mean: torch sums the mean in another order, which can move
+    # it by an ulp, a scale by a few ulps and a code by one step
+    d = kq.int() - want[2].int()
+    assert int(d.abs().max()) <= 1
+    assert int(d.count_nonzero()) <= max(2, d.numel() // 1000)
+    assert torch.allclose(ks, want[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", PREP_CASES, ids=str)
+def test_i8attn_prep_matches_plain_prep(cuda, B, H, Lq, Lk, D, pv_int8):
+    _check_prep(*_qkv(cuda, B, H, Lq, Lk, D, Lq + 3 * Lk + D), pv_int8)
+
+
+@pytest.mark.parametrize("D", [128, 256, 384])
+def test_i8attn_prep_on_qkv_views(cuda, D):
+    """q/k/v as the strided (B, L, 3, H, D) views of one fused projection:
+    read in place, without a gather."""
+    B, L, H = 2, 333, 3
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).bfloat16() + 0.5
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     for pv in (True, False):
-        got = i8_attention_cuda(q, k, v, scale=D ** -0.5, pv_int8=pv)
-        want = plain_i8_attention(q, k, v, scale=D ** -0.5, pv_int8=pv,
-                                  block_kv=KERNEL_BLOCK_KV)
-        assert got.permute(0, 2, 1, 3).is_contiguous()
-        assert _rel_l2(got, want) < 2e-3
+        _check_prep(q, k, v, pv)
 
 
 @pytest.mark.parametrize("bn", gemm_probe.TILES)
 def test_gemm_probe_kernels_match_plain(cuda, bn):
-    M, K, R = 256, 320, 512
+    M, K, R = 256, 320, 512  # K: two full 128-byte s8 steps and a ragged one
     g = torch.Generator(device=cuda).manual_seed(bn)
     xb = torch.randn((M, K), generator=g, device=cuda).bfloat16()
     wb = torch.randn((K, R), generator=g, device=cuda).bfloat16()
@@ -397,7 +489,8 @@ def test_gemm_probe_kernels_match_plain(cuda, bn):
     assert _rel_l2(got, gemm_probe.plain_probe_bf16(xb, wb)) < 5e-3
     x8 = torch.randint(-127, 128, (M, K), generator=g, device=cuda,
                        dtype=torch.int8)
-    w8 = torch.randint(-127, 128, (K, R), generator=g, device=cuda,
+    # the s8 probes read w (R, K), K contiguous
+    w8 = torch.randint(-127, 128, (R, K), generator=g, device=cuda,
                        dtype=torch.int8)
     # exact integer sums: the casts are the same, so the results are equal
     got = gemm_probe.probe_s8(x8, w8, bn=bn)

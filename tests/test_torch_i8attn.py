@@ -13,9 +13,13 @@ port's ``ops/i8attn.py``:
 * the plain version with one global maximum against ``xla_i8_attention``:
   ≤ 2e-3 relative L2 (identical integers; exp and f32 summation order
   differ, which can move a probability code by one step);
-* the plain version at ``block_kv`` ∈ {128, 512} against the Pallas kernel
-  in interpret mode at the same tile size: the reference's own tolerance
-  for kernel vs same-math, atol = rtol = 0.05;
+* the plain version at ``block_kv`` ∈ {128, 512} (and at head dims 256
+  and 384, at 64, the CUDA kernel's tile there, and at 128) against the
+  Pallas kernel in interpret mode at the same tile size: the reference's
+  own tolerance for kernel vs same-math, atol = rtol = 0.05;
+* the kernel's operand layout (``kernel_operands``: padded scales, Vᵀ in
+  the permuted key order) round-trips, and the plain version gives the
+  same bits on it as on the plain layout;
 * an odd key tail, the gate, and the ``attention_i8`` scope inside and
   outside the gate (the JAX side runs as its own test does, forced into
   interpret mode).
@@ -110,7 +114,9 @@ def test_prep_integers_match_reference(pv_int8, jit):
 
 @pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
 @pytest.mark.parametrize("shape", [(1, 2, 256, 128), (2, 2, 100, 128),
-                                   (1, 3, 192, 64)], ids=str)
+                                   (1, 3, 192, 64), (1, 2, 160, 256),
+                                   (1, 2, 96, 384)],
+                         ids=str)
 def test_plain_matches_xla_same_math(shape, pv_int8):
     q, k, v = _qkv(1, *shape)
     scale = shape[-1] ** -0.5
@@ -121,13 +127,17 @@ def test_plain_matches_xla_same_math(shape, pv_int8):
 
 
 @pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
-@pytest.mark.parametrize("block_kv", [128, 512])
-def test_plain_tiled_matches_pallas_interpret(block_kv, pv_int8):
-    q, k, v = _qkv(2, 1, 2, 512, 128)
+@pytest.mark.parametrize("block_kv,D", [(128, 128), (512, 128), (64, 256),
+                                        (128, 256), (64, 384)],
+                         ids=["128", "512", "64-d256", "128-d256",
+                              "64-d384"])
+def test_plain_tiled_matches_pallas_interpret(block_kv, D, pv_int8):
+    q, k, v = _qkv(2, 1, 2, 512, D)
+    scale = D ** -0.5
     want = np.asarray(ji8.pallas_i8_attention(
-        *_j(q, k, v), scale=SCALE, interpret=True, pv_int8=pv_int8,
+        *_j(q, k, v), scale=scale, interpret=True, pv_int8=pv_int8,
         block_kv=block_kv))
-    got = ti8.plain_i8_attention(*_t(q, k, v), scale=SCALE, pv_int8=pv_int8,
+    got = ti8.plain_i8_attention(*_t(q, k, v), scale=scale, pv_int8=pv_int8,
                                  block_kv=block_kv).numpy()
     np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
     # the same tiling on both sides agrees far inside that tolerance
@@ -152,6 +162,79 @@ def test_tile_size_changes_p_quantization_only_slightly():
     a = ti8.plain_i8_attention(*_t(q, k, v), scale=SCALE, block_kv=64)
     b = ti8.plain_i8_attention(*_t(q, k, v), scale=SCALE, block_kv=None)
     assert 0 < _rel(a.numpy(), b.numpy()) < 0.03
+
+
+def test_key_order_is_the_fragment_permutation():
+    """Thread t of a quad holds the scores of keys {2t, 2t+1, 8+2t, 9+2t}
+    of every 16-key group (the s32 accumulator layout of Q·Kᵀ); the s8 A
+    register it supplies to P·V holds k = 4t..4t+3 (the m16n8k32 layout).
+    Position 4t + e of the kernel's Vᵀ must hold the key of byte e."""
+    for t in range(4):
+        held = [2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t]
+        assert list(ti8.KEY_ORDER[4 * t:4 * t + 4]) == held
+    assert sorted(ti8.KEY_ORDER) == list(range(16))
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("D,Lk", [(128, 200), (128, 128), (256, 77),
+                                  (384, 100)],
+                         ids=str)
+def test_kernel_operands_round_trip(D, Lk, pv_int8):
+    """Un-permuting and un-transposing the kernel's Vᵀ gives back the plain
+    prep's V; the scales are the plain prep's, zero-padded to the tile."""
+    q, k, v = _qkv(13, 2, 2, 96, D, Lk=Lk, shift=0.3)
+    ops = ti8.quantize_attn_inputs(*_t(q, k, v), D ** -0.5, pv_int8=pv_int8)
+    qq, qs, kq, ks, vk, vs = ti8.kernel_operands(*ops, pv_int8=pv_int8)
+    bkv = ti8.kernel_block_kv(D)
+    Lkp = -(-Lk // bkv) * bkv
+    assert qs.shape == (4, 96) and ks.shape == (4, Lkp) and vs.shape == (4, D)
+    assert torch.equal(ks[:, :Lk], ops[3].reshape(4, Lk))
+    assert not bool(ks[:, Lk:].any())
+    assert torch.equal(qq, ops[0]) and torch.equal(kq, ops[2])
+    if pv_int8:
+        assert vk.shape == (4, D, Lkp) and vk.dtype == torch.int8
+        order = np.concatenate([np.asarray(ti8.KEY_ORDER) + g
+                                for g in range(0, Lkp, 16)])
+        plain = np.zeros((4, D, Lkp), np.int8)
+        plain[:, :, order] = vk.numpy()
+        np.testing.assert_array_equal(plain[:, :, :Lk].transpose(0, 2, 1),
+                                      ops[4].numpy())
+        assert not plain[:, :, Lk:].any()
+    else:
+        assert torch.equal(vk, ops[4])
+    back = ti8.plain_operands(qq, qs, kq, ks, vk, vs, pv_int8=pv_int8)
+    for a, b in zip(back, ops):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("D", [128, 256, 384])
+def test_plain_on_kernel_layout_is_the_plain_version(D, pv_int8):
+    """The plain version gives the same bits on the kernel's operand layout,
+    brought back by ``plain_operands``, as on the plain one, at the kernel's
+    tile (128 keys at D = 128, 64 at the others) with a ragged last
+    tile."""
+    q, k, v = _qkv(14, 1, 2, 150, D, Lk=200, shift=0.5)
+    ops = ti8.quantize_attn_inputs(*_t(q, k, v), D ** -0.5, pv_int8=pv_int8)
+    bkv = ti8.kernel_block_kv(D)
+    want = ti8.plain_i8_attention_q(*ops, pv_int8=pv_int8, block_kv=bkv)
+    kops = ti8.kernel_operands(*ops, pv_int8=pv_int8)
+    got = ti8.plain_i8_attention_q(*ti8.plain_operands(*kops,
+                                                       pv_int8=pv_int8),
+                                   pv_int8=pv_int8, block_kv=bkv)
+    assert torch.equal(got, want)
+
+
+def test_kernel_instances_by_head_dim():
+    """Every head dim the gate admits (a multiple of 128) has a key tile:
+    128 at D = 128, 64 at 256 and in the split instance past it; others
+    are refused."""
+    assert ti8.kernel_block_kv(128) == 128 and ti8.kernel_block_kv(256) == 64
+    for D in (384, 512, 1024):
+        assert ti8.kernel_block_kv(D) == 64
+    for D in (0, 64, 96, 320):
+        with pytest.raises(ValueError, match=str(D)):
+            ti8.kernel_block_kv(D)
 
 
 GATE_SHAPES = [
@@ -188,6 +271,38 @@ def test_scope_routes_inside_the_gate(mode):
     # outside the scope the same call is exact again
     got2 = tattention.dot_product_attention(*_t(q, k, v)).numpy()
     np.testing.assert_allclose(got2, exact, rtol=1e-4, atol=1e-5)
+
+
+def _scope_routes_wide(mode, D, seed):
+    """Under the scope both packages take the int8 path at head dim D."""
+    q, k, v = _qkv(seed, 1, 1, 512, D)
+    scale = D ** -0.5
+    assert ti8.i8_attention_ok(*_t(q, k))
+    os.environ["GGUF_TPU_PALLAS_INTERPRET"] = "1"
+    try:
+        with jattention.attention_i8(mode):
+            want = np.asarray(jattention.dot_product_attention(
+                *_j(q, k, v)))
+    finally:
+        del os.environ["GGUF_TPU_PALLAS_INTERPRET"]
+    with tattention.attention_i8(mode):
+        got = tattention.dot_product_attention(*_t(q, k, v)).numpy()
+    exact = _ref(q, k, v, scale)
+    assert 1e-6 < _rel(got, exact) < 0.035  # int8 noise: the i8 path ran
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("mode", ["pv", "qk"])
+def test_scope_routes_head_dim_256(mode):
+    """D = 256 is inside the gate (a multiple of 128): under the scope both
+    packages take the int8 path there too."""
+    _scope_routes_wide(mode, 256, 15)
+
+
+@pytest.mark.parametrize("mode", ["pv", "qk"])
+def test_scope_routes_head_dim_384(mode):
+    """So is D = 384, which the kernel runs in its split instance."""
+    _scope_routes_wide(mode, 384, 16)
 
 
 @pytest.mark.parametrize("mode", ["", "0"])
@@ -231,3 +346,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = _t(*_qkv(12, 1, 1, 64, 128))
     with pytest.raises(ValueError, match="CUDA"):
         ti8.i8_attention_cuda(q, k, v, scale=SCALE)
+    with pytest.raises(ValueError, match="CUDA"):
+        ti8.prep_cuda(q, k, v, scale=SCALE)
+    ops = ti8.kernel_operands(*ti8.quantize_attn_inputs(q, k, v, SCALE))
+    with pytest.raises(ValueError, match="CUDA"):
+        ti8.i8_attention_cuda_q(*ops, B=1, H=1)

@@ -2,9 +2,12 @@
 """Microbenchmark: int8 vs bf16 tensor-core GEMM rate on this card.
 
 The CUDA counterpart of ``tools_i8_microbench.py``: the same problem
-(M 4096, K 3072, R 12288; x (M, K) row-major, w (K, R) K-major) and the same
-variants by name, run through the hand-written probe kernels of
-``comfyui_gguf_tpu_torch/csrc/gemm_probe.cu`` (warp-level ``mma.sync``):
+(M 4096, K 3072, R 12288) and the same variants by name, run through the
+hand-written probe kernels of ``comfyui_gguf_tpu_torch/csrc/gemm_probe.cu``
+(the persistent TMA + ``wgmma`` GEMM of the w8a8 matmul). x is (M, K)
+row-major; w is (K, R) row-major at bf16, as the reference feeds it, and
+(R, K) K-contiguous at s8, the model's int8 weight layout and the only B
+form s8 ``wgmma`` reads:
 
   * bf16 x bf16 -> f32 baseline
   * s8 x s8 -> s32, no scales (raw integer rate)
@@ -14,7 +17,7 @@ variants by name, run through the hand-written probe kernels of
 
 each at both block-tile widths the kernels are built for (bn = 128, 256).
 Where the reference varies the K tile, this one varies the block tile: the
-CUDA kernels walk K in fixed 64-byte steps.
+CUDA kernels walk K in fixed 128-byte steps.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc:
 
@@ -24,9 +27,10 @@ Each variant is first held against its plain PyTorch version (exactly equal
 for the integer variants, relative L2 <= 5e-3 for bf16), then timed with
 CUDA events around a CUDA graph of 10 launches. One line per variant with
 milliseconds and T(FL)OP/s; the last two lines time the library calls
-``torch.matmul`` (bf16) and ``torch._int_mm`` (s8 -> s32, no bf16 cast) on
-the same operands as yardsticks. The card's name and power limit head the
-output, since the rates depend on the limit.
+``torch.matmul`` (bf16) and ``torch._int_mm`` (s8 -> s32, no bf16 cast, B
+in the TN form cuBLASLt's int8 path reads) on the same operands as
+yardsticks. The card's name and power limit head the output, since the
+rates depend on the limit.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def main() -> int:
     wb = torch.randn((K, R), generator=gen, device="cuda").bfloat16()
     x8 = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                        dtype=torch.int8)
-    w8 = torch.randint(-127, 128, (K, R), generator=gen, device="cuda",
+    w8 = torch.randint(-127, 128, (R, K), generator=gen, device="cuda",
                        dtype=torch.int8)
     xs = torch.rand((M, 128), generator=gen, device="cuda") * 1e-3 + 1e-3
     xs1 = xs[:, :1].contiguous()
@@ -95,7 +99,8 @@ def main() -> int:
         run(f"w8a8 rescale xs1 bn={bn}",
             lambda: gp.probe_w8a8(x8, w8, xs1, ws, bn=bn), want_w8a8, True)
     for tag, fn in (("library torch.matmul bf16", lambda: torch.matmul(xb, wb)),
-                    ("library torch._int_mm s8", lambda: torch._int_mm(x8, w8))):
+                    ("library torch._int_mm s8",
+                     lambda: torch._int_mm(x8, w8.t()))):
         ms = graph_ms([fn])
         print(f"{tag:28s}: {ms:7.3f} ms  {ops / ms / 1e9:6.1f} T/s",
               flush=True)
