@@ -15,8 +15,10 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    is a failure;
 2. build: the CUDA kernels are compiled from ``comfyui_gguf_tpu_torch/csrc``
    (one nvcc per source, in parallel) and loaded; ``ptxas`` registers (and,
-   for the int8 attention, its prep and the GEMM probes, spills) and the
-   dynamic shared memory of the TMA-fed kernels are printed;
+   for the int8 attention, its prep and the GEMM probes, spills; for the
+   fused matmuls each instance's registers and spills, the LoRA instances
+   beside the unpatched ones) and the dynamic shared memory of the TMA-fed
+   kernels are printed;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
@@ -29,15 +31,26 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    cuBLASLt's int8 path takes; K6 runs at head dims 128, 256 and 512 (its
    split instance) on the operands of its prep kernel, which is held against the plain prep (q
    and v codes and their scales equal, k codes within one step, two
-   launches equal) and timed beside it;
+   launches equal) and timed beside it. The LoRA instances of K1/K2 (both
+   bodies) and K4 (the rank term h @ upᵀ in the epilogue) run at the main
+   path's shapes against their plain versions with the same rank operands,
+   timed beside the unpatched instance; at strength 0 (up scaled by 0) each
+   must equal the unpatched launch;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
-   steps, planar and after ``requantize_i8()``; (b) a tiny ``FluxPipeline``
+   steps, planar and after ``requantize_i8()``; then with a LoRA of every
+   patch type (rank patches on every block linear, LoCon mid, LoHa, GLoRA)
+   through ``apply_lora``, planar and after ``requantize_i8()`` and
+   ``stack()``; then ``unapply_loras()``, which must give the unpatched
+   stacked model's latent exactly; (b) a tiny ``FluxPipeline``
    (flux GGUF, 2-layer T5 Q8_0 GGUF with tokenizer metadata, CLIP and VAE
    safetensors with ``vocab.json``/``merges.txt``, all written by the port's
    own writers) through ``FluxPipeline.load`` and ``generate``, with and
    without ``attention_i8`` at a size inside the int8 gate, then img2img,
-   inpainting and a Kontext reference once each;
+   inpainting and a Kontext reference once each, then with the text
+   encoders' slices of a LoRA file (``t5.apply_lora``,
+   ``clip_l.apply_lora``), and a textual-inversion embedding through an
+   ``EmbeddingSet`` on CLIP-L;
 5. denoise path: flux-dev width (hidden 3072, 24 heads, 4096 image + 512
    text tokens at 1024²) with random Q4_K weights from a seed, full depth
    (19 + 38 blocks) and bench.py's 20 Euler steps on ``flux_schedule``
@@ -55,7 +68,18 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    does an int8-attention latent or image more than 3e-2 (relative L2)
    from the default-attention one of the same request. One forward under
    ``attention_i8("pv")`` runs under ``torch.profiler`` beside phase 5's;
-7. the GEMM probe tool ``tools_i8_microbench_cuda.py`` runs as a user runs
+7. LoRA at full width: a seed-made kohya rank-16 LoRA over the 304 block
+   linears of flux-dev (modulations included), written with the port's
+   safetensors writer, applied at strength 0.8 to a flat Q4_K tree of
+   phase 5's seed, then ``requantize_i8()`` and ``stack()``; phase 6's
+   pipeline generates its second prompt with it. The same LoRA at strength
+   0 must leave one forward equal to the unpatched model's; the LoRA image
+   must launch the LoRA instances of K4 (228 a step) and of the split-K
+   body (76 a step) and nothing unpatched in their place, and differ from
+   the unpatched image (latent rel L2 > 1e-3). apply_lora seconds, s/step,
+   s/image beside the unpatched image's, peak memory and launches are
+   printed;
+8. the GEMM probe tool ``tools_i8_microbench_cuda.py`` runs as a user runs
    it.
 
 Launch counts are set to 0 just before each driven path and read just
@@ -107,6 +131,17 @@ SOURCES = {
                         "comfyui_gguf_tpu/ops/qmatmul.py:169"),
     "i8mm": ("comfyui_gguf_tpu_torch/csrc/i8mm.cu",
              "comfyui_gguf_tpu/ops/i8mm.py:70"),
+    # the LoRA instances: the rank term of the Pallas bodies' epilogues
+    "qmm_nib4_lora": ("comfyui_gguf_tpu_torch/csrc/qmm_lora.cu",
+                      "comfyui_gguf_tpu/ops/qmatmul.py:117"),
+    "qmm_int8_lora": ("comfyui_gguf_tpu_torch/csrc/qmm_int8_lora.cu",
+                      "comfyui_gguf_tpu/ops/qmatmul.py:181"),
+    "qmm_nib4_smallm_lora": ("comfyui_gguf_tpu_torch/csrc/qmm_smallm.cu",
+                             "comfyui_gguf_tpu/ops/qmatmul.py:117"),
+    "qmm_int8_smallm_lora": ("comfyui_gguf_tpu_torch/csrc/qmm_smallm.cu",
+                             "comfyui_gguf_tpu/ops/qmatmul.py:181"),
+    "i8mm_lora": ("comfyui_gguf_tpu_torch/csrc/i8mm_lora.cu",
+                  "comfyui_gguf_tpu/ops/i8mm.py:81"),
     "flash_attn": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                    "comfyui_gguf_tpu/nn/attention.py:168"),
     "i8attn_pv": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
@@ -126,6 +161,12 @@ SOURCES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# sources whose ptxas lines phase 2 prints per instance: the LoRA
+# instances and the unpatched instances beside them
+LORA_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
+                "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu")
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -158,6 +199,7 @@ def library_ms(fn):
 def kernel_phase(dev, sfu_per_s):
     import torch
 
+    from comfyui_gguf_tpu_torch import _build
     from comfyui_gguf_tpu_torch.gguf.constants import (
         GGMLQuantizationType as Q)
     from comfyui_gguf_tpu_torch.models.testing import random_planar
@@ -270,6 +312,131 @@ def kernel_phase(dev, sfu_per_s):
                          library="torch._int_mm(xq, w_rk.t()) (s8 x s8 -> "
                                  "s32 only, TN)",
                          bound_ms=b_ms, bound_by=b_by))
+
+    def lora_operands(M, R, rank, unpatched):
+        """h (M, rank) and the scale-folded upᵀ (rank, R), bf16, as
+        lora.rank_factorize gives them; up sized so that the term's RMS is
+        a tenth of the unpatched output's, whatever the format's scale: a
+        kernel that left the term out would read about 1e-1, twenty times
+        the rows' limit."""
+        h = randn(M, rank)
+        std = 0.1 * float(unpatched.float().pow(2).mean().sqrt()) / rank ** 0.5
+        upt = (torch.randn((rank, R), generator=gen, device=dev) * std).to(
+            torch.bfloat16)
+        return h, upt
+
+    def lora_row(name, kernel, shape, got, want, unpatched, zero_ok, tol,
+                 ms, base_ms, plain, lib, nbytes, t_ops, extra_ok=True,
+                 act=None):
+        gf, wf = got.float(), want.float()
+        # what a kernel that left the term out would read: a row that
+        # cannot see its own term fails (three times its rel-L2 limit)
+        term_rel = rel_l2(want, unpatched)
+        ok = (bool(torch.isfinite(got).all()) and zero_ok and extra_ok
+              and term_rel >= 3 * (5e-3 if tol == "ulp" else tol))
+        row = dict(name=name, kernel=kernel, shape=shape,
+                   max_abs_err=float((gf - wf).abs().max()),
+                   rel_l2=rel_l2(got, want), term_rel=term_rel,
+                   strength0_equal=zero_ok, ms=ms, unpatched_ms=base_ms,
+                   plain_ms=plain, library_ms=lib,
+                   library="the unpatched row's library call + "
+                           "torch.matmul(h, upᵀ)")
+        if tol == "ulp":
+            # the tensor cores add the rank term onto the rescaled
+            # accumulator in their own order and precision: a result moves
+            # by one ulp now and then, by more where it is tiny beside its
+            # addends or under GELU (1 + tanh cancels for a large negative
+            # input). Held to the fused matmuls' rel-L2 limit, at most one
+            # value in a thousand beyond one ulp; the counts are recorded
+            _, e = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
+            over = (gf - wf).abs() > torch.ldexp(torch.ones_like(gf), e - 8)
+            n = gf.shape[1] if act is None else act
+            row.update(over_1ulp=int(over[:, :n].sum()),
+                       over_1ulp_gelu_columns=int(over[:, n:].sum()),
+                       tol="rel L2 <= 5e-3, <= 1e-3 of the values over 1 "
+                           "bf16 ulp; strength 0 equal to the unpatched "
+                           "launch; term >= 3x the rel-L2 limit")
+            row["ok"] = (ok and row["rel_l2"] <= 5e-3
+                         and float(over.float().mean()) <= 1e-3)
+        else:
+            row.update(tol=f"rel L2 <= {tol} against an f32 epilogue "
+                           f"rounded once; strength 0 equal to the "
+                           f"unpatched launch; term >= 3x the limit")
+            row["ok"] = ok and row["rel_l2"] <= tol
+        row["bound_ms"], row["bound_by"] = bound_t(nbytes, t_ops)
+        rows.append(row)
+
+    def qmm_lora_case(name, kernel, qtype, M, K, R, act, rank, n_copies):
+        """K1/K2's LoRA instance in the body the dispatch picks for M; the
+        unpatched instance is timed at the same shape (the cost of the
+        term) and must equal the LoRA instance at strength 0. The plain
+        version runs its epilogue in f32 and rounds once, as the kernel
+        (and the Pallas kernel's ``_epilogue``) do."""
+        ws = [random_planar(qtype, (R, K), gen, device=dev)
+              for _ in range(n_copies)]
+        x = randn(M, K)
+        bias = torch.randn(R, generator=gen, device=dev) * 0.1
+        kw = dict(bias=bias, act_from_col=act)
+        base = qmm_cuda(x, ws[0], **kw)
+        h, upt = lora_operands(M, R, rank, base)
+        before = _build.LAUNCHES[kernel]
+        got = qmm_cuda(x, ws[0], lora_h=h, lora_up=upt, **kw)
+        if _build.LAUNCHES[kernel] != before + 1:
+            raise SystemExit(f"{name}: the dispatch did not pick {kernel}")
+        want = plain_quantized_matmul(
+            x, ws[0], lora_h=h, lora_up=upt, out_dtype=torch.float32,
+            **kw).to(torch.bfloat16)
+        zero = qmm_cuda(x, ws[0], lora_h=h, lora_up=upt * 0, **kw)
+        again = qmm_cuda(x, ws[0], lora_h=h, lora_up=upt, **kw)
+        torch.cuda.synchronize()
+        ms = graph_ms([lambda w=w: qmm_cuda(x, w, lora_h=h, lora_up=upt,
+                                            **kw) for w in ws])
+        base_ms = graph_ms([lambda w=w: qmm_cuda(x, w, **kw) for w in ws])
+        plain = event_ms(lambda: plain_quantized_matmul(
+            x, ws[0], lora_h=h, lora_up=upt, out_dtype=torch.float32,
+            **kw).to(torch.bfloat16))
+        wd = dequantize_kmajor(ws[0], torch.bfloat16).contiguous()
+        lib = library_ms(lambda: (torch.matmul(x, wd), torch.matmul(h, upt)))
+        del wd
+        nbytes = (ws[0].nbytes_packed + 2 * M * K + 2 * M * R + 4 * R
+                  + 2 * rank * (M + R))
+        t_ops = (2.0 * M * K * R + 2.0 * M * R * rank) / PEAK_BF16
+        lora_row(name, kernel, f"M={M} K={K} R={R} r={rank}", got, want,
+                 base, torch.equal(zero, base), 5e-3, ms, base_ms, plain,
+                 lib, nbytes, t_ops,
+                 extra_ok=not kernel.endswith("smallm_lora")
+                 or torch.equal(got, again))
+
+    def i8_lora_case(name, M, K, R, act, rank):
+        """K4's LoRA instance at the width i8mm_plan picks, within one bf16
+        ulp of the plain version; strength 0 equal to the unpatched
+        launch."""
+        ip = requantize_i8(random_planar(Q.Q4_K, (R, K), gen, device=dev))
+        x = randn(M, K)
+        bias = torch.randn(R, generator=gen, device=dev) * 0.1
+        xq, xs = quantize_rows(x)
+        kw = dict(bias=bias, act_from_col=act)
+        base = i8mm_cuda_q(xq, xs, ip, **kw)
+        h, upt = lora_operands(M, R, rank, base)
+        got = i8mm_cuda_q(xq, xs, ip, lora_h=h, lora_up=upt, **kw)
+        want = plain_i8mm(x, ip, lora_h=h, lora_up=upt, **kw)
+        zero = i8mm_cuda_q(xq, xs, ip, lora_h=h, lora_up=upt * 0, **kw)
+        torch.cuda.synchronize()
+        ms = graph_ms([lambda: i8mm_cuda_q(xq, xs, ip, lora_h=h,
+                                           lora_up=upt, **kw)])
+        base_ms = graph_ms([lambda: i8mm_cuda_q(xq, xs, ip, **kw)])
+        plain = event_ms(lambda: plain_i8mm(x, ip, lora_h=h, lora_up=upt,
+                                            **kw))
+        w_rk = ip.qs[:R, :K]
+        lib = library_ms(lambda: (torch._int_mm(xq, w_rk.t()),
+                                  torch.matmul(h, upt)))
+        nbytes = (M * K + 4 * M + ip.nbytes_packed + 4 * R + 2 * M * R
+                  + 2 * rank * (M + R))
+        t_ops = 2.0 * M * K * R / PEAK_INT8 + 2.0 * M * R * rank / PEAK_BF16
+        lora_row(name, "i8mm_lora",
+                 f"M={M} K={K} R={R} r={rank} bn={i8mm_plan(M, R)[0]}", got,
+                 want, base, torch.equal(zero, base), "ulp", ms, base_ms,
+                 plain, lib, nbytes, t_ops, act=act)
 
     def attn_case(name, B, H, Lq, Lk, D):
         q, k, v = randn(B, H, Lq, D), randn(B, H, Lk, D), randn(B, H, Lk, D)
@@ -497,6 +664,26 @@ def kernel_phase(dev, sfu_per_s):
     # K4 on the text stream of the double blocks (512 tokens)
     i8_case("i8mm txt qkv M=512 3072->9216", 512, 3072, 9216, None)
     i8_case("i8mm txt mlp.0 M=512 3072->12288 gelu", 512, 3072, 12288, 0)
+    # the LoRA instances at the main path's shapes: K4 on the single-block
+    # linear1 (one LoRA, and two stacked: 16 + 64) and the text qkv; K1's
+    # split-K body on the double-block modulation and its wgmma body on the
+    # bf16-fused img qkv; K2 on a T5 projection and a Q6_K modulation
+    i8_lora_case("i8mm_lora linear1 M=4608 3072->21504 gelu@9216 r=16",
+                 4608, 3072, 21504, 9216, 16)
+    i8_lora_case("i8mm_lora linear1 M=4608 3072->21504 gelu@9216 r=16+64",
+                 4608, 3072, 21504, 9216, 80)
+    i8_lora_case("i8mm_lora txt qkv M=512 3072->9216 r=16", 512, 3072, 9216,
+                 None, 16)
+    qmm_lora_case("qmm_nib4_smallm_lora mod M=1 3072->18432 Q4_K r=16",
+                  "qmm_nib4_smallm_lora", Q.Q4_K, 1, 3072, 18432, None, 16,
+                  4)
+    qmm_lora_case("qmm_nib4_lora qkv M=4096 3072->9216 Q4_K r=16",
+                  "qmm_nib4_lora", Q.Q4_K, 4096, 3072, 9216, None, 16, 1)
+    qmm_lora_case("qmm_int8_lora T5 q M=512 4096->4096 Q8_0 r=16",
+                  "qmm_int8_lora", Q.Q8_0, 512, 4096, 4096, None, 16, 4)
+    qmm_lora_case("qmm_int8_smallm_lora mod M=1 3072->18432 Q6_K r=16",
+                  "qmm_int8_smallm_lora", Q.Q6_K, 1, 3072, 18432, None, 16,
+                  2)
     # K7: flux joint attention, an odd length at D=64, and Lq != Lk
     attn_case("flash_attn flux L=4608 D=128", 1, 24, 4608, 4608, 128)
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
@@ -538,7 +725,7 @@ def kernel_phase(dev, sfu_per_s):
 def tiny_e2e_phase(dev):
     import torch
 
-    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch import _build, _safetensors
     from comfyui_gguf_tpu_torch.gguf.constants import (
         GGMLQuantizationType as Q)
     from comfyui_gguf_tpu_torch.models import testing
@@ -559,12 +746,17 @@ def tiny_e2e_phase(dev):
         return q
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "tiny_flux_mixed.gguf")
-        testing.write_flux_gguf(testing.flux_state_dict(dims, seed=0), path,
-                                mixed)
-        gpu = load_diffusion_model(path)
-        cpu = load_diffusion_model(path, device="cpu")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "tiny_flux_mixed.gguf")
+    testing.write_flux_gguf(testing.flux_state_dict(dims, seed=0), path,
+                            mixed)
+    # a LoRA of every patch type: rank patches on every block linear, the
+    # modulations included; a LoCon mid, a LoHa (the unfused path), a GLoRA
+    lora_path = os.path.join(tmp.name, "tiny_lora.safetensors")
+    _safetensors.save_file(testing.flux_mixed_lora_state_dict(dims, seed=7),
+                           lora_path)
+    gpu = load_diffusion_model(path)
+    cpu = load_diffusion_model(path, device="cpu")
     steps, h_lat = 3, 16
     inputs = {d: testing.flux_example_inputs(dims, h_lat=h_lat, w_lat=h_lat,
                                              txt_len=16, seed=5, device=d)
@@ -579,10 +771,7 @@ def tiny_e2e_phase(dev):
                                  g)
         return euler_sample(vel, img, sigmas)
 
-    for tree in ("planar", "w8a8"):
-        if tree == "w8a8":
-            gpu.requantize_i8()
-            cpu.requantize_i8()
+    def both(tree):
         _build.reset_launch_counts()
         a = run(gpu, "cuda")
         torch.cuda.synchronize()
@@ -592,20 +781,68 @@ def tiny_e2e_phase(dev):
         finite = bool(torch.isfinite(a).all())
         out[tree] = dict(rel_l2_vs_cpu=err, launches=counts, finite=finite)
         log(f"  tiny {tree}: {steps} Euler steps, card vs CPU plain rel L2 "
-            f"{err:.3e}, launches {counts}")
+            f"{err:.3e}, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
         if not finite or err > 3e-2:
             raise SystemExit(f"tiny end to end ({tree}) disagrees with the "
                              f"CPU plain path: rel L2 {err}")
+        return a
+
+    base = both("planar")
+    models = (gpu, cpu)
+    gpu, cpu = (m.requantize_i8() for m in (
+        load_diffusion_model(path), load_diffusion_model(path,
+                                                         device="cpu")))
+    both("w8a8")
+    gpu = gpu.stack()
+    _build.reset_launch_counts()
+    unpatched = run(gpu, "cuda")  # the stacked w8a8 tree, no LoRA
+    torch.cuda.synchronize()
+    out["w8a8_stacked"] = dict(launches=dict(_build.LAUNCHES))
+    # the user's order: apply_lora, then requantize_i8() and stack()
+    gpu, cpu = models
+    for m in models:
+        m.apply_lora(lora_path, strength=0.8)
+    moved = rel_l2(both("planar_lora").float(), base.float())
+    out["planar_lora"]["rel_l2_vs_unpatched"] = moved
+    gpu, cpu = (m.requantize_i8().stack() for m in models)
+    both("w8a8_lora_stacked")
+    gpu.unapply_loras()
+    _build.reset_launch_counts()
+    a = run(gpu, "cuda")
+    torch.cuda.synchronize()
+    out["w8a8_unapplied"] = dict(launches=dict(_build.LAUNCHES),
+                                 equal_to_unpatched=torch.equal(a, unpatched))
+    tmp.cleanup()
+    log(f"  tiny LoRA: the planar latent moved by rel L2 {moved:.3e}; after "
+        f"unapply_loras() the stacked w8a8 latent equals the unpatched "
+        f"model's: {out['w8a8_unapplied']['equal_to_unpatched']}")
+    if not moved > 1e-3:
+        raise SystemExit(f"tiny LoRA did not move the latent ({moved})")
+    if not out["w8a8_unapplied"]["equal_to_unpatched"]:
+        raise SystemExit("unapply_loras() did not restore the unpatched "
+                         "latent")
     # Q4_K txt_mod and Q8_0 img_mod at M=1 take the split-K bodies, the
-    # token-facing Q4_K / Q8_0 / Q6_K linears the wgmma bodies
+    # token-facing Q4_K / Q8_0 / Q6_K linears the wgmma bodies; patched,
+    # their LoRA instances (the LoHa'd linear2 of the single blocks takes
+    # the unfused path, the unpatched instance)
     need = {"planar": ("qmm_nib4", "qmm_int8", "qmm_nib4_smallm",
                        "qmm_int8_smallm", "flash_attn"),
+            "planar_lora": ("qmm_nib4_lora", "qmm_int8_lora",
+                            "qmm_nib4_smallm_lora", "qmm_int8_smallm_lora",
+                            "qmm_int8"),
+            "w8a8_lora_stacked": ("i8mm_lora", "qmm_nib4_smallm_lora",
+                                  "qmm_int8_smallm_lora", "i8mm"),
             "w8a8": ("qmm_nib4_smallm", "qmm_int8_smallm", "i8mm",
                      "flash_attn")}
     for tree, kernels in need.items():
         for k in kernels:
             if out[tree]["launches"][k] == 0:
                 raise SystemExit(f"tiny {tree} run launched no {k}")
+    if any(n for k, n in out["w8a8_unapplied"]["launches"].items()
+           if k.endswith("_lora")):
+        raise SystemExit("the unapplied model still launched a LoRA "
+                         "instance")
     return out
 
 
@@ -615,12 +852,17 @@ def tiny_pipeline_phase(dev):
     import numpy as np
     import torch
 
+    import dataclasses
+
     from comfyui_gguf_tpu_torch import _build, _safetensors
     from comfyui_gguf_tpu_torch.gguf.constants import (
         GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import clip as clip_model
     from comfyui_gguf_tpu_torch.models import testing
     from comfyui_gguf_tpu_torch.nn.attention import attention_i8
     from comfyui_gguf_tpu_torch.pipeline import FluxPipeline
+    from comfyui_gguf_tpu_torch.textual_inversion import (TOKEN_TABLE_KEY,
+                                                          EmbeddingSet)
 
     # head dim 128 and 256 image + 256 text tokens: inside the int8 gate
     dims = testing.TinyFluxDims(hidden=512, heads=4, ctx=512, vec=64,
@@ -712,6 +954,67 @@ def tiny_pipeline_phase(dev):
         if not err <= 3e-2 or counts["flash_attn"] == 0:
             raise SystemExit(f"tiny pipeline {kind} disagrees with the CPU "
                              f"plain path: rel L2 {err}")
+
+    # the text encoders' slices of a LoRA file (lora_te1_ on CLIP-L,
+    # lora_te3_ on the Q8_0 T5, whose patched linears launch K2's LoRA
+    # instance), then a textual-inversion embedding on CLIP-L
+    with tempfile.TemporaryDirectory() as tmp:
+        te_path = os.path.join(tmp, "te_lora.safetensors")
+        sd = testing.kohya_lora_state_dict(
+            testing.encoder_lora_targets(cpu.clip_l.params), rank=8,
+            alpha=8.0, seed=5, std=0.2, prefix="lora_te1_")
+        t5_targets = testing.encoder_lora_targets(cpu.t5.params)
+        sd.update(testing.kohya_lora_state_dict(
+            t5_targets, rank=16, alpha=16.0, seed=6, std=0.05,
+            prefix="lora_te3_"))
+        _safetensors.save_file(sd, te_path)
+        emb_path = os.path.join(tmp, "cat.safetensors")
+        _safetensors.save_file({"clip_l": torch.randn(
+            (2, cpu.clip_l.config.hidden),
+            generator=torch.Generator().manual_seed(9))}, emb_path)
+        kw["steps"] = 2
+        for p in (gpu, cpu):
+            p.t5.apply_lora(te_path, strength=0.8)
+            p.clip_l.apply_lora(te_path, strength=0.8)
+        _build.reset_launch_counts()
+        a = gpu.generate_from_noise(PROMPTS[0], noise, **kw)
+        counts = dict(_build.LAUNCHES)
+        b = cpu.generate_from_noise(PROMPTS[0], noise, **kw)
+        err = rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+        out["te_lora"] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  tiny pipeline with text-encoder LoRA ({len(t5_targets)} T5 "
+            f"and {len(sd) // 3 - len(t5_targets)} CLIP linears patched): "
+            f"card vs CPU plain rel L2 {err:.3e}, "
+            f"{counts['qmm_int8_lora']} qmm_int8_lora launches")
+        if not err <= 3e-2:
+            raise SystemExit(f"tiny pipeline with text-encoder LoRA "
+                             f"disagrees with the CPU: rel L2 {err}")
+        if counts["qmm_int8_lora"] != len(t5_targets):
+            raise SystemExit(f"the patched T5 launched "
+                             f"{counts['qmm_int8_lora']} qmm_int8_lora, "
+                             f"expected {len(t5_targets)}")
+        pooled = []
+        for p in (gpu, cpu):
+            es = EmbeddingSet(p.clip_l.params, hidden=p.clip_l.config.hidden,
+                              slot="clip_l")
+            es.register("cat", emb_path)
+            ids = es.encode(p.clip_l.tokenizer,
+                            "a photo of embedding:cat on the moon", 77)
+            # pool at the first EOS: the embedding's ids lie above it
+            cfg = dataclasses.replace(
+                p.clip_l.config, eos_token_id=p.clip_l.tokenizer.eos_id)
+            with torch.no_grad():
+                pooled.append(clip_model.encode(
+                    es.params, cfg, torch.as_tensor(ids).to(
+                        es.params[TOKEN_TABLE_KEY].device),
+                    qcfg=p.clip_l.qcfg)["pooled"].float().cpu())
+        err = rel_l2(*pooled)
+        out["embedding"] = dict(rel_l2_vs_cpu=err, ids=ids.tolist(),
+                                launches={})
+        log(f"  textual inversion on CLIP-L: ids {ids[0, :10].tolist()}..., "
+            f"pooled card vs CPU rel L2 {err:.3e}")
+        if not err <= 3e-2 or int(ids.max()) < cpu.clip_l.config.vocab_size:
+            raise SystemExit(f"textual inversion: rel L2 {err}, ids {ids}")
     return out
 
 
@@ -1007,11 +1310,142 @@ def text_to_image_phase(dev, model, request, steps, t5_layers):
         f"{res['vae_decode_peak_over_held_gib']:.2f} GiB above the "
         f"{held / 2**30:.2f} GiB held")
     res["launches"] = launches
+    base_run = next(r for r in res["runs"]
+                    if r["mode"] == "bf16" and r["prompt"] == 1)
+    return res, pipe, base[1][0], base_run
+
+
+# ---------------------------------------------------------------------------
+# phase 7: a LoRA over every block linear of flux-dev, at full width
+# ---------------------------------------------------------------------------
+
+def lora_phase(dev, pipe, request, base_latent, base_run, steps):
+    """A seed-made kohya rank-16 LoRA (alpha 16) over all 304 block linears
+    of flux-dev (10 a double block, 3 a single block, the modulations
+    included), applied at strength 0.8 to a flat Q4_K tree from phase 5's
+    seed, then ``requantize_i8()`` and ``stack()``: phase 6's pipeline
+    generates its second prompt with it. First the same LoRA at strength 0
+    must leave one forward of phase 5's request equal to the unpatched
+    model's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import DiffusionModel
+
+    cfg, qcfg = pipe.model.config, pipe.model.qcfg
+    dims = dataclasses.replace(testing.FLUX_DEV_DIMS,
+                               depth_double=cfg.depth_double,
+                               depth_single=cfg.depth_single)
+    targets = testing.flux_lora_targets(dims)
+    res = {"patched_linears": len(targets), "rank": 16, "alpha": 16.0,
+           "strength": 0.8}
+    with torch.no_grad():
+        want0 = pipe.model.forward(*request)
+    pipe.model = None  # the unpatched flux: phase 6's image stands for it
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "flux_dev_lora_r16.safetensors")
+    t = time.perf_counter()
+    _safetensors.save_file(testing.kohya_lora_state_dict(
+        targets, rank=16, alpha=16.0, seed=21), path)
+    res["write_s"] = time.perf_counter() - t
+    res["file_mib"] = os.path.getsize(path) / 2**20
+
+    def patched_model(strength):
+        sp = testing.flux_random_stacked_params(dims, qtype=Q.Q4_K, seed=0,
+                                                device=dev)
+        model = DiffusionModel(arch="flux", params=testing.flux_flat_views(
+            sp), config=cfg, qcfg=qcfg, device=torch.device(dev))
+        del sp
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.apply_lora(path, strength=strength)
+        torch.cuda.synchronize()
+        t_apply = time.perf_counter() - t
+        model.requantize_i8()
+        model = model.stack()
+        torch.cuda.synchronize()
+        return model, t_apply, time.perf_counter() - t - t_apply
+
+    # strength 0: every patched linear runs its LoRA instance, adding exact
+    # zeros, so the forward equals the unpatched one value for value
+    model, _, _ = patched_model(0.0)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got0 = model.forward(*request)
+    torch.cuda.synchronize()
+    res["strength0_forward_equal"] = bool(torch.equal(got0, want0))
+    res["strength0_launches"] = dict(_build.LAUNCHES)
+    del model, got0, want0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, res["apply_lora_s"], res["requantize_stack_s"] = patched_model(0.8)
+    tmp.cleanup()
+    pipe.model = model
+    res["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    img = pipe.generate(PROMPTS[1], width=1024, height=1024, steps=steps,
+                        seed=1)
+    counts = dict(_build.LAUNCHES)
+    tm = dict(pipe.last_timings)
+    lat = pipe.last_latent.float()
+    # where the LoRA step goes (phase 5 profiles the unpatched one); the
+    # profiled forward is not a path
+    res["profile_w8a8_lora_forward"] = profile_forward(
+        model, request, tm["denoise_s"] / steps, "w8a8 LoRA")
+    _build.LAUNCHES.update(counts)
+    res.update(timings_s=tm, s_per_step=tm["denoise_s"] / steps,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=counts,
+               unpatched_s_per_step=base_run["s_per_step"],
+               unpatched_image_s=base_run["timings_s"]["total_s"],
+               latent_rel_delta_vs_unpatched=rel_l2(lat, base_latent),
+               image_std=float(img.std()))
+    log(f"  {len(targets)} patched linears (rank 16, alpha 16, strength "
+        f"0.8); file {res['file_mib']:.1f} MiB written in "
+        f"{res['write_s']:.2f}s; apply_lora {res['apply_lora_s']:.3f}s, "
+        f"requantize_i8 + stack {res['requantize_stack_s']:.3f}s")
+    log(f"  strength 0: one forward equal to the unpatched model's: "
+        f"{res['strength0_forward_equal']}")
+    log(f"  LoRA image (prompt 1): denoise {tm['denoise_s']:.3f}s "
+        f"({res['s_per_step'] * 1e3:.1f} ms/step; unpatched "
+        f"{base_run['s_per_step'] * 1e3:.1f}), image {tm['total_s']:.3f}s "
+        f"(unpatched {res['unpatched_image_s']:.3f}s); peak "
+        f"{res['peak_gib']:.2f} GiB (unpatched "
+        f"{base_run['peak_gib']:.2f}; {res['build_peak_gib']:.2f} while "
+        f"the patched tree was built); latent rel L2 vs the unpatched image's "
+        f"{res['latent_rel_delta_vs_unpatched']:.3e}; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if (img.shape != (1024, 1024, 3) or not bool(torch.isfinite(lat).all())
+            or not bool(np.isfinite(img).all())):
+        raise SystemExit("LoRA image: misshapen or non-finite output")
+    if not res["strength0_forward_equal"]:
+        raise SystemExit("a strength-0 LoRA changed the full-width forward")
+    if not res["latent_rel_delta_vs_unpatched"] > 1e-3:
+        raise SystemExit("the LoRA image equals the unpatched one: the "
+                         "patches did nothing")
+    n_blocks = cfg.depth_double + cfg.depth_single
+    want = {"i8mm_lora": (8 * cfg.depth_double + 2 * cfg.depth_single)
+            * steps,
+            "qmm_nib4_smallm_lora": (2 * cfg.depth_double + cfg.depth_single)
+            * steps,
+            "i8mm": 0, "qmm_nib4_smallm": 0, "flash_attn": n_blocks * steps}
+    for k, n in want.items():
+        if counts[k] != n:
+            raise SystemExit(f"LoRA image: {counts[k]} launches of {k}, "
+                             f"expected {n}")
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the GEMM probe tool, as a user runs it
+# phase 8: the GEMM probe tool, as a user runs it
 # ---------------------------------------------------------------------------
 
 def probe_tool_phase():
@@ -1073,6 +1507,12 @@ def main() -> int:
             f"{rep['total_s']:.2f}s")
         for src, lines in rep["ptxas"].items():
             spills = [ln.strip() for ln in lines if "spill" in ln]
+            if src in LORA_SOURCES:
+                # registers and spills of each instance, by its template
+                # arguments (LoRA instances: the last argument is 1)
+                for inst, used, spill in _build.ptxas_entries(lines):
+                    log(f"  {src}: {inst}: {used}; {spill}")
+                continue
             for ln in lines:
                 if "Used" in ln:
                     log(f"  {src}: {ln.split(':', 1)[1].strip()}")
@@ -1094,7 +1534,10 @@ def main() -> int:
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
                     for d in (128, 256, 512) for m in ("pv", "qk"))
         + " (i8attn_prep.cu: static shared memory only, in the ptxas "
-          "lines)")
+          "lines); the LoRA instances use their unpatched instances' "
+          "layouts (i8mm_lora.cu as i8mm.cu, qmm_lora.cu / "
+          "qmm_int8_lora.cu as qmm.cu / qmm_int8.cu, qmm_smallm.cu's as "
+          "its own): the rank chunks stream through the same ring")
 
     log("[3 kernels vs plain at the main paths' shapes]")
     rows = kernel_phase(dev, sfu_per_s)
@@ -1114,6 +1557,14 @@ def main() -> int:
         if "tile_ms" in r:
             extra = " | by tile width " + ", ".join(
                 f"bn={bn}: {ms:.4f} ms" for bn, ms in r["tile_ms"].items())
+        if "unpatched_ms" in r:
+            if "over_1ulp" in r:
+                extra = (f" | over 1 ulp: {r['over_1ulp']} (GELU columns "
+                         f"{r['over_1ulp_gelu_columns']})")
+            extra += (f" | unpatched instance {r['unpatched_ms']:.4f} ms, "
+                     f"the term moves the output by rel L2 "
+                     f"{r['term_rel']:.2e}, strength 0 equal: "
+                     f"{r['strength0_equal']}")
         log(f"  {r['name']}: {'ok' if r['ok'] else 'FAIL'} "
             f"rel_l2={r['rel_l2']:.2e} max_abs={r['max_abs_err']:.3e} "
             f"({r['tol']}) | kernel {r['ms']:.4f} ms, plain "
@@ -1134,20 +1585,27 @@ def main() -> int:
                                                args.depth_single, args.steps)
 
     log("[6 text to image at published widths]")
-    t2i = text_to_image_phase(dev, model, request, args.steps,
-                              args.t5_layers)
+    t2i, pipe, base_latent, base_run = text_to_image_phase(
+        dev, model, request, args.steps, args.t5_layers)
     del model
+
+    log("[7 a rank-16 LoRA over every block linear of flux-dev, at full "
+        "width]")
+    lora_res = lora_phase(dev, pipe, request, base_latent, base_run,
+                          args.steps)
+    del pipe
     torch.cuda.empty_cache()
 
-    log("[7 the GEMM probe tool]")
+    log("[8 the GEMM probe tool]")
     tool_counts = probe_tool_phase()
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
     launches = {k: 0 for k in _build.LAUNCHES}
-    for counts in (tiny["planar"]["launches"], tiny["w8a8"]["launches"],
+    for counts in (*(v["launches"] for v in tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
-                   main_res["launches"], t2i["launches"], tool_counts):
+                   main_res["launches"], t2i["launches"],
+                   lora_res["launches"], tool_counts):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference ``comfyui_gguf_tpu``, with the
 same module layout. The main path is flux text-to-image: tokenizers → T5
-and CLIP-L encode → GGUF file → planar weights → w8a8 conversion → flux
-forward → Euler sampler → VAE decode, with hand-written CUDA kernels
-(``csrc/``) for the fused quantized matmuls, flash attention and int8 flash
+and CLIP-L encode → GGUF file → planar weights (LoRA patches attached) →
+w8a8 conversion → flux forward → Euler sampler → VAE decode, with
+hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
+the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
 the CPU, where each kernel's plain PyTorch version runs instead.
 """
@@ -34,6 +35,7 @@ _PUBLIC = {
     "PlanarQuant": ".quant.planar",
     "planarize": ".quant.planar",
     "params_from_numpy": ".interop",
+    "EmbeddingSet": ".textual_inversion",
 }
 
 

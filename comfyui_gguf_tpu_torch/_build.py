@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,8 +31,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_smallm.cu", "i8mm.cu",
-           "flash_attn.cu", "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
+SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
+           "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "flash_attn.cu",
+           "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
 HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "gemm_wgmma.cuh",
            "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,12 +46,22 @@ _SIGNATURES = {
     # token sub-tiles, stream
     "qmm_wgmma_nib4_launch": [_VP] * 6 + [_I] * 9 + [_VP],
     "qmm_wgmma_int8_launch": [_VP] * 6 + [_I] * 9 + [_VP],
+    # x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp,
+    # rk, act_from, token sub-tiles, stream
+    "qmm_wgmma_nib4_lora_launch": [_VP] * 8 + [_I] * 10 + [_VP],
+    "qmm_wgmma_int8_lora_launch": [_VP] * 8 + [_I] * 10 + [_VP],
     # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
     # act_from, K split, stream
     "qmm_smallm_launch": [_VP] * 6 + [_I] * 10 + [_VP],
+    # x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp, rk,
+    # nib4, act_from, K split, stream
+    "qmm_smallm_lora_launch": [_VP] * 8 + [_I] * 11 + [_VP],
     # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, out row stride,
     # act_from, tile width, stream
     "i8mm_launch": [_VP] * 6 + [_I] * 8 + [_VP],
+    # xq, xs, wq, ws, bias, out, h, up, M, K, Kp, R, Rp, out row stride,
+    # rk, act_from, tile width, stream
+    "i8mm_lora_launch": [_VP] * 8 + [_I] * 9 + [_VP],
     # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
     "flash_attn_launch": [_VP] * 4 + [_I] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
@@ -71,9 +83,12 @@ _SIGNATURES = {
     "gemm_probe_s8_launch": [_VP] * 5 + [_I] * 5 + [_VP],
 }
 
-# launches per kernel since the last reset_launch_counts()
+# launches per kernel since the last reset_launch_counts(); a "_lora" entry
+# counts the launches of that kernel's LoRA instance (and only those)
 LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
-            "qmm_int8_smallm": 0, "i8mm": 0, "flash_attn": 0,
+            "qmm_int8_smallm": 0, "i8mm": 0, "qmm_nib4_lora": 0,
+            "qmm_int8_lora": 0, "qmm_nib4_smallm_lora": 0,
+            "qmm_int8_smallm_lora": 0, "i8mm_lora": 0, "flash_attn": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
             "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
@@ -161,6 +176,27 @@ def build() -> Path:
                         compile_s=t_compile,
                         total_s=time.perf_counter() - t0, ptxas=ptxas)
     return target
+
+
+def ptxas_entries(lines):
+    """(kernel<template args>, "Used ..." text, spill text) per compiled
+    entry of one source's ptxas lines (``BUILD_REPORT["ptxas"][src]``);
+    the template arguments are the integers and booleans of the mangled
+    name."""
+    out, name, spill = [], None, ""
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I((?:L[bi]\d+E)+)E",
+                          ln)
+            args = re.findall(r"L[bi](\d+)E", m.group(2)) if m else []
+            name = (m.group(1) + "<" + ",".join(args) + ">"
+                    if m else ln.split("'")[1][:60])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name is not None:
+            out.append((name, ln.split(":", 1)[1].strip(), spill))
+            name, spill = None, ""
+    return out
 
 
 def lib() -> ctypes.CDLL:

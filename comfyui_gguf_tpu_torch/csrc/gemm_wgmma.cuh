@@ -24,6 +24,17 @@
 // shared memory while its first products run. Left to global stores of the
 // registers and to loads of the scales at the end of the tile, the
 // epilogue took as long as the matrix work.
+//
+// The LoRA instance (s8 only, LORA = true) adds the rank term of the
+// reference's shared epilogue between the rescale and the bias:
+//   out[m, r] = bf16( epi( (float(acc) * xs[m]) * ws[r] + h[m] . up[r] ) )
+// with h (M, rk) and up (Rp, rk) bf16, rk a multiple of 16. The s32 and f32
+// accumulators of wgmma share one register layout, so after the K loop each
+// warpgroup rescales its fragment to f32 in place and issues bf16 m64nBNk16
+// products onto it. The rank chunks stream through the same ring, ceil(rk /
+// 64) more stages a tile: 64 bf16 of rank are the 128 bytes of a stage row,
+// so an h tile is an x tile and an up tile a w tile, K-major with the
+// 128-byte swizzle. The unpatched instances compile as before.
 #pragma once
 
 #include "common.cuh"
@@ -110,7 +121,7 @@ struct GemmOps<true, BN> {  // bf16 x bf16 -> f32; w (K, R), R contiguous
   static __device__ __forceinline__ float to_float(float v) { return v; }
 };
 
-template <bool BF16, int BN>
+template <bool BF16, int BN, bool LORA>
 __global__ void __launch_bounds__(GM_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K)
                   const __grid_constant__ CUtensorMap tm_w,  // see GemmOps
@@ -119,10 +130,16 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K)
                   const float* __restrict__ ws,  // (R) | null
                   const float* __restrict__ bias,  // (R) | null
                   int xs_stride, int M, int R, int n_steps, int act_from,
-                  int m_tiles, int n_tiles) {
+                  int m_tiles, int n_tiles,
+                  const __grid_constant__ CUtensorMap tm_h,   // LORA: (M, rk)
+                  const __grid_constant__ CUtensorMap tm_up,  // LORA: (Rp, rk)
+                  int rk) {
+  static_assert(!(LORA && BF16), "the rank term is an s8 instance");
   using S = GemmShape<BN>;
   using Op = GemmOps<BF16, BN>;
   constexpr int STAGES = S::STAGES;
+  // stages a tile: the K steps, then (LORA) the rank chunks of 64
+  const int t_steps = n_steps + (LORA ? (rk + 63) / 64 : 0);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -158,13 +175,20 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K)
            tile += gridDim.x) {
         const int m0 = (tile % m_tiles) * GM_BM;
         const int r0 = (tile / m_tiles) * BN;
-        for (int ks = 0; ks < n_steps; ++ks) {
+        for (int ks = 0; ks < t_steps; ++ks) {
           mbar_wait(&empty[stage], phase ^ 1);
           uint8_t* st = smem + stage * S::STAGE;
           mbar_arrive_expect_tx(&full[stage], S::STAGE);
-          tma_load_2d(st, &tm_x, &full[stage], ks * GM_BK / (BF16 ? 2 : 1),
-                      m0);
-          Op::load_w(st + GM_X_TILE, &tm_w, &full[stage], ks, r0);
+          if (LORA && ks >= n_steps) {
+            // rank chunk: h rows as the x tile, up rows as the w tile
+            const int c = (ks - n_steps) * 64;
+            tma_load_2d(st, &tm_h, &full[stage], c, m0);
+            tma_load_2d(st + GM_X_TILE, &tm_up, &full[stage], c, r0);
+          } else {
+            tma_load_2d(st, &tm_x, &full[stage],
+                        ks * GM_BK / (BF16 ? 2 : 1), m0);
+            Op::load_w(st + GM_X_TILE, &tm_w, &full[stage], ks, r0);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -237,31 +261,95 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K)
       // acc[4i + 2h + c] = out[m + 8h][r0 + 8i + 2t + c]; rows m, m + 8
       // are rows r, r + 8 of the warpgroup's output tile
       const int r = w * 16 + g;
-      // (acc * xs) * ws, rounded at each step as the plain version does,
-      // then + bias and GELU from column act_from; columns past R are
-      // clipped by the store
-      auto value = [&](typename Op::Acc v, float s, int c) {
-        float y = __fmul_rn(__fmul_rn(Op::to_float(v), s), ep[c]);
-        if (bias != nullptr) y = __fadd_rn(y, ep[BN + c]);
-        return act_from >= 0 && r0 + c >= act_from ? gelu_tanh(y) : y;
-      };
-      if (leader) bulk_wait_read<0>();  // the last tile's rows have left ot
-      named_bar_sync(1 + wg, 128);      // ... and ep is written
-      const float xs0 = ep[2 * BN + r];
-      const float xs1 = ep[2 * BN + r + 8];
+      if constexpr (LORA) {
+        if (leader) bulk_wait_read<0>();  // the last tile's rows left ot
+        named_bar_sync(1 + wg, 128);      // ... and ep is written
+        const float xs0 = ep[2 * BN + r];
+        const float xs1 = ep[2 * BN + r + 8];
+        // (acc * xs) * ws in place, rounded as the plain version does
+        float f[BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        const int n = 8 * i + 2 * t;  // the tile's column
-        // 16-byte unit i % 8 of row r in column block i / 8, swizzled by
-        // r % 8 (the same for row r + 8)
-        uint8_t* p = ot + (i >> 3) * (64 * 128) + r * 128 +
-                     (((i & 7) ^ (r & 7)) << 4) + 4 * t;
-        *reinterpret_cast<uint32_t*>(p) =
-            pack_bf16x2(value(acc[4 * i], xs0, n),
-                        value(acc[4 * i + 1], xs0, n + 1));
-        *reinterpret_cast<uint32_t*>(p + 8 * 128) =
-            pack_bf16x2(value(acc[4 * i + 2], xs1, n),
-                        value(acc[4 * i + 3], xs1, n + 1));
+        for (int i = 0; i < BN / 2; ++i) {
+          const int n = 8 * (i >> 2) + 2 * t + (i & 1);
+          f[i] = __fmul_rn(__fmul_rn(Op::to_float(acc[i]),
+                                     (i & 2) ? xs1 : xs0),
+                           ep[n]);
+        }
+        // + h . up over the rank chunks, on the f32 fragment
+        int rel = -1;
+        for (int c = 0; c < rk; c += 64) {
+          const int nk = (rk - c) / 16 < 4 ? (rk - c) / 16 : 4;
+          mbar_wait(&full[stage], phase);
+          const uint32_t st = __shfl_sync(
+              0xFFFFFFFFu, smem_base + stage * S::STAGE, 0);
+          const uint64_t da = wgmma_desc_k128(st + wg * 64 * GM_BK);
+          const uint64_t db = wgmma_desc_k128(st + GM_X_TILE);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            if (kk < nk) {
+              if constexpr (BN == 256) {
+                wgmma_m64n256k16_ss(f, da + 2 * kk, db + 2 * kk);
+              } else {
+                wgmma_m64n128k16_ss(f, da + 2 * kk, db + 2 * kk, 1);
+              }
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (rel >= 0) mbar_arrive(&empty[rel]);
+          rel = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) reg_fence(f[i]);
+        if (rel >= 0) mbar_arrive(&empty[rel]);
+        // + bias, then GELU from column act_from
+        auto post = [&](float y, int c) {
+          if (bias != nullptr) y = __fadd_rn(y, ep[BN + c]);
+          return act_from >= 0 && r0 + c >= act_from ? gelu_tanh(y) : y;
+        };
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int n = 8 * i + 2 * t;
+          uint8_t* p = ot + (i >> 3) * (64 * 128) + r * 128 +
+                       (((i & 7) ^ (r & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(p) =
+              pack_bf16x2(post(f[4 * i], n), post(f[4 * i + 1], n + 1));
+          *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+              pack_bf16x2(post(f[4 * i + 2], n), post(f[4 * i + 3], n + 1));
+        }
+      } else {
+        // (acc * xs) * ws, rounded at each step as the plain version does,
+        // then + bias and GELU from column act_from; columns past R are
+        // clipped by the store
+        auto value = [&](typename Op::Acc v, float s, int c) {
+          float y = __fmul_rn(__fmul_rn(Op::to_float(v), s), ep[c]);
+          if (bias != nullptr) y = __fadd_rn(y, ep[BN + c]);
+          return act_from >= 0 && r0 + c >= act_from ? gelu_tanh(y) : y;
+        };
+        if (leader) bulk_wait_read<0>();  // the last tile's rows have left ot
+        named_bar_sync(1 + wg, 128);      // ... and ep is written
+        const float xs0 = ep[2 * BN + r];
+        const float xs1 = ep[2 * BN + r + 8];
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int n = 8 * i + 2 * t;  // the tile's column
+          // 16-byte unit i % 8 of row r in column block i / 8, swizzled by
+          // r % 8 (the same for row r + 8)
+          uint8_t* p = ot + (i >> 3) * (64 * 128) + r * 128 +
+                       (((i & 7) ^ (r & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(p) =
+              pack_bf16x2(value(acc[4 * i], xs0, n),
+                          value(acc[4 * i + 1], xs0, n + 1));
+          *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+              pack_bf16x2(value(acc[4 * i + 2], xs1, n),
+                          value(acc[4 * i + 3], xs1, n + 1));
+        }
       }
       fence_proxy_async();
       named_bar_sync(1 + wg, 128);
@@ -287,27 +375,43 @@ inline bool make_out_map(CUtensorMap* tm, void* out, int M, int ldo) {
 
 // Launches one persistent grid (at most one block a SM) over the maps:
 // x (M, K) with a box of 128 rows x 128 bytes, w as GemmOps reads it, the
-// output from make_out_map. n_steps = ceil(K bytes / 128).
-template <bool BF16, int BN>
+// output from make_out_map. n_steps = ceil(K bytes / 128). LORA: tm_h and
+// tm_up from make_lora_maps, rk their rank (a multiple of 16).
+template <bool BF16, int BN, bool LORA = false>
 cudaError_t launch_gemm(const CUtensorMap& tm_x, const CUtensorMap& tm_w,
                         const CUtensorMap& tm_o, const void* xs,
                         int xs_stride, const void* ws, const void* bias,
                         int M, int R, int n_steps, int act_from,
-                        cudaStream_t stream) {
+                        cudaStream_t stream,
+                        const CUtensorMap& tm_h = CUtensorMap{},
+                        const CUtensorMap& tm_up = CUtensorMap{},
+                        int rk = 0) {
   using S = GemmShape<BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_wgmma_kernel<BF16, BN>,
+      gemm_wgmma_kernel<BF16, BN, LORA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return attr;
   const int m_tiles = (M + GM_BM - 1) / GM_BM;
   const int n_tiles = (R + BN - 1) / BN;
   const int tiles = m_tiles * n_tiles;
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_wgmma_kernel<BF16, BN><<<grid, GM_THREADS, S::SMEM, stream>>>(
+  gemm_wgmma_kernel<BF16, BN, LORA><<<grid, GM_THREADS, S::SMEM, stream>>>(
       tm_x, tm_w, tm_o, static_cast<const float*>(xs),
       static_cast<const float*>(ws), static_cast<const float*>(bias),
-      xs_stride, M, R, n_steps, act_from, m_tiles, n_tiles);
+      xs_stride, M, R, n_steps, act_from, m_tiles, n_tiles, tm_h, tm_up, rk);
   return cudaGetLastError();
+}
+
+// Tensor maps of the LoRA instance's rank operands: h (M, rk) in boxes of
+// 128 rows x 64 bf16 (an x tile), up (Rp, rk) in boxes of BN rows x 64 bf16
+// (a w tile), both with the 128-byte swizzle; columns past rk are zeros.
+inline bool make_lora_maps(CUtensorMap* tm_h, CUtensorMap* tm_up,
+                           const void* h, const void* up, int M, int Rp,
+                           int rk, int bn) {
+  return make_map(tm_h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, M, rk, GM_BM,
+                  64, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         make_map(tm_up, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, up, Rp, rk, bn,
+                  64, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

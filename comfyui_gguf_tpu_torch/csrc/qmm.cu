@@ -82,11 +82,7 @@ extern "C" int qmm_wgmma_nib4_launch(const void* x, const void* qs,
                                      int K, int Kp, int R, int Rp, int gs,
                                      int zp, int act_from, int nt,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return offsets ? launch_wgmma<true, true>(x, qs, scales, offsets, bias, out,
-                                            M, K, Kp, R, Rp, gs, zp, act_from,
-                                            nt, s)
-                 : launch_wgmma<true, false>(x, qs, scales, offsets, bias,
-                                             out, M, K, Kp, R, Rp, gs, zp,
-                                             act_from, nt, s);
+  return launch_wgmma<true, false>(
+      x, qs, scales, offsets, bias, out, nullptr, nullptr, M, K, Kp, R, Rp,
+      gs, zp, 0, act_from, nt, static_cast<cudaStream_t>(stream));
 }

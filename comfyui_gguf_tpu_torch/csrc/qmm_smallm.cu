@@ -2,6 +2,14 @@
 // dequant-matmul, both layouts (design note: qmm.cu). Replaces
 // _make_nib4_kernel and _make_int8_kernel of
 // comfyui_gguf_tpu/ops/qmatmul.py at the modulation projections' M = batch.
+//
+// Its LORA instances add the reference epilogue's rank term (the has_lora
+// operands, qmatmul.py:117 and :181) once, in cluster rank 0 after the
+// partial sums are reduced and before the bias and GELU: h (M, rk) · up[r]
+// (up (Rp, rk), rank contiguous, bf16) as CUDA-core FMAs in a fixed order,
+// so two launches still give the same bits. At M <= 8 the term reads
+// R·rk·2 bytes of up (0.6 MB at R = 18432, r = 16) beside the packed weight
+// (28 MB at Q4_K).
 #include <cooperative_groups.h>
 
 #include "qmm_common.cuh"
@@ -49,7 +57,7 @@ __device__ __forceinline__ void smallm_frags(
   }
 }
 
-template <bool NIB4, bool HAS_OFF>
+template <bool NIB4, bool HAS_OFF, bool LORA>
 __global__ void __launch_bounds__(SM_THREADS)
 qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
                   const uint8_t* __restrict__ qs,       // (Kp/2 or Kp, Rp)
@@ -58,7 +66,10 @@ qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
                   const float* __restrict__ bias,       // (R) | null
                   __nv_bfloat16* __restrict__ out,      // (M, R)
                   int M, int K, int Kp, int R, int Rp, int gs, float zp,
-                  int act_from) {
+                  int act_from,
+                  const __nv_bfloat16* __restrict__ lora_h,   // LORA: (M, rk)
+                  const __nv_bfloat16* __restrict__ lora_up,  // LORA: (Rp, rk)
+                  int lora_k) {  // rk, the rank columns
   constexpr bool FOLD = NIB4 && HAS_OFF;
   constexpr int PLANES = NIB4 ? 2 : 1;
   extern __shared__ __align__(16) uint8_t smem_b[];
@@ -213,6 +224,25 @@ qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
         v0 += p[rk].x;
         v1 += p[rk].y;
       }
+      if constexpr (LORA) {
+        if (m < M) {  // + h[m] . up[n0 + c], h[m] . up[n0 + c + 1]
+          const __nv_bfloat162* hp = reinterpret_cast<const __nv_bfloat162*>(
+              lora_h + static_cast<size_t>(m) * lora_k);
+          const __nv_bfloat162* u0 = reinterpret_cast<const __nv_bfloat162*>(
+              lora_up + static_cast<size_t>(n0 + c) * lora_k);
+          const __nv_bfloat162* u1 = u0 + lora_k / 2;
+          float d0 = 0.0f, d1 = 0.0f;
+          for (int j = 0; j < lora_k / 2; ++j) {
+            const float2 hv = __bfloat1622float2(hp[j]);
+            const float2 a = __bfloat1622float2(u0[j]);
+            const float2 b = __bfloat1622float2(u1[j]);
+            d0 = __fmaf_rn(hv.y, a.y, __fmaf_rn(hv.x, a.x, d0));
+            d1 = __fmaf_rn(hv.y, b.y, __fmaf_rn(hv.x, b.x, d1));
+          }
+          v0 = __fadd_rn(v0, d0);
+          v1 = __fadd_rn(v1, d1);
+        }
+      }
       epilogue_store2(out, bias, act_from, M, R, m, n0 + c, v0, v1);
     }
   }
@@ -228,13 +258,14 @@ int smallm_smem(bool nib4, int Kp, int split) {
   return (x_bytes > red_bytes ? x_bytes : red_bytes) + SM_MT * SM_BN * 4;
 }
 
-template <bool NIB4, bool HAS_OFF>
+template <bool NIB4, bool HAS_OFF, bool LORA>
 cudaError_t launch_smallm(const void* x, const void* qs, const void* scales,
                           const void* offsets, const void* bias, void* out,
-                          int M, int K, int Kp, int R, int Rp, int gs, int zp,
-                          int act_from, int split, cudaStream_t stream) {
+                          const void* h, const void* up, int M, int K, int Kp,
+                          int R, int Rp, int gs, int zp, int rk, int act_from,
+                          int split, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_smallm_kernel<NIB4, HAS_OFF>,
+      qmm_smallm_kernel<NIB4, HAS_OFF, LORA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
@@ -250,11 +281,29 @@ cudaError_t launch_smallm(const void* x, const void* qs, const void* scales,
   cfg.attrs = at;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(
-      &cfg, qmm_smallm_kernel<NIB4, HAS_OFF>,
+      &cfg, qmm_smallm_kernel<NIB4, HAS_OFF, LORA>,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
       static_cast<const float*>(scales), static_cast<const float*>(offsets),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, K,
-      Kp, R, Rp, gs, static_cast<float>(zp), act_from);
+      Kp, R, Rp, gs, static_cast<float>(zp), act_from,
+      static_cast<const __nv_bfloat16*>(h),
+      static_cast<const __nv_bfloat16*>(up), rk);
+}
+
+// The instance for the layout and the offsets.
+template <bool LORA>
+int launch_smallm_any(const void* x, const void* qs, const void* scales,
+                      const void* offsets, const void* bias, void* out,
+                      const void* h, const void* up, int M, int K, int Kp,
+                      int R, int Rp, int gs, int zp, int rk, int nib4,
+                      int act_from, int split, cudaStream_t s) {
+#define GGUF_SMALLM(NIB, OFF)                                                \
+  launch_smallm<NIB, OFF, LORA>(x, qs, scales, offsets, bias, out, h, up, M, \
+                                K, Kp, R, Rp, gs, zp, rk, act_from, split, s)
+  if (nib4)
+    return offsets ? GGUF_SMALLM(true, true) : GGUF_SMALLM(true, false);
+  return offsets ? GGUF_SMALLM(false, true) : GGUF_SMALLM(false, false);
+#undef GGUF_SMALLM
 }
 
 
@@ -270,19 +319,22 @@ extern "C" int qmm_smallm_launch(const void* x, const void* qs,
                                  int Kp, int R, int Rp, int gs, int zp,
                                  int nib4, int act_from, int split,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nib4) {
-    return offsets ? launch_smallm<true, true>(x, qs, scales, offsets, bias,
-                                               out, M, K, Kp, R, Rp, gs, zp,
-                                               act_from, split, s)
-                   : launch_smallm<true, false>(x, qs, scales, offsets, bias,
-                                                out, M, K, Kp, R, Rp, gs, zp,
-                                                act_from, split, s);
-  }
-  return offsets ? launch_smallm<false, true>(x, qs, scales, offsets, bias,
-                                              out, M, K, Kp, R, Rp, gs, zp,
-                                              act_from, split, s)
-                 : launch_smallm<false, false>(x, qs, scales, offsets, bias,
-                                               out, M, K, Kp, R, Rp, gs, zp,
-                                               act_from, split, s);
+  return launch_smallm_any<false>(x, qs, scales, offsets, bias, out, nullptr,
+                                  nullptr, M, K, Kp, R, Rp, gs, zp, 0, nib4,
+                                  act_from, split,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The LORA instance: qmm_smallm_launch plus h (M, rk) and up (Rp, rk) bf16,
+// rk > 0 a multiple of 16 (checked by the Python wrapper).
+extern "C" int qmm_smallm_lora_launch(const void* x, const void* qs,
+                                      const void* scales, const void* offsets,
+                                      const void* bias, void* out,
+                                      const void* h, const void* up, int M,
+                                      int K, int Kp, int R, int Rp, int gs,
+                                      int zp, int rk, int nib4, int act_from,
+                                      int split, void* stream) {
+  return launch_smallm_any<true>(x, qs, scales, offsets, bias, out, h, up, M,
+                                 K, Kp, R, Rp, gs, zp, rk, nib4, act_from,
+                                 split, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // The wgmma body of the fused dequant-matmul (design note: qmm.cu). A
-// header so that the nib4 instances (qmm.cu) and the int8 instances
-// (qmm_int8.cu) compile side by side.
+// header so that the nib4 instances (qmm.cu), the int8 instances
+// (qmm_int8.cu) and their LoRA instances (qmm_lora.cu, qmm_int8_lora.cu)
+// compile side by side.
 #pragma once
 
 #include "qmm_common.cuh"
@@ -39,7 +40,17 @@ __device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
   return v;
 }
 
-template <bool NIB4, bool HAS_OFF, int NT>
+__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// LORA: after the K loop, acc += up_tile · h_tileᵀ, the reference epilogue's
+// rank term. up (Rp, rk) is the A operand, fed from registers like the
+// weight (each thread loads its two out-features' rank values from global
+// memory, in the out-feature order of its accumulator rows); h (M, rk) is
+// the B operand, streamed through the ring exactly as x is (two 32-column
+// boxes of 64 rank columns a stage, ceil(rk / 64) more stages a tile).
+template <bool NIB4, bool HAS_OFF, int NT, bool LORA>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
                  const __grid_constant__ CUtensorMap tm_q,  // codes, u8
@@ -48,7 +59,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
                  const float* __restrict__ bias,            // (R) | null
                  __nv_bfloat16* __restrict__ out,           // (M, R)
                  int M, int Kp, int R, int gs, float zp, int act_from,
-                 int m_tiles, int n_tiles) {
+                 int m_tiles, int n_tiles,
+                 const __grid_constant__ CUtensorMap tm_h,  // LORA: (M, rk)
+                 const __nv_bfloat16* __restrict__ lora_up,  // LORA: (Rp, rk)
+                 int rk) {
   using S = WgShape<NIB4, NT>;
   constexpr bool FOLD = NIB4 && HAS_OFF;
   extern __shared__ uint8_t smem_raw[];
@@ -111,6 +125,21 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
           if (++stage == WG_STAGES) {
             stage = 0;
             phase ^= 1;
+          }
+        }
+        if constexpr (LORA) {
+          for (int c = 0; c < rk; c += 64) {
+            const bool two = c + 32 < rk;  // the second 32 rank columns
+            mbar_wait(&empty[stage], phase ^ 1);
+            uint8_t* st = smem + stage * S::STAGE;
+            mbar_arrive_expect_tx(&full[stage], (two ? 2 : 1) * S::X_RANGE);
+            tma_load_2d(st, &tm_h, &full[stage], c, m0);
+            if (two)
+              tma_load_2d(st + S::X_RANGE, &tm_h, &full[stage], c + 32, m0);
+            if (++stage == WG_STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -251,6 +280,60 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
         for (int i = 0; i < 64; ++i) reg_fence(acc[j][i]);
       mbar_arrive(&empty[release]);
 
+      if constexpr (LORA) {
+        // rows g and g + 8 of the A fragment are out-features r_loc and
+        // r_loc + 1; k = the rank column
+        const __nv_bfloat16* u0 =
+            lora_up + static_cast<size_t>(r0 + r_loc) * rk + 2 * t;
+        const __nv_bfloat16* u1 = u0 + rk;
+        for (int c = 0; c < rk; c += 64) {
+          const int nk = (rk - c) / 16 < 4 ? (rk - c) / 16 : 4;
+          uint32_t a[4][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = c + 16 * kk;
+            if (kk < nk) {
+              a[kk][0] = ldg_u32(u0 + k);
+              a[kk][1] = ldg_u32(u1 + k);
+              a[kk][2] = ldg_u32(u0 + k + 8);
+              a[kk][3] = ldg_u32(u1 + k + 8);
+            }
+          }
+          mbar_wait(&full[stage], phase);
+          const uint32_t xa = __shfl_sync(
+              0xFFFFFFFFu, smem_base + stage * S::STAGE, 0);
+          const uint32_t xb = xa + S::X_RANGE;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            if (kk < nk) {
+#pragma unroll
+              for (int j = 0; j < NT; ++j)
+                wgmma_m64n128k16_rs(
+                    acc[j], a[kk],
+                    wgmma_desc_k64(((kk >> 1) ? xb : xa) + j * WG_XSUB) +
+                        2 * (kk & 1));
+            }
+          }
+          wgmma_commit();
+          // one chunk at a time: its A registers are read until it retires
+          wgmma_wait<0>();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) reg_fence(a[kk][i]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int i = 0; i < 64; ++i) reg_fence(acc[j][i]);
+          mbar_arrive(&empty[stage]);
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+
       // acc[j][4i + 2h + c] = out[m0 + 128j + 8i + 2t + c][r0 + r_loc + h]
       const int r = r0 + r_loc;
 #pragma unroll
@@ -268,17 +351,18 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
   }
 }
 
-template <bool NIB4, bool HAS_OFF, int NT>
+template <bool NIB4, bool HAS_OFF, int NT, bool LORA>
 cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
                             const void* offsets, const void* bias, void* out,
-                            int M, int K, int Kp, int R, int Rp, int gs,
-                            int zp, int act_from, cudaStream_t stream) {
+                            const void* h, const void* up, int M, int K,
+                            int Kp, int R, int Rp, int gs, int zp, int rk,
+                            int act_from, cudaStream_t stream) {
   using S = WgShape<NIB4, NT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_wgmma_kernel<NIB4, HAS_OFF, NT>,
+      qmm_wgmma_kernel<NIB4, HAS_OFF, NT, LORA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return attr;
-  CUtensorMap tm_x, tm_q, tm_s, tm_o;
+  CUtensorMap tm_x, tm_q, tm_s, tm_o, tm_h{};
   const uint32_t g_per = 32 / gs;
   bool ok = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
                      NT * WG_BM, 32, CU_TENSOR_MAP_SWIZZLE_64B);
@@ -290,29 +374,40 @@ cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
   ok = ok && make_map(&tm_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                       HAS_OFF ? offsets : scales, Kp / gs, Rp, g_per, WG_BR,
                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  // h (M, rk) in the boxes of x: NT x 128 rows x 32 bf16, 64-byte swizzle
+  if (LORA)
+    ok = ok && make_map(&tm_h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, M, rk,
+                        NT * WG_BM, 32, CU_TENSOR_MAP_SWIZZLE_64B);
   if (!ok) return cudaErrorInvalidValue;
   const int m_tiles = (M + NT * WG_BM - 1) / (NT * WG_BM);
   const int n_tiles = m_tiles * ((R + WG_BR - 1) / WG_BR);
   const int grid = n_tiles < sm_count() ? n_tiles : sm_count();
-  qmm_wgmma_kernel<NIB4, HAS_OFF, NT><<<grid, WG_THREADS, S::SMEM, stream>>>(
-      tm_x, tm_q, tm_s, tm_o, static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, Kp, R, gs, static_cast<float>(zp),
-      act_from, m_tiles, n_tiles);
+  qmm_wgmma_kernel<NIB4, HAS_OFF, NT, LORA>
+      <<<grid, WG_THREADS, S::SMEM, stream>>>(
+          tm_x, tm_q, tm_s, tm_o, static_cast<const float*>(bias),
+          static_cast<__nv_bfloat16*>(out), M, Kp, R, gs,
+          static_cast<float>(zp), act_from, m_tiles, n_tiles, tm_h,
+          static_cast<const __nv_bfloat16*>(up), rk);
   return cudaGetLastError();
 }
 
-template <bool NIB4, bool HAS_OFF>
+// The instance for the layout, the offsets and the token sub-tiles `nt`;
+// LORA instances take the rank operands h, up (and rk), the others ignore
+// them.
+template <bool NIB4, bool LORA>
 cudaError_t launch_wgmma(const void* x, const void* qs, const void* scales,
                          const void* offsets, const void* bias, void* out,
-                         int M, int K, int Kp, int R, int Rp, int gs, int zp,
-                         int act_from, int nt, cudaStream_t stream) {
-  return nt == 2
-             ? launch_wgmma_nt<NIB4, HAS_OFF, 2>(x, qs, scales, offsets, bias,
-                                                 out, M, K, Kp, R, Rp, gs, zp,
-                                                 act_from, stream)
-             : launch_wgmma_nt<NIB4, HAS_OFF, 1>(x, qs, scales, offsets, bias,
-                                                 out, M, K, Kp, R, Rp, gs, zp,
-                                                 act_from, stream);
+                         const void* h, const void* up, int M, int K, int Kp,
+                         int R, int Rp, int gs, int zp, int rk, int act_from,
+                         int nt, cudaStream_t stream) {
+#define GGUF_QMM_NT(OFF, NTV)                                               \
+  launch_wgmma_nt<NIB4, OFF, NTV, LORA>(x, qs, scales, offsets, bias, out,  \
+                                        h, up, M, K, Kp, R, Rp, gs, zp, rk,  \
+                                        act_from, stream)
+  if (offsets != nullptr)
+    return nt == 2 ? GGUF_QMM_NT(true, 2) : GGUF_QMM_NT(true, 1);
+  return nt == 2 ? GGUF_QMM_NT(false, 2) : GGUF_QMM_NT(false, 1);
+#undef GGUF_QMM_NT
 }
 
 }  // namespace

@@ -12,11 +12,14 @@ nothing of the reference package:
 * a plain array is a dense weight: the float32 leaves of a T5, CLIP or VAE
   tree, a bfloat16 flux embedder, a conv weight, which is (O, I, kh, kw)
   in both packages;
+* a **LoRA-patched** leaf has ``base`` (any of these leaves) and
+  ``patches``, each patch with ``up``, ``down``, ``mid``, ``diff``,
+  ``scale``, ``a1`` and ``a2`` (absent factors are None);
 * a nested dict is a stacked group (or any subtree).
 
 So one numpy tree serves both packages, whichever model it belongs to:
-the flux trees, a T5 tree with Q8_0 planar linears, dense CLIP and VAE
-state dicts.
+the flux trees (LoRA-patched ones too), a T5 tree with Q8_0 planar
+linears, dense CLIP and VAE state dicts.
 
 The planar byte layout is the same in both packages, so the carry is a
 copy; the int8 codes are the same values, stored transposed in the port
@@ -30,12 +33,14 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .lora import LoRAPatch, PatchedWeight
 from .quant.i8 import I8Planar
 from .quant.planar import PlanarQuant
 
 _PLANAR_FIELDS = ("qs", "scales", "offsets", "qtype", "layout",
                   "group_size", "zero_point", "shape")
 _I8_FIELDS = ("qs", "scales", "qtype", "shape")
+_PATCH_FIELDS = ("up", "down", "mid", "diff", "scale", "a1", "a2")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -49,7 +54,20 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _patch(p, device) -> LoRAPatch:
+    def t(a):
+        return None if a is None else tensor_from_numpy(a, device)
+
+    return LoRAPatch(up=t(p.up), down=t(p.down), mid=t(p.mid),
+                     diff=t(p.diff), scale=float(p.scale), a1=t(p.a1),
+                     a2=t(p.a2))
+
+
 def _leaf(v, device):
+    if hasattr(v, "base") and hasattr(v, "patches") and all(
+            all(hasattr(p, f) for f in _PATCH_FIELDS) for p in v.patches):
+        return PatchedWeight(_leaf(v.base, device),
+                             tuple(_patch(p, device) for p in v.patches))
     if all(hasattr(v, f) for f in _PLANAR_FIELDS):
         return PlanarQuant(
             qs=tensor_from_numpy(v.qs, device),

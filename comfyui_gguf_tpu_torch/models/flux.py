@@ -8,7 +8,9 @@ goes through ``nn.layers.linear`` and so through the fused kernels.
 
 ``forward_stacked`` is the reference's ``lax.scan`` over depth-stacked
 weights as a Python loop: block i's weights are views (``leaf[i]``) of the
-stacked tensors, and the kernels read them in place.
+stacked tensors, and the kernels read them in place. LoRA-patched leaves
+stack too (their base and each patch's factors along depth), so the patched
+blocks run the kernels' LoRA instances on views.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..lora import LoRAPatch, PatchedWeight
 from ..nn.attention import dot_product_attention
 from ..nn.layers import (QuantConfig, DEFAULT_CONFIG, in_features,
                          layer_norm, linear, linear_gelu, out_features,
@@ -305,8 +308,37 @@ def forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps,
 # stacked-params forward (a loop over views of the stacked weights)
 # ---------------------------------------------------------------------------
 
-def _stack_leaves(leaves):
+def _stack_opt(ts):
+    return None if ts[0] is None else torch.stack(ts)
+
+
+def _stack_leaves(leaves, key: str = ""):
     first = leaves[0]
+    if any(isinstance(l, PatchedWeight) for l in leaves):
+        # blocks stack only where every block carries patches of the same
+        # kinds, ranks and scales (the reference's tree map refuses other
+        # structures)
+        def sig(l):
+            if not isinstance(l, PatchedWeight):
+                return None
+            return tuple((p.scale,) + tuple(
+                None if t is None else tuple(t.shape)
+                for t in (p.up, p.down, p.mid, p.diff, p.a1, p.a2))
+                for p in l.patches)
+        if len({sig(l) for l in leaves}) > 1:
+            raise ValueError(
+                f"the blocks' LoRA patches of {key or 'a leaf'} differ "
+                "(some patched, some not, or other ranks or scales): such "
+                "blocks do not stack; use forward()")
+        def stacked_patch(j):
+            fields = {f: _stack_opt([getattr(l.patches[j], f)
+                                     for l in leaves])
+                      for f in ("up", "down", "mid", "diff", "a1", "a2")}
+            return LoRAPatch(scale=first.patches[j].scale, **fields)
+
+        patches = tuple(stacked_patch(j) for j in range(len(first.patches)))
+        return PatchedWeight(_stack_leaves([l.base for l in leaves], key),
+                             patches)
     if isinstance(first, PlanarQuant):
         return dataclasses.replace(
             first, qs=torch.stack([l.qs for l in leaves]),
@@ -331,7 +363,8 @@ def stack_block_groups(params: dict, groups, arch: str = "") -> dict:
         if len({frozenset(s) for s in subs}) > 1:
             raise ValueError(f"non-homogeneous {arch or out_key} blocks; "
                              "use forward()")
-        out[out_key] = ({k: _stack_leaves([s[k] for s in subs])
+        out[out_key] = ({k: _stack_leaves([s[k] for s in subs],
+                                          f"{out_key}.*.{k}")
                          for k in subs[0]} if subs else {})
     return out
 
@@ -346,7 +379,8 @@ def stack_flux_params(params: dict, cfg: FluxConfig) -> dict:
 
 
 def block_view(stacked: dict, i: int) -> dict:
-    """Block i of a stacked subtree: every leaf is a view, no copy."""
+    """Block i of a stacked subtree: every leaf is a view, no copy (a
+    PatchedWeight's base and factors too)."""
     return {k: v[i] for k, v in stacked.items()}
 
 

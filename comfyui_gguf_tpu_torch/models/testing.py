@@ -171,6 +171,118 @@ def flux_random_stacked_params(dims: TinyFluxDims, qtype=Q.Q4_K,
     return params
 
 
+def flux_flat_views(sparams: dict) -> dict:
+    """The flat (per-block key) tree of a stack_flux_params-layout tree, as
+    views of its stacked leaves (no copy): what ``DiffusionModel.apply_lora``
+    takes, since LoRA keys name the flat per-block weights."""
+    out = {k: v for k, v in sparams.items()
+           if k not in ("double_blocks", "single_blocks")}
+    for group in ("double_blocks", "single_blocks"):
+        for k, v in sparams.get(group, {}).items():
+            for i in range(getattr(v, "qs", v).shape[0]):
+                out[f"{group}.{i}.{k}"] = v[i]
+    return out
+
+
+def flux_lora_targets(dims: TinyFluxDims) -> list[tuple[str, int, int]]:
+    """(weight key, R, K) of every block linear a flux LoRA patches: 10 a
+    double block (both streams' modulation, qkv, proj, mlp.0, mlp.2) and 3
+    a single block (linear1, linear2, modulation)."""
+    HID, MLP = dims.hidden, dims.mlp
+    out = []
+    for i in range(dims.depth_double):
+        for s in ("img", "txt"):
+            p = f"double_blocks.{i}.{s}_"
+            out += [(p + "mod.lin.weight", 6 * HID, HID),
+                    (p + "attn.qkv.weight", 3 * HID, HID),
+                    (p + "attn.proj.weight", HID, HID),
+                    (p + "mlp.0.weight", MLP, HID),
+                    (p + "mlp.2.weight", HID, MLP)]
+    for i in range(dims.depth_single):
+        p = f"single_blocks.{i}."
+        out += [(p + "linear1.weight", 3 * HID + MLP, HID),
+                (p + "linear2.weight", HID, HID + MLP),
+                (p + "modulation.lin.weight", 3 * HID, HID)]
+    return out
+
+
+def encoder_lora_targets(params: dict) -> list[tuple[str, int, int]]:
+    """(weight key, R, K) of every attention and MLP linear of a T5 or CLIP
+    encoder tree (dense or packed leaves): what a kohya ``lora_te*_`` slice
+    patches."""
+    segs = ("SelfAttention.", "DenseReluDense.", "self_attn.", "mlp.")
+    out = []
+    for k, v in params.items():
+        shape = tuple(v.shape)
+        if (k.endswith(".weight") and len(shape) == 2
+                and any(s in k for s in segs) and "relative_attention" not in k):
+            out.append((k, int(shape[0]), int(shape[1])))
+    return out
+
+
+def kohya_lora_state_dict(targets, rank: int = 16, alpha: float = 16.0,
+                          seed: int = 0, std: float = 0.03,
+                          prefix: str = "lora_unet_",
+                          dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    """A random kohya LoRA over ``targets`` ((weight key, R, K) triples):
+    ``{prefix}{key stem with '.' → '_'}.lora_down.weight`` (rank, K),
+    ``.lora_up.weight`` (R, rank) and ``.alpha``, factors N(0, std²) from a
+    numpy seed, in ``dtype`` (CPU tensors, for ``_safetensors.save_file``).
+    """
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, R, K in targets:
+        base = prefix + key[: -len(".weight")].replace(".", "_")
+        for name, shape in (("lora_down", (rank, K)), ("lora_up", (R, rank))):
+            a = rng.standard_normal(shape, dtype=np.float32) * std
+            sd[f"{base}.{name}.weight"] = torch.from_numpy(a).to(dtype)
+        sd[f"{base}.alpha"] = torch.tensor(float(alpha))
+    return sd
+
+
+def flux_mixed_lora_state_dict(dims: TinyFluxDims, rank: int = 4,
+                               seed: int = 0) -> dict[str, torch.Tensor]:
+    """A random LoRA over every flux block linear mixing the patch types a
+    user meets: kohya rank patches everywhere, except a LoCon mid block on
+    every double block's ``img_attn.proj``, a LoHa (dense delta: the
+    unfused path) on every single block's ``linear2`` and a GLoRA (old
+    layout) on every double block's ``txt_mlp.0`` (the same kinds in every
+    block, so the patched blocks still stack). float32 CPU tensors."""
+    special = {".img_attn.proj.weight": "mid", ".linear2.weight": "loha",
+               ".txt_mlp.0.weight": "glora"}
+
+    def kind_of(key):
+        return next((v for k, v in special.items() if key.endswith(k)),
+                    None)
+
+    targets = flux_lora_targets(dims)
+    sd = kohya_lora_state_dict(
+        [t for t in targets if kind_of(t[0]) in (None, "mid")],
+        rank=rank, alpha=float(rank), seed=seed, dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+
+    def t(*shape, std):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * std)
+
+    for key, R, K in targets:
+        base = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        kind = kind_of(key)
+        if kind == "mid":
+            sd[f"{base}.lora_mid.weight"] = t(rank, rank, std=0.3)
+        elif kind == "loha":
+            for w, shape in (("w1_a", (R, rank)), ("w1_b", (rank, K)),
+                             ("w2_a", (R, rank)), ("w2_b", (rank, K))):
+                sd[f"{base}.hada_{w}"] = t(*shape, std=0.1)
+            sd[f"{base}.alpha"] = torch.tensor(float(rank))
+        elif kind == "glora":
+            for w, shape in (("a1", (rank, K)), ("a2", (K, rank)),
+                             ("b1", (rank, K)), ("b2", (R, rank))):
+                sd[f"{base}.{w}.weight"] = t(*shape, std=0.03)
+            sd[f"{base}.alpha"] = torch.tensor(float(rank))
+    return sd
+
+
 def flux_example_inputs(dims: TinyFluxDims, batch: int = 1, h_lat: int = 8,
                         w_lat: int = 8, txt_len: int = 16, seed: int = 1,
                         dtype=torch.bfloat16, device="cuda"):

@@ -10,9 +10,14 @@ to XLA. Norms keep f32 statistics.
 Images keep the reference's channel-minor (B, H, W, C) order at every public
 function; ``conv2d`` hands them to ``F.conv2d`` as channels-last views.
 
-Not ported yet: ``conv3d``, the tensor-parallel branches (the parallelism
-slice) and LoRA-patched weights (the LoRA slice), which raise
-``NotImplementedError``.
+A ``lora.PatchedWeight`` leaf carries LoRA patches on any of these
+bases: rank patches on a packed base ride the fused kernel's epilogue as
+one (h, upᵀ) pair (``lora.rank_factorize``), GLoRA's weight term rewrites
+the kernel's input, and dense-delta patches (diff, LoHa, LoKr) and dense
+bases take the unfused epilogue (``lora.apply_patch_epilogue``).
+
+Not ported yet: ``conv3d`` and the tensor-parallel branches (the
+parallelism slice).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..lora import (PatchedWeight, apply_patch_epilogue,
+                    apply_patch_prologue, rank_factorize)
 from ..ops.i8mm import i8_matmul
 from ..ops.qmatmul import _host_epilogue, quantized_matmul
 from ..quant.i8 import I8Planar, dequantize_i8
@@ -31,21 +38,20 @@ from ..quant.planar import PlanarQuant, dequantize as planar_dequantize
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Runtime dequant policy (the reference loader's ``dequant_dtype``
-    knob; its LoRA ``patch_dtype`` arrives with the LoRA slice). Kernel or
-    plain path follows the device."""
+    """Runtime dequant policy: the reference loader's ``dequant_dtype`` and
+    LoRA ``patch_dtype`` knobs. Kernel or plain path follows the device; on
+    the card the kernels take bfloat16 LoRA operands."""
 
     dequant_dtype: Any = torch.bfloat16
+    patch_dtype: Any = None  # None = follow dequant_dtype
     compute_dtype: Any = torch.bfloat16
+
+    @property
+    def effective_patch_dtype(self):
+        return self.patch_dtype or self.dequant_dtype
 
 
 DEFAULT_CONFIG = QuantConfig()
-
-
-def _no_lora(weight):
-    if hasattr(weight, "patches") and hasattr(weight, "base"):
-        raise NotImplementedError(
-            "LoRA-patched weights arrive with the LoRA slice of the port")
 
 
 def is_quantized(leaf) -> bool:
@@ -53,22 +59,49 @@ def is_quantized(leaf) -> bool:
 
 
 def out_features(weight) -> int:
-    """Logical out-features (R) of a dense or packed linear weight."""
+    """Logical out-features (R) of a dense, packed or LoRA-patched linear
+    weight."""
+    if isinstance(weight, PatchedWeight):
+        return out_features(weight.base)
     if is_quantized(weight):
         return weight.out_features
     return int(weight.shape[-2])  # dense (…, R, K)
 
 
 def in_features(weight) -> int:
-    """Logical in-features (K) of a dense or packed linear weight."""
+    """Logical in-features (K) of a dense, packed or LoRA-patched linear
+    weight."""
+    if isinstance(weight, PatchedWeight):
+        return in_features(weight.base)
     if is_quantized(weight):
         return weight.in_features
     return int(weight.shape[-1])
 
 
 def materialize(leaf, dtype=torch.float32) -> torch.Tensor:
-    """Dense logical-shape weight from any leaf (debug / fallback path)."""
-    _no_lora(leaf)
+    """Dense logical-shape weight from any leaf (debug / fallback path).
+    A PatchedWeight folds its LoRA deltas into the dense result."""
+    if isinstance(leaf, PatchedWeight):
+        w = materialize(leaf.base, torch.float32)
+        shape = w.shape
+        # conv weights (O, I, kh, kw) fold to the (O, I·kh·kw) matrix the
+        # rank factors were trained against (kohya LoCon flattens the same
+        # way)
+        w = w.reshape(shape[0], -1)
+        w0 = w
+        for p in leaf.patches:
+            if p.a1 is not None:  # GLoRA: + s·W@a2@a1
+                w = w + p.scale * (w0 @ p.a2.to(torch.float32)
+                                   @ p.a1.to(torch.float32))
+            if p.diff is not None:
+                w = w + p.scale * p.diff.to(torch.float32).reshape(w.shape)
+            elif p.up is not None:
+                down = p.down.to(torch.float32)
+                if p.mid is not None:
+                    down = p.mid.to(torch.float32) @ down
+                delta = p.up.to(torch.float32) @ down
+                w = w + p.scale * delta.reshape(w.shape)
+        return w.reshape(shape).to(dtype)
     if isinstance(leaf, PlanarQuant):
         return planar_dequantize(leaf, dtype)
     if isinstance(leaf, I8Planar):
@@ -83,18 +116,39 @@ def _dense_linear(x, weight, cfg: QuantConfig):
     return out.to(x.dtype)
 
 
+def _packed_matmul(x, weight, cfg: QuantConfig, **kw):
+    """The fused kernel (or its plain version) of a packed weight; ``kw``
+    carries bias, act_from_col and the LoRA operands."""
+    if isinstance(weight, I8Planar):
+        return i8_matmul(x, weight, out_dtype=x.dtype, **kw)
+    return quantized_matmul(x, weight, dequant_dtype=cfg.dequant_dtype,
+                            out_dtype=x.dtype, **kw)
+
+
 def linear(x: torch.Tensor, weight, bias=None, *,
            cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """x: (..., K) -> (..., R). weight: PlanarQuant, I8Planar or dense
-    (R, K)."""
-    _no_lora(weight)
-    if isinstance(weight, I8Planar):
-        out = i8_matmul(x, weight, out_dtype=x.dtype)
-    elif isinstance(weight, PlanarQuant):
-        out = quantized_matmul(x, weight, dequant_dtype=cfg.dequant_dtype,
-                               out_dtype=x.dtype)
+    """x: (..., K) -> (..., R). weight: PlanarQuant, I8Planar, dense (R, K)
+    or ``lora.PatchedWeight`` over one of them: rank patches on a packed
+    base ride the kernel's epilogue, the others take the unfused one."""
+    patches = None
+    fac = None  # (h, upᵀ) rank factorization for the kernel epilogue
+    x_in = x  # the epilogue's b-branches see the unrewritten input
+    pdt = cfg.effective_patch_dtype
+    if isinstance(weight, PatchedWeight):
+        patches, weight = weight.patches, weight.base
+        if any(p.a1 is not None for p in patches):
+            x = apply_patch_prologue(x, patches, patch_dtype=pdt)
+        if is_quantized(weight):
+            # dense-delta patches (diff / LoHa / LoKr) give None and take
+            # the unfused epilogue below
+            fac = rank_factorize(x_in, patches, patch_dtype=pdt)
+    if is_quantized(weight):
+        lh, lu = fac if fac is not None else (None, None)
+        out = _packed_matmul(x, weight, cfg, lora_h=lh, lora_up=lu)
     else:
         out = _dense_linear(x, weight, cfg)
+    if patches and fac is None:
+        out = apply_patch_epilogue(x_in, out, patches, patch_dtype=pdt)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -103,16 +157,26 @@ def linear(x: torch.Tensor, weight, bias=None, *,
 def linear_gelu(x: torch.Tensor, weight, bias=None, *, tail_from: int = 0,
                 cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """linear() then GELU-tanh on output columns >= ``tail_from`` (0 = the
-    whole output); for packed weights bias and activation run in the
-    kernel epilogue on the f32 accumulator."""
-    _no_lora(weight)
-    if isinstance(weight, I8Planar):
-        return i8_matmul(x, weight, out_dtype=x.dtype, bias=bias,
-                         act_from_col=tail_from)
-    if isinstance(weight, PlanarQuant):
-        return quantized_matmul(x, weight, dequant_dtype=cfg.dequant_dtype,
-                                out_dtype=x.dtype, bias=bias,
-                                act_from_col=tail_from)
+    whole output). For packed weights bias and activation run in the
+    kernel epilogue on the f32 accumulator, after the LoRA rank term (so the
+    patch equals patching W); only dense-delta patches and dense weights
+    take the unfused composition."""
+    base, patches = weight, None
+    if isinstance(weight, PatchedWeight):
+        base, patches = weight.base, weight.patches
+    if is_quantized(base):
+        pdt = cfg.effective_patch_dtype
+        fac = (None if patches is None
+               else rank_factorize(x, patches, patch_dtype=pdt))
+        if patches is None or fac is not None:
+            xk = x
+            if patches is not None and any(p.a1 is not None
+                                           for p in patches):
+                xk = apply_patch_prologue(x, patches, patch_dtype=pdt)
+            lh, lu = fac if fac is not None else (None, None)
+            return _packed_matmul(xk, base, cfg, bias=bias,
+                                  act_from_col=tail_from, lora_h=lh,
+                                  lora_up=lu)
     return _host_epilogue(linear(x, weight, None, cfg=cfg), bias, tail_from)
 
 
@@ -150,8 +214,10 @@ def embedding(ids: torch.Tensor, table, *,
               cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """ids: int (...,) -> (..., D). table: dense (V, D), or a packed
     (V, D) weight, of which only the looked-up rows are dequantized (to
-    ``cfg.dequant_dtype``), never the whole table."""
-    _no_lora(table)
+    ``cfg.dequant_dtype``), never the whole table. A LoRA-patched table is
+    not taken, as in the reference."""
+    if isinstance(table, PatchedWeight):
+        raise TypeError("embedding takes no LoRA-patched table")
     ids = ids.to(torch.long)
     if isinstance(table, I8Planar):
         sub = I8Planar(qs=table.qs[ids.reshape(-1)],

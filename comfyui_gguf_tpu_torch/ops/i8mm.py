@@ -3,12 +3,14 @@
 Per matmul: activations are quantized per token row (quant/i8.quantize_rows,
 a torch op), the contraction runs over int8 operands with an exact integer
 accumulator, and one f32 rescale ``acc·xs[m]·ws[r]`` precedes the shared
-epilogue (bias, then GELU-tanh from a column).
+epilogue (the LoRA rank term ``lora_h @ lora_up``, bias, then GELU-tanh
+from a column).
 
 * ``i8mm_cuda`` — wrapper of the hand-written CUDA kernel ``csrc/i8mm.cu``
   (K4, a TMA + ``wgmma`` GEMM whose tile width ``ops.qmatmul.i8mm_plan``
   picks; on a depth-stacked weight it runs on block i's view, which is what
-  the reference's ``pallas_i8mm_indexed`` (K5) did by scalar prefetch).
+  the reference's ``pallas_i8mm_indexed`` (K5) did by scalar prefetch), and
+  of its LoRA instance ``csrc/i8mm_lora.cu``.
 * ``plain_i8mm`` — the plain PyTorch version (the reference's
   ``xla_i8mm``), on IDENTICAL integer operands.
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..quant.i8 import I8Planar, quantize_rows
-from .qmatmul import I8MM_WIDTHS, _aligned, i8mm_plan
+from .qmatmul import I8MM_WIDTHS, _aligned, i8mm_plan, prep_lora
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -71,8 +73,8 @@ def plain_i8mm(x: torch.Tensor, ip: I8Planar, *, out_dtype=None, bias=None,
 
 
 def i8mm_cuda(x: torch.Tensor, ip: I8Planar, *, bias=None,
-              act_from_col: int | None = None,
-              out_dtype=None) -> torch.Tensor:
+              act_from_col: int | None = None, out_dtype=None, lora_h=None,
+              lora_up=None) -> torch.Tensor:
     """Quantize x per row, then launch the w8a8 kernel (K4). x: (..., K)
     CUDA tensor; ip: 2-D int8 weight (a depth slice of a stacked one is
     fine). Output (..., R) in ``out_dtype`` (default x.dtype)."""
@@ -80,18 +82,21 @@ def i8mm_cuda(x: torch.Tensor, ip: I8Planar, *, bias=None,
     if not x.is_cuda:
         raise ValueError("i8mm_cuda takes CUDA tensors")
     xq, xs = quantize_rows(x.reshape(-1, K))
-    out = i8mm_cuda_q(xq, xs, ip, bias=bias, act_from_col=act_from_col)
+    out = i8mm_cuda_q(xq, xs, ip, bias=bias, act_from_col=act_from_col,
+                      lora_h=lora_h, lora_up=lora_up)
     return out.reshape(*x.shape[:-1], R).to(out_dtype or x.dtype)
 
 
 def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
                 bias=None, act_from_col: int | None = None,
-                bn: int | None = None) -> torch.Tensor:
+                bn: int | None = None, lora_h=None,
+                lora_up=None) -> torch.Tensor:
     """The K4 launch on already-quantized rows: xq (M, K) int8, xs (M, 1)
-    float32 -> (M, R) bf16. ``bn`` (128 or 256) overrides the tile width
-    that ``i8mm_plan`` picks. The kernel stores its rows by TMA, whose row
-    strides are multiples of 16 bytes: where R is not a multiple of 8 the
-    result is a view of rows padded to one."""
+    float32 -> (M, R) bf16; with ``lora_h``/``lora_up`` (see
+    ``ops.qmatmul.prep_lora``) its LoRA instance. ``bn`` (128 or 256)
+    overrides the tile width that ``i8mm_plan`` picks. The kernel stores
+    its rows by TMA, whose row strides are multiples of 16 bytes: where R is
+    not a multiple of 8 the result is a view of rows padded to one."""
     R, K = ip.shape
     dev = xq.device
     if ip.qs.dim() != 2:
@@ -122,30 +127,38 @@ def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
             b = _aligned(bias.to(device=dev, dtype=torch.float32))
             if b.shape != (R,):
                 raise ValueError(f"bias {tuple(b.shape)} != ({R},)")
-        rc = _build.lib().i8mm_launch(
-            xq.data_ptr(), xs.data_ptr(), ip.qs.data_ptr(),
-            ip.scales.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), m, K, kp, R, rp, ldo,
-            -1 if act_from_col is None else int(act_from_col),
-            bn or i8mm_plan(m, R)[0],
-            ctypes.c_void_p(_build.stream_handle(dev)))
-        _build.check(rc, "i8mm_launch")
-        _build.count("i8mm")
+        ptrs = (xq.data_ptr(), xs.data_ptr(), ip.qs.data_ptr(),
+                ip.scales.data_ptr(), None if b is None else b.data_ptr(),
+                out.data_ptr())
+        act = -1 if act_from_col is None else int(act_from_col)
+        bn = bn or i8mm_plan(m, R)[0]
+        stream = ctypes.c_void_p(_build.stream_handle(dev))
+        if lora_h is not None or lora_up is not None:
+            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp)
+            if h.device != dev or up.device != dev:
+                raise ValueError("LoRA operands must be on x's device")
+            rc = _build.lib().i8mm_lora_launch(
+                *ptrs, h.data_ptr(), up.data_ptr(), m, K, kp, R, rp, ldo, rk,
+                act, bn, stream)
+            name = "i8mm_lora"
+        else:
+            rc = _build.lib().i8mm_launch(*ptrs, m, K, kp, R, rp, ldo, act,
+                                          bn, stream)
+            name = "i8mm"
+        _build.check(rc, name + " launch")
+        _build.count(name)
     return out[:, :R]
 
 
 def i8_matmul(x: torch.Tensor, ip: I8Planar, *, out_dtype=None, bias=None,
               act_from_col: int | None = None, lora_h=None,
               lora_up=None) -> torch.Tensor:
-    """w8a8 x @ W^T: CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
+    """w8a8 x @ W^T (+ the LoRA rank term h @ upᵀ, bias, GELU-tanh from a
+    column): CUDA tensors launch the kernel, CPU tensors take the plain
+    version."""
     if x.is_cuda:
-        if lora_h is not None:
-            raise NotImplementedError(
-                "LoRA operands in the kernel epilogue arrive with the LoRA "
-                "slice of the port")
         return i8mm_cuda(x, ip, bias=bias, act_from_col=act_from_col,
-                         out_dtype=out_dtype)
+                         out_dtype=out_dtype, lora_h=lora_h, lora_up=lora_up)
     return plain_i8mm(x, ip, out_dtype=out_dtype, bias=bias,
                       act_from_col=act_from_col, lora_h=lora_h,
                       lora_up=lora_up)

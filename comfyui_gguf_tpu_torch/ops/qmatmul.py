@@ -5,7 +5,9 @@ Two implementations of one function, ``epi(x @ W^T)`` with W kept packed:
 * ``qmm_cuda`` — wrapper of the hand-written CUDA kernels of ``csrc/qmm.cu``,
   ``qmm_int8.cu`` and ``qmm_smallm.cu`` (K1 for the nib4 layout, K2 for the
   int8 layout). The dense weight never
-  reaches device memory; bias and GELU-tanh run on the f32 accumulator.
+  reaches device memory; the LoRA rank term (``lora_h @ lora_up``, in the
+  LoRA instances of ``qmm_lora.cu``, ``qmm_int8_lora.cu`` and
+  ``qmm_smallm.cu``), bias and GELU-tanh run on the f32 accumulator.
   Two kernel bodies, picked from the shape alone by ``qmm_route``: a
   weight-streaming split-K body for M <= ``SMALL_M_MAX`` rows of x (bound by
   the bytes of the packed weight) and a TMA + ``wgmma`` body for every larger
@@ -186,10 +188,55 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+LORA_RANK_STEP = 16  # rank columns of one bf16 wgmma k-step
+
+
+def prep_lora(lora_h: torch.Tensor, lora_up: torch.Tensor, m: int, r: int,
+              rp: int):
+    """The kernels' layout of the LoRA rank operands (the counterpart of the
+    reference's ``_prep_lora``, whose pad to 128 lanes is a TPU tile rule).
+
+    lora_h (..., Σr) is the rank intermediate x @ downᵀ, lora_up (Σr, R) the
+    scale-folded upᵀ, as ``lora.rank_factorize`` gives them. Returns (h, up,
+    rk): h (m, rk) and up (rp, rk) bfloat16, contiguous and 16-byte aligned,
+    the rank contiguous; up is the up factor itself (not transposed), rows
+    past R zero; rk is Σr zero-padded to a multiple of ``LORA_RANK_STEP``
+    (padded rank columns add exact zeros). One layout serves the three
+    kernel bodies: the K-major B operand of K4, the K-major A operand of
+    the K1/K2 wgmma body, and rows of the split-K body's FMAs. Any rank is
+    taken. Raises on another dtype or on shapes that do not fit."""
+    if lora_h is None or lora_up is None:
+        raise ValueError("LoRA operands come in pairs: lora_h and lora_up")
+    if lora_h.dtype != torch.bfloat16 or lora_up.dtype != torch.bfloat16:
+        raise TypeError(
+            f"the CUDA kernels take bfloat16 LoRA operands (the patch dtype, "
+            f"QuantConfig.patch_dtype), got {lora_h.dtype} / "
+            f"{lora_up.dtype}")
+    sr = lora_up.shape[0] if lora_up.dim() == 2 else -1
+    if sr < 1 or lora_up.shape[1] != r or lora_h.shape[-1] != sr:
+        raise ValueError(f"LoRA operands h {tuple(lora_h.shape)}, upᵀ "
+                         f"{tuple(lora_up.shape)} do not fit (..., r) and "
+                         f"(r, {r})")
+    h = lora_h.reshape(-1, sr)
+    if h.shape[0] != m:
+        raise ValueError(f"lora_h has {h.shape[0]} rows for {m} rows of x")
+    rk = -(-sr // LORA_RANK_STEP) * LORA_RANK_STEP
+    h = _aligned(F.pad(h, (0, rk - sr)) if rk != sr else h)
+    up = lora_up.t()  # rank_factorize's upᵀ is a view of the up factor
+    if not (rk == sr and rp == r and up.is_contiguous()
+            and up.data_ptr() % 16 == 0):
+        up = torch.zeros((rp, rk), dtype=torch.bfloat16,
+                         device=lora_up.device)
+        up[:r, :sr] = lora_up.t()
+    return h, up, rk
+
+
 def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
-             act_from_col: int | None = None, out_dtype=None) -> torch.Tensor:
+             act_from_col: int | None = None, out_dtype=None, lora_h=None,
+             lora_up=None) -> torch.Tensor:
     """Launch the fused dequant-matmul kernel (K1 nib4 / K2 int8), the
-    body ``qmm_route`` names for the shape.
+    body ``qmm_route`` names for the shape; with ``lora_h``/``lora_up``
+    (see ``prep_lora``) that body's LoRA instance.
 
     x: (..., K) CUDA tensor (cast to bf16, as the kernel's operands are);
     pq: 2-D planar weight (a depth slice of a stacked one is fine).
@@ -235,6 +282,11 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         ptrs = [x2, pq.qs, pq.scales, pq.offsets, b]
         if any(t is not None and t.data_ptr() % 16 for t in ptrs):
             raise ValueError("planar tensors must be 16-byte aligned")
+        lora = lora_h is not None or lora_up is not None
+        if lora:
+            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp)
+            if h.device != dev or up.device != dev:
+                raise ValueError("LoRA operands must be on x's device")
         lib = _build.lib()
         ptrs = (x2.data_ptr(), pq.qs.data_ptr(), pq.scales.data_ptr(),
                 None if pq.offsets is None else pq.offsets.data_ptr(),
@@ -245,16 +297,29 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         name = "qmm_nib4" if nib4 else "qmm_int8"
         plan = smallm_plan(m, kp, R, nib4)
         if plan is not None:
-            rc = lib.qmm_smallm_launch(*ptrs, *dims, int(nib4), act, plan[0],
-                                       stream)
-            _build.check(rc, "qmm_smallm_launch")
-            _build.count(name + "_smallm")
+            name += "_smallm"
+            if lora:
+                rc = lib.qmm_smallm_lora_launch(
+                    *ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
+                    int(nib4), act, plan[0], stream)
+            else:
+                rc = lib.qmm_smallm_launch(*ptrs, *dims, int(nib4), act,
+                                           plan[0], stream)
         else:
-            launch = (lib.qmm_wgmma_nib4_launch if nib4
-                      else lib.qmm_wgmma_int8_launch)
-            rc = launch(*ptrs, *dims, act, wgmma_plan(m, R)[0], stream)
-            _build.check(rc, "qmm_wgmma_launch")
-            _build.count(name)
+            nt = wgmma_plan(m, R)[0]
+            if lora:
+                launch = (lib.qmm_wgmma_nib4_lora_launch if nib4
+                          else lib.qmm_wgmma_int8_lora_launch)
+                rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
+                            act, nt, stream)
+            else:
+                launch = (lib.qmm_wgmma_nib4_launch if nib4
+                          else lib.qmm_wgmma_int8_launch)
+                rc = launch(*ptrs, *dims, act, nt, stream)
+        if lora:
+            name += "_lora"
+        _build.check(rc, name + " launch")
+        _build.count(name)
     return out.reshape(*lead, R).to(out_dtype or x.dtype)
 
 
@@ -262,21 +327,18 @@ def quantized_matmul(x: torch.Tensor, pq: PlanarQuant, *,
                      dequant_dtype=torch.bfloat16, out_dtype=None,
                      bias=None, act_from_col: int | None = None,
                      lora_h=None, lora_up=None) -> torch.Tensor:
-    """x @ W^T with packed planar W (+ bias, GELU-tanh from a column).
+    """x @ W^T with packed planar W (+ the LoRA rank term h @ upᵀ, bias,
+    GELU-tanh from a column).
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
     if x.is_cuda:
-        if lora_h is not None:
-            raise NotImplementedError(
-                "LoRA operands in the kernel epilogue arrive with the LoRA "
-                "slice of the port")
         if dequant_dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"the CUDA kernel dequantizes to bfloat16, not "
                 f"{dequant_dtype}")
         return qmm_cuda(x, pq, bias=bias, act_from_col=act_from_col,
-                        out_dtype=out_dtype)
+                        out_dtype=out_dtype, lora_h=lora_h, lora_up=lora_up)
     return plain_quantized_matmul(
         x, pq, dequant_dtype=dequant_dtype, out_dtype=out_dtype, bias=bias,
         act_from_col=act_from_col, lora_h=lora_h, lora_up=lora_up)

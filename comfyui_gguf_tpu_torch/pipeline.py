@@ -2,18 +2,22 @@
 comfyui_gguf_tpu/pipeline.py).
 
 * ``load_diffusion_model(path)`` — GGUF → ``DiffusionModel`` with packed
-  planar weights on the card; ``requantize_i8()`` converts it to the w8a8
-  format and ``stack()`` restacks the blocks along a depth axis.
+  planar weights on the card; ``apply_lora(path, strength)`` attaches a
+  LoRA file (packed weights stay packed: the rank term rides the kernels'
+  epilogues), ``requantize_i8()`` converts it to the w8a8 format and
+  ``stack()`` restacks the blocks along a depth axis, in that order.
 * ``load_text_encoders(paths)`` — text-encoder files, GGUF (T5) or
   safetensors (CLIP), each with its graph and tokenizer.
 * ``load_vae(path)`` — the image AutoencoderKL from a safetensors file.
 * ``FluxPipeline.load(...).generate(prompt)`` — full text-to-image:
   tokenize → T5 + CLIP-L encode → denoise → VAE decode, with img2img,
-  inpainting and Kontext references.
+  inpainting and Kontext references. ``TextEncoder.apply_lora`` attaches a
+  LoRA file's text-encoder slice; ``textual_inversion.EmbeddingSet`` adds
+  textual-inversion embeddings to an encoder.
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-LoRA, the llama text encoders, the video VAEs and the other architectures
-are not ported yet and raise ``NotImplementedError``.
+The llama text encoders, the video VAEs and the other architectures are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _safetensors
+from . import lora as lora_mod
 from ._device import resolve_device
 from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
 from .models import clip as clip_model
@@ -50,15 +55,20 @@ def _arch_module(arch: str):
     return entry[0]
 
 
+def _patch_dtype(qcfg: QuantConfig):
+    return qcfg.effective_patch_dtype or torch.bfloat16
+
+
 @dataclasses.dataclass
 class DiffusionModel:
-    """Loaded DiT + config."""
+    """Loaded DiT + config; the reference plugin's GGUFModelPatcher."""
 
     arch: str
     params: dict
     config: object
     qcfg: QuantConfig
     device: torch.device
+    base_params: dict | None = None  # the tree before the first LoRA
 
     @property
     def is_stacked(self) -> bool:
@@ -69,12 +79,38 @@ class DiffusionModel:
         fn = mod.forward_stacked if self.is_stacked else mod.forward
         return fn(self.params, self.config, *args, qcfg=self.qcfg, **kwargs)
 
+    def apply_lora(self, path: str, strength: float = 1.0):
+        """Attach a LoRA file (kohya, PEFT or LyCORIS keys; every patch type
+        of the reference). Packed weights stay packed: rank patches ride the
+        fused kernels' epilogues. Attach BEFORE ``stack()``: the key mapping
+        targets the flat per-block names, and the patches then stack with
+        their blocks. Mutates self and returns it."""
+        if self.is_stacked:
+            raise ValueError(
+                "apply_lora on a depth-stacked tree matches no keys; "
+                "attach LoRAs before DiffusionModel.stack()")
+        if self.base_params is None:
+            self.base_params = self.params
+        self.params = lora_mod.load_and_attach(
+            self.params, path, strength=strength,
+            dtype=_patch_dtype(self.qcfg))
+        return self
+
+    def unapply_loras(self):
+        """Drop every attached patch (the reference plugin's
+        unpatch_model), of a stacked tree too."""
+        self.params = lora_mod.detach_patches(self.params)
+        self.base_params = None
+        return self
+
     def requantize_i8(self, *, mod_planar: bool = True) -> "DiffusionModel":
         """Convert packed planar weights to the w8a8 format (quant/i8.py).
 
         mod_planar: keep the adaLN/modulation projections (M=batch rows,
         bandwidth-bound) on the planar path. Each planar leaf is dropped as
-        it converts, so both trees never sit on the card at once. Mutates
+        it converts, so both trees never sit on the card at once, and the
+        model cannot go back to the planar tree. Patched leaves convert
+        their base and keep their patches. Call AFTER apply_lora. Mutates
         self and returns it.
         """
         from .quant.i8 import convert_tree_i8, is_modulation_key
@@ -83,6 +119,7 @@ class DiffusionModel:
             else None
         self.params = convert_tree_i8(self.params, free_source=True,
                                       pred=pred)
+        self.base_params = None
         return self
 
     def stack(self) -> "DiffusionModel":
@@ -126,8 +163,20 @@ class TextEncoder:
                               qcfg=self.qcfg, **kwargs)
 
     def apply_lora(self, path: str, strength: float = 1.0):
-        raise NotImplementedError(
-            "text-encoder LoRA arrives with the LoRA slice of the port")
+        """Attach this encoder's slice of a LoRA file (kohya ``lora_te_``
+        for SD1's CLIP, ``lora_te1_``/``lora_te2_`` for the SDXL pair,
+        ``lora_te3_`` for T5; the ``lora_unet_`` slice goes to
+        DiffusionModel.apply_lora). Mutates self and returns it."""
+        prefixes = {"clip_l": ("te1", "te"), "clip_g": ("te2",),
+                    "t5": ("te3", "te")}[self.kind]
+        self.params = lora_mod.load_and_attach_te(
+            self.params, path, strength=strength,
+            dtype=_patch_dtype(self.qcfg), prefixes=prefixes)
+        return self
+
+    def unapply_loras(self):
+        self.params = lora_mod.detach_patches(self.params)
+        return self
 
     def requantize_i8(self) -> "TextEncoder":
         """w8a8 conversion for the encoder stack (see

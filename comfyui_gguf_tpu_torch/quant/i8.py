@@ -161,22 +161,26 @@ def convert_tree_i8(params: dict, *, free_source: bool = False,
 
     free_source: drop each source leaf from ``params`` as soon as its int8
     copy exists, so a full-depth model never holds both trees.
+
+    A LoRA-patched leaf (``lora.PatchedWeight``) converts its packed base
+    and keeps its patches, which then ride the w8a8 kernel's epilogue.
     """
     return _walk(params, "", free_source, pred)
 
 
 def _walk(node: dict, path: str, free_source: bool, pred) -> dict:
+    from ..lora import PatchedWeight
+
     out = {}
     for k in list(node):
         v = node[k]
         kp = f"{path}.{k}" if path else str(k)
-        if hasattr(v, "patches") and hasattr(v, "base"):
-            raise NotImplementedError(
-                "LoRA-patched weights arrive with the LoRA slice of the port")
+        b = v.base if isinstance(v, PatchedWeight) else v
         if isinstance(v, dict):
             out[k] = _walk(v, kp, free_source, pred)
-        elif isinstance(v, PlanarQuant) and (pred is None or pred(kp, v)):
-            out[k] = requantize_i8(v)
+        elif isinstance(b, PlanarQuant) and (pred is None or pred(kp, b)):
+            ip = requantize_i8(b)
+            out[k] = ip if b is v else PatchedWeight(ip, v.patches)
             if free_source:
                 node[k] = None
         else:

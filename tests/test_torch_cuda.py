@@ -9,9 +9,15 @@ and strided views; K6 at head dims 128 and 256 and in its split instance
 (384, 512). K1/K2 run through
 both of their bodies (split-K for M <= 8, wgmma above) over every format
 of each layout; K4 through both of its tile widths. One-hot rows check
-every tile position of K1/K2/K4 bit for bit. Whether a card exists is
-decided inside the ``cuda`` fixture, so every worker collects the same
-tests; without a card they skip. Run them on the card with
+every tile position of K1/K2/K4 bit for bit. The LoRA instances of K1/K2
+(both bodies) and K4 (both widths) run at ranks 1, 16 and 16 + 64 against
+the plain versions with the same rank operands, with one-hot rank rows, at
+strength 0 (equal to the unpatched launch) and on stacked views. Whether a
+card exists is decided inside the ``cuda`` fixture, so every worker
+collects the same tests; without a card they skip. Two tests of the
+wrappers' host side (the LoRA operands' layout and limits, and the dispatch
+handing them to the kernel wrappers) run on the CPU. Run them on the card
+with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest`` (the
 repo's conftest imports jax, which the card's machine need not have).
 """
@@ -501,3 +507,314 @@ def test_gemm_probe_kernels_match_plain(cuda, bn):
     assert torch.equal(got, gemm_probe.plain_probe_w8a8(x8, w8, xs, ws))
     got1 = gemm_probe.probe_w8a8(x8, w8, xs[:, :1].contiguous(), ws, bn=bn)
     assert torch.equal(got1, got)
+
+
+# -- the LoRA instances: the rank term h @ upᵀ in the epilogues ------------
+
+def _lora_ops(cuda, M, R, rank, seed, strength=1.0):
+    """Rank operands as ``lora.rank_factorize`` gives them: h (M, Σr) and
+    the scale-folded upᵀ (Σr, R), bf16 on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn((M, rank), generator=g, device=cuda).to(torch.bfloat16)
+    # the weights of _planar are N(0, 1): the term moves a K-long sum
+    upt = (torch.randn((rank, R), generator=g, device=cuda)
+           * strength).to(torch.bfloat16)
+    return h, upt
+
+
+def _qmm_lora_case(cuda, pq, M, rank, bias, act, seed):
+    R, K = pq.shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((R,), generator=g, device=cuda) if bias else None
+    h, upt = _lora_ops(cuda, M, R, rank, seed)
+    key = _qmm_key(pq, M) + "_lora"
+    before = dict(_build.LAUNCHES)
+    got = qmm_cuda(x, pq, bias=b, act_from_col=act, lora_h=h, lora_up=upt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert _build.LAUNCHES[key[:-5]] == before[key[:-5]]
+    want = plain_quantized_matmul(x, pq, bias=b, act_from_col=act,
+                                  lora_h=h, lora_up=upt)
+    assert got.shape == (M, R) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) < 5e-3
+    # the term is really there: without it the result is far off
+    assert _rel_l2(qmm_cuda(x, pq, bias=b, act_from_col=act), want) > 1e-2
+    return x, b, h, upt, got
+
+
+# ranks 1, 16 and 16 + 64 (two stacked LoRAs: two rank chunks of the ring)
+LORA_RANKS = [1, 16, 80]
+
+
+@pytest.mark.parametrize("rank", LORA_RANKS)
+@pytest.mark.parametrize("M", [1, 5, 9, 200, 300])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q8_0], ids=lambda q: q.name)
+def test_qmm_lora_matches_plain(cuda, qtype, M, rank):
+    """Both bodies (split-K for M <= 8, wgmma above, 128- and 256-token
+    tiles) with the rank term, ragged R and padded K, bias and a GELU
+    tail."""
+    R, K = 328, 768
+    pq = _planar(qtype, R, K, seed=rank + M, device=cuda)
+    _qmm_lora_case(cuda, pq, M, rank, True, 136, seed=M)
+
+
+@pytest.mark.parametrize("M", [3, 130])
+@pytest.mark.parametrize("qtype", NIB4_TYPES + INT8_TYPES,
+                         ids=lambda q: q.name)
+def test_qmm_lora_every_format(cuda, qtype, M):
+    R, K = 256, 1024
+    pq = _planar(qtype, R, K, seed=int(qtype) + 7, device=cuda)
+    for bias, act in ((False, None), (True, 0)):
+        _qmm_lora_case(cuda, pq, M, 16, bias, act, seed=M + int(qtype))
+
+
+@pytest.mark.parametrize("M", [2, 130])
+def test_qmm_lora_rank_positions(cuda, M):
+    """x = 0 and a one-hot h row picks one rank column: each output is
+    that column of up, bit for bit (a wrong fragment order, row pairing or
+    rank chunk cannot hide in a sum)."""
+    R, K, rank = 256, 512, 80
+    pq = _planar(Q.Q4_K, R, K, seed=5, device=cuda)
+    _, upt = _lora_ops(cuda, M, R, rank, seed=3)
+    x = torch.zeros((M, K), device=cuda, dtype=torch.bfloat16)
+    for j in (0, 1, 17, 63, 64, 79):
+        h = torch.zeros((M, rank), device=cuda, dtype=torch.bfloat16)
+        h[:, j] = 1.0
+        got = qmm_cuda(x, pq, lora_h=h, lora_up=upt)
+        assert torch.equal(got, upt[j][None].expand(M, R))
+
+
+@pytest.mark.parametrize("M", [4, 200])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q6_K], ids=lambda q: q.name)
+def test_qmm_lora_strength_zero_is_unpatched(cuda, qtype, M):
+    """up scaled by 0: the LoRA instance computes the same base product and
+    adds exact zeros, so it equals the unpatched launch value for value."""
+    R, K = 384, 1024
+    pq = _planar(qtype, R, K, seed=11, device=cuda)
+    x = torch.randn((M, K), device=cuda).to(torch.bfloat16)
+    b = torch.randn((R,), device=cuda)
+    h, upt = _lora_ops(cuda, M, R, 16, seed=1, strength=0.0)
+    got = qmm_cuda(x, pq, bias=b, act_from_col=128, lora_h=h, lora_up=upt)
+    assert torch.equal(got, qmm_cuda(x, pq, bias=b, act_from_col=128))
+
+
+def test_qmm_lora_smallm_is_deterministic(cuda):
+    pq = _planar(Q.Q4_K, 1024, 3072, seed=3, device=cuda)
+    x = torch.randn((4, 3072), device=cuda).to(torch.bfloat16)
+    h, upt = _lora_ops(cuda, 4, 1024, 80, seed=2)
+    assert smallm_plan(4, pq.padded_in, 1024, True)[0] > 1  # a real K split
+    a = qmm_cuda(x, pq, lora_h=h, lora_up=upt)
+    b = qmm_cuda(x, pq, lora_h=h, lora_up=upt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_qmm_lora_on_stacked_view(cuda):
+    """A block of a stacked patched weight: base and factors are views."""
+    a = _planar(Q.Q4_K, 256, 1024, seed=1, device=cuda)
+    st = planar.PlanarQuant(
+        qs=torch.stack([a.qs, a.qs]), scales=torch.stack([a.scales,
+                                                          a.scales]),
+        offsets=torch.stack([a.offsets, a.offsets]), qtype=a.qtype,
+        layout=a.layout, group_size=a.group_size, zero_point=a.zero_point,
+        shape=a.shape)
+    x = torch.randn((64, 1024), device=cuda).to(torch.bfloat16)
+    h, upt = _lora_ops(cuda, 64, 256, 16, seed=4)
+    ups = torch.stack([upt * 0, upt])
+    got = qmm_cuda(x, st[1], lora_h=h, lora_up=ups[1])
+    want = plain_quantized_matmul(x, a, lora_h=h, lora_up=upt)
+    assert _rel_l2(got, want) < 5e-3
+
+
+def _i8_lora_case(cuda, ip, M, rank, bias, act, bn=None, seed=0,
+                  strength=1.0):
+    R, K = ip.shape
+    g = torch.Generator(device=cuda).manual_seed(M * 31 + seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((R,), generator=g, device=cuda) if bias else None
+    h, upt = _lora_ops(cuda, M, R, rank, seed, strength)
+    xq, xs = quantize_rows(x)
+    before = dict(_build.LAUNCHES)
+    got = i8mm_cuda_q(xq, xs, ip, bias=b, act_from_col=act, bn=bn,
+                      lora_h=h, lora_up=upt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["i8mm_lora"] == before["i8mm_lora"] + 1
+    assert _build.LAUNCHES["i8mm"] == before["i8mm"]
+    want = plain_i8mm(x, ip, bias=b, act_from_col=act, lora_h=h,
+                      lora_up=upt)
+    assert got.shape == (M, R) and got.dtype == torch.bfloat16
+    _check_lora_ulps(got, want)
+    return xq, xs, b, h, upt, got
+
+
+def _check_lora_ulps(got, want):
+    """Exact integers and the same f32 rescale as the plain version, but
+    the tensor cores add the rank term onto the accumulator in their own
+    order and precision: a bf16 result moves by one ulp now and then, and
+    by more where it is tiny beside its addends (or under GELU, where 1 +
+    tanh cancels for a large negative input). Held to the fused matmuls'
+    rel-L2 limit, with at most one value in a thousand beyond one ulp."""
+    over = ((got.float() - want.float()).abs()
+            > torch.maximum(_bf16_ulp(got), _bf16_ulp(want)))
+    assert float(over.float().mean()) <= 1e-3
+    assert _rel_l2(got, want) < 5e-3
+
+
+@pytest.mark.parametrize("rank", LORA_RANKS)
+@pytest.mark.parametrize("bn", I8MM_WIDTHS)
+@pytest.mark.parametrize("M", [1, 37, 129, 300])
+def test_i8mm_lora_matches_plain(cuda, M, bn, rank):
+    """K4's LoRA instance at both tile widths, ranks 1 / 16 / 16 + 64,
+    ragged M, R no multiple of 8 (rows padded to 336), K < Kp, bias and a
+    GELU tail (the rank term lands before them)."""
+    R, K = 333, 2432
+    ip = requantize_i8(_planar(Q.Q8_0, R, K, seed=M + bn, device=cuda))
+    for bias, act in ((True, None), (False, 0), (True, 136)):
+        _i8_lora_case(cuda, ip, M, rank, bias, act, bn, seed=rank)
+
+
+@pytest.mark.parametrize("bn", I8MM_WIDTHS)
+def test_i8mm_lora_rank_positions(cuda, bn):
+    """x = 0 (xq = 0) and a one-hot h row: each output is a column of up,
+    bit for bit, at every rank chunk and tile column."""
+    R, K, M, rank = 384, 512, 130, 80
+    ip = requantize_i8(_planar(Q.Q6_K, R, K, seed=9, device=cuda))
+    _, upt = _lora_ops(cuda, M, R, rank, seed=3)
+    xq = torch.zeros((M, K), device=cuda, dtype=torch.int8)
+    xs = torch.ones((M, 1), device=cuda)
+    for j in (0, 5, 16, 63, 64, 79):
+        h = torch.zeros((M, rank), device=cuda, dtype=torch.bfloat16)
+        h[:, j] = 1.0
+        got = i8mm_cuda_q(xq, xs, ip, bn=bn, lora_h=h, lora_up=upt)
+        assert torch.equal(got, upt[j][None].expand(M, R))
+
+
+@pytest.mark.parametrize("bn", I8MM_WIDTHS)
+def test_i8mm_lora_strength_zero_is_unpatched(cuda, bn):
+    R, K, M = 512, 1024, 300
+    ip = requantize_i8(_planar(Q.Q4_K, R, K, seed=3, device=cuda))
+    xq, xs, b, h, upt, got = _i8_lora_case(cuda, ip, M, 16, True, 256, bn,
+                                           strength=0.0)
+    assert torch.equal(got, i8mm_cuda_q(xq, xs, ip, bias=b, act_from_col=256,
+                                        bn=bn))
+
+
+def test_i8mm_lora_on_stacked_view(cuda):
+    a, b = (requantize_i8(_planar(Q.Q4_K, 384, 1024, seed=s, device=cuda))
+            for s in (1, 2))
+    st = I8Planar(qs=torch.stack([a.qs, b.qs]),
+                  scales=torch.stack([a.scales, b.scales]), qtype=a.qtype,
+                  shape=a.shape)
+    x = torch.randn((200, 1024), device=cuda).to(torch.bfloat16)
+    h, upt = _lora_ops(cuda, 200, 384, 16, seed=6)
+    got = i8mm_cuda(x, st[1], act_from_col=64, lora_h=h, lora_up=upt)
+    want = plain_i8mm(x, b, act_from_col=64, lora_h=h, lora_up=upt)
+    _check_lora_ulps(got, want)
+
+
+# -- the wrappers' host side, on the CPU ---------------------------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one, so the dispatch takes
+    its CUDA branch (where the kernel wrapper is replaced by a recorder)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_cuda_dispatch_passes_lora_operands(monkeypatch):
+    """On a CUDA tensor the dispatchers hand the rank operands to the
+    kernel wrappers (they used to raise NotImplementedError)."""
+    from comfyui_gguf_tpu_torch.ops import i8mm as i8mm_mod
+    from comfyui_gguf_tpu_torch.ops import qmatmul as qmm_mod
+
+    seen = []
+    monkeypatch.setattr(qmm_mod, "qmm_cuda",
+                        lambda x, pq, **kw: seen.append(("qmm", kw)))
+    monkeypatch.setattr(i8mm_mod, "i8mm_cuda",
+                        lambda x, ip, **kw: seen.append(("i8mm", kw)))
+    pq = _planar(Q.Q4_K, 128, 512, seed=1, device="cpu")
+    x = torch.zeros((2, 512), dtype=torch.bfloat16).as_subclass(_OnCard)
+    h = torch.zeros((2, 16), dtype=torch.bfloat16)
+    upt = torch.zeros((16, 128), dtype=torch.bfloat16)
+    qmm_mod.quantized_matmul(x, pq, lora_h=h, lora_up=upt)
+    i8mm_mod.i8_matmul(x, requantize_i8(pq), lora_h=h, lora_up=upt)
+    assert [k for k, _ in seen] == ["qmm", "i8mm"]
+    assert all(kw["lora_h"] is h and kw["lora_up"] is upt for _, kw in seen)
+
+
+def test_prep_lora_layout_and_limits():
+    """The kernels' operand layout: h (M, rk), up (Rp, rk) bf16, the rank
+    zero-padded to a multiple of 16 and up not transposed; any rank is
+    taken; another dtype or a shape that does not fit raises, naming the
+    limit."""
+    from comfyui_gguf_tpu_torch.ops.qmatmul import LORA_RANK_STEP, prep_lora
+
+    M, R, Rp = 5, 200, 256
+    for rank in (1, 16, 80, 600):
+        h = torch.randn((M, rank)).to(torch.bfloat16)
+        upt = torch.randn((rank, R)).to(torch.bfloat16)
+        hp, up, rk = prep_lora(h, upt, M, R, Rp)
+        assert rk % LORA_RANK_STEP == 0 and rank <= rk < rank + 16
+        assert hp.shape == (M, rk) and up.shape == (Rp, rk)
+        assert hp.is_contiguous() and up.is_contiguous()
+        assert torch.equal(hp[:, :rank], h) and not hp[:, rank:].any()
+        assert torch.equal(up[:R, :rank], upt.t())
+        assert not up[R:].any() and not up[:, rank:].any()
+    h = torch.randn((M, 16))
+    upt = torch.randn((16, R))
+    with pytest.raises(TypeError, match="bfloat16"):
+        prep_lora(h, upt, M, R, Rp)
+    with pytest.raises(ValueError):
+        prep_lora(h.bfloat16(), upt.bfloat16()[:, :100], M, R, Rp)
+    with pytest.raises(ValueError):
+        prep_lora(h.bfloat16(), upt.bfloat16(), M + 1, R, Rp)
+    with pytest.raises(ValueError, match="pairs"):
+        prep_lora(h.bfloat16(), None, M, R, Rp)
+
+
+def test_ptxas_entries_names_each_instance():
+    """The one parser of nvcc's ptxas report (phase 2 of chip_smoke.py and
+    tools_kernel_ab_cuda.py read it): each compiled entry by its kernel
+    name and template arguments, with its register and spill lines."""
+    import importlib.util
+    from pathlib import Path
+
+    lines = [
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN9gguf_cuda12_GLOBAL__N_116qmm_wgmma_kernelILb1ELb0ELi2ELb1EEEvK"
+        "14CUtensorMap_stS3_PKhPKfS7_P13__nv_bfloat16iiiiiii' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _Z16qmm_wgmma_kernelILi1E",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_Z17gemm_wgmma_kernelILi0ELi256ELb0EEvPKaS1_PKfS3_S3_' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z17gemm_wgmma_kernelI",
+        "    96 bytes stack frame, 92 bytes spill stores, 92 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 16 barriers, 96 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function 'prep_fold' for 'sm_90a'",
+        "ptxas info    : Used 32 registers"]
+    got = _build.ptxas_entries(lines)
+    assert [n for n, _, _ in got] == ["qmm_wgmma_kernel<1,0,2,1>",
+                                      "gemm_wgmma_kernel<0,256,0>",
+                                      "prep_fold"]
+    assert got[0][1] == "Used 168 registers, used 1 barriers"
+    assert got[1][2].startswith("96 bytes stack frame, 92 bytes spill")
+    assert got[2][2] == ""
+    spec = importlib.util.spec_from_file_location(
+        "tools_kernel_ab_cuda",
+        Path(__file__).resolve().parents[1] / "tools_kernel_ab_cuda.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    assert ab.same_instance("gemm_wgmma_kernel<0,256>",
+                            "gemm_wgmma_kernel<0,256,0>")
+    assert ab.same_instance("prep_fold", "prep_fold")
+    assert not ab.same_instance("gemm_wgmma_kernel<0,256>",
+                                "gemm_wgmma_kernel<0,256,1>")

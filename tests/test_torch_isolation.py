@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of the port, and none of
-chip_smoke.py, tools_i8_microbench_cuda.py and tools_qmm_cuda.py, imports
+chip_smoke.py and its tools_*_cuda.py scripts, imports
 jax, jaxlib, the reference package or safetensors (the port reads that
 format itself).
 
@@ -15,11 +15,12 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "comfyui_gguf_tpu", "safetensors")
 # the port's sources (not the git-ignored build directory), the smoke run
-# and the port's root-level tool
+# and the port's root-level tools
 FILES = sorted(p for p in (ROOT / "comfyui_gguf_tpu_torch").rglob("*.py")
                if "_build" not in p.relative_to(ROOT).parts) + [
     ROOT / "chip_smoke.py", ROOT / "tools_i8_microbench_cuda.py",
-    ROOT / "tools_qmm_cuda.py"]
+    ROOT / "tools_qmm_cuda.py", ROOT / "tools_i8mm_flash_cuda.py",
+    ROOT / "tools_kernel_ab_cuda.py"]
 
 
 def _imported_roots(tree):

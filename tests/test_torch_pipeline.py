@@ -233,7 +233,8 @@ def test_requests_that_need_a_vae_or_a_ported_part_raise(pipes):
             (64, 64, 3), np.float32)], **kw)
     with pytest.raises(NotImplementedError, match="euler"):
         bare.generate_from_noise(PROMPT, noise, sampler="uni_pc", **kw)
-    with pytest.raises(NotImplementedError):
+    # text-encoder LoRA is ported: what is missing now is the file
+    with pytest.raises(FileNotFoundError):
         tp.t5.apply_lora("nope.safetensors")
 
 
