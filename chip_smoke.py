@@ -80,7 +80,30 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    s/image beside the unpatched image's, peak memory and launches are
    printed;
 8. the GEMM probe tool ``tools_i8_microbench_cuda.py`` runs as a user runs
-   it.
+   it;
+9. serving at flux-dev width and depth, on phase 6's w8a8 stacked tree
+   (run before phase 7, which replaces that tree): (a) ``flux_engine``
+   (Euler, max_batch 4) serves six 1024² requests of ``--steps`` steps on
+   seed-made published-width conds (T5 512 x 4096, pooled 768), four
+   arriving one a tick and two at tick 5, which join the pool beside
+   requests near their end; every request must finish, each tick must
+   launch one forward's kernels (228 K4, 57 K7 and 76 split-K at full
+   depth), and two results must be within 1e-2 (relative L2) of
+   ``sample_flow`` at batch 1; s/tick by bucket, occupancy, steps/s,
+   images/min, latency and peak memory are printed, and one b = 4 forward
+   is profiled; (b) ``sampler="dpmpp_2m"``: two requests, each within 1e-2
+   of ``sample_flow(..., "dpmpp_2m")``; (c) ``snapshot()`` after two ticks,
+   ``restore()`` into a fresh engine, within 1e-3 of the uninterrupted run,
+   and ``pipeline_depth=4`` equal to depth 1; (d) ``ResidentModelServer``
+   with this tree and a 4 + 4-block flux-dev-width tree under a budget that
+   holds one: the LRU eviction must free at least 90% of the evicted tree's
+   bytes (``memory_allocated``) and the re-placed tree must give its first
+   result again. (b)-(d) run min(``--steps``, 4) steps.
+
+Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
+through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
+same noise, within 3e-2 (relative L2). Phase 3 also times K4, K7 and the
+split-K body at the serving shapes of four stacked requests.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -90,6 +113,8 @@ the kernel table as JSON, then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -113,6 +138,14 @@ LATENT_DELTA_MAX = 2e-2
 # most relative L2 allowed between an int8-attention final latent or image
 # and the default-attention one of the same request
 I8ATTN_DELTA_MAX = 3e-2
+# most relative L2 allowed between a sampler's latent on the card and on
+# the CPU (phase 4c), the tiny end-to-end limit of phase 4
+SAMPLER_DELTA_MAX = 3e-2
+# most relative L2 allowed between a served request's latent and the same
+# request sampled alone at batch 1 (phase 9), and between a restored
+# engine's and an uninterrupted one's
+ENGINE_DELTA_MAX = 1e-2
+RESTORE_DELTA_MAX = 1e-3
 # special-function results (exp) per SM per clock, compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic-instruction throughput table)
 SFU_PER_SM_CLK = 16
@@ -684,6 +717,17 @@ def kernel_phase(dev, sfu_per_s):
     qmm_lora_case("qmm_int8_smallm_lora mod M=1 3072->18432 Q6_K r=16",
                   "qmm_int8_smallm_lora", Q.Q6_K, 1, 3072, 18432, None, 16,
                   2)
+    # the serving path's shapes (phase 9): four requests stacked per tick —
+    # K4 at M = 4 x 4608 / 4096 / 512 tokens, K7 at B = 4, the split-K
+    # body on the modulations at M = 4
+    i8_case("i8mm linear1 b=4 M=18432 3072->21504 gelu@9216", 18432, 3072,
+            21504, 9216)
+    i8_case("i8mm img qkv b=4 M=16384 3072->9216", 16384, 3072, 9216, None)
+    i8_case("i8mm txt qkv b=4 M=2048 3072->9216", 2048, 3072, 9216, None)
+    qmm_case("qmm_nib4 mod b=4 M=4 3072->18432 Q4_K", "qmm_nib4_smallm",
+             Q.Q4_K, 4, 3072, 18432, None, 4, 5e-3)
+    attn_case("flash_attn flux b=4 B=4 L=4608 D=128", 4, 24, 4608, 4608,
+              128)
     # K7: flux joint attention, an odd length at D=64, and Lq != Lk
     attn_case("flash_attn flux L=4608 D=128", 1, 24, 4608, 4608, 128)
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
@@ -1016,6 +1060,73 @@ def tiny_pipeline_phase(dev):
         if not err <= 3e-2 or int(ids.max()) < cpu.clip_l.config.vocab_size:
             raise SystemExit(f"textual inversion: rel L2 {err}, ids {ids}")
     return out
+
+
+def sampler_menu_phase(dev):
+    """Every flow sampler (``FLOW_SAMPLERS``, and ``FLOW_STOCHASTIC_SAMPLERS``
+    with the same noise on both devices) through phase 4a's tiny flux GGUF,
+    on the card and on the CPU."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+    from comfyui_gguf_tpu_torch.sampling import flow_match as fm
+
+    dims = testing.TinyFluxDims(hidden=512, heads=4, depth_double=2,
+                                depth_single=2, axes_dim=(16, 56, 56))
+    devs = (dev, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny_flux_q4k.gguf")
+        testing.write_flux_gguf(
+            testing.flux_state_dict(dims, seed=0), path,
+            lambda k, v: testing.flux_block_qtype(k, v, Q.Q4_K))
+        models = [load_diffusion_model(path, device=d) for d in devs]
+    steps, h_lat = 3, 16
+    inputs = [testing.flux_example_inputs(dims, h_lat=h_lat, w_lat=h_lat,
+                                          txt_len=16, seed=6, device=d)
+              for d in devs]
+    sigmas = fm.flux_schedule(steps, (h_lat // 2) ** 2)
+
+    def run(name, i):
+        d = devs[i]
+        img, ids, txt, tids, _, y, g = inputs[i]
+        model = models[i]
+
+        def vel(x, s):
+            return model.forward(x, ids, txt, tids, s.expand(x.shape[0]), y,
+                                 g)
+        with torch.no_grad():
+            if name in fm.FLOW_SAMPLERS:
+                return fm.sample_flow(vel, img, sigmas, sampler=name)
+            gen = torch.Generator().manual_seed(11)  # the same draws
+
+            def noise(shape):
+                return torch.randn(tuple(shape), generator=gen).to(d)
+            return fm.FLOW_STOCHASTIC_SAMPLERS[name](vel, img, sigmas, noise)
+
+    out, launches = {}, {k: 0 for k in _build.LAUNCHES}
+    for name in sorted(fm.FLOW_SAMPLERS) + sorted(fm.FLOW_STOCHASTIC_SAMPLERS):
+        _build.reset_launch_counts()
+        a = run(name, 0)
+        torch.cuda.synchronize()
+        for k, n in _build.LAUNCHES.items():
+            launches[k] += n
+        b = run(name, 1)
+        err = rel_l2(a.float().cpu(), b.float())
+        out[name] = err
+        if not bool(torch.isfinite(a).all()) or not err <= SAMPLER_DELTA_MAX:
+            raise SystemExit(f"sampler {name}: card vs CPU rel L2 {err}")
+    log(f"  {len(out)} samplers, {steps} steps each, card vs CPU plain rel "
+        f"L2 (limit {SAMPLER_DELTA_MAX}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    log(f"  launches {dict((k, n) for k, n in launches.items() if n)}")
+    for k in ("qmm_nib4", "qmm_nib4_smallm", "flash_attn"):
+        if launches[k] == 0:
+            raise SystemExit(f"the sampler menu launched no {k}")
+    return dict(rel_l2_vs_cpu=out, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1445,6 +1556,302 @@ def lora_phase(dev, pipe, request, base_latent, base_run, steps):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving at flux-dev width and depth
+# ---------------------------------------------------------------------------
+
+def serving_phase(dev, pipe, steps, base_run, h_lat=128, txt_len=512):
+    """``flux_engine`` over the w8a8 stacked flux-dev tree of phases 5/6:
+    (a) Euler, max_batch 4, six requests at 1024² arriving over the first
+    ticks, launch counts per tick, two results against ``sample_flow`` at
+    batch 1; (b) per-lane DPM-Solver++(2M) against ``sample_flow(...,
+    "dpmpp_2m")``; (c) snapshot/restore into a fresh engine and
+    ``pipeline_depth=4`` against an uninterrupted depth-1 run; (d)
+    ``ResidentModelServer`` with this tree and a smaller flux-dev-width one
+    under a budget that holds one. Returns the results and the tree to
+    hand back to the pipeline (the server re-placed it)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import tree_bytes
+    from comfyui_gguf_tpu_torch.models import flux as flux_model
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import DiffusionModel, flux_engine
+    from comfyui_gguf_tpu_torch.sampling import flux_schedule, sample_flow
+    from comfyui_gguf_tpu_torch.serving import ResidentModelServer
+
+    model = pipe.model
+    cfg = model.config
+    dims = testing.TinyFluxDims(
+        hidden=cfg.hidden, heads=cfg.n_heads, ctx=cfg.context_dim,
+        vec=cfg.vec_dim, in_ch=cfg.in_channels, depth_double=cfg.depth_double,
+        depth_single=cfg.depth_single, axes_dim=cfg.axes_dim)
+    H = W = h_lat  # 128: a 1024² latent, 4096 image tokens
+    TXT = txt_len
+    sigmas = flux_schedule(steps, (H // 2) * (W // 2))
+    short = min(steps, 4)
+    sig_short = flux_schedule(short, (H // 2) * (W // 2))
+    per_tick = {"i8mm": 8 * cfg.depth_double + 2 * cfg.depth_single,
+                "flash_attn": cfg.depth_double + cfg.depth_single,
+                "qmm_nib4_smallm": 2 * cfg.depth_double + cfg.depth_single}
+
+    def request(seed):
+        img, _, txt, _, _, y, g = testing.flux_example_inputs(
+            dims, batch=1, h_lat=H, w_lat=W, txt_len=TXT, seed=seed,
+            device=dev)
+        return img[0], {"txt": txt[0], "y": y[0], "guidance": g[0]}
+
+    def direct(latent, cond, sig, sampler, mdl=model):
+        img_ids = torch.as_tensor(np.array(flux_model.make_img_ids(
+            H // 2, W // 2, 1)), device=dev)
+        txt_ids = torch.zeros((1, TXT, 3), dtype=torch.int32, device=dev)
+
+        def vel(x, s):
+            return mdl.forward(x, img_ids, cond["txt"][None], txt_ids,
+                               s.expand(1), cond["y"][None],
+                               cond["guidance"].reshape(1))
+        with torch.no_grad():
+            out = sample_flow(vel, latent[None], sig, sampler=sampler)
+        return out[0].float().cpu().numpy()
+
+    def compare(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return (float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+                bool(np.array_equal(a, b)))
+
+    res = {"steps": steps, "short_steps": short}
+    launches = {k: 0 for k in _build.LAUNCHES}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # (a) six requests, euler, max_batch 4: r0..r3 arrive one a tick, r4
+    # and r5 at tick 5 and join the pool as slots free, beside requests
+    # near their end (a mixed-progress pool)
+    reqs_in = [request(100 + i) for i in range(6)]
+    arrivals = {0: [0], 1: [1], 2: [2], 3: [3], 5: [4, 5]}
+    eng = flux_engine(model, H, W, TXT, max_batch=4, sampler="euler")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    handles, ticks = {}, []
+    t0 = time.perf_counter()
+    tick = 0
+    while tick <= max(arrivals) or eng.active or not eng.queue.empty():
+        for i in arrivals.get(tick, []):
+            handles[i] = eng.submit(*reqs_in[i], sigmas)
+        st0 = dataclasses.replace(eng.stats)
+        t = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        live = eng.stats.steps_executed - st0.steps_executed
+        pad = eng.stats.total_padding_lanes - st0.total_padding_lanes
+        if live:
+            ticks.append((live + pad, live, dt))
+        tick += 1
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    add(counts)
+    n_ticks = len(ticks)
+    st = eng.stats.snapshot()
+    by_bucket = {}
+    for b, _, dt in ticks:
+        by_bucket.setdefault(b, []).append(dt)
+    res["a"] = dict(
+        requests=6, ticks=n_ticks, wall_s=wall,
+        s_per_tick={b: float(np.mean(v)) for b, v in sorted(
+            by_bucket.items())},
+        s_per_tick_min={b: float(np.min(v)) for b, v in sorted(
+            by_bucket.items())},
+        ticks_by_bucket={b: len(v) for b, v in sorted(by_bucket.items())},
+        mean_batch_occupancy=eng.stats.mean_batch_occupancy,
+        steps_per_s=eng.stats.steps_executed / wall,
+        images_per_min=60.0 * eng.stats.completed / wall,
+        mean_latency_s=st["mean_latency_s"],
+        latency_s=[handles[i].latency_s for i in range(6)],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=counts, stats=st)
+    errs = [h.error for h in handles.values() if h.error is not None]
+    if errs or not all(h.finished for h in handles.values()):
+        raise SystemExit(f"serving (a): failed or unfinished requests: "
+                         f"{errs}")
+    for k, n in per_tick.items():
+        if counts[k] != n * n_ticks:
+            raise SystemExit(f"serving (a): {counts[k]} launches of {k} "
+                             f"over {n_ticks} ticks, expected {n} a tick")
+    for i in (0, 5):
+        err, eq = compare(handles[i].result,
+                          direct(*reqs_in[i], sigmas, "euler"))
+        res["a"][f"r{i}_vs_direct"] = dict(rel_l2=err, bits_equal=eq)
+        if not err <= ENGINE_DELTA_MAX:
+            raise SystemExit(f"serving (a): request {i} differs from "
+                             f"sample_flow at batch 1 by rel L2 {err}")
+    b1 = base_run["s_per_step"]
+    a = res["a"]
+    log(f"  (a) euler, max_batch 4, 6 requests x {steps} steps at {8 * H}²: "
+        f"{n_ticks} ticks in {wall:.3f}s; s/tick by bucket "
+        + ", ".join(f"b={b}: {a['s_per_tick'][b]:.4f} (min "
+                    f"{a['s_per_tick_min'][b]:.4f}, {a['ticks_by_bucket'][b]}"
+                    f" ticks)" for b in a["s_per_tick"])
+        + f"; phase 6's b=1 s/step {b1:.4f}; occupancy "
+        f"{a['mean_batch_occupancy']:.3f}, {a['steps_per_s']:.3f} steps/s, "
+        f"{a['images_per_min']:.3f} images/min (b=1 at phase 6's s/step: "
+        f"{60.0 / (b1 * steps):.3f}), mean latency "
+        f"{a['mean_latency_s']}s, peak {a['peak_gib']:.2f} GiB")
+    log(f"  (a) launches a tick: "
+        + ", ".join(f"{k} {counts[k] / n_ticks:g}" for k in per_tick)
+        + f"; vs sample_flow at batch 1: "
+        + ", ".join(f"r{i} rel L2 {a[f'r{i}_vs_direct']['rel_l2']:.3e} "
+                    f"(bits equal {a[f'r{i}_vs_direct']['bits_equal']})"
+                    for i in (0, 5)))
+    # where a b = 4 tick's device time goes: one forward of four stacked
+    # requests under torch.profiler (not a path: its launches are not
+    # counted)
+    before = dict(_build.LAUNCHES)
+    inputs4 = testing.flux_example_inputs(dims, batch=4, h_lat=H, w_lat=W,
+                                          txt_len=TXT, seed=120, device=dev)
+    res["a"]["profile_b4_forward"] = profile_forward(
+        model, inputs4, a["s_per_tick"][max(a["s_per_tick"])],
+        "w8a8 b=4 tick")
+    del inputs4
+    _build.LAUNCHES.update(before)
+
+    # (b) per-lane DPM-Solver++(2M): two requests of different lengths
+    eng = flux_engine(model, H, W, TXT, max_batch=4, sampler="dpmpp_2m")
+    _build.reset_launch_counts()
+    rb = [(reqs_in[0], sig_short), (reqs_in[1], flux_schedule(
+        short + 1, (H // 2) * (W // 2)))]
+    hb = [eng.submit(*r, sig) for r, sig in rb]
+    eng.run_until_drained()
+    add(_build.LAUNCHES)
+    res["b"] = {}
+    for i, ((r, sig), h) in enumerate(zip(rb, hb)):
+        if h.error is not None or not h.finished:
+            raise SystemExit(f"serving (b): request {i} failed: {h.error}")
+        err, eq = compare(h.result, direct(*r, sig, "dpmpp_2m"))
+        res["b"][f"r{i}"] = dict(steps=len(sig) - 1, rel_l2=err,
+                                 bits_equal=eq)
+        if not err <= ENGINE_DELTA_MAX:
+            raise SystemExit(f"serving (b): dpmpp_2m request {i} differs "
+                             f"from sample_flow by rel L2 {err}")
+    log("  (b) dpmpp_2m, 2 requests (" + ", ".join(
+        f"{v['steps']} steps: rel L2 vs sample_flow {v['rel_l2']:.3e}, bits "
+        f"equal {v['bits_equal']}" for v in res["b"].values()) + ")")
+
+    # (c) snapshot after 2 ticks, restored into a fresh engine; and
+    # pipeline_depth=4 against depth 1 on the same requests
+    rc = [(reqs_in[i], flux_schedule(short + i - 2, (H // 2) * (W // 2)))
+          for i in (2, 3, 4)]
+
+    def serve(depth=1, interrupt=False):
+        _build.reset_launch_counts()
+        e = flux_engine(model, H, W, TXT, max_batch=2, pipeline_depth=depth)
+        hs = [e.submit(*r, sig) for r, sig in rc]
+        if interrupt:
+            e.tick()
+            e.tick()
+            snap = e.snapshot()
+            # the snapshot holds the unfinished requests, pool then queue:
+            # here submission order
+            open_ = [i for i, h in enumerate(hs) if not h.done_event.is_set()]
+            e2 = flux_engine(model, H, W, TXT, max_batch=2)
+            for i, h in zip(open_, e2.restore(snap)):
+                hs[i] = h
+            e = e2
+        e.run_until_drained()
+        add(_build.LAUNCHES)
+        if any(h.error is not None or not h.finished for h in hs):
+            raise SystemExit("serving (c): a request failed")
+        return [h.result for h in hs]
+
+    whole = serve()
+    restored = serve(interrupt=True)
+    deep = serve(depth=4)
+    cmp_r = [compare(a_, b_) for a_, b_ in zip(restored, whole)]
+    res["c"] = dict(restored_rel_l2=[c[0] for c in cmp_r],
+                    restored_bits_equal=[c[1] for c in cmp_r],
+                    depth4_equal=all(np.array_equal(a_, b_)
+                                     for a_, b_ in zip(deep, whole)))
+    log(f"  (c) snapshot after 2 ticks -> restore: rel L2 vs uninterrupted "
+        f"{[f'{c[0]:.2e}' for c in cmp_r]}, bits equal "
+        f"{res['c']['restored_bits_equal']}; pipeline_depth=4 equal to "
+        f"depth 1: {res['c']['depth4_equal']}")
+    if max(c[0] for c in cmp_r) > RESTORE_DELTA_MAX:
+        raise SystemExit("serving (c): the restored engine diverged")
+    if not res["c"]["depth4_equal"]:
+        raise SystemExit("serving (c): pipeline_depth=4 differs from 1")
+
+    # (d) two models under a budget that holds one: this tree (A) and a
+    # flux-dev-width tree of 4 + 4 blocks (B), both w8a8
+    small = dataclasses.replace(dims, depth_double=4, depth_single=4)
+    model_b = DiffusionModel(
+        arch="flux", params=testing.flux_random_stacked_params(
+            small, qtype=Q.Q4_K, seed=3, device=dev),
+        config=small.config(), qcfg=model.qcfg,
+        device=torch.device(dev)).requantize_i8()
+    bytes_a, bytes_b = tree_bytes(model.params), tree_bytes(model_b.params)
+    budget = int(1.05 * max(bytes_a, bytes_b))
+    srv = ResidentModelServer(hbm_budget=budget, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for name, mdl in (("flux_a", model), ("flux_b", model_b)):
+        srv.register(name, mdl.params,
+                     lambda provider, mdl=mdl: flux_engine(
+                         mdl, H, W, TXT, max_batch=2,
+                         params_provider=provider))
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t
+    del model_b
+
+    def run_one(name, r):
+        _build.reset_launch_counts()
+        h = srv.submit(name, *r, sig_short)
+        t = time.perf_counter()
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        add(_build.LAUNCHES)
+        if h.error is not None or not h.finished:
+            raise SystemExit(f"serving (d): {name} failed: {h.error}")
+        return h.result, time.perf_counter() - t
+
+    first_a, s_a1 = run_one("flux_a", reqs_in[0])
+    held_a = torch.cuda.memory_allocated()
+    _, s_b = run_one("flux_b", reqs_in[1])  # LRU evicts A to place B
+    held_b = torch.cuda.memory_allocated()
+    evicted = not srv.stats["models"]["flux_a"]["resident"]
+    again_a, s_a2 = run_one("flux_a", reqs_in[0])  # re-places A
+    drop = held_a - (held_b - bytes_b)
+    res["d"] = dict(bytes_a=bytes_a, bytes_b=bytes_b, budget=budget,
+                    register_s=register_s, a_first_s=s_a1, b_s=s_b,
+                    a_replaced_s=s_a2, evicted=evicted,
+                    memory_drop_bytes=drop,
+                    drop_share=drop / bytes_a,
+                    replaced_equal=bool(np.array_equal(again_a, first_a)),
+                    stats=srv.stats)
+    log(f"  (d) ResidentModelServer: A {bytes_a / 2**30:.2f} GiB (this "
+        f"tree), B {bytes_b / 2**30:.2f} GiB (4 + 4 blocks), budget "
+        f"{budget / 2**30:.2f} GiB; register (host copies) {register_s:.2f}s;"
+        f" {short} steps: A {s_a1:.2f}s, B {s_b:.2f}s (A evicted: {evicted};"
+        f" memory_allocated fell by {drop / 2**30:.2f} GiB = "
+        f"{drop / bytes_a:.3f} of A), A re-placed {s_a2:.2f}s, result equal "
+        f"to its first: {res['d']['replaced_equal']}")
+    if not evicted or drop < 0.9 * bytes_a:
+        raise SystemExit("serving (d): no eviction freed A's memory")
+    if not res["d"]["replaced_equal"]:
+        raise SystemExit("serving (d): the re-placed model's result "
+                         "changed")
+    res["launches"] = launches
+    params_a = srv.manager.resident_params("flux_a")
+    return res, params_a
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the GEMM probe tool, as a user runs it
 # ---------------------------------------------------------------------------
 
@@ -1579,6 +1986,8 @@ def main() -> int:
     log("[4b tiny FluxPipeline from files, card vs CPU, with and without "
         "attention_i8]")
     tiny_pipe = tiny_pipeline_phase(dev)
+    log("[4c every flow sampler through the tiny flux, card vs CPU]")
+    menu = sampler_menu_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -1588,6 +1997,15 @@ def main() -> int:
     t2i, pipe, base_latent, base_run = text_to_image_phase(
         dev, model, request, args.steps, args.t5_layers)
     del model
+
+    # phase 9 runs on phase 6's flux tree before phase 7 replaces it
+    log("[9 serving at flux-dev width and depth: flux_engine, "
+        "ResidentModelServer]")
+    serve_res, params_a = serving_phase(dev, pipe, args.steps, base_run)
+    pipe.model = dataclasses.replace(pipe.model, params=params_a)
+    del params_a
+    gc.collect()  # the server's host copies (its engines hold a cycle)
+    torch.cuda.empty_cache()
 
     log("[7 a rank-16 LoRA over every block linear of flux-dev, at full "
         "width]")
@@ -1604,8 +2022,8 @@ def main() -> int:
     launches = {k: 0 for k in _build.LAUNCHES}
     for counts in (*(v["launches"] for v in tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
-                   main_res["launches"], t2i["launches"],
-                   lora_res["launches"], tool_counts):
+                   menu["launches"], main_res["launches"], t2i["launches"],
+                   serve_res["launches"], lora_res["launches"], tool_counts):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

@@ -3,7 +3,9 @@
 A second package beside the JAX reference ``comfyui_gguf_tpu``, with the
 same module layout. The main path is flux text-to-image: tokenizers → T5
 and CLIP-L encode → GGUF file → planar weights (LoRA patches attached) →
-w8a8 conversion → flux forward → Euler sampler → VAE decode, with
+w8a8 conversion → flux forward → sampler (Euler or any of the flow menu) →
+VAE decode, served one request at a time or continuously batched
+(``flux_engine``), with
 hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
 the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
@@ -36,6 +38,25 @@ _PUBLIC = {
     "planarize": ".quant.planar",
     "params_from_numpy": ".interop",
     "EmbeddingSet": ".textual_inversion",
+    "flux_engine": ".pipeline",
+    "make_flow_engine": ".pipeline",
+    "ContinuousBatchEngine": ".serving",
+    "EngineGroup": ".serving",
+    "BucketRouter": ".serving",
+    "GenRequest": ".serving",
+    "ResidentModelServer": ".serving",
+    "ResidencyManager": ".lifecycle",
+    "save_params": ".checkpoint",
+    "load_params": ".checkpoint",
+    "LatentPreviewer": ".preview",
+    "fit_latent_preview": ".preview",
+    "previewer_for_vae": ".preview",
+    "memory_report": ".observability",
+    "qmm_roofline": ".observability",
+    "enable_compile_cache": ".compile_cache",
+    "sample_flow": ".sampling",
+    "run_sampler": ".sampling.kdiffusion",
+    "make_schedule": ".sampling.kdiffusion",
 }
 
 

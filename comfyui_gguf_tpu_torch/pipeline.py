@@ -14,6 +14,10 @@ comfyui_gguf_tpu/pipeline.py).
   inpainting and Kontext references. ``TextEncoder.apply_lora`` attaches a
   LoRA file's text-encoder slice; ``textual_inversion.EmbeddingSet`` adds
   textual-inversion embeddings to an encoder.
+* ``flux_engine(model, ...)`` — a continuous-batching engine
+  (serving.ContinuousBatchEngine) over a loaded flux model: ``submit``
+  requests, ``run_until_drained``; each tick advances every pooled request
+  by one Euler or per-lane DPM-Solver++(2M) step.
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
 The llama text encoders, the video VAEs and the other architectures are
@@ -130,6 +134,12 @@ class DiffusionModel:
                 self, params=flux_model.stack_flux_params(self.params,
                                                           self.config))
         return self
+
+    def memory_report(self) -> dict:
+        """Packed-vs-dense memory accounting (observability.memory_report)."""
+        from .observability import memory_report
+
+        return memory_report(self.params)
 
 
 def load_diffusion_model(path: str, device="cuda") -> DiffusionModel:
@@ -492,3 +502,137 @@ class FluxPipeline:
             name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
         self.last_timings["total_s"] = marks[-1][1] - marks[0][1]
         return result
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching engines
+# ---------------------------------------------------------------------------
+
+_PARALLEL_TODO = ("the data- and tensor-parallel engines are not ported "
+                  "yet (ROADMAP queue 1 item 15, parallelism)")
+
+
+def _sig_expand(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B,) sigma → broadcastable over x's trailing dims."""
+    return s.to(torch.float32).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def _cfg_mix_velocity(fwd, model, ckey: str = "ctx", nkey: str = "nctx"):
+    """Velocity closure for CFG-mixing engines: conditional +
+    unconditional forwards, per-request scale mixed in f32."""
+    def velocity(params, x, s_cur, cond):
+        v_c = fwd(params, model.config, x, cond[ckey], s_cur,
+                  qcfg=model.qcfg)
+        v_u = fwd(params, model.config, x, cond[nkey], s_cur,
+                  qcfg=model.qcfg)
+        return v_u.to(torch.float32) + _sig_expand(
+            cond["cfg_scale"], x) * (v_c.to(torch.float32)
+                                     - v_u.to(torch.float32))
+    return velocity
+
+
+def make_flow_engine(model: DiffusionModel, velocity, cond_spec: dict, *,
+                     max_batch: int = 4, pipeline_depth: int = 1,
+                     sampler: str = "euler", dp_mesh=None,
+                     params_provider=None):
+    """Generic rectified-flow continuous-batching engine on the model's
+    device.
+
+    ``velocity(params, x, s_cur, cond) -> v`` — the per-arch forward
+    (guidance embeds, rope ids live in the closure); ``cond_spec`` maps
+    each stacked cond key to its dtype on the card. Works for any latent
+    rank (sigma broadcast follows ``x.ndim``). The latent steps in
+    bfloat16.
+
+    ``sampler``: "euler" (1st order) or "dpmpp_2m" — per-LANE 2nd-order
+    multistep: each pooled request carries its own denoised history and
+    previous sigma in device-resident aux state
+    (serving.lane_dpmpp_2m_update), so mixed-progress/mixed-schedule
+    batches integrate exactly at the same one-model-call-per-lane cost.
+
+    ``params_provider``: optional zero-arg callable returning the param
+    tree to use for THIS tick — the multi-model residency hook
+    (serving.ResidentModelServer): an evict/re-place cycle swaps the
+    tensors under the same engine.
+
+    ``dp_mesh`` (data-parallel ticks) is not ported yet and raises.
+    """
+    from .serving import (ContinuousBatchEngine, flow_multistep_aux_init,
+                          lane_dpmpp_2m_update)
+
+    if dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    if sampler not in ("euler", "dpmpp_2m"):
+        raise ValueError(f"sampler must be euler|dpmpp_2m, got {sampler!r}")
+    get_params = params_provider or (lambda: model.params)
+
+    def _cast(cond):
+        return {k: cond[k].to(dt) for k, dt in cond_spec.items()}
+
+    if sampler == "euler":
+        @torch.no_grad()
+        def step_fn(x, s_cur, s_next, cond):
+            x = x.to(torch.bfloat16)
+            v = velocity(get_params(), x, s_cur, _cast(cond))
+            step = _sig_expand(s_next - s_cur, x) * v.to(torch.float32)
+            return (x.to(torch.float32) + step).to(x.dtype)
+
+        return ContinuousBatchEngine(step_fn, max_batch=max_batch,
+                                     pipeline_depth=pipeline_depth,
+                                     device=model.device)
+
+    @torch.no_grad()
+    def step_fn2m(x, s_cur, s_next, cond, aux):
+        x = x.to(torch.bfloat16)
+        v = velocity(get_params(), x, s_cur, _cast(cond))
+        denoised = (x.to(torch.float32)
+                    - _sig_expand(s_cur, x) * v.to(torch.float32))
+        return lane_dpmpp_2m_update(x, denoised, s_cur, s_next, aux)
+
+    return ContinuousBatchEngine(step_fn2m, max_batch=max_batch,
+                                 pipeline_depth=pipeline_depth,
+                                 aux_init=flow_multistep_aux_init,
+                                 device=model.device)
+
+
+def flux_engine(model: DiffusionModel, h_lat: int, w_lat: int,
+                txt_len: int, max_batch: int = 4,
+                pipeline_depth: int = 1, mesh=None,
+                sampler: str = "euler",
+                dp_mesh=None, params_provider=None):
+    """Continuous-batching engine for a loaded flux model.
+
+    Requests carry patchified latent tokens (L_img, in_channels) and cond
+    {"txt": (txt_len, context_dim), "y": (vec_dim,), "guidance": scalar};
+    one engine tick advances the whole in-flight pool by one step
+    (serving.ContinuousBatchEngine), each lane at its own sigma. Shapes are
+    fixed per engine (one resolution bucket). ``sampler="dpmpp_2m"`` runs
+    2nd-order multistep per LANE at the cost of Euler. ``pipeline_depth``
+    > 1 lets that many ticks be queued on the card before the engine waits.
+
+    A depth-stacked tree (``DiffusionModel.stack()``) takes
+    ``forward_stacked``. ``mesh`` (tensor-parallel ticks) and ``dp_mesh``
+    are not ported yet and raise.
+    """
+    if mesh is not None or dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    device = model.device
+    img_ids = torch.as_tensor(np.array(flux_model.make_img_ids(
+        h_lat // 2, w_lat // 2, 1))[0], device=device)
+    txt_ids = torch.zeros((txt_len, 3), dtype=torch.int32, device=device)
+    fwd = (flux_model.forward_stacked if model.is_stacked
+           else flux_model.forward)
+
+    def velocity(params, x, s_cur, cond):
+        B = x.shape[0]
+        ids_i = img_ids[None].expand(B, *img_ids.shape)
+        ids_t = txt_ids[None].expand(B, *txt_ids.shape)
+        return fwd(params, model.config, x, ids_i, cond["txt"], ids_t,
+                   s_cur, cond["y"], cond["guidance"], qcfg=model.qcfg)
+
+    return make_flow_engine(
+        model, velocity,
+        {"txt": torch.bfloat16, "y": torch.bfloat16,
+         "guidance": torch.float32},
+        max_batch=max_batch, pipeline_depth=pipeline_depth,
+        sampler=sampler, params_provider=params_provider)

@@ -4,8 +4,12 @@ comfyui_gguf_tpu/sampling/flow_match.py).
 sigma == t ∈ (0, 1], x_t = (1-σ)·x₀ + σ·noise, the model predicts the
 velocity v = dx/dσ, and an Euler step is x ← x + (σ_next − σ)·v. The
 reference runs the loop as one ``lax.scan`` under jit; here it is a Python
-loop. The Euler sampler and its inpainting form are ported; the multistep
-and k-diffusion samplers raise ``NotImplementedError``.
+loop. ``FLOW_SAMPLERS`` holds Euler, the 2nd-order Adams-Bashforth
+``multistep`` and every deterministic σ-space sampler of ``kdiffusion``
+through the x₀-adapter ``make_flow_denoiser``; ``FLOW_STOCHASTIC_SAMPLERS``
+holds the stochastic ones, which take a ``noise(shape)`` callable (see
+``kdiffusion``). ``model_fn(x, sigma)`` receives sigma as a 0-d float32
+tensor on x's device.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import kdiffusion as kd
 
 
 def linear_schedule(num_steps: int) -> np.ndarray:
@@ -79,17 +85,101 @@ def euler_sample_inpaint(model_fn, x: torch.Tensor, sigmas, z0: torch.Tensor,
     return x
 
 
-FLOW_SAMPLERS = {"euler": euler_sample}
+def cfg_wrap(model_fn, cond, uncond, scale: float):
+    """Classifier-free guidance: the conditional and unconditional
+    velocities mixed by ``scale``."""
+    def fn(x, sigma):
+        v_c = model_fn(x, sigma, cond)
+        if scale == 1.0 or uncond is None:
+            return v_c
+        v_u = model_fn(x, sigma, uncond)
+        return v_u + scale * (v_c - v_u)
+    return fn
+
+
+def multistep_sample(model_fn, x: torch.Tensor, sigmas) -> torch.Tensor:
+    """2nd-order Adams-Bashforth multistep for the flow ODE (the
+    rectified-flow analogue of DPM-Solver++ 2M): one model call per step,
+    velocity linearly extrapolated from the previous step.
+
+    x' = x + h·((1 + 1/(2r))·v − 1/(2r)·v_prev),  r = h_prev / h.
+    The first step is Euler.
+    """
+    sig = kd.host_sigmas(sigmas)
+    v_prev = None
+    for i in range(len(sig) - 1):
+        s, s_next = sig[i], sig[i + 1]
+        h = s_next - s
+        v = model_fn(x, kd.sigma_tensor(s, x)).to(torch.float32)
+        if i > 0:
+            r = (s - sig[i - 1]) / h
+            v_eff = (float(1 + 1 / (2 * r)) * v
+                     - float(1 / (2 * r)) * v_prev)
+        else:
+            v_eff = v
+        x = (x.to(torch.float32) + float(h) * v_eff).to(x.dtype)
+        v_prev = v
+    return x
+
+
+def make_flow_denoiser(model_fn):
+    """velocity model → σ-space denoiser: x₀̂ = x − σ·v(x, σ).
+
+    For rectified flow (x_σ = (1−σ)·x₀ + σ·ε, v = dx/dσ) the ODE in
+    x₀-prediction form is dx/dσ = (x − x₀̂)/σ, the k-diffusion form, and the
+    exponential-integrator step x' = (σ'/σ)·x + (1−σ'/σ)·x₀̂ is exact under
+    locally-constant x₀̂. So every sampler in ``kdiffusion`` applies to flow
+    DiTs directly on the flow sigmas."""
+    def denoiser(x, sigma):
+        v = model_fn(x, sigma)
+        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+        return (x.to(torch.float32)
+                - sigma * v.to(torch.float32)).to(x.dtype)
+
+    return denoiser
+
+
+def _sigma_space(kd_sampler, stochastic: bool = False):
+    """Wrap a kdiffusion σ-space sampler as a flow sampler."""
+    if stochastic:
+        def run(model_fn, x, sigmas, noise, **kw):
+            return kd_sampler(make_flow_denoiser(model_fn), x, sigmas,
+                              noise, **kw)
+    else:
+        def run(model_fn, x, sigmas):
+            return kd_sampler(make_flow_denoiser(model_fn), x, sigmas)
+    return run
+
+
+# flow euler is already exact and one call a step, so kdiffusion's euler
+# does not replace it
+FLOW_SAMPLERS = {"euler": euler_sample, "multistep": multistep_sample,
+                 **{name: _sigma_space(fn) for name, fn in kd.SAMPLERS.items()
+                    if name != "euler"}}
+
+# stochastic flow samplers take (model_fn, x, sigmas, noise, **knobs)
+FLOW_STOCHASTIC_SAMPLERS = {
+    name: _sigma_space(fn, stochastic=True)
+    for name, fn in kd.STOCHASTIC_SAMPLERS.items()}
+
+# process-wide default for the flow pipelines (euler matches the reference
+# host's default; "multistep" is 2nd order, better at low step counts)
 DEFAULT_FLOW_SAMPLER = "euler"
 
 
+def set_flow_sampler(name: str) -> None:
+    global DEFAULT_FLOW_SAMPLER
+    if name not in FLOW_SAMPLERS:
+        raise ValueError(f"unknown flow sampler {name!r}; "
+                         f"have {sorted(FLOW_SAMPLERS)}")
+    DEFAULT_FLOW_SAMPLER = name
+
+
 def sample_flow(model_fn, x, sigmas, sampler: str | None = None):
-    """Integrate with ``sampler`` (a FLOW_SAMPLERS name) or the default
-    flow sampler."""
+    """Integrate with ``sampler`` (a deterministic FLOW_SAMPLERS name) or
+    the process-default flow sampler."""
     name = sampler or DEFAULT_FLOW_SAMPLER
     if name not in FLOW_SAMPLERS:
-        raise NotImplementedError(
-            f"flow sampler {name!r} is not in the port (the reference's "
-            f"multistep and k-diffusion samplers are not ported yet); the "
-            f"port has {sorted(FLOW_SAMPLERS)}")
+        raise ValueError(f"unknown flow sampler {name!r}; "
+                         f"have {sorted(FLOW_SAMPLERS)}")
     return FLOW_SAMPLERS[name](model_fn, x, sigmas)

@@ -12,7 +12,11 @@ of each layout; K4 through both of its tile widths. One-hot rows check
 every tile position of K1/K2/K4 bit for bit. The LoRA instances of K1/K2
 (both bodies) and K4 (both widths) run at ranks 1, 16 and 16 + 64 against
 the plain versions with the same rank operands, with one-hot rank rows, at
-strength 0 (equal to the unpatched launch) and on stacked views. Whether a
+strength 0 (equal to the unpatched launch) and on stacked views. The
+serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
+M = 4) and one continuous-batching engine run on the card against the
+same engine on the CPU (launch counts per tick) run here too. Whether a
 card exists is decided inside the ``cuda`` fixture, so every worker
 collects the same tests; without a card they skip. Two tests of the
 wrappers' host side (the LoRA operands' layout and limits, and the dispatch
@@ -818,3 +822,105 @@ def test_ptxas_entries_names_each_instance():
     assert ab.same_instance("prep_fold", "prep_fold")
     assert not ab.same_instance("gemm_wgmma_kernel<0,256>",
                                 "gemm_wgmma_kernel<0,256,1>")
+
+
+# ---------------------------------------------------------------------------
+# the serving path's shapes: four requests stacked per tick
+# ---------------------------------------------------------------------------
+
+SERVING_I8 = [
+    # M = 4 requests x a flux block's tokens at 1024², R, K, act_from_col
+    (4 * 4608, 21504, 3072, 9216),  # single-block linear1, GELU tail
+    (4 * 4096, 9216, 3072, None),  # double-block img qkv
+    (4 * 512, 9216, 3072, None),  # double-block txt qkv
+]
+
+
+@pytest.mark.parametrize("M,R,K,act", SERVING_I8, ids=str)
+def test_i8mm_at_serving_batch_shapes(cuda, M, R, K, act):
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    ip = requantize_i8(random_planar(Q.Q4_K, (R, K), gen, device=cuda))
+    _check_i8(cuda, ip, M, True, act)
+
+
+def test_flash_kernel_batch4_flux_length(cuda):
+    """B = 4 at the flux joint length: each batch element equals its own
+    B = 1 launch bit for bit, and the first and last are within the
+    kernel's limit of the plain version."""
+    B, H, L, D = 4, 24, 4608, 128
+    g = torch.Generator(device=cuda).manual_seed(4608)
+    q, k, v = (torch.randn((B, H, L, D), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, L, D) and bool(torch.isfinite(got).all())
+    for b in range(B):
+        one = flash_attn_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1], D ** -0.5)
+        assert torch.equal(got[b:b + 1], one)
+    for b in (0, B - 1):
+        want = plain_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                               D ** -0.5)
+        assert _rel_l2(got[b:b + 1], want) < 1e-2
+
+
+def test_qmm_smallm_at_serving_batch(cuda):
+    """The modulation projections at M = 4 (3072 → 18432, Q4_K): the
+    split-K body, against the plain version and deterministic."""
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+
+    gen = torch.Generator(device=cuda).manual_seed(18432)
+    pq = random_planar(Q.Q4_K, (18432, 3072), gen, device=cuda)
+    assert qmm_route(4, pq.padded_in, 18432, True) == "smallm"
+    x, b, got = _check_qmm(cuda, pq, 4, 3072, 18432, True, None, seed=4)
+    again = qmm_cuda(x, pq, bias=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_flux_engine_ticks_on_the_card(cuda):
+    """A w8a8 tiny flux (head dim 128) served by ``flux_engine`` on the
+    card and on the CPU: three requests of mixed schedules in a bucket of
+    4 (one padding lane), the same results within 3e-2, and per tick the
+    kernel launches of one forward (K4 on every token-facing block linear,
+    K7 once a block, the split-K body on every modulation)."""
+    from comfyui_gguf_tpu_torch.lifecycle import to_device
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import DiffusionModel, flux_engine
+    from comfyui_gguf_tpu_torch.sampling import flux_schedule
+
+    dims = testing.TinyFluxDims(hidden=512, heads=4, depth_double=2,
+                                depth_single=2, axes_dim=(16, 56, 56))
+    params = testing.flux_random_stacked_params(dims, seed=0, device=cuda)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = DiffusionModel(
+            arch="flux", params=to_device(params, dev),
+            config=dims.config(), qcfg=QuantConfig(),
+            device=torch.device(dev)).requantize_i8()
+        eng = flux_engine(model, 16, 16, 8, max_batch=4)
+        rng = np.random.default_rng(7)
+        reqs = []
+        for i in range(3):
+            cond = {"txt": rng.standard_normal((8, dims.ctx)).astype(
+                        np.float32),
+                    "y": rng.standard_normal(dims.vec).astype(np.float32),
+                    "guidance": np.float32(3.5)}
+            x0 = rng.standard_normal((64, dims.in_ch)).astype(np.float32)
+            reqs.append(eng.submit(x0, cond, flux_schedule(2 + i, 64)))
+        _build.reset_launch_counts()
+        eng.run_until_drained()
+        out[dev] = ([r.result for r in reqs], dict(_build.LAUNCHES),
+                    eng.stats)
+    (got, counts, st), (want, _, _) = out["cuda"], out["cpu"]
+    ticks = st.batches_executed
+    assert ticks == 4 and st.total_padding_lanes > 0
+    nd, ns = dims.depth_double, dims.depth_single
+    assert counts["i8mm"] == (8 * nd + 2 * ns) * ticks
+    assert counts["flash_attn"] == (nd + ns) * ticks
+    assert counts["qmm_nib4_smallm"] == (2 * nd + ns) * ticks
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (64, dims.in_ch)
+        assert _rel_l2(torch.from_numpy(g), torch.from_numpy(w)) < 3e-2

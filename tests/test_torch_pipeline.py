@@ -165,6 +165,18 @@ def test_txt2img_latent_matches(pipes):
     assert _rel(got, want) <= TOL
 
 
+@pytest.mark.parametrize("sampler", ["dpmpp_2m", "uni_pc"])
+def test_txt2img_with_a_flow_sampler_matches(pipes, sampler):
+    """``generate(sampler=...)`` reaches the flow menu in both packages."""
+    want, got = _both(pipes, seed=2, no_vae=True, steps=3, sampler=sampler)
+    assert got.shape == want.shape == (8, 8, 4)
+    assert _rel(got, want) <= TOL
+    # another integrator, another latent (the tiny flux's velocity field
+    # is nearly linear in the latent, so the samplers end 5e-3 apart)
+    _, euler = _both(pipes, seed=2, no_vae=True, steps=3)
+    assert _rel(got, euler) > 1e-3
+
+
 def test_txt2img_image_matches(pipes):
     want, got = _both(pipes, seed=1)
     assert got.shape == want.shape == (64, 64, 3)
@@ -231,8 +243,9 @@ def test_requests_that_need_a_vae_or_a_ported_part_raise(pipes):
     with pytest.raises(ValueError, match="VAE"):
         bare.generate_from_noise(PROMPT, noise, ref_images=[np.zeros(
             (64, 64, 3), np.float32)], **kw)
-    with pytest.raises(NotImplementedError, match="euler"):
-        bare.generate_from_noise(PROMPT, noise, sampler="uni_pc", **kw)
+    # the whole flow menu is ported: what raises now is a name outside it
+    with pytest.raises(ValueError, match="unknown flow sampler 'bogus'"):
+        bare.generate_from_noise(PROMPT, noise, sampler="bogus", **kw)
     # text-encoder LoRA is ported: what is missing now is the file
     with pytest.raises(FileNotFoundError):
         tp.t5.apply_lora("nope.safetensors")
