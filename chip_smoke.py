@@ -4,12 +4,14 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--depth-double N] [--depth-single N] [--steps N]
-                          [--t5-layers N]
+                          [--t5-layers N] [--sd3-depth N] [--sd3-steps N]
+                          [--unet-steps N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
-configuration, and flux text-to-image end to end (tokenizers, T5-xxl and
-CLIP-L encode, denoise, VAE decode) — on the card through the entry points
-a user calls, and fails (non-zero exit, no result line) on any failed phase:
+configuration, flux text-to-image end to end (tokenizers, T5-xxl and
+CLIP-L encode, denoise, VAE decode), SD3.5-large and the SD1/SDXL UNets —
+on the card through the entry points a user calls, and fails (non-zero
+exit, no result line) on any failed phase:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
@@ -98,12 +100,41 @@ a user calls, and fails (non-zero exit, no result line) on any failed phase:
    with this tree and a 4 + 4-block flux-dev-width tree under a budget that
    holds one: the LRU eviction must free at least 90% of the evicted tree's
    bytes (``memory_allocated``) and the re-placed tree must give its first
-   result again. (b)-(d) run min(``--steps``, 4) steps.
+   result again. (b)-(d) run min(``--steps``, 4) steps;
+10. the SD3.5-large denoise: ``SD35_LARGE_DIMS`` (hidden 2432, 38 heads of
+   64, 38 joint blocks unless ``--sd3-depth`` cuts them), seed-made Q4_K
+   stacked, 1024² (4096 image + 77 + 512 context tokens), ``--sd3-steps``
+   (28) Euler steps on ``shift_sigmas(linear_schedule(n), 3.0)`` with CFG
+   4.5 (two forwards a step), on the bf16-fused tree and then on the w8a8
+   stacked tree; the w8a8 final latent more than 2e-2 from the bf16-fused
+   one fails. s/step, peak memory, launches a forward and one profiled
+   forward of each tree are printed;
+11. SD3.5-large text to image: an ``SD3Pipeline`` of phase 10's w8a8 tree,
+   CLIP-L, CLIP-G (1280 x 32 layers), phase 6's T5-xxl and 16-channel VAE
+   generates one prompt against a negative prompt at 1024² (stage times);
+   then ``sd3_engine(max_batch=2)`` serves three such requests for
+   min(``--steps``, 4) steps, each within 1e-2 of ``sample_flow`` at
+   batch 1;
+12. the UNets: SDXL (``SDXL_DIMS``, Q4_K then ``requantize_i8()``) through
+   ``SDXLPipeline.generate_from_ids`` at 1024² and SD1 (``SD1_DIMS``, Q4_K)
+   through ``SD1Pipeline`` at 512², ``--unet-steps`` (20) Euler steps on
+   the normal schedule with CFG 7 and a 4-channel VAE; SD1 must launch K7's
+   40-, 80- and 160-wide instances, 10, 10 and 12 times a forward; then
+   ``unet_engine(max_batch=4)`` serves three SDXL requests (CFG 7, 5, 3)
+   for min(``--steps``, 4) steps, each within 1e-2 of the same step at
+   batch 1.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
-same noise, within 3e-2 (relative L2). Phase 3 also times K4, K7 and the
-split-K body at the serving shapes of four stacked requests.
+same noise, within 3e-2 (relative L2). Phase 4d does the same for the SD
+paths from files the port's writers make: three tiny SD3 variants (qk-norm,
+a dual-attention prefix, neither) planar and w8a8 stacked, a tiny
+``SD3Pipeline`` (negative prompt, img2img, inpainting, a kohya LoRA), tiny
+SD1 and SDXL pipelines and the refiner, and ``sd3_engine`` and
+``unet_engine`` with three requests each. Phase 3 also times K4, K7 and the
+split-K body at the serving shapes of four stacked requests, K7 at SD1's
+head dims 40, 80 and 160 and the sd3.5-large joint length, and K4 and the
+split-K body at the sd3.5-large and SD1 shapes.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -175,8 +206,9 @@ SOURCES = {
                              "comfyui_gguf_tpu/ops/qmatmul.py:181"),
     "i8mm_lora": ("comfyui_gguf_tpu_torch/csrc/i8mm_lora.cu",
                   "comfyui_gguf_tpu/ops/i8mm.py:81"),
-    "flash_attn": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
-                   "comfyui_gguf_tpu/nn/attention.py:168"),
+    **{f"flash_attn_d{d}": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
+                            "comfyui_gguf_tpu/nn/attention.py:168")
+       for d in (40, 64, 80, 128, 160)},
     "i8attn_pv": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
     "i8attn_qk": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
@@ -485,7 +517,7 @@ def kernel_phase(dev, sfu_per_s):
         lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
         nbytes = 2 * B * H * D * (2 * Lq + 2 * Lk)
         b_ms, b_by = bound(nbytes, 4.0 * B * H * Lq * Lk * D, PEAK_BF16)
-        rows.append(dict(name=name, kernel="flash_attn",
+        rows.append(dict(name=name, kernel=f"flash_attn_d{D}",
                          shape=f"B={B} H={H} Lq={Lq} Lk={Lk} D={D}",
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
@@ -733,6 +765,32 @@ def kernel_phase(dev, sfu_per_s):
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
     attn_case("flash_attn cross Lq=4096 Lk=512 D=128", 1, 24, 4096, 512,
               128)
+    # K7 at SD1's head dims (8 heads over 320, 640 and 1280 channels at
+    # 512²: 4096, 1024, 256 and the mid block's 64 tokens, cross attention
+    # over CLIP's 77), on the padded instances; and the sd3.5-large joint
+    # length (4096 image + 77 + 512 text tokens, 38 heads of 64)
+    attn_case("flash_attn SD1 L=4096 D=40", 1, 8, 4096, 4096, 40)
+    attn_case("flash_attn SD1 cross Lq=4096 Lk=77 D=40", 1, 8, 4096, 77, 40)
+    attn_case("flash_attn SD1 L=1024 D=80", 1, 8, 1024, 1024, 80)
+    attn_case("flash_attn SD1 cross Lq=1024 Lk=77 D=80", 1, 8, 1024, 77, 80)
+    attn_case("flash_attn SD1 L=256 D=160", 1, 8, 256, 256, 160)
+    attn_case("flash_attn SD1 mid L=64 D=160", 1, 8, 64, 64, 160)
+    attn_case("flash_attn SD1 cross Lq=256 Lk=77 D=160", 1, 8, 256, 77, 160)
+    attn_case("flash_attn sd3.5-large joint L=4685 D=64", 1, 38, 4685, 4685,
+              64)
+    # K4 at the sd3.5-large shapes after requantize_i8 (the x stream's 4096
+    # tokens, the context stream's 77 + 512) and at SD1's narrowest linear
+    # (K = 320 padded to 512, N = 320); the split-K body on the sd3.5-large
+    # adaLN modulation and on SD1's emb_layers (N = 320) at M = batch
+    i8_case("i8mm sd3.5 x qkv M=4096 2432->7296", 4096, 2432, 7296, None)
+    i8_case("i8mm sd3.5 fc1 M=4096 2432->9728 gelu", 4096, 2432, 9728, 0)
+    i8_case("i8mm sd3.5 fc2 M=4096 9728->2432", 4096, 9728, 2432, None)
+    i8_case("i8mm sd3.5 ctx qkv M=589 2432->7296", 589, 2432, 7296, None)
+    i8_case("i8mm SD1 attn q M=4096 320->320", 4096, 320, 320, None)
+    qmm_case("qmm_nib4 sd3.5 mod M=1 2432->14592 Q4_K", "qmm_nib4_smallm",
+             Q.Q4_K, 1, 2432, 14592, None, 4, 5e-3)
+    qmm_case("qmm_nib4 SD1 emb_layers M=1 1280->320 Q4_K", "qmm_nib4_smallm",
+             Q.Q4_K, 1, 1280, 320, None, 8, 5e-3)
     # K2 at the T5-xxl shapes (M = 512 tokens, no bias; enough copies of
     # each weight to exceed the L2 cache, as 24 layers of them do)
     qmm_case("qmm_int8 T5 q/k/v/o M=512 4096->4096 Q8_0", "qmm_int8", Q.Q8_0,
@@ -1235,10 +1293,9 @@ def profile_forward(model, inputs, step_s, tree):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    img, ids, txt, tids, ts, y, g = inputs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.forward(img, ids, txt, tids, ts, y, g)
+        model.forward(*inputs)
         torch.cuda.synchronize()
     fams = {"qmm_wgmma_kernel": "K1/K2 qmm (wgmma)",
             "qmm_smallm_kernel": "K1/K2 qmm (split-K)",
@@ -1870,12 +1927,718 @@ def probe_tool_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: tiny SD3 / SD1 / SDXL end to end, card against CPU
+# ---------------------------------------------------------------------------
+
+# tiny encoders that the loader tells apart by width (CLIP-G is 1280 wide),
+# sized so CLIP-L ⊕ CLIP-G (128 + 1280) fits the tiny MMDiT's context
+TINY_CLIP_L = dict(hidden=128, n_layers=2, n_heads=2, intermediate=256,
+                   vocab=600, max_positions=77, proj=64)
+TINY_CLIP_G = dict(hidden=1280, n_layers=2, n_heads=20, intermediate=5120,
+                   vocab=600, max_positions=77, proj=64)
+
+
+def _write_sd_files(tmp):
+    """The tiny SD3 (three variants), SD1, SDXL and refiner GGUFs, a T5
+    GGUF, CLIP-L and CLIP-G safetensors with one vocabulary, and 16- and
+    4-channel VAEs, written by the port's writers under ``tmp``."""
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    f = {}
+    for name, extra in (("large", {}), ("medium", {"dual_prefix": 1}),
+                        ("sd3", {"qk_norm": False})):
+        dims = testing.TinySD3Dims(hidden=512, heads=8, depth=3,
+                                   ctx_dim=1536, pooled=128, pos_max=16,
+                                   **extra)
+        f[f"sd3_{name}"] = (os.path.join(tmp, f"sd3_{name}.gguf"), dims)
+        testing.write_gguf(testing.sd3_flat_state_dict(dims, seed=0),
+                           f[f"sd3_{name}"][0],
+                           lambda k, v: testing.sd3_block_qtype(k, v, Q.Q4_K),
+                           "sd3")
+    unets = {
+        # SD1: 8 heads over 320 and 640 channels, head dims 40 and 80
+        "sd1": testing.SDXLDims(model_channels=320, channel_mult=(1, 2),
+                                num_res_blocks=1, depths=(1, 1), ctx=128,
+                                adm=None),
+        "sdxl": testing.SDXLDims(model_channels=64, channel_mult=(1, 2),
+                                 num_res_blocks=1, depths=(0, 1),
+                                 ctx=128 + 1280, adm=64 + 6 * 256),
+        "refiner": testing.SDXLDims(model_channels=64, channel_mult=(1, 2),
+                                    num_res_blocks=1, depths=(0, 1),
+                                    ctx=1280, adm=64 + 5 * 256)}
+    for name, dims in unets.items():
+        f[name] = (os.path.join(tmp, f"{name}.gguf"), dims)
+        testing.write_gguf(
+            testing.unet_state_dict(dims, seed=1), f[name][0],
+            lambda k, v: testing.unet_block_qtype(k, v, Q.Q4_K),
+            "sd1" if name == "sd1" else "sdxl")
+    f["t5"] = os.path.join(tmp, "t5.gguf")
+    testing.write_t5_gguf(
+        testing.t5_state_dict(testing.T5Dims(
+            d_model=1536, d_kv=64, n_heads=8, d_ff=1024, n_layers=2,
+            vocab=128), seed=2), f["t5"], qtype=Q.Q8_0,
+        tokenizer=testing.unigram_spec(128))
+    clip_dir = os.path.join(tmp, "clip")
+    os.mkdir(clip_dir)
+    for name, dims, seed in (("clip_l", TINY_CLIP_L, 3),
+                             ("clip_g", TINY_CLIP_G, 4)):
+        f[name] = os.path.join(clip_dir, f"{name}.safetensors")
+        _safetensors.save_file(testing.clip_state_dict(
+            testing.CLIPDims(**dims), seed=seed), f[name])
+    testing.write_clip_vocab(clip_dir, *testing.clip_vocab(600))
+    for name, z in (("vae16", 16), ("vae4", 4)):
+        f[name] = os.path.join(tmp, f"{name}.safetensors")
+        _safetensors.save_file(testing.vae_state_dict(testing.VAEDims(
+            z_channels=z, base_ch=32), seed=5), f[name])
+    return f
+
+
+def sd_tiny_phase(dev):
+    """Phase 4d: the SD3 and UNet paths at tiny widths from files written
+    by the port's writers, on the card and on the CPU with the same noise,
+    within 3e-2 (relative L2). (a) three tiny SD3 GGUFs (sd3.5-large-like:
+    qk-norm; sd3.5-medium-like: a dual-attention prefix; sd3-medium-like: no
+    qk-norm) through ``load_diffusion_model``, planar, then
+    ``requantize_i8()`` + ``stack()``; (b) ``SD3Pipeline.load(...)
+    .generate`` with a negative prompt, img2img and inpainting, and a kohya
+    LoRA on the MMDiT; (c) ``SD1Pipeline`` and ``SDXLPipeline`` (CFG 3),
+    the SDXL refiner once; (d) ``sd3_engine`` and ``unet_engine`` serving
+    three tiny requests each."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, _safetensors
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import (
+        SD1Pipeline, SD3Pipeline, SDXLPipeline, load_diffusion_model,
+        load_vae, sd3_engine, unet_engine)
+    from comfyui_gguf_tpu_torch.sampling import (euler_sample,
+                                                 linear_schedule)
+    from comfyui_gguf_tpu_torch.sampling import kdiffusion as kd
+
+    devs = (dev, "cpu")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    f = _write_sd_files(tmp.name)
+
+    def as_f32(t):
+        return (t.float().cpu() if isinstance(t, torch.Tensor)
+                else torch.from_numpy(np.asarray(t, np.float32)))
+
+    def check(name, a, b, need=(), counts=None, lim=SAMPLER_DELTA_MAX):
+        a, b = as_f32(a), as_f32(b)
+        err = rel_l2(a, b)
+        out[name] = dict(rel_l2_vs_cpu=err, launches=counts or {})
+        log(f"  {name}: card vs CPU plain rel L2 {err:.3e}"
+            + (f", launches { {k: n for k, n in counts.items() if n} }"
+               if counts else ""))
+        if not bool(torch.isfinite(a).all()) or not err <= lim:
+            raise SystemExit(f"{name}: card vs CPU rel L2 {err} > {lim}")
+        for k in need:
+            if not counts or counts[k] == 0:
+                raise SystemExit(f"{name} launched no {k}")
+
+    def on_card(fn):
+        """fn(device index) on the card with fresh launch counts, then on
+        the CPU: (card result, CPU result, card launches)."""
+        _build.reset_launch_counts()
+        a = fn(0)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        return a, fn(1), counts
+
+    # (a) the three MMDiT variants, 3 Euler steps on example inputs
+    for name in ("large", "medium", "sd3"):
+        path, dims = f[f"sd3_{name}"]
+        models = [load_diffusion_model(path, device=d) for d in devs]
+        inputs = [testing.sd3_example_inputs(dims, h_lat=32, w_lat=32,
+                                             ctx_len=16, seed=5, device=d)
+                  for d in devs]
+        sig = linear_schedule(3)
+
+        def run(i):
+            lat, ctx, pooled, _ = inputs[i]
+            m = models[i]
+            with torch.no_grad():
+                return euler_sample(lambda x, s: m.forward(
+                    x, ctx, pooled, s.expand(1)), lat, sig).cpu()
+
+        a, b, c = on_card(run)
+        check(f"tiny sd3 {name} planar", a, b, counts=c,
+              need=("qmm_nib4", "qmm_nib4_smallm", "flash_attn_d64"))
+        models = [m.requantize_i8().stack() for m in models]
+        if not models[0].is_stacked:
+            raise SystemExit(f"tiny sd3 {name}: stack() did not stack")
+        a, b, c = on_card(run)
+        check(f"tiny sd3 {name} w8a8 stacked", a, b, counts=c,
+              need=("i8mm", "qmm_nib4_smallm", "flash_attn_d64"))
+        del models
+
+    # (b) SD3Pipeline from files: txt2img with a negative prompt (CFG, two
+    # forwards a step), img2img, inpainting, then a kohya LoRA
+    pipes = [SD3Pipeline.load(f["sd3_large"][0], f["clip_l"], f["clip_g"],
+                              f["t5"], f["vae16"], device=d) for d in devs]
+    if (pipes[0].clip_g.kind, pipes[0].clip_g.config.act) != ("clip_g",
+                                                              "gelu"):
+        raise SystemExit("SD3Pipeline.load did not take the 1280-wide CLIP "
+                         "as CLIP-G")
+    size = 256
+    noise = torch.randn((1, size // 8, size // 8, 16),
+                        generator=torch.Generator().manual_seed(7))
+    init = torch.rand((size, size, 3),
+                      generator=torch.Generator().manual_seed(8)).numpy()
+    mask = np.zeros((size, size), np.float32)
+    mask[: size // 2] = 1.0
+
+    def step_noise(i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            200 + i))
+
+    kinds = {"txt2img": {}, "img2img": dict(init_image=init, denoise=0.5),
+             "inpaint": dict(init_image=init, denoise=1.0,
+                             inpaint_mask=mask)}
+    for kind, extra in kinds.items():
+        a, b, c = on_card(lambda i: pipes[i].generate(
+            PROMPTS[0], negative_prompt="rain", width=size, height=size,
+            steps=3, cfg_scale=4.5, noise=noise, step_noise=step_noise,
+            max_t5_len=64, **extra))
+        check(f"tiny SD3Pipeline {kind}", a, b, counts=c,
+              need=("qmm_nib4", "qmm_int8", "flash_attn_d64"))
+    lora_path = os.path.join(tmp.name, "sd3_lora.safetensors")
+    sd = testing.sd3_flat_state_dict(f["sd3_large"][1], seed=0)
+    targets = [(k, *v.shape) for k, v in sd.items()
+               if k.startswith("joint_blocks.") and v.ndim == 2
+               and ".ln_" not in k]
+    _safetensors.save_file(testing.kohya_lora_state_dict(
+        targets, rank=8, alpha=8.0, seed=9, std=0.05), lora_path)
+    for p in pipes:
+        p.model.apply_lora(lora_path, strength=0.8)
+    a, b, c = on_card(lambda i: pipes[i].generate(
+        PROMPTS[0], negative_prompt="rain", width=size, height=size,
+        steps=3, cfg_scale=4.5, noise=noise, max_t5_len=64))
+    check("tiny SD3Pipeline with a kohya LoRA", a, b, counts=c,
+          need=("qmm_nib4_lora", "qmm_nib4_smallm_lora"))
+    clip_l = [p.clip_l for p in pipes]
+    clip_g = [p.clip_g for p in pipes]
+    del pipes
+
+    # (c) SD1 and SDXL pipelines over the same encoders, and the refiner
+    vaes = [load_vae(f["vae4"], device=d)[1:] for d in devs]
+    ids = {text: clip_l[1].tokenizer.encode_batch([text], max_length=77)[0]
+           for text in (PROMPTS[0], "rain")}
+    unet_noise = torch.randn((1, size // 8, size // 8, 4),
+                             generator=torch.Generator().manual_seed(9))
+    sd1 = [SD1Pipeline(load_diffusion_model(f["sd1"][0], device=d),
+                       clip_l[i], *vaes[i]) for i, d in enumerate(devs)]
+    a, b, c = on_card(lambda i: sd1[i].generate_from_ids(
+        ids[PROMPTS[0]], ids["rain"], width=size, height=size, steps=3,
+        cfg_scale=3.0, noise=unet_noise))
+    check("tiny SD1Pipeline", a, b, counts=c,
+          need=("qmm_nib4", "flash_attn_d40", "flash_attn_d80"))
+    sdxl = [SDXLPipeline(load_diffusion_model(f["sdxl"][0], device=d),
+                         clip_l[i], clip_g[i], *vaes[i])
+            for i, d in enumerate(devs)]
+    a, b, c = on_card(lambda i: sdxl[i].generate_from_ids(
+        ids[PROMPTS[0]], ids[PROMPTS[0]], ids["rain"], ids["rain"],
+        width=size, height=size, steps=3, cfg_scale=3.0, noise=unet_noise,
+        sampler="dpmpp_2m"))
+    check("tiny SDXLPipeline", a, b, counts=c, need=("flash_attn_d64",))
+    refiner = [load_diffusion_model(f["refiner"][0], device=d)
+               for d in devs]
+    base = unet_noise[0]  # a base latent (h/8, w/8, 4) to refine
+    a, b, c = on_card(lambda i: sdxl[i].refine_from_ids(
+        base, ids[PROMPTS[0]], ids["rain"], refiner=refiner[i], width=size,
+        height=size, steps=4, cfg_scale=2.0, denoise=0.5,
+        noise=unet_noise))
+    check("tiny SDXL refiner", a, b, counts=c, need=("flash_attn_d64",))
+
+    # (d) the engines: three requests each, mixed schedules, on both
+    # devices
+    sd3m = [load_diffusion_model(f["sd3_medium"][0], device=d).stack()
+            for d in devs]
+    dims = f["sd3_medium"][1]
+    rng = np.random.default_rng(11)
+    sd3_reqs = [(rng.standard_normal((16, 16, 16)).astype(np.float32),
+                 {"ctx": rng.standard_normal((24, dims.ctx_dim)).astype(
+                      np.float32),
+                  "pooled": rng.standard_normal(dims.pooled).astype(
+                      np.float32)}, linear_schedule(2 + i))
+                for i in range(3)]
+    xdims = f["sdxl"][1]
+    sig = kd.make_schedule("normal", 3, kd.ddpm_sigmas())
+    unet_reqs = [((rng.standard_normal((16, 16, 4)) * sig[0]).astype(
+                     np.float32),
+                  {"ctx": rng.standard_normal((77, xdims.ctx)).astype(
+                       np.float32),
+                   "nctx": rng.standard_normal((77, xdims.ctx)).astype(
+                       np.float32),
+                   "adm": rng.standard_normal(xdims.adm).astype(np.float32),
+                   "cfg_scale": np.float32(scale)},
+                  kd.make_schedule("normal", 2 + i, kd.ddpm_sigmas()))
+                 for i, scale in enumerate((5.0, 1.5, 3.0))]
+    for name, mk, models, reqs in (
+            ("sd3_engine", sd3_engine, sd3m, sd3_reqs),
+            ("unet_engine", unet_engine, [s.model for s in sdxl],
+             unet_reqs)):
+        def serve(i):
+            eng = mk(models[i], max_batch=2, sampler="dpmpp_2m")
+            hs = [eng.submit(x.copy(), cond, s) for x, cond, s in reqs]
+            eng.run_until_drained()
+            if any(h.error is not None or not h.finished for h in hs):
+                raise SystemExit(f"tiny {name}: a request failed")
+            return np.stack([h.result for h in hs])
+        a, b, c = on_card(serve)
+        check(f"tiny {name} (3 requests, dpmpp_2m)", a, b, counts=c)
+    tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the SD3.5-large denoise at published width and full depth
+# ---------------------------------------------------------------------------
+
+def sd3_denoise_phase(dev, depth, steps):
+    """``SD35_LARGE_DIMS`` (hidden 2432, 38 heads of 64, context 4096,
+    pooled 2048, pos grid 192), seed-made Q4_K, stacked; 1024² (4096 image
+    + 77 + 512 context tokens), Euler on ``shift_sigmas(linear_schedule(
+    steps), 3.0)``, CFG 4.5 (two forwards a step), on the bf16-fused tree
+    and then on the w8a8 stacked tree; their final latents within 2e-2."""
+    import dataclasses
+
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import DiffusionModel
+    from comfyui_gguf_tpu_torch.sampling import (euler_sample,
+                                                 linear_schedule,
+                                                 shift_sigmas)
+
+    dims = dataclasses.replace(testing.SD35_LARGE_DIMS, depth=depth)
+    cfg_scale = 4.5
+    log(f"  sd3.5-large width, {depth} of 38 joint blocks, 1024² = 4096 "
+        f"image + 589 context tokens, {steps} Euler steps, CFG {cfg_scale}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DiffusionModel(
+        arch="sd3", params=testing.sd3_random_stacked_params(
+            dims, qtype=Q.Q4_K, seed=0, device=dev),
+        config=dims.config(), qcfg=QuantConfig(), device=torch.device(dev))
+    torch.cuda.synchronize()
+    log(f"  random Q4_K stacked tree built on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    lat, ctx, pooled, _ = testing.sd3_example_inputs(
+        dims, h_lat=128, w_lat=128, ctx_len=77 + 512, seed=1, device=dev)
+    _, nctx, npooled, _ = testing.sd3_example_inputs(
+        dims, h_lat=8, w_lat=8, ctx_len=77 + 512, seed=2, device=dev)
+    sigmas = shift_sigmas(linear_schedule(steps), 3.0)
+
+    def vel(x, s):
+        t = s.expand(1)
+        v_c = model.forward(x, ctx, pooled, t)
+        v_u = model.forward(x, nctx, npooled, t)
+        return v_u + cfg_scale * (v_c - v_u)
+
+    res = {"depth": depth, "steps": steps, "cfg_scale": cfg_scale}
+    finals = {}
+    launches = {k: 0 for k in _build.LAUNCHES}
+    for tree in ("bf16_fused", "w8a8"):
+        if tree == "w8a8":
+            t = time.perf_counter()
+            model.requantize_i8()
+            torch.cuda.synchronize()
+            res["requantize_s"] = time.perf_counter() - t
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = euler_sample(vel, lat, sigmas)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(_build.LAUNCHES)
+        if out.shape != lat.shape or not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"sd3 {tree}: non-finite or misshapen latent")
+        finals[tree] = out.float()
+        per_fwd = {k: n / (2 * steps) for k, n in counts.items() if n}
+        res[tree] = dict(request_s=secs, s_per_step=secs / steps,
+                         launches=counts, launches_per_forward=per_fwd)
+        log(f"  {tree}: {secs:.3f}s, {secs / steps * 1e3:.1f} ms/step (two "
+            f"forwards); launches a forward {per_fwd}")
+        before = dict(_build.LAUNCHES)  # the profiled forward is no path
+        res[f"profile_{tree}_forward"] = profile_forward(
+            model, (lat, ctx, pooled, torch.full((1,), 0.7, device=dev)),
+            secs / steps / 2, f"sd3.5-large {tree}")
+        _build.LAUNCHES.update(before)
+        # a forward: one joint attention and two adaLN projections (the
+        # split-K body at M = 1) a block, the token linears on K1 (bf16-
+        # fused) or K4 (w8a8)
+        want = {"flash_attn_d64": depth, "qmm_nib4_smallm": 2 * depth}
+        want["i8mm" if tree == "w8a8" else "qmm_nib4"] = 1
+        for k, n in want.items():
+            if per_fwd.get(k, 0) < n:
+                raise SystemExit(f"sd3 {tree}: {per_fwd.get(k, 0)} launches "
+                                 f"of {k} a forward, expected {n} or more")
+        for k, n in counts.items():
+            launches[k] += n
+    res["launches"] = launches
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    res["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2**30)
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s; final-latent rel "
+        f"delta w8a8 vs bf16-fused {res['latent_rel_delta_w8a8_vs_bf16']:.3e}"
+        f"; max_memory_allocated {res['max_memory_allocated_gib']:.2f} GiB")
+    if not res["latent_rel_delta_w8a8_vs_bf16"] <= LATENT_DELTA_MAX:
+        raise SystemExit(f"sd3 w8a8 final latent differs from bf16-fused "
+                         f"by rel L2 {res['latent_rel_delta_w8a8_vs_bf16']}")
+    return res, model
+
+
+def _published_clips(dev):
+    """CLIP-L and CLIP-G at their published widths (seed-made, dense f32),
+    with the 49408-entry synthetic vocabulary."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.models import clip, testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import TextEncoder
+    from comfyui_gguf_tpu_torch.tokenizer.clip_bpe import CLIPBPETokenizer
+
+    vocab = testing.clip_vocab(testing.CLIP_L_DIMS.vocab)
+    encs = []
+    for kind, dims, seed in (("clip_l", testing.CLIP_L_DIMS, 11),
+                             ("clip_g", testing.CLIP_G_DIMS, 13)):
+        params = testing.clip_random_params(dims, seed=seed, device=dev)
+        encs.append(TextEncoder(kind, params,
+                                clip.CLIPTextConfig.from_state_dict(params),
+                                CLIPBPETokenizer(*vocab), QuantConfig(),
+                                torch.device(dev)))
+    return encs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: SD3.5-large text to image at published widths, and sd3_engine
+# ---------------------------------------------------------------------------
+
+def sd3_t2i_phase(dev, model, t5_enc, vae_params, vae_cfg, steps,
+                  engine_steps):
+    """``SD3Pipeline.generate`` over seed-made parts at published widths:
+    phase 10's w8a8 stacked tree, CLIP-L, CLIP-G (1280 x 32 layers), phase
+    6's T5-xxl Q8_0 and the 16-channel VAE; one prompt with a negative
+    prompt at 1024², CFG 4.5. Then ``sd3_engine(max_batch=2)`` serves three
+    requests at this width for ``engine_steps`` steps, each within 1e-2 of
+    ``sample_flow`` at batch 1."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import SD3Pipeline, sd3_engine
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+
+    t0 = time.perf_counter()
+    clip_l, clip_g = _published_clips(dev)
+    torch.cuda.synchronize()
+    g = clip_g.config
+    log(f"  CLIP-G {g.hidden} wide, {g.n_layers} layers, {g.n_heads} heads, "
+        f"{g.act}; CLIP-L {clip_l.config.n_layers} layers; T5-xxl "
+        f"{t5_enc.config.n_layers} layers Q8_0; VAE z={vae_cfg.z_channels} "
+        f"(scale {vae_cfg.scale_factor}, shift {vae_cfg.shift_factor}); "
+        f"built in {time.perf_counter() - t0:.2f}s")
+    pipe = SD3Pipeline(model, clip_l, clip_g, t5_enc, vae_params, vae_cfg)
+    depth = model.config.depth
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    img = pipe.generate(PROMPTS[0], negative_prompt=PROMPTS[1], width=1024,
+                        height=1024, steps=steps, cfg_scale=4.5, seed=0)
+    counts = dict(_build.LAUNCHES)
+    tm = dict(pipe.last_timings)
+    lat = pipe.last_latent.float()
+    res = dict(steps=steps, timings_s=tm, s_per_step=tm["denoise_s"] / steps,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=dict(counts), image_std=float(img.std()))
+    log(f"  prompt + negative prompt, 1024², {steps} steps, CFG 4.5: encode "
+        f"(CLIP-L, CLIP-G, T5, twice) {tm['encode_s']:.4f}s, denoise "
+        f"{tm['denoise_s']:.3f}s ({res['s_per_step'] * 1e3:.1f} ms/step, two "
+        f"forwards), VAE decode {tm['vae_s']:.4f}s, image "
+        f"{tm['total_s']:.3f}s; peak {res['peak_gib']:.2f} GiB; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if (img.shape != (1024, 1024, 3) or lat.shape != (1, 128, 128, 16)
+            or not bool(np.isfinite(img).all())
+            or not bool(torch.isfinite(lat).all())
+            or img.min() < 0 or img.max() > 1):
+        raise SystemExit("sd3 text to image: misshapen or non-finite output")
+    # the MMDiT's joint attention, two forwards a step (the CLIP towers'
+    # causal attention is written out); the T5's 7 linears a layer, for
+    # the prompt and the negative prompt
+    want = {"flash_attn_d64": 2 * depth * steps,
+            "qmm_int8": 2 * 7 * t5_enc.config.n_layers}
+    for k, n in want.items():
+        if counts[k] < n:
+            raise SystemExit(f"sd3 text to image: {counts[k]} launches of "
+                             f"{k}, expected {n} or more")
+    if counts["i8mm"] == 0:
+        raise SystemExit("sd3 text to image launched no i8mm")
+
+    # sd3_engine at this width: three requests, CLIP + T5 conds of 589
+    # tokens, the third arriving with the first two in the pool
+    sig = shift_sigmas(linear_schedule(engine_steps), 3.0)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    reqs = []
+    for i in range(3):
+        x = torch.randn((128, 128, 16), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ctx, pooled = pipe._condition(*(torch.as_tensor(
+            enc.tokenizer.encode_batch([PROMPTS[i % 2]], max_length=L)[0],
+            device=dev) for enc, L in ((clip_l, 77), (clip_g, 77),
+                                       (t5_enc, 512))))
+        reqs.append((x, {"ctx": ctx[0], "pooled": pooled[0]}))
+    eng = sd3_engine(model, max_batch=2)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    hs = [eng.submit(x, c, sig) for x, c in reqs]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    res["engine"] = dict(wall_s=time.perf_counter() - t,
+                         ticks=eng.stats.batches_executed,
+                         launches=dict(_build.LAUNCHES))
+    for k, n in _build.LAUNCHES.items():
+        counts[k] += n
+    errs = []
+    for (x, c), h in zip(reqs, hs):
+        if h.error is not None or not h.finished:
+            raise SystemExit(f"sd3_engine: a request failed: {h.error}")
+
+        def vel(xc, s, c=c):
+            return model.forward(xc, c["ctx"][None].to(torch.bfloat16),
+                                 c["pooled"][None].to(torch.bfloat16),
+                                 s.expand(1))
+        with torch.no_grad():
+            want_x = sample_flow(vel, x[None], sig)[0]
+        errs.append(rel_l2(torch.from_numpy(np.asarray(
+            h.result, np.float32)), want_x.float().cpu()))
+    res["engine"]["rel_l2_vs_direct"] = errs
+    log(f"  sd3_engine(max_batch=2): 3 requests x {engine_steps} steps at "
+        f"1024² in {res['engine']['ticks']} ticks, "
+        f"{res['engine']['wall_s']:.3f}s; vs sample_flow at batch 1: rel L2 "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    if not max(errs) <= ENGINE_DELTA_MAX:
+        raise SystemExit(f"sd3_engine: a served request differs from "
+                         f"sample_flow by rel L2 {max(errs)}")
+    res["launches"] = counts
+    return res, clip_l, clip_g
+
+
+# ---------------------------------------------------------------------------
+# phase 12: SDXL and SD1 at published widths, and unet_engine
+# ---------------------------------------------------------------------------
+
+def unet_phase(dev, clip_l, clip_g, steps, engine_steps):
+    """SDXL (``SDXL_DIMS``, seed-made Q4_K, then ``requantize_i8()``)
+    through ``SDXLPipeline.generate_from_ids`` at 1024², ``steps`` Euler
+    steps on the normal schedule, CFG 7; SD1 (``SD1_DIMS``, Q4_K planar) at
+    512² the same way, where K7 must launch its 40-, 80- and 160-wide
+    instances; then ``unet_engine`` serves three SDXL-width requests for
+    ``engine_steps`` steps, each within 1e-2 of the direct per-request
+    step."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing, unet, vae
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (DiffusionModel, SD1Pipeline,
+                                                 SDXLPipeline,
+                                                 _size_embedding,
+                                                 unet_engine)
+    from comfyui_gguf_tpu_torch.sampling import kdiffusion as kd
+
+    device = torch.device(dev)
+    sd_vae = testing.VAEDims(z_channels=4, base_ch=128, ch_mult=(1, 2, 4, 4),
+                             num_res_blocks=2)
+    vp = testing.vae_random_params(sd_vae, seed=14, device=dev)
+    vc = vae.VAEConfig.from_state_dict(vp)
+    launches = {k: 0 for k in _build.LAUNCHES}
+    res = {"steps": steps}
+
+    def ids(enc, text):
+        return enc.tokenizer.encode_batch([text], max_length=77)[0]
+
+    def build(dims, arch, w8a8):
+        t = time.perf_counter()
+        params = testing.sdxl_random_params(dims, qtype=Q.Q4_K, seed=0,
+                                            device=dev)
+        m = DiffusionModel(arch=arch, params=params,
+                           config=unet.UNetConfig.from_state_dict(params),
+                           qcfg=QuantConfig(), device=device)
+        if w8a8:
+            m.requantize_i8()
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    for name, dims, size, w8a8 in (("sdxl", testing.SDXL_DIMS, 1024, True),
+                                   ("sd1", testing.SD1_DIMS, 512, False)):
+        model, build_s = build(dims, name, w8a8)
+        if name == "sdxl":
+            pipe = SDXLPipeline(model, clip_l, clip_g, vp, vc)
+            args = (ids(clip_l, PROMPTS[0]), ids(clip_g, PROMPTS[0]),
+                    ids(clip_l, PROMPTS[1]), ids(clip_g, PROMPTS[1]))
+        else:
+            pipe = SD1Pipeline(model, clip_l, vp, vc)
+            args = (ids(clip_l, PROMPTS[0]), ids(clip_l, PROMPTS[1]))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = pipe.generate_from_ids(*args, width=size, height=size,
+                                     steps=steps, cfg_scale=7.0, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(_build.LAUNCHES)
+        for k, n in counts.items():
+            launches[k] += n
+        res[name] = dict(build_s=build_s, image_s=secs, launches=counts,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         tree="w8a8" if w8a8 else "Q4_K planar")
+        log(f"  {name} ({res[name]['tree']}, built in {build_s:.2f}s): "
+            f"{size}², {steps} Euler steps, CFG 7 (two forwards a step): "
+            f"image {secs:.3f}s ({secs / steps * 1e3:.1f} ms a step with "
+            f"CLIP and VAE decode); peak {res[name]['peak_gib']:.2f} GiB; "
+            f"launches { {k: n for k, n in counts.items() if n} }")
+        if (img.shape != (size, size, 3) or not bool(np.isfinite(img).all())
+                or img.min() < 0 or img.max() > 1):
+            raise SystemExit(f"{name}: misshapen or non-finite image")
+        # where a forward's device time goes (not a path: its launches are
+        # not counted)
+        gp = torch.Generator(device=dev).manual_seed(50)
+        inputs = (torch.randn((1, size // 8, size // 8, 4), generator=gp,
+                              device=dev).to(torch.bfloat16),
+                  torch.tensor([500.0], device=dev),
+                  torch.randn((1, 77, dims.ctx), generator=gp,
+                              device=dev).to(torch.bfloat16),
+                  None if dims.adm is None else torch.randn(
+                      (1, dims.adm), generator=gp, device=dev).to(
+                          torch.bfloat16))
+        before = dict(_build.LAUNCHES)
+        with torch.no_grad():
+            res[name]["profile_forward"] = profile_forward(
+                model, inputs, secs / steps / 2, f"{name} {res[name]['tree']}")
+        _build.LAUNCHES.update(before)
+        fwd = 2 * steps
+        if name == "sd1":
+            # 8 heads: levels 0, 1, 2 (320 / 640 / 1280 channels) have two
+            # transformers down and three up, the mid block one; self and
+            # cross attention in each
+            want = {"flash_attn_d40": 10 * fwd, "flash_attn_d80": 10 * fwd,
+                    "flash_attn_d160": 12 * fwd, "qmm_nib4": 1,
+                    "qmm_nib4_smallm": 1}
+        else:
+            want = {"flash_attn_d64": 1, "i8mm": 1, "qmm_nib4_smallm": 1}
+        for k, n in want.items():
+            if counts[k] < n:
+                raise SystemExit(f"{name}: {counts[k]} launches of {k}, "
+                                 f"expected {n} or more")
+        if name == "sd1":
+            for k in ("flash_attn_d40", "flash_attn_d80", "flash_attn_d160"):
+                if counts[k] != want[k]:
+                    raise SystemExit(f"sd1: {counts[k]} launches of {k}, "
+                                     f"expected {want[k]}")
+            del model, pipe
+            continue
+        sdxl = model
+    torch.cuda.empty_cache()
+
+    # unet_engine at SDXL width: three requests with the encoders' conds
+    # and per-request CFG scales, against the same step at batch 1
+    sig = kd.make_schedule("normal", engine_steps, kd.ddpm_sigmas())
+    table = kd.ddpm_sigmas()
+    gen = torch.Generator(device=dev).manual_seed(40)
+    reqs = []
+    with torch.no_grad():
+        for i, scale in enumerate((7.0, 5.0, 3.0)):
+            l_out, g_out = (enc.encode(torch.as_tensor(
+                ids(enc, PROMPTS[i % 2]), device=dev))
+                for enc in (clip_l, clip_g))
+            nl_out, ng_out = (enc.encode(torch.as_tensor(
+                ids(enc, ""), device=dev)) for enc in (clip_l, clip_g))
+            adm = torch.cat([g_out["pooled"], _size_embedding(
+                [1024, 1024, 0, 0, 1024, 1024], g_out["pooled"])], dim=-1)
+            x = (torch.randn((128, 128, 4), generator=gen, device=dev)
+                 * float(sig[0]))
+            reqs.append((x, {
+                "ctx": torch.cat([l_out["penultimate"],
+                                  g_out["penultimate"]], -1)[0],
+                "nctx": torch.cat([nl_out["penultimate"],
+                                   ng_out["penultimate"]], -1)[0],
+                "adm": adm[0], "cfg_scale": torch.tensor(scale)}))
+    eng = unet_engine(sdxl, max_batch=4)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    hs = [eng.submit(x, c, sig) for x, c in reqs]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    res["engine"] = dict(wall_s=time.perf_counter() - t,
+                         ticks=eng.stats.batches_executed,
+                         launches=dict(_build.LAUNCHES))
+    for k, n in _build.LAUNCHES.items():
+        launches[k] += n
+
+    def direct(x, c):
+        """The engine's step (k-diffusion eps parameterization, CFG as two
+        forwards) for one request at batch 1."""
+        x = x[None].to(torch.bfloat16)
+        ctx, nctx, adm = (c[k][None].to(torch.bfloat16)
+                          for k in ("ctx", "nctx", "adm"))
+        with torch.no_grad():
+            for i in range(len(sig) - 1):
+                s = torch.tensor([sig[i]], device=dev)
+                c_in = 1.0 / torch.sqrt(1.0 + s ** 2)
+                xs = (x.float() * c_in).to(torch.bfloat16)
+                t_ = kd.sigma_to_t(s, table)
+                e_c, e_u = (sdxl.forward(xs, t_, cc, adm).float()
+                            for cc in (ctx, nctx))
+                eps = e_u + float(c["cfg_scale"]) * (e_c - e_u)
+                x = (x.float() + float(sig[i + 1] - sig[i]) * eps).to(
+                    torch.bfloat16)
+        return x[0].float().cpu()
+
+    errs = []
+    for (x, c), h in zip(reqs, hs):
+        if h.error is not None or not h.finished:
+            raise SystemExit(f"unet_engine: a request failed: {h.error}")
+        errs.append(rel_l2(torch.from_numpy(np.asarray(h.result,
+                                                       np.float32)),
+                           direct(x, c)))
+    res["engine"]["rel_l2_vs_direct"] = errs
+    log(f"  unet_engine(max_batch=4): 3 SDXL requests x {engine_steps} "
+        f"steps at 1024², CFG 7 / 5 / 3, in {res['engine']['ticks']} ticks, "
+        f"{res['engine']['wall_s']:.3f}s; vs the step at batch 1: rel L2 "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    if not max(errs) <= ENGINE_DELTA_MAX:
+        raise SystemExit(f"unet_engine: a served request differs from the "
+                         f"direct step by rel L2 {max(errs)}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
     ap.add_argument("--depth-single", type=int, default=38)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--t5-layers", type=int, default=24)
+    ap.add_argument("--sd3-depth", type=int, default=38)
+    ap.add_argument("--sd3-steps", type=int, default=28)
+    ap.add_argument("--unet-steps", type=int, default=20)
     args = ap.parse_args()
 
     import torch
@@ -1936,7 +2699,7 @@ def main() -> int:
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
         + "; flash_attn.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
-                    for d in (128, 64))
+                    for d in (40, 64, 80, 128, 160))
         + "; i8attn.cu "
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
                     for d in (128, 256, 512) for m in ("pv", "qk"))
@@ -1988,6 +2751,8 @@ def main() -> int:
     tiny_pipe = tiny_pipeline_phase(dev)
     log("[4c every flow sampler through the tiny flux, card vs CPU]")
     menu = sampler_menu_phase(dev)
+    log("[4d tiny SD3 / SD1 / SDXL from files, card vs CPU]")
+    sd_tiny = sd_tiny_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -2011,19 +2776,37 @@ def main() -> int:
         "width]")
     lora_res = lora_phase(dev, pipe, request, base_latent, base_run,
                           args.steps)
+    # phase 11 takes phase 6's T5-xxl and 16-channel VAE; the flux goes
+    t5_enc, vae_params, vae_cfg = pipe.t5, pipe.vae_params, pipe.vae_config
     del pipe
     torch.cuda.empty_cache()
 
     log("[8 the GEMM probe tool]")
     tool_counts = probe_tool_phase()
 
+    log("[10 the sd3.5-large denoise at published width]")
+    sd3_res, sd3_model = sd3_denoise_phase(dev, args.sd3_depth,
+                                           args.sd3_steps)
+    log("[11 sd3.5-large text to image at published widths, sd3_engine]")
+    sd3_t2i, clip_l, clip_g = sd3_t2i_phase(
+        dev, sd3_model, t5_enc, vae_params, vae_cfg, args.sd3_steps,
+        min(args.steps, 4))
+    del sd3_model, t5_enc, vae_params
+    torch.cuda.empty_cache()
+    log("[12 SDXL and SD1 at published widths, unet_engine]")
+    unet_res = unet_phase(dev, clip_l, clip_g, args.unet_steps,
+                          min(args.steps, 4))
+
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
     launches = {k: 0 for k in _build.LAUNCHES}
     for counts in (*(v["launches"] for v in tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
+                   *(v["launches"] for v in sd_tiny.values()),
                    menu["launches"], main_res["launches"], t2i["launches"],
-                   serve_res["launches"], lora_res["launches"], tool_counts):
+                   serve_res["launches"], lora_res["launches"], tool_counts,
+                   sd3_res["launches"], sd3_t2i["launches"],
+                   unet_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

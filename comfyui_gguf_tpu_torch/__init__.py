@@ -5,7 +5,9 @@ same module layout. The main path is flux text-to-image: tokenizers → T5
 and CLIP-L encode → GGUF file → planar weights (LoRA patches attached) →
 w8a8 conversion → flux forward → sampler (Euler or any of the flow menu) →
 VAE decode, served one request at a time or continuously batched
-(``flux_engine``), with
+(``flux_engine``); SD3/SD3.5 (``SD3Pipeline``, ``sd3_engine``) and the
+SD1/SDXL UNet (``SD1Pipeline``, ``SDXLPipeline``, ``unet_engine``) run the
+same way, with
 hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
 the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
@@ -28,6 +30,9 @@ _PUBLIC = {
     "DiffusionModel": ".pipeline",
     "TextEncoder": ".pipeline",
     "FluxPipeline": ".pipeline",
+    "SD3Pipeline": ".pipeline",
+    "SD1Pipeline": ".pipeline",
+    "SDXLPipeline": ".pipeline",
     "QuantConfig": ".nn.layers",
     "quantized_matmul": ".ops.qmatmul",
     "i8_matmul": ".ops.i8mm",
@@ -39,6 +44,8 @@ _PUBLIC = {
     "params_from_numpy": ".interop",
     "EmbeddingSet": ".textual_inversion",
     "flux_engine": ".pipeline",
+    "sd3_engine": ".pipeline",
+    "unet_engine": ".pipeline",
     "make_flow_engine": ".pipeline",
     "ContinuousBatchEngine": ".serving",
     "EngineGroup": ".serving",

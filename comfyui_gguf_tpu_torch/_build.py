@@ -84,11 +84,15 @@ _SIGNATURES = {
 }
 
 # launches per kernel since the last reset_launch_counts(); a "_lora" entry
-# counts the launches of that kernel's LoRA instance (and only those)
+# counts the launches of that kernel's LoRA instance (and only those), a
+# "flash_attn_d<D>" entry those of the flash kernel's head-dim-D instance
+# (each also counts under "flash_attn")
 LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "qmm_int8_smallm": 0, "i8mm": 0, "qmm_nib4_lora": 0,
             "qmm_int8_lora": 0, "qmm_nib4_smallm_lora": 0,
             "qmm_int8_smallm_lora": 0, "i8mm_lora": 0, "flash_attn": 0,
+            "flash_attn_d40": 0, "flash_attn_d64": 0, "flash_attn_d80": 0,
+            "flash_attn_d128": 0, "flash_attn_d160": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
             "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
@@ -226,11 +230,16 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def is_row_aligned(t) -> bool:
+    """Whether a 2-byte tensor's rows start on 16 bytes (unit stride along
+    the last dim, base and other strides multiples of 16 bytes) and its
+    other strides are non-zero: what the kernels' tensor maps step by."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1])))
+
+
 def row_aligned(t):
-    """A view of tensor ``t`` whose rows start on 16 bytes (unit stride
-    along the last dim) and whose other strides are non-zero (the kernels'
-    tensor maps step by them); a copy only where the given view is not."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 and (s > 0 or n == 1)
-                  for s, n in zip(t.stride()[:-1], t.shape[:-1])))
-    return t if ok else t.contiguous()
+    """A view of tensor ``t`` that ``is_row_aligned``; a copy only where
+    the given view is not."""
+    return t if is_row_aligned(t) else t.contiguous()

@@ -27,6 +27,16 @@
 // cores made it faster on the H100; what holds it is in PERF.md. Keys past Lk are zero-filled by
 // TMA and masked to -inf; query rows past Lq are not stored. q/k/v may be
 // strided views: their tensor maps are 4-D (D, L, H, B).
+//
+// Head dims that are no multiple of 64 (SD1's 40, 80 and 160) run the
+// instance of the next multiple, DP: the tensor maps carry the true D and a
+// box of whole 64-value chunks, so TMA zero-fills the columns past D. The
+// pad columns add nothing to the scores, the pad columns of P·V come out
+// zero and are not stored, and nothing is copied. At DP = 192 one K or V
+// tile of 128 keys is 48 KB and a block would need 1 + 48 + 4 x 48 = 241
+// KB, past the 227 KB a block may have; that instance takes 64-key tiles
+// (1 + 48 + 4 x 24 = 145 KB) and keeps the 2-stage ring, so loads still
+// overlap the products. Its P·V is one m64n192k16 wgmma a 16-key step.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -35,25 +45,42 @@ using namespace gguf_cuda;
 namespace {
 
 constexpr int BQ = 128;      // query rows a block (2 consumer warpgroups)
-constexpr int BKV = 128;     // keys a tile
 constexpr int CHUNK = 64;    // d values a 128-byte swizzle row holds
 constexpr int THREADS = 384; // 2 consumer warpgroups + the producer's
 
 template <int D>
 struct FShape {
-  static constexpr int NC = D / CHUNK;       // d chunks a row
+  static constexpr int NC = (D + CHUNK - 1) / CHUNK;  // d chunks a row
+  static constexpr int DP = NC * CHUNK;      // D padded to whole chunks
+  static constexpr int BKV = DP > 128 ? 64 : 128;     // keys a tile
   static constexpr int CHUNK_Q = BQ * 128;   // bytes of one d chunk of Q
   static constexpr int CHUNK_KV = BKV * 128; // ... of K or V
   static constexpr int Q_BYTES = NC * CHUNK_Q;
   static constexpr int KV_BYTES = NC * CHUNK_KV;  // one K or V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 128;
+  static_assert(SMEM <= 232448, "past the shared memory of a block");
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+// S (+)= Q·Kᵀ over one 16-wide d step: 64 rows x BKV keys
+template <int BKV>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BKV / 2],
+                                         uint64_t desc_q, uint64_t desc_k,
+                                         int scale_d) {
+  if constexpr (BKV == 128) {
+    wgmma_m64n128k16_ss(s, desc_q, desc_k, scale_d);
+  } else {
+    wgmma_m64n64k16_ss(s, desc_q, desc_k, scale_d);
+  }
+}
+
+// O += P·V over one 16-key step: 64 rows x DP output columns
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
-  if constexpr (D == 128) {
+  if constexpr (DP == 192) {
+    wgmma_m64n192k16_rs_tb(o, a, desc_v);
+  } else if constexpr (DP == 128) {
     wgmma_m64n128k16_rs_tb(o, a, desc_v);
   } else {
     wgmma_m64n64k16_rs_tb(o, a, desc_v);
@@ -69,6 +96,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
                  long long ob, long long oh, long long ol,
                  float scale_log2) {
   using S = FShape<D>;
+  constexpr int BKV = S::BKV;
+  constexpr int DP = S::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -136,9 +165,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
     const float neg_inf = -__int_as_float(0x7f800000);
 
     // o[4i + 2r + c] = row g + 8r, column 8i + 2t + c of this warp's rows
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
     float m_run[2] = {neg_inf, neg_inf};
     float l_run[2] = {0.0f, 0.0f};
 
@@ -149,33 +178,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
       const uint32_t kt = kb + st * S::KV_BYTES;
       const uint32_t vt = vb + st * S::KV_BYTES;
 
-      // S = Q Kᵀ: 64 rows x 128 keys, k over D in steps of 16
-      float s[64];
+      // S = Q Kᵀ: 64 rows x BKV keys, k over DP in steps of 16
+      float s[BKV / 2];
       mbar_wait(&k_full[st], ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n128k16_ss(
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_qk<BKV>(
             s, wgmma_desc_k128(qa + (kk >> 2) * S::CHUNK_Q) + 2 * (kk & 3),
             wgmma_desc_k128(kt + (kk >> 2) * S::CHUNK_KV) + 2 * (kk & 3),
             kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 64; ++i) reg_fence(s[i]);
+      for (int i = 0; i < BKV / 2; ++i) reg_fence(s[i]);
 
       // online softmax (base 2, scale folded in); rows g and g+8
       const int kv0 = j * BKV;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+      for (int i = 0; i < BKV / 2; ++i) s[i] *= scale_log2;
       if (kv0 + BKV > Lk) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < BKV / 2; ++i)
           if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= Lk) s[i] = neg_inf;
       }
       float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
+      for (int i = 0; i < BKV / 2; ++i)
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       float corr[2];
 #pragma unroll
@@ -203,19 +232,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
         pf[kk][3] = pack_bf16x2(p[6], p[7]);
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // O += P V: 16 keys a step; V's d chunks lie CHUNK_KV apart
       mbar_wait(&v_full[st], ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_pv<D>(o, pf[kk],
-                    wgmma_desc_mn128(vt + kk * 16 * 128, S::CHUNK_KV));
+        wgmma_pv<DP>(o, pf[kk],
+                     wgmma_desc_mn128(vt + kk * 16 * 128, S::CHUNK_KV));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
+      for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
@@ -232,6 +261,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
     const float inv1 = 1.0f / l_run[1];
     const int row0 = q0 + wg * 64 + w * 16 + g;
     __nv_bfloat16* op = out + b * ob + h * oh;
+    // the pad columns past D (zero) are not stored
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       const int c = i * 8 + 2 * t;
@@ -248,8 +278,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
 }
 
 // 4-D tensor map of a (B, H, L, D) bf16 view with element strides (sb, sh,
-// sl) and unit stride along D; box: one 64-value d chunk of `rows` rows.
-// A dimension of extent 1 is never stepped, so it takes the stride D.
+// sl) and unit stride along D; box: one 64-value d chunk of `rows` rows
+// (past D, TMA fills the chunk with zeros). A dimension of extent 1 is
+// never stepped, so it takes the stride D.
 template <int D>
 bool make_bhld_map(CUtensorMap* map, const void* base, int B, int H, int L,
                    const long long* st, int rows) {
@@ -279,8 +310,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return attr;
   CUtensorMap tm_q, tm_k, tm_v;
   bool ok = make_bhld_map<D>(&tm_q, q, B, H, Lq, st, BQ);
-  ok = ok && make_bhld_map<D>(&tm_k, k, B, H, Lk, st + 3, BKV);
-  ok = ok && make_bhld_map<D>(&tm_v, v, B, H, Lk, st + 6, BKV);
+  ok = ok && make_bhld_map<D>(&tm_k, k, B, H, Lk, st + 3, S::BKV);
+  ok = ok && make_bhld_map<D>(&tm_v, v, B, H, Lk, st + 6, S::BKV);
   if (!ok) return cudaErrorInvalidValue;
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, THREADS, S::SMEM, stream>>>(
@@ -293,22 +324,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // Dynamic shared memory of a launch at head dim D (0 for another D).
 extern "C" int flash_attn_smem_bytes(int D) {
-  return D == 128 ? FShape<128>::SMEM : D == 64 ? FShape<64>::SMEM : 0;
+  switch (D) {
+    case 40: return FShape<40>::SMEM;
+    case 64: return FShape<64>::SMEM;
+    case 80: return FShape<80>::SMEM;
+    case 128: return FShape<128>::SMEM;
+    case 160: return FShape<160>::SMEM;
+    default: return 0;
+  }
 }
 
 // Plain C entry (bound with ctypes). q/k/v/out are (B, H, L, D) views with
 // unit stride along D; strides[12] = (b, h, l) element strides of q, k, v
-// and out. The wrapper checks D in {64, 128}, Lk >= 1, 16-byte alignment of
-// every row (TMA's rule for the base and the strides). Returns
+// and out. The wrapper checks D in {40, 64, 80, 128, 160}, Lk >= 1, and
+// TMA's rule for the base and the strides (multiples of 16 bytes). Returns
 // cudaGetLastError().
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int H, int Lq, int Lk,
                                  int D, const long long* strides, float scale,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, out, B, H, Lq, Lk, strides,
-                                 scale, s);
-  if (D == 128) return launch<128>(q, k, v, out, B, H, Lq, Lk, strides,
-                                   scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 40: return launch<40>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 64: return launch<64>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 80: return launch<80>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 128:
+      return launch<128>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 160:
+      return launch<160>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,6 +1,7 @@
 """Synthetic builders for tests, smoke runs and benches (PyTorch port of the
-flux, T5, CLIP and VAE parts of comfyui_gguf_tpu/models/testing.py): flux
-trees and files, T5 / CLIP-L / AutoencoderKL parameter trees at tiny and at
+flux, SD3, SD1/SDXL UNet, T5, CLIP and VAE parts of
+comfyui_gguf_tpu/models/testing.py): flux, SD3 and UNet trees and files,
+T5 / CLIP-L / CLIP-G / AutoencoderKL parameter trees at tiny and at
 published widths, and synthetic vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
@@ -361,12 +362,17 @@ def flux_block_qtype(key: str, arr: np.ndarray, qtype):
 
 
 def write_flux_gguf(sd: dict, path: str, qtype_of) -> None:
-    """Write ``sd`` as a flux GGUF with the ``model.diffusion_model.``
-    prefix; ``qtype_of(key, array)`` picks each tensor's format (None =
-    stored as float)."""
+    """Write ``sd`` as a flux GGUF (``write_gguf`` with arch "flux")."""
+    write_gguf(sd, path, qtype_of, "flux")
+
+
+def write_gguf(sd: dict, path: str, qtype_of, arch: str) -> None:
+    """Write ``sd`` as a GGUF of architecture ``arch`` with the
+    ``model.diffusion_model.`` prefix; ``qtype_of(key, array)`` picks each
+    tensor's format (None = stored as float)."""
     from ..gguf.writer import GGUFWriter
 
-    w = GGUFWriter("flux")
+    w = GGUFWriter(arch)
     pfx = "model.diffusion_model."
     for k, v in sd.items():
         qtype = qtype_of(k, v)
@@ -376,6 +382,401 @@ def write_flux_gguf(sd: dict, path: str, qtype_of) -> None:
             w.add_tensor(pfx + k, codecs.quantize(v, qtype), raw_dtype=qtype,
                          raw_shape=v.shape)
     w.write_to_file(str(path))
+
+
+# ---------------------------------------------------------------------------
+# SD3 / SD3.5 (MMDiT)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TinySD3Dims:
+    hidden: int = 64
+    heads: int = 2
+    depth: int = 3
+    ctx_dim: int = 32
+    pooled: int = 16
+    in_ch: int = 16
+    pos_max: int = 8
+    qk_norm: bool = True
+    dual_prefix: int = 0  # sd3.5-medium: the first N blocks carry attn2
+
+    def config(self):
+        from .sd3 import SD3Config
+
+        return SD3Config(
+            hidden=self.hidden, depth=self.depth, n_heads=self.heads,
+            in_channels=self.in_ch, context_dim=self.ctx_dim,
+            pooled_dim=self.pooled, pos_embed_max=self.pos_max,
+            qk_norm=self.qk_norm,
+            dual_attn_layers=tuple(range(self.dual_prefix)))
+
+
+# sd3.5-large published dims (8B params): hidden 2432, 38 heads of 64, 38
+# joint blocks
+SD35_LARGE_DIMS = TinySD3Dims(
+    hidden=2432, heads=38, depth=38, ctx_dim=4096, pooled=2048,
+    in_ch=16, pos_max=192, qk_norm=True)
+
+# sd3.5-medium published dims (2.5B, MMDiT-X): hidden 1536, 24 heads of 64,
+# 24 blocks with dual x-stream attention in the first 13, pos grid 384
+SD35_MEDIUM_DIMS = TinySD3Dims(
+    hidden=1536, heads=24, depth=24, ctx_dim=4096, pooled=2048,
+    in_ch=16, pos_max=384, qk_norm=True, dual_prefix=13)
+
+
+def _sd3_nonblock(dims: TinySD3Dims, dense) -> dict:
+    """Non-block keys (the reference quantizer excludes all of these, so
+    they stay dense)."""
+    HID, P, C = dims.hidden, 2, dims.in_ch
+    return {
+        "x_embedder.proj.weight": dense(HID, C, P, P),
+        "x_embedder.proj.bias": dense(HID),
+        "pos_embed": dense(1, dims.pos_max * dims.pos_max, HID),
+        "t_embedder.mlp.0.weight": dense(HID, 256),
+        "t_embedder.mlp.0.bias": dense(HID),
+        "t_embedder.mlp.2.weight": dense(HID, HID),
+        "t_embedder.mlp.2.bias": dense(HID),
+        "y_embedder.mlp.0.weight": dense(HID, dims.pooled),
+        "y_embedder.mlp.0.bias": dense(HID),
+        "y_embedder.mlp.2.weight": dense(HID, HID),
+        "y_embedder.mlp.2.bias": dense(HID),
+        "context_embedder.weight": dense(HID, dims.ctx_dim),
+        "context_embedder.bias": dense(HID),
+        "final_layer.linear.weight": dense(P * P * C, HID),
+        "final_layer.linear.bias": dense(P * P * C),
+        "final_layer.adaLN_modulation.1.weight": dense(2 * HID, HID),
+        "final_layer.adaLN_modulation.1.bias": dense(2 * HID),
+    }
+
+
+def _sd3_block_leaves(dims: TinySD3Dims, packed, dense, pre_only: bool,
+                      dual: bool = False) -> dict:
+    """One joint block's relative-keyed leaves. ``dual``: an sd3.5-medium
+    MMDiT-X x_block with a second self-attention (9-chunk adaLN + attn2
+    projections)."""
+    HID = dims.hidden
+    hd = HID // dims.heads
+    w = {}
+    for blk in ("context_block", "x_block"):
+        po = pre_only and blk == "context_block"
+        du = dual and blk == "x_block"
+        w[f"{blk}.attn.qkv.weight"] = packed(3 * HID, HID)
+        w[f"{blk}.attn.qkv.bias"] = dense(3 * HID)
+        if dims.qk_norm:
+            w[f"{blk}.attn.ln_q.weight"] = dense(hd)
+            w[f"{blk}.attn.ln_k.weight"] = dense(hd)
+        n_mod = 2 if po else (9 if du else 6)
+        w[f"{blk}.adaLN_modulation.1.weight"] = packed(n_mod * HID, HID)
+        w[f"{blk}.adaLN_modulation.1.bias"] = dense(n_mod * HID)
+        if du:
+            w[f"{blk}.attn2.qkv.weight"] = packed(3 * HID, HID)
+            w[f"{blk}.attn2.qkv.bias"] = dense(3 * HID)
+            if dims.qk_norm:
+                w[f"{blk}.attn2.ln_q.weight"] = dense(hd)
+                w[f"{blk}.attn2.ln_k.weight"] = dense(hd)
+            w[f"{blk}.attn2.proj.weight"] = packed(HID, HID)
+            w[f"{blk}.attn2.proj.bias"] = dense(HID)
+        if not po:
+            w[f"{blk}.attn.proj.weight"] = packed(HID, HID)
+            w[f"{blk}.attn.proj.bias"] = dense(HID)
+            w[f"{blk}.mlp.fc1.weight"] = packed(4 * HID, HID)
+            w[f"{blk}.mlp.fc1.bias"] = dense(4 * HID)
+            w[f"{blk}.mlp.fc2.weight"] = packed(HID, 4 * HID)
+            w[f"{blk}.mlp.fc2.bias"] = dense(HID)
+    return w
+
+
+def sd3_flat_state_dict(dims: TinySD3Dims, seed: int = 0) -> dict:
+    """Flat float32 numpy sd3 state dict (pre-only final block, real key
+    layout) — the same numbers as the reference package's helper of this
+    name."""
+    rng = np.random.default_rng(seed)
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    sd = dict(_sd3_nonblock(dims, dense))
+    for i in range(dims.depth):
+        blk = _sd3_block_leaves(dims, packed=dense, dense=dense,
+                                pre_only=(i == dims.depth - 1),
+                                dual=(i < dims.dual_prefix))
+        sd.update({f"joint_blocks.{i}.{k}": v for k, v in blk.items()})
+    return sd
+
+
+def sd3_block_qtype(key: str, arr: np.ndarray, qtype):
+    """The quantization policy of a converted sd3 file: the block linears
+    quantize, the embedders, norms, pos_embed and final layer stay float
+    (None)."""
+    if (arr.ndim == 2 and key.startswith("joint_blocks.")
+            and arr.shape[1] % 256 == 0 and ".ln_" not in key):
+        return qtype
+    return None
+
+
+def sd3_random_quant_params(dims: TinySD3Dims, qtype=Q.Q4_K, seed: int = 0,
+                            device="cuda") -> dict:
+    """Flat (``joint_blocks.{i}.``-keyed) sd3 params with random packed
+    block weights at the real planar layout, made on ``device``; the final
+    block is pre-only like real checkpoints."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+
+    def packed(r, k):
+        return random_planar(qtype, (r, k), gen, device=device)
+
+    params = _sd3_nonblock(dims, dense)
+    for i in range(dims.depth):
+        blk = _sd3_block_leaves(dims, packed, dense,
+                                pre_only=(i == dims.depth - 1),
+                                dual=(i < dims.dual_prefix))
+        params.update({f"joint_blocks.{i}.{k}": v for k, v in blk.items()})
+    return params
+
+
+def sd3_random_stacked_params(dims: TinySD3Dims, qtype=Q.Q4_K,
+                              seed: int = 0, device="cuda") -> dict:
+    """Full-depth sd3 params in stack_sd3_params layout, the packed weights
+    generated directly stacked on ``device`` (no per-block copies)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+    n_dual = dims.dual_prefix
+    n = dims.depth - 1 - n_dual
+
+    def stacked(depth):
+        return dict(
+            packed=lambda r, k: random_planar(qtype, (r, k), gen,
+                                              device=device, stack=depth),
+            dense=lambda *s: dense(depth, *s))
+
+    params = _sd3_nonblock(dims, dense)
+    if n_dual:  # sd3.5-medium MMDiT-X prefix group
+        params["joint_blocks_dual"] = _sd3_block_leaves(
+            dims, **stacked(n_dual), pre_only=False, dual=True)
+    params["joint_blocks"] = _sd3_block_leaves(dims, **stacked(n),
+                                               pre_only=False)
+    params["joint_blocks_last"] = _sd3_block_leaves(
+        dims, packed=lambda r, k: random_planar(qtype, (r, k), gen,
+                                                device=device),
+        dense=dense, pre_only=True)
+    return params
+
+
+def sd3_example_inputs(dims: TinySD3Dims, batch: int = 1, h_lat: int = 16,
+                       w_lat: int = 16, ctx_len: int = 16, seed: int = 1,
+                       dtype=torch.bfloat16, device="cuda"):
+    """(latent, context, pooled, t) matching sd3.forward, made from a numpy
+    seed (the same numbers as the reference helper)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device=device,
+                                                             dtype=dtype)
+
+    latent = t(rng.standard_normal((batch, h_lat, w_lat, dims.in_ch)))
+    context = t(rng.standard_normal((batch, ctx_len, dims.ctx_dim)))
+    pooled = t(rng.standard_normal((batch, dims.pooled)))
+    ts = torch.full((batch,), 0.7, dtype=torch.float32, device=device)
+    return latent, context, pooled, ts
+
+
+# ---------------------------------------------------------------------------
+# SD1 / SDXL sgm UNet (models/unet.py key schema)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SDXLDims:
+    """sgm UNet geometry (models/unet.py). Published SDXL: mc 320,
+    channel_mult (1, 2, 4), 2 res blocks, transformer depth (0, 2, 10),
+    ctx 2048, adm 2816 — about 2.6B params."""
+
+    model_channels: int = 32
+    channel_mult: tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 2
+    depths: tuple[int, ...] = (0, 1, 1)  # transformer depth per level
+    ctx: int = 64
+    adm: int | None = 64  # None = SD1 (no label_emb, fixed 8 heads)
+    in_ch: int = 4
+
+
+SDXL_DIMS = SDXLDims(model_channels=320, depths=(0, 2, 10), ctx=2048,
+                     adm=2816)
+# SD1.x: 860M, attention (depth 1) at every level but the last, CLIP-L ctx
+# 768, no pooled vector; 8 heads, so head dims 40, 80 and 160
+SD1_DIMS = SDXLDims(model_channels=320, channel_mult=(1, 2, 4, 4),
+                    depths=(1, 1, 1, 0), ctx=768, adm=None)
+
+
+def _unet_shapes(d: SDXLDims) -> dict[str, tuple]:
+    """Every tensor of an sgm UNet of this geometry, in the reference
+    builder's order: linears (R, K), convs (O, I, k, k), norms and biases
+    (C,)."""
+    mc, emb = d.model_channels, 4 * d.model_channels
+    out: dict[str, tuple] = {}
+
+    def conv(name, o, i, k=3):
+        out[f"{name}.weight"] = (o, i, k, k)
+        out[f"{name}.bias"] = (o,)
+
+    def lin(name, o, i, bias=True):
+        out[f"{name}.weight"] = (o, i)
+        if bias:
+            out[f"{name}.bias"] = (o,)
+
+    def norm(name, c):
+        out[f"{name}.weight"] = (c,)
+        out[f"{name}.bias"] = (c,)
+
+    def resblock(p, cin, cout):
+        norm(f"{p}.in_layers.0", cin)
+        conv(f"{p}.in_layers.2", cout, cin)
+        lin(f"{p}.emb_layers.1", cout, emb)
+        norm(f"{p}.out_layers.0", cout)
+        conv(f"{p}.out_layers.3", cout, cout)
+        if cin != cout:
+            conv(f"{p}.skip_connection", cout, cin, k=1)
+
+    def transformer(p, c, depth):
+        norm(f"{p}.norm", c)
+        # SD1 stores proj_in/out as 1x1 convs, SDXL as linears
+        if d.adm is None:
+            conv(f"{p}.proj_in", c, c, k=1)
+        else:
+            lin(f"{p}.proj_in", c, c)
+        for i in range(depth):
+            b = f"{p}.transformer_blocks.{i}"
+            for n in ("norm1", "norm2", "norm3"):
+                norm(f"{b}.{n}", c)
+            lin(f"{b}.attn1.to_q", c, c, bias=False)
+            lin(f"{b}.attn1.to_k", c, c, bias=False)
+            lin(f"{b}.attn1.to_v", c, c, bias=False)
+            lin(f"{b}.attn1.to_out.0", c, c)
+            lin(f"{b}.attn2.to_q", c, c, bias=False)
+            lin(f"{b}.attn2.to_k", c, d.ctx, bias=False)
+            lin(f"{b}.attn2.to_v", c, d.ctx, bias=False)
+            lin(f"{b}.attn2.to_out.0", c, c)
+            lin(f"{b}.ff.net.0.proj", 8 * c, c)
+            lin(f"{b}.ff.net.2", c, 4 * c)
+        if d.adm is None:
+            conv(f"{p}.proj_out", c, c, k=1)
+        else:
+            lin(f"{p}.proj_out", c, c)
+
+    lin("time_embed.0", emb, mc)
+    lin("time_embed.2", emb, emb)
+    if d.adm is not None:
+        lin("label_emb.0.0", emb, d.adm)
+        lin("label_emb.0.2", emb, emb)
+
+    chans = [mc * m for m in d.channel_mult]
+    conv("input_blocks.0.0", mc, d.in_ch)
+    skips = [mc]
+    ch = mc
+    bi = 1
+    for lvl, c in enumerate(chans):
+        for _ in range(d.num_res_blocks):
+            resblock(f"input_blocks.{bi}.0", ch, c)
+            ch = c
+            if d.depths[lvl]:
+                transformer(f"input_blocks.{bi}.1", c, d.depths[lvl])
+            skips.append(ch)
+            bi += 1
+        if lvl < len(chans) - 1:
+            conv(f"input_blocks.{bi}.0.op", ch, ch)
+            skips.append(ch)
+            bi += 1
+
+    resblock("middle_block.0", ch, ch)
+    transformer("middle_block.1", ch, d.depths[-1] or 1)
+    resblock("middle_block.2", ch, ch)
+
+    bo = 0
+    for lvl in reversed(range(len(chans))):
+        c = chans[lvl]
+        for j in range(d.num_res_blocks + 1):
+            resblock(f"output_blocks.{bo}.0", ch + skips.pop(), c)
+            ch = c
+            k = 1
+            if d.depths[lvl]:
+                transformer(f"output_blocks.{bo}.{k}", c, d.depths[lvl])
+                k += 1
+            if lvl > 0 and j == d.num_res_blocks:
+                conv(f"output_blocks.{bo}.{k}.conv", c, c)
+            bo += 1
+
+    norm("out.0", mc)
+    conv("out.2", d.in_ch, mc)
+    return out
+
+
+def _unet_embedder(key: str) -> bool:
+    return key.startswith(("time_embed.", "label_emb."))
+
+
+def _unet_norm_gain(key: str) -> bool:
+    """A GroupNorm or LayerNorm gain: the transformers' ``norm*``, the
+    ResBlocks' ``in_layers.0`` / ``out_layers.0`` and the output ``out.0``."""
+    return key.endswith(".weight") and (
+        "norm" in key or key == "out.0.weight"
+        or key.endswith(("in_layers.0.weight", "out_layers.0.weight")))
+
+
+def unet_state_dict(dims: SDXLDims, seed: int = 0) -> dict[str, np.ndarray]:
+    """Random sgm UNet state dict (numpy float32): weights N(0, 1/fan-in)
+    (as ``sdxl_random_params`` scales its convs, so activations stay
+    bounded at any width), unit norm gains, zero biases."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in _unet_shapes(dims).items():
+        if len(shape) > 1:
+            fan_in = int(np.prod(shape[1:]))
+            out[k] = (rng.standard_normal(shape) * fan_in ** -0.5).astype(
+                np.float32)
+        elif _unet_norm_gain(k):
+            out[k] = np.ones(shape, np.float32)
+        else:
+            out[k] = np.zeros(shape, np.float32)
+    return out
+
+
+def unet_block_qtype(key: str, arr: np.ndarray, qtype):
+    """The quantization policy of a converted UNet file (the reference
+    quantizer's 2-D-only rule): the linears quantize where the format's
+    block divides K (Q8_0 where ``qtype``'s 256-element block does not), the
+    embedders, convs and norms stay float (None)."""
+    if arr.ndim != 2 or _unet_embedder(key):
+        return None
+    if arr.shape[1] % 256 == 0:
+        return qtype
+    return Q.Q8_0 if arr.shape[1] % 32 == 0 else None
+
+
+def sdxl_random_params(d: SDXLDims = SDXL_DIMS, qtype=Q.Q4_K, seed: int = 0,
+                       device="cuda") -> dict:
+    """Random UNet params at ``d``'s geometry, made on ``device``: the 2-D
+    weights packed planar (the quantizer's 2-D-only rule), the embedders,
+    convs and norms dense (bf16 weights, f32 norms and biases) — the mix a
+    real quantized SDXL or SD1 GGUF loads into. Conv and linear weights are
+    scaled by fan-in so activations stay bounded at full depth."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, shape in _unet_shapes(d).items():
+        if len(shape) == 2 and not _unet_embedder(k):
+            out[k] = random_planar(qtype, shape, gen, device=device,
+                                   scale=0.02 * shape[1] ** -0.5)
+        elif len(shape) > 1:
+            fan_in = int(np.prod(shape[1:]))
+            out[k] = (torch.randn(shape, generator=gen, device=device)
+                      * fan_in ** -0.5).to(torch.bfloat16)
+        elif _unet_norm_gain(k):
+            out[k] = torch.ones(shape, device=device)
+        else:
+            out[k] = torch.zeros(shape, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -520,6 +921,11 @@ class CLIPDims:
 CLIP_L_DIMS = CLIPDims(hidden=768, n_layers=12, n_heads=12,
                        intermediate=3072, vocab=49408, max_positions=77,
                        proj=768)
+# open_clip ViT-bigG/14 text tower (SDXL's and SD3's second encoder): plain
+# GELU, a text projection, penultimate and pooled outputs
+CLIP_G_DIMS = CLIPDims(hidden=1280, n_layers=32, n_heads=20,
+                       intermediate=5120, vocab=49408, max_positions=77,
+                       proj=1280)
 
 
 def _clip_shapes(d: CLIPDims) -> dict[str, tuple]:

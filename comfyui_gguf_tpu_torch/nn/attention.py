@@ -5,9 +5,11 @@
 cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
-  ``csrc/flash_attn.cu`` (K7): bf16 CUDA tensors, head dim 64 or 128. Any
-  other head dim or dtype on the card raises ``NotImplementedError`` (no
-  route exists for it yet); the same call on CPU tensors takes the plain
+  ``csrc/flash_attn.cu`` (K7): bf16 CUDA tensors, head dims
+  ``FLASH_HEAD_DIMS`` (40, 80 and 160 run the 64-, 128- and 192-wide
+  instances on zero-filled pad columns). Any other head dim or dtype on the
+  card raises ``NotImplementedError`` (no route exists for it yet), and so
+  does a view TMA cannot read; the same call on CPU tensors takes the plain
   version.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
   ``jax.nn.dot_product_attention``: f32 logits, f32 softmax, probabilities
@@ -76,12 +78,19 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+# head dims the flash kernel has instances for
+FLASH_HEAD_DIMS = (40, 64, 80, 128, 160)
+
+
 def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
     """Launch the flash-attention kernel (K7).
 
-    q: (B, H, Lq, D), k/v: (B, H, Lk, D), bf16 CUDA tensors (strided views
-    with unit stride along D are fine). Returns (B, H, Lq, D) bf16 whose
-    storage is (B, Lq, H, D), so merging heads afterwards is free.
+    q: (B, H, Lq, D), k/v: (B, H, Lk, D), bf16 CUDA tensors; strided views
+    are read in place where TMA can read them (unit stride along D, base and
+    other strides multiples of 16 bytes, as every (B, L, H·D) projection of
+    a head dim in ``FLASH_HEAD_DIMS`` is) and refused otherwise. Returns
+    (B, H, Lq, D) bf16 whose storage is (B, Lq, H, D), so merging heads
+    afterwards is free.
     """
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -89,15 +98,20 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
         raise ValueError("flash_attn_cuda takes CUDA tensors")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise NotImplementedError("the flash kernel takes bfloat16 q/k/v")
-    if D not in (64, 128):
+    if D not in FLASH_HEAD_DIMS:
         raise NotImplementedError(
-            f"head dim {D}: the flash kernel has instances for 64 and 128, "
-            f"and the card has no other attention route yet (CPU tensors "
-            f"take plain_attention)")
+            f"head dim {D}: the flash kernel has instances for "
+            f"{', '.join(map(str, FLASH_HEAD_DIMS))}, and the card has no "
+            f"other attention route yet (CPU tensors take plain_attention)")
     if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D) or Lk < 1:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    q, k, v = (_build.row_aligned(t) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _build.is_row_aligned(t):
+            raise ValueError(
+                f"{name} (shape {tuple(t.shape)}, strides {t.stride()}) is "
+                f"a view TMA cannot read: it needs unit stride along D and a "
+                f"base and strides that are multiples of 16 bytes")
     out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16,
                       device=q.device).permute(0, 2, 1, 3)
     if Lq:
@@ -110,6 +124,7 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
             ctypes.c_void_p(_build.stream_handle(q.device)))
         _build.check(rc, "flash_attn_launch")
         _build.count("flash_attn")
+        _build.count(f"flash_attn_d{D}")
     return out
 
 

@@ -110,9 +110,12 @@ def materialize(leaf, dtype=torch.float32) -> torch.Tensor:
 
 
 def _dense_linear(x, weight, cfg: QuantConfig):
+    """x (B, ..., K) @ Wᵀ in f32 on operands rounded to the compute dtype,
+    each sample alone (``_each_sample``)."""
     cd = cfg.compute_dtype
-    out = torch.matmul(x.to(cd).to(torch.float32),
-                       weight.to(cd).to(torch.float32).T)
+    wt = weight.to(cd).to(torch.float32).T
+    out = _each_sample(
+        lambda xs: torch.matmul(xs.to(cd).to(torch.float32), wt), x)
     return out.to(x.dtype)
 
 
@@ -238,11 +241,33 @@ def embedding(ids: torch.Tensor, table, *,
     return table[ids]
 
 
+def _each_sample(fn, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``fn`` on each batch element of ``x`` alone, concatenated.
+
+    cuDNN picks a convolution's algorithm, cuBLAS a dense matmul's kernel
+    (GEMV at one row, GEMM at more) and the reduction kernels their split
+    by the whole tensor's shape, so a batched call sums a sample in another
+    order than the same sample alone. A served request would then depend
+    on the batch it shares, and a UNet's CFG step (the difference of two
+    forwards, times the scale) carries that to 1e-2 of the latent and more.
+    Per sample, a request gives the same bits at every batch size
+    (``tools_batch_invariance_cuda.py`` checks it and times the cost). The
+    fused kernels and attention are row-independent already."""
+    if x.shape[0] == 1:
+        return fn(x, *args, **kw)
+    return torch.cat([fn(x[i:i + 1], *args, **kw)
+                      for i in range(x.shape[0])])
+
+
 def group_norm(x: torch.Tensor, weight=None, bias=None, *,
                num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm over channel-minor (B, ..., C) input, f32 statistics over
     each group's positions and channels, written out in the reference's
-    order of operations."""
+    order of operations; each sample alone (``_each_sample``)."""
+    return _each_sample(_group_norm, x, weight, bias, num_groups, eps)
+
+
+def _group_norm(x, weight, bias, num_groups: int, eps: float):
     c = x.shape[-1]
     xf = x.to(torch.float32).reshape(x.shape[0], -1, num_groups,
                                      c // num_groups)
@@ -264,21 +289,21 @@ def conv2d(x: torch.Tensor, weight, bias=None, *, stride=1, padding=0,
     in f32. ``padding`` is an int or ((top, bottom), (left, right)).
 
     The reference computes this outside any hand-written kernel, and so
-    does the port: ``F.conv2d`` on a channels-last view.
+    does the port: ``F.conv2d`` on a channels-last view, each sample alone
+    (``_each_sample``).
     """
     cd = cfg.compute_dtype
     w = materialize(weight, cd)
+    # the CPU has no f32-accumulating bf16 conv: widen the operands there
+    w = (w.contiguous(memory_format=torch.channels_last) if x.is_cuda
+         else w.to(torch.float32))
     xc = x.to(cd).permute(0, 3, 1, 2)  # NCHW view of channels-last storage
     if not isinstance(padding, int):
         (pt, pb), (pl, pr) = padding
         xc = F.pad(xc, (pl, pr, pt, pb))
         padding = 0
-    if x.is_cuda:
-        out = F.conv2d(xc, w.contiguous(memory_format=torch.channels_last),
-                       stride=stride, padding=padding)
-    else:  # the CPU has no f32-accumulating bf16 conv: widen the operands
-        out = F.conv2d(xc.to(torch.float32), w.to(torch.float32),
-                       stride=stride, padding=padding)
+    out = _each_sample(lambda xs: F.conv2d(xs.to(w.dtype), w, stride=stride,
+                                           padding=padding), xc)
     out = out.permute(0, 2, 3, 1).to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)

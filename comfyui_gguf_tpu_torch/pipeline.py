@@ -14,10 +14,17 @@ comfyui_gguf_tpu/pipeline.py).
   inpainting and Kontext references. ``TextEncoder.apply_lora`` attaches a
   LoRA file's text-encoder slice; ``textual_inversion.EmbeddingSet`` adds
   textual-inversion embeddings to an encoder.
-* ``flux_engine(model, ...)`` — a continuous-batching engine
-  (serving.ContinuousBatchEngine) over a loaded flux model: ``submit``
+* ``SD3Pipeline.load(...).generate(prompt)`` — SD3/SD3.5: CLIP-L ⊕ CLIP-G
+  (+ T5) conditioning, CFG over the rectified-flow ODE, img2img and
+  inpainting.
+* ``SD1Pipeline`` / ``SDXLPipeline`` ``.generate_from_ids(...)`` — the
+  eps-prediction UNets sampled in σ space (``sampling.kdiffusion``), with
+  CFG, img2img, SDXL inpainting and the SDXL refiner pass.
+* ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` — continuous-batching
+  engines (serving.ContinuousBatchEngine) over a loaded model: ``submit``
   requests, ``run_until_drained``; each tick advances every pooled request
-  by one Euler or per-lane DPM-Solver++(2M) step.
+  by one Euler or per-lane DPM-Solver++(2M) step (the UNet engine with
+  per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
 The llama text encoders, the video VAEs and the other architectures are
@@ -40,15 +47,24 @@ from ._device import resolve_device
 from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
 from .models import clip as clip_model
 from .models import flux as flux_model
+from .models import sd3 as sd3_model
 from .models import t5 as t5_model
+from .models import unet as unet_model
 from .models import vae as vae_model
 from .nn.layers import QuantConfig
-from .sampling import euler_sample_inpaint, flux_schedule, sample_flow
+from .sampling import (cfg_wrap, euler_sample_inpaint, flux_schedule,
+                       linear_schedule, sample_flow, shift_sigmas)
+from .sampling import kdiffusion as kd
 
 log = logging.getLogger(__name__)
 
-# arch -> (model module, config class); flux only in this slice
-_ARCH_TABLE = {"flux": (flux_model, flux_model.FluxConfig)}
+# arch -> (model module, config class, key of its depth-stacked tree)
+_ARCH_TABLE = {
+    "flux": (flux_model, flux_model.FluxConfig, "double_blocks"),
+    "sd3": (sd3_model, sd3_model.SD3Config, "joint_blocks"),
+    "sd1": (unet_model, unet_model.UNetConfig, None),
+    "sdxl": (unet_model, unet_model.UNetConfig, None),
+}
 
 
 def _arch_module(arch: str):
@@ -76,7 +92,9 @@ class DiffusionModel:
 
     @property
     def is_stacked(self) -> bool:
-        return self.arch == "flux" and "double_blocks" in self.params
+        entry = _ARCH_TABLE.get(self.arch)
+        return (entry is not None and entry[2] is not None
+                and entry[2] in self.params)
 
     def forward(self, *args, **kwargs):
         mod = _arch_module(self.arch)
@@ -128,11 +146,21 @@ class DiffusionModel:
 
     def stack(self) -> "DiffusionModel":
         """Restack per-block params along a depth axis (copies the block
-        weights once); forward then runs forward_stacked."""
-        if self.arch == "flux" and not self.is_stacked:
+        weights once); forward then runs forward_stacked. Flux and SD3
+        stack (SD3.5-medium's dual-attention blocks as their own prefix
+        group); an SD3 tree whose dual layers are not a contiguous prefix,
+        and the UNets, are returned unchanged."""
+        if self.is_stacked:
+            return self
+        if self.arch == "flux":
             return dataclasses.replace(
                 self, params=flux_model.stack_flux_params(self.params,
                                                           self.config))
+        dual = self.config.dual_attn_layers if self.arch == "sd3" else ()
+        if self.arch == "sd3" and dual == tuple(range(len(dual))):
+            return dataclasses.replace(
+                self, params=sd3_model.stack_sd3_params(self.params,
+                                                        self.config))
         return self
 
     def memory_report(self) -> dict:
@@ -303,6 +331,41 @@ def _as_list(v):
     return [v] if not isinstance(v, (list, tuple)) else list(v)
 
 
+class _StageClock:
+    """Host-clock seconds of a call's stages; the card is synchronised at
+    every mark, so a stage's time includes its device work."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks = [("start", time.perf_counter())]
+
+    def mark(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.marks.append((name, time.perf_counter()))
+
+    def timings(self) -> dict:
+        out = {name: t - self.marks[i][1]
+               for i, (name, t) in enumerate(self.marks[1:])}
+        out["total_s"] = self.marks[-1][1] - self.marks[0][1]
+        return out
+
+
+def _on(a, device, dtype) -> torch.Tensor:
+    """An array or tensor as a tensor of ``dtype`` on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def _decoded(vae_params, vae_config, latent) -> np.ndarray:
+    """(1, h, w, C) latent → (H, W, 3) image in [0, 1] through the VAE, or
+    the float32 latent itself without one."""
+    if vae_params is None:
+        return latent[0].to(torch.float32).cpu().numpy()
+    img = vae_model.decode_auto(vae_params, vae_config, latent)
+    return ((img[0].clamp(-1, 1) + 1) / 2).cpu().numpy()
+
+
 def _resize_nearest(m: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(H, W) → (h, w), sampling at pixel centres (the reference's
     ``jax.image.resize(..., "nearest")``)."""
@@ -389,17 +452,11 @@ class FluxPipeline:
         reference span is discarded each step.
         """
         device = self.model.device
-        cuda = device.type == "cuda"
-        marks = [("start", time.perf_counter())]
-
-        def mark(name):
-            if cuda:
-                torch.cuda.synchronize(device)
-            marks.append((name, time.perf_counter()))
+        clock = _StageClock(device)
+        mark = clock.mark
 
         def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a) if not isinstance(
-                a, torch.Tensor) else a).to(device=device, dtype=dtype)
+            return _on(a, device, dtype)
 
         ids, mask = self.t5.tokenizer.encode_batch([prompt],
                                                    max_length=max_t5_len)
@@ -491,17 +548,398 @@ class FluxPipeline:
         latent = flux_model.unpatchify(out_tokens, h_lat, w_lat)
         self.last_latent = latent
         mark("denoise_s")
-        if self.vae_params is None:
-            result = latent[0].to(torch.float32).cpu().numpy()
-        else:
-            img = vae_model.decode_auto(self.vae_params, self.vae_config,
-                                        latent)
-            result = ((img[0].clamp(-1, 1) + 1) / 2).cpu().numpy()
+        result = _decoded(self.vae_params, self.vae_config, latent)
         mark("vae_s")
-        self.last_timings = {
-            name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
-        self.last_timings["total_s"] = marks[-1][1] - marks[0][1]
+        self.last_timings = clock.timings()
         return result
+
+
+def _ids(a, device) -> torch.Tensor | None:
+    return None if a is None else _on(a, device, torch.long)
+
+
+def _noise_or_draw(noise, shape, gen, device, dtype):
+    """The caller's noise as ``dtype`` on ``device``, else a float32
+    standard-normal draw of ``shape`` from ``gen`` rounded to ``dtype``."""
+    if noise is None:
+        noise = torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32)
+    return _on(noise, device, torch.float32).to(dtype)
+
+
+def _step_noise_or_draw(step_noise, gen, device):
+    """``step_noise(i, shape)`` as a float32 tensor on ``device``; draws
+    from ``gen`` where the caller gave none."""
+    def fn(i, shape):
+        if step_noise is None:
+            return torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.float32)
+        return _on(step_noise(i, shape), device, torch.float32)
+    return fn
+
+
+@dataclasses.dataclass
+class SD3Pipeline:
+    """SD3/SD3.5 txt2img: CLIP-L + CLIP-G (+ optional T5) conditioning, CFG
+    over the rectified-flow ODE (two forwards a step).
+
+    The VAE decodes with the scale and shift its config carries:
+    ``VAEConfig.from_state_dict`` gives every 16-channel VAE flux's factors
+    (0.3611 / 0.1159), as the reference package does, not SD3's published
+    1.5305 / 0.0609 (ROADMAP queue 3)."""
+
+    model: DiffusionModel
+    clip_l: TextEncoder
+    clip_g: TextEncoder
+    t5: TextEncoder | None = None
+    vae_params: dict | None = None
+    vae_config: object | None = None
+    shift: float = 3.0
+    # of the last generate_from_ids() call: host-clock seconds of its
+    # stages, and its final latent (1, H/8, W/8, C) before the VAE
+    last_timings: dict = dataclasses.field(default_factory=dict)
+    last_latent: torch.Tensor | None = None
+
+    @staticmethod
+    def load(unet_path: str, clip_l_path: str, clip_g_path: str,
+             t5_path: str | None = None, vae_path: str | None = None,
+             device="cuda") -> "SD3Pipeline":
+        device = resolve_device(device)
+        model = load_diffusion_model(unet_path, device=device)
+        paths = (clip_l_path, clip_g_path) + ((t5_path,) if t5_path else ())
+        encs = load_text_encoders(*paths, device=device)
+        vp = vc = None
+        if vae_path:
+            _, vp, vc = load_vae(vae_path, device=device)
+        return SD3Pipeline(model, encs["clip_l"], encs["clip_g"],
+                           encs.get("t5"), vp, vc)
+
+    def _condition(self, clip_l_ids, clip_g_ids, t5_ids):
+        """SD3 conditioning: penultimate CLIP-L ⊕ CLIP-G states zero-padded
+        to the model's context width (4096 without a model), then the T5
+        states appended; pooled = pooled_l ⊕ pooled_g."""
+        l_out = self.clip_l.encode(clip_l_ids)
+        g_out = self.clip_g.encode(clip_g_ids)
+        clip_ctx = torch.cat([l_out["penultimate"], g_out["penultimate"]],
+                             dim=-1)
+        ctx_dim = (self.model.config.context_dim
+                   if self.model is not None else 4096)
+        clip_ctx = torch.nn.functional.pad(
+            clip_ctx, (0, ctx_dim - clip_ctx.shape[-1]))
+        parts = [clip_ctx]
+        if self.t5 is not None and t5_ids is not None:
+            parts.append(self.t5.encode(t5_ids).to(clip_ctx.dtype))
+        ctx = torch.cat(parts, dim=1)
+        pooled = torch.cat([l_out["pooled"], g_out["pooled"]], dim=-1)
+        return ctx, pooled
+
+    def generate(self, prompt: str, negative_prompt: str = "",
+                 max_t5_len: int = 512, **kw):
+        """Prompt-level txt2img (CFG against ``negative_prompt``); needs
+        tokenizers on the encoders. The other arguments are
+        ``generate_from_ids``'s."""
+        def ids_for(enc, text):
+            if enc is None:
+                return None
+            if enc.tokenizer is None:
+                raise ValueError(
+                    f"{enc.kind} has no tokenizer; use generate_from_ids "
+                    "with external token ids")
+            L = getattr(enc.config, "max_positions", None)
+            ids, _ = enc.tokenizer.encode_batch(
+                [text], max_length=min(77, L) if L else max_t5_len)
+            return ids
+
+        return self.generate_from_ids(
+            ids_for(self.clip_l, prompt), ids_for(self.clip_g, prompt),
+            t5_ids=ids_for(self.t5, prompt),
+            neg_clip_l_ids=ids_for(self.clip_l, negative_prompt),
+            neg_clip_g_ids=ids_for(self.clip_g, negative_prompt),
+            neg_t5_ids=ids_for(self.t5, negative_prompt), **kw)
+
+    @torch.no_grad()
+    def generate_from_ids(self, clip_l_ids, clip_g_ids, t5_ids=None,
+                          neg_clip_l_ids=None, neg_clip_g_ids=None,
+                          neg_t5_ids=None, width: int = 1024,
+                          height: int = 1024, steps: int = 28,
+                          cfg_scale: float = 4.5, seed: int = 0,
+                          init_image: np.ndarray | None = None,
+                          denoise: float = 1.0,
+                          inpaint_mask: np.ndarray | None = None,
+                          sampler: str | None = None, noise=None,
+                          step_noise=None) -> np.ndarray:
+        """txt2img → (H, W, 3) image in [0, 1] (the latent without a VAE).
+
+        CFG runs when ``cfg_scale`` != 1 and negative ids are given: two
+        forwards a step. img2img: ``init_image`` (H, W, 3) in [0, 1] +
+        ``denoise`` < 1 (VAE-encode, forward-noise to the schedule point,
+        sample down); inpainting: also ``inpaint_mask`` (any 2-D, 1 =
+        generate). ``noise`` is the (1, H/8, W/8, C) initial noise and
+        ``step_noise(i, shape)`` inpainting step i's float32 noise; where
+        they are not given they are drawn from
+        ``torch.Generator(device).manual_seed(seed)``.
+        """
+        device = self.model.device
+        clock = _StageClock(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        ctx, pooled = self._condition(_ids(clip_l_ids, device),
+                                      _ids(clip_g_ids, device),
+                                      _ids(t5_ids, device))
+        use_cfg = cfg_scale != 1.0 and neg_clip_l_ids is not None
+        if use_cfg:
+            nctx, npooled = self._condition(_ids(neg_clip_l_ids, device),
+                                            _ids(neg_clip_g_ids, device),
+                                            _ids(neg_t5_ids, device))
+        clock.mark("encode_s")
+
+        h_lat, w_lat = height // 8, width // 8
+        noise = _noise_or_draw(
+            noise, (1, h_lat, w_lat, self.model.config.in_channels), gen,
+            device, torch.bfloat16)
+        sigmas = shift_sigmas(linear_schedule(steps), self.shift)
+
+        x, z0, mask = noise, None, None
+        if init_image is not None:
+            if self.vae_params is None:
+                raise ValueError("img2img needs a VAE")
+            first = int(round((1.0 - denoise) * steps))
+            sigmas = sigmas[first:]
+            img01 = _on(init_image, device, torch.float32)[None] * 2 - 1
+            z0 = vae_model.encode_auto(self.vae_params, self.vae_config,
+                                       img01)
+            s0 = float(sigmas[0])
+            x = ((1 - s0) * z0.to(torch.float32)
+                 + s0 * noise.to(torch.float32)).to(torch.bfloat16)
+            if inpaint_mask is not None:
+                m = _resize_nearest(_on(inpaint_mask, device, torch.float32),
+                                    h_lat, w_lat)
+                mask = m[None, :, :, None].expand(z0.shape)
+        elif inpaint_mask is not None:
+            raise ValueError("inpaint_mask needs an init_image")
+        model = self.model
+        velocity = cfg_wrap(
+            lambda xc, sigma, c: model.forward(
+                xc, *c, sigma.to(torch.float32).expand(xc.shape[0])),
+            (ctx, pooled), (nctx, npooled) if use_cfg else None, cfg_scale)
+
+        if mask is not None:
+            noise_fn = _step_noise_or_draw(step_noise, gen, device)
+            latent = euler_sample_inpaint(
+                velocity, x, sigmas, z0.to(torch.bfloat16), mask,
+                lambda i: noise_fn(i, tuple(z0.shape)))
+        else:
+            latent = sample_flow(velocity, x, sigmas, sampler=sampler)
+        self.last_latent = latent
+        clock.mark("denoise_s")
+        result = _decoded(self.vae_params, self.vae_config, latent)
+        clock.mark("vae_s")
+        self.last_timings = clock.timings()
+        return result
+
+
+def _size_embedding(values, like: torch.Tensor) -> torch.Tensor:
+    """SDXL's micro-conditioning: each value's 256-wide sinusoidal
+    embedding, concatenated → (1, 256·len(values)) in ``like``'s dtype."""
+    v = torch.tensor(values, dtype=torch.float32, device=like.device)
+    emb = flux_model.timestep_embedding(v, 256, time_factor=1.0)
+    return emb.reshape(1, -1).to(like.dtype)
+
+
+def _unet_denoiser(model: DiffusionModel, cfg_scale: float, conds, nconds):
+    """The k-diffusion denoiser of a UNet with CFG: ``conds`` / ``nconds``
+    are the forward's (context, y) pairs; ``nconds`` None runs the
+    conditional forward alone."""
+    eps = cfg_wrap(lambda x_in, t, c: model.forward(x_in, t, *c), conds,
+                   nconds, cfg_scale)
+    return kd.make_eps_denoiser(eps, kd.ddpm_sigmas())
+
+
+def _sample_unet(model, cfg_scale, conds, nconds, x, sigmas, sampler, gen,
+                 sampler_noise):
+    return kd.run_sampler(sampler, _unet_denoiser(model, cfg_scale, conds,
+                                                  nconds),
+                          x, sigmas, noise=sampler_noise, generator=gen)
+
+
+def _unet_start(vae_params, vae_config, init_image, denoise, steps, sigmas,
+                noise, gen, device, h_lat, w_lat):
+    """(x, z0, sigmas) of a UNet request: σ_max-scaled noise for txt2img;
+    for img2img the VAE-encoded image noised to the σ at 1 − denoise of the
+    schedule, with the schedule cut there."""
+    if init_image is None:
+        n = _noise_or_draw(noise, (1, h_lat, w_lat, 4), gen, device,
+                           torch.bfloat16)
+        x = (n.to(torch.float32) * float(sigmas[0])).to(torch.bfloat16)
+        return x, None, sigmas
+    if vae_params is None:
+        raise ValueError("img2img needs a VAE")
+    first = min(int(round((1.0 - denoise) * steps)), steps - 1)
+    sigmas = sigmas[first:]
+    img01 = _on(init_image, device, torch.float32)[None] * 2 - 1
+    z0 = vae_model.encode_auto(vae_params, vae_config, img01)
+    n = _noise_or_draw(noise, tuple(z0.shape), gen, device, torch.float32)
+    x = (z0.to(torch.float32) + n * float(sigmas[0])).to(torch.bfloat16)
+    return x, z0, sigmas
+
+
+@dataclasses.dataclass
+class SD1Pipeline:
+    """SD1.x txt2img: one CLIP-L conditioning, the eps-prediction UNet
+    sampled in σ space (sampling.kdiffusion), CFG as two forwards a step.
+
+    ``noise`` arguments are the standard-normal draws (the initial latent
+    noise, of z0's shape for img2img) and ``sampler_noise(shape)`` the
+    stochastic samplers' draws; where they are not given they come from
+    ``torch.Generator(device).manual_seed(seed)``."""
+
+    model: DiffusionModel
+    clip_l: TextEncoder
+    vae_params: dict | None = None
+    vae_config: object | None = None
+
+    @torch.no_grad()
+    def generate_from_ids(self, clip_l_ids, neg_clip_l_ids=None,
+                          width: int = 512, height: int = 512,
+                          steps: int = 20, cfg_scale: float = 7.0,
+                          seed: int = 0, sampler: str = "euler",
+                          scheduler: str = "normal",
+                          init_image: np.ndarray | None = None,
+                          denoise: float = 1.0, noise=None,
+                          sampler_noise=None) -> np.ndarray:
+        device = self.model.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        ctx = self.clip_l.encode(_ids(clip_l_ids, device))["last_hidden"]
+        nconds = None
+        if cfg_scale != 1.0 and neg_clip_l_ids is not None:
+            nconds = (self.clip_l.encode(
+                _ids(neg_clip_l_ids, device))["last_hidden"], None)
+        sigmas = kd.make_schedule(scheduler, steps, kd.ddpm_sigmas())
+        x, _, sigmas = _unet_start(
+            self.vae_params, self.vae_config, init_image, denoise, steps,
+            sigmas, noise, gen, device, height // 8, width // 8)
+        latent = _sample_unet(self.model, cfg_scale, (ctx, None), nconds, x,
+                              sigmas, sampler, gen, sampler_noise)
+        return _decoded(self.vae_params, self.vae_config, latent)
+
+
+@dataclasses.dataclass
+class SDXLPipeline:
+    """SDXL txt2img: CLIP-L ⊕ CLIP-G context and the pooled-G + size
+    vector, the eps-prediction UNet sampled in σ space, CFG as two forwards
+    a step; the refiner pass in ``refine_from_ids``. Noise arguments as in
+    ``SD1Pipeline``; ``step_noise(i, shape)`` is masked sampling step i's
+    float32 noise."""
+
+    model: DiffusionModel
+    clip_l: TextEncoder
+    clip_g: TextEncoder
+    vae_params: dict | None = None
+    vae_config: object | None = None
+
+    @torch.no_grad()
+    def generate_from_ids(self, clip_l_ids, clip_g_ids,
+                          neg_clip_l_ids=None, neg_clip_g_ids=None,
+                          width: int = 1024, height: int = 1024,
+                          steps: int = 20, cfg_scale: float = 7.0,
+                          seed: int = 0, sampler: str = "euler",
+                          scheduler: str = "normal",
+                          init_image: np.ndarray | None = None,
+                          denoise: float = 1.0,
+                          inpaint_mask: np.ndarray | None = None,
+                          noise=None, sampler_noise=None,
+                          step_noise=None) -> np.ndarray:
+        """txt2img, or img2img when ``init_image`` (H, W, 3) in [0, 1] and
+        ``denoise`` < 1 are given; ``inpaint_mask`` (any 2-D, 1 =
+        regenerate) with an init_image switches to masked Euler (the
+        ``sampler`` argument is not used in that mode)."""
+        if inpaint_mask is not None and init_image is None:
+            raise ValueError("inpaint_mask needs an init_image")
+        device = self.model.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def cond(l_ids, g_ids):
+            l_out = self.clip_l.encode(_ids(l_ids, device))
+            g_out = self.clip_g.encode(_ids(g_ids, device))
+            ctx = torch.cat([l_out["penultimate"], g_out["penultimate"]],
+                            dim=-1)
+            # the SDXL vector: pooled_g ⊕ size/crop/target embeddings
+            y = torch.cat([g_out["pooled"], _size_embedding(
+                [height, width, 0, 0, height, width], g_out["pooled"])],
+                dim=-1)
+            return ctx, y
+
+        conds = cond(clip_l_ids, clip_g_ids)
+        nconds = None
+        if cfg_scale != 1.0 and neg_clip_l_ids is not None:
+            nconds = cond(neg_clip_l_ids, neg_clip_g_ids)
+        h_lat, w_lat = height // 8, width // 8
+        sigmas = kd.make_schedule(scheduler, steps, kd.ddpm_sigmas())
+        x, z0, sigmas = _unet_start(
+            self.vae_params, self.vae_config, init_image, denoise, steps,
+            sigmas, noise, gen, device, h_lat, w_lat)
+        if inpaint_mask is not None:
+            m = _resize_nearest(_on(inpaint_mask, device, torch.float32),
+                                h_lat, w_lat)
+            mask = m[None, :, :, None].expand(z0.shape)
+            den = _unet_denoiser(self.model, cfg_scale, conds, nconds)
+            noise_fn = _step_noise_or_draw(step_noise, gen, device)
+            step = iter(range(len(sigmas)))
+            latent = kd.euler_sample_sigma_inpaint(
+                den, x, sigmas, z0, mask,
+                lambda shape: noise_fn(next(step), tuple(shape)))
+        else:
+            latent = _sample_unet(self.model, cfg_scale, conds, nconds, x,
+                                  sigmas, sampler, gen, sampler_noise)
+        return _decoded(self.vae_params, self.vae_config, latent)
+
+    @torch.no_grad()
+    def refine_from_ids(self, latent, clip_g_ids, neg_clip_g_ids=None, *,
+                        refiner: DiffusionModel, width: int = 1024,
+                        height: int = 1024, steps: int = 20,
+                        cfg_scale: float = 7.0, denoise: float = 0.25,
+                        aesthetic_score: float = 6.0,
+                        negative_aesthetic_score: float = 2.5,
+                        seed: int = 0, decode: bool = True,
+                        sampler: str = "euler", scheduler: str = "normal",
+                        noise=None, sampler_noise=None) -> np.ndarray:
+        """The SDXL refiner pass (the ensemble-of-experts second stage).
+
+        The refiner UNet conditions on CLIP-G only (1280-wide context) and
+        replaces the base model's target-size embeddings with an aesthetic
+        score: y = pooled_g ⊕ emb256(h, w, crop_h, crop_w, aesthetic) →
+        adm 2560. ``latent`` is the base model's output (h/8, w/8, 4) or
+        (1, h/8, w/8, 4); it is re-noised to the σ at 1 − ``denoise`` of
+        the schedule (``noise``: that standard-normal draw) and sampled
+        down."""
+        device = refiner.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def cond(g_ids, score):
+            g_out = self.clip_g.encode(_ids(g_ids, device))
+            y = torch.cat([g_out["pooled"], _size_embedding(
+                [height, width, 0, 0, score], g_out["pooled"])], dim=-1)
+            return g_out["penultimate"], y
+
+        conds = cond(clip_g_ids, aesthetic_score)
+        nconds = None
+        if cfg_scale != 1.0 and neg_clip_g_ids is not None:
+            nconds = cond(neg_clip_g_ids, negative_aesthetic_score)
+        sigmas = kd.make_schedule(scheduler, steps, kd.ddpm_sigmas())
+        first = min(int(round((1.0 - denoise) * steps)), steps - 1)
+        sigmas = sigmas[first:]
+        lat = _on(latent, device, torch.bfloat16)
+        if lat.dim() == 3:
+            lat = lat[None]
+        n = _noise_or_draw(noise, tuple(lat.shape), gen, device,
+                           torch.bfloat16)
+        x = (lat.to(torch.float32) + (n.to(torch.float32) * float(
+            sigmas[0])).to(torch.bfloat16).to(torch.float32)).to(
+                torch.bfloat16)
+        out = _sample_unet(refiner, cfg_scale, conds, nconds, x, sigmas,
+                           sampler, gen, sampler_noise)
+        if not decode:
+            return out[0].to(torch.float32).cpu().numpy()
+        return _decoded(self.vae_params, self.vae_config, out)
 
 
 # ---------------------------------------------------------------------------
@@ -636,3 +1074,86 @@ def flux_engine(model: DiffusionModel, h_lat: int, w_lat: int,
          "guidance": torch.float32},
         max_batch=max_batch, pipeline_depth=pipeline_depth,
         sampler=sampler, params_provider=params_provider)
+
+
+def sd3_engine(model: DiffusionModel, max_batch: int = 4,
+               pipeline_depth: int = 1, sampler: str = "euler",
+               dp_mesh=None):
+    """Continuous-batching engine for a loaded SD3/SD3.5 model.
+
+    Requests carry spatial latents (h_lat, w_lat, C) + cond {"ctx" (L,
+    context_dim), "pooled" (pooled_dim,)}; one tick advances the pool by
+    one step (no CFG: one conditional forward a tick, as in the
+    reference). A depth-stacked tree (``DiffusionModel.stack()``) takes
+    ``forward_stacked``; ``sampler="dpmpp_2m"`` runs per-lane 2nd-order
+    multistep (see ``flux_engine``). ``dp_mesh`` is not ported yet and
+    raises."""
+    fwd = (sd3_model.forward_stacked if model.is_stacked
+           else sd3_model.forward)
+
+    def velocity(params, x, s_cur, cond):
+        return fwd(params, model.config, x, cond["ctx"], cond["pooled"],
+                   s_cur, qcfg=model.qcfg)
+
+    return make_flow_engine(
+        model, velocity, {"ctx": torch.bfloat16, "pooled": torch.bfloat16},
+        max_batch=max_batch, pipeline_depth=pipeline_depth,
+        sampler=sampler, dp_mesh=dp_mesh)
+
+
+def unet_engine(model: DiffusionModel, max_batch: int = 4,
+                pipeline_depth: int = 1, sampler: str = "euler"):
+    """Continuous-batching engine for a loaded SD1/SDXL eps-prediction UNet.
+
+    Requests carry (H, W, C) σ-scaled latents (noise × sigmas[0]) + cond
+    {"ctx", "nctx", "cfg_scale"} (+ "adm", the pooled/size vector, for
+    SDXL) and a k-diffusion σ schedule (``kdiffusion.make_schedule``). Each
+    tick runs one per-request-σ step in the k-diffusion parameterization
+    (denoised = x − σ·eps(x·c_in, t(σ)), t from ``sigma_to_t`` on
+    ``ddpm_sigmas``) with per-request CFG mixing: two forwards a tick.
+    ``sampler="dpmpp_2m"`` runs per-lane 2nd-order multistep on the
+    denoised prediction. Mixed-progress batches are exact because σ and
+    the multistep history are per lane."""
+    from .serving import (ContinuousBatchEngine, flow_multistep_aux_init,
+                          lane_dpmpp_2m_update)
+
+    if sampler not in ("euler", "dpmpp_2m"):
+        raise ValueError(f"sampler must be euler|dpmpp_2m, got {sampler!r}")
+    table = kd.ddpm_sigmas()
+    needs_adm = model.config.adm_in_channels is not None
+
+    def eps_cfg(x, s_cur, cond):
+        x = x.to(torch.bfloat16)
+        c_in = 1.0 / torch.sqrt(1.0 + _sig_expand(s_cur, x) ** 2)
+        t = kd.sigma_to_t(s_cur.to(torch.float32), table)
+        xs = (x.to(torch.float32) * c_in).to(x.dtype)
+        y = cond["adm"].to(torch.bfloat16) if needs_adm else None
+        e_c, e_u = (unet_model.forward(
+            model.params, model.config, xs, t, cond[k].to(torch.bfloat16),
+            y, qcfg=model.qcfg).to(torch.float32) for k in ("ctx", "nctx"))
+        return e_u + _sig_expand(cond["cfg_scale"], x) * (e_c - e_u)
+
+    if sampler == "euler":
+        @torch.no_grad()
+        def step_fn(x, s_cur, s_next, cond):
+            # denoised = x − σ·eps, so d = (x − denoised) / σ = eps
+            eps = eps_cfg(x, s_cur, cond)
+            x = x.to(torch.bfloat16)
+            return (x.to(torch.float32)
+                    + _sig_expand(s_next - s_cur, x) * eps).to(x.dtype)
+
+        return ContinuousBatchEngine(step_fn, max_batch=max_batch,
+                                     pipeline_depth=pipeline_depth,
+                                     device=model.device)
+
+    @torch.no_grad()
+    def step_fn2m(x, s_cur, s_next, cond, aux):
+        eps = eps_cfg(x, s_cur, cond)
+        x = x.to(torch.bfloat16)
+        denoised = x.to(torch.float32) - _sig_expand(s_cur, x) * eps
+        return lane_dpmpp_2m_update(x, denoised, s_cur, s_next, aux)
+
+    return ContinuousBatchEngine(step_fn2m, max_batch=max_batch,
+                                 pipeline_depth=pipeline_depth,
+                                 aux_init=flow_multistep_aux_init,
+                                 device=model.device)

@@ -5,7 +5,8 @@ int8 flash attention and its prep, K7 flash attention, K8 GEMM probes)
 runs on the card beside its plain version on the same inputs, at small
 shapes that cover the ragged edges: M=1, M not a multiple of the tile, K
 padded, R not a multiple of 128, the GELU tail, odd key lengths, Lq != Lk
-and strided views; K6 at head dims 128 and 256 and in its split instance
+and strided views; K7 also at SD1's head dims 40, 80 and 160; K6 at head
+dims 128 and 256 and in its split instance
 (384, 512). K1/K2 run through
 both of their bodies (split-K for M <= 8, wgmma above) over every format
 of each layout; K4 through both of its tile widths. One-hot rows check
@@ -247,6 +248,24 @@ def test_i8mm_tile_widths_and_ragged_edges(cuda, M, bn, R, qtype):
         _check_i8(cuda, ip, M, bias, act, bn)
 
 
+@pytest.mark.parametrize("M", [1, 4, 77, 1024])
+def test_unet_narrow_linears(cuda, M):
+    """The UNet's narrowest linears (SD1's level 0: K = 320, no multiple of
+    Q4_K's 256-element block, padded to 512; N = 320 outputs), the GEGLU
+    projection (320 → 2560) and a 1280-wide input, through K1/K2 (both
+    bodies: M <= 4 split-K, wgmma above) and K4 after requantize_i8, in a
+    real Q8_0 encoding and a seed-made Q4_K tree as the SD1 run makes it."""
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    for R, K in ((320, 320), (2560, 320), (320, 1280)):
+        for pq in (_planar(Q.Q8_0, R, K, seed=R + K, device=cuda),
+                   random_planar(Q.Q4_K, (R, K), gen, device=cuda)):
+            assert pq.padded_in > K
+            _check_qmm(cuda, pq, M, K, R, True, None, seed=M + R)
+            _check_i8(cuda, requantize_i8(pq), M, True, None)
+
+
 def test_i8mm_kernel_on_stacked_view(cuda):
     a, b = (requantize_i8(_planar(Q.Q4_K, 384, 1024, seed=s, device=cuda))
             for s in (1, 2))
@@ -354,6 +373,73 @@ def test_flash_kernel_on_qkv_views(cuda, D):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     got = flash_attn_cuda(q, k, v, D ** -0.5)
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+SD_ATTN_CASES = [
+    # B, H, Lq, Lk, D: SD1's head dims (8 heads over 320, 640 and 1280
+    # channels) on the padded instances — self attention, cross attention
+    # over the 77 CLIP tokens (a ragged key tile), the 64-token mid block,
+    # B > 1, a ragged query tile and Lk below one key tile
+    (1, 8, 1024, 1024, 40),
+    (2, 8, 300, 77, 40),
+    (1, 8, 256, 256, 80),
+    (2, 3, 200, 77, 80),
+    (1, 8, 256, 256, 160),
+    (1, 8, 64, 64, 160),
+    (2, 8, 256, 77, 160),
+    (1, 2, 130, 300, 160),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", SD_ATTN_CASES, ids=str)
+def test_flash_kernel_padded_head_dims(cuda, B, H, Lq, Lk, D):
+    """Head dims 40, 80 and 160 run the 64-, 128- and 192-wide instances on
+    columns TMA zero-fills; the output keeps the true D and the scale is
+    D^-0.5 of the true D."""
+    g = torch.Generator(device=cuda).manual_seed(Lq * 5 + Lk + D)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    before = _build.LAUNCHES["flash_attn"]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn"] == before + 1
+    assert got.shape == (B, H, Lq, D) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+@pytest.mark.parametrize("D", [40, 80, 160])
+def test_flash_kernel_padded_on_projection_views(cuda, D):
+    """q/k/v as the strided (B, L, H·D) projection views SD1's attention
+    hands the kernel (L strides of 640, 1280 and 2560 bytes), read in
+    place, with a cross-attention key length of 77."""
+    B, H, Lq, Lk = 2, 8, 192, 77
+    g = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn((B, Lq, H * D), generator=g, device=cuda).bfloat16()
+    ctx = torch.randn((B, Lk, 2, H * D), generator=g,
+                      device=cuda).bfloat16()
+    q = x.reshape(B, Lq, H, D).transpose(1, 2)
+    k = ctx[:, :, 0].reshape(B, Lk, H, D).transpose(1, 2)
+    v = ctx[:, :, 1].reshape(B, Lk, H, D).transpose(1, 2)
+    assert not q.is_contiguous() and not v.is_contiguous()
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+def test_flash_kernel_refuses_what_it_has_no_instance_for(cuda):
+    """A head dim without an instance raises and names the ones there are;
+    a view TMA cannot read (an 8-byte offset) raises rather than being
+    copied; nothing falls back to another attention route."""
+    before = _build.LAUNCHES["flash_attn"]
+    for D in (32, 96, 256):
+        q = torch.zeros((1, 2, 16, D), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="40, 64, 80, 128, 160"):
+            flash_attn_cuda(q, q, q, D ** -0.5)
+    buf = torch.zeros((1, 2, 16, 40 + 4), device=cuda, dtype=torch.bfloat16)
+    q = buf[..., 4:]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attn_cuda(q, q, q, 40 ** -0.5)
+    assert _build.LAUNCHES["flash_attn"] == before
 
 
 I8ATTN_CASES = [
@@ -924,3 +1010,30 @@ def test_flux_engine_ticks_on_the_card(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape == (64, dims.in_ch)
         assert _rel_l2(torch.from_numpy(g), torch.from_numpy(w)) < 3e-2
+
+
+def test_unet_forward_is_batch_invariant(cuda):
+    """A UNet forward at B = 3 gives each sample the bits it gets at B = 1:
+    the convolutions and group norms run each sample alone, the linears and
+    attention are row-independent (what lets ``unet_engine`` hold a served
+    request to the direct step through CFG)."""
+    from comfyui_gguf_tpu_torch.models import testing, unet
+
+    d = testing.SDXLDims(model_channels=64, channel_mult=(1, 2),
+                         num_res_blocks=1, depths=(1, 1), ctx=128, adm=256)
+    params = testing.sdxl_random_params(d, seed=2, device=cuda)
+    for k in list(params):
+        if k.endswith("attn1.to_q.weight"):
+            params[k] = requantize_i8(params[k])  # K4 on some linears
+    cfg = unet.UNetConfig.from_state_dict(params)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((3, 32, 32, 4), generator=g, device=cuda).bfloat16()
+    ctx = torch.randn((3, 77, 128), generator=g, device=cuda).bfloat16()
+    y = torch.randn((3, 256), generator=g, device=cuda).bfloat16()
+    t = torch.tensor([900.0, 500.0, 20.0], device=cuda)
+    with torch.no_grad():
+        both = unet.forward(params, cfg, x, t, ctx, y)
+        for i in range(3):
+            one = unet.forward(params, cfg, x[i:i + 1], t[i:i + 1],
+                               ctx[i:i + 1], y[i:i + 1])
+            assert torch.equal(both[i:i + 1], one)
