@@ -5,13 +5,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--depth-double N] [--depth-single N] [--steps N]
                           [--t5-layers N] [--sd3-depth N] [--sd3-steps N]
-                          [--unet-steps N]
+                          [--unet-steps N] [--aura-depth-single N]
+                          [--aura-steps N] [--lumina-depth N]
+                          [--lumina-steps N] [--llama-layers N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
-CLIP-L encode, denoise, VAE decode), SD3.5-large and the SD1/SDXL UNets —
-on the card through the entry points a user calls, and fails (non-zero
-exit, no result line) on any failed phase:
+CLIP-L encode, denoise, VAE decode), SD3.5-large, the SD1/SDXL UNets,
+AuraFlow v0.3 and Lumina Image 2.0 — on the card through the entry points
+a user calls, and fails (non-zero exit, no result line) on any failed
+phase:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
@@ -19,8 +22,8 @@ exit, no result line) on any failed phase:
    (one nvcc per source, in parallel) and loaded; ``ptxas`` registers (and,
    for the int8 attention, its prep and the GEMM probes, spills; for the
    fused matmuls each instance's registers and spills, the LoRA instances
-   beside the unpatched ones) and the dynamic shared memory of the TMA-fed
-   kernels are printed;
+   beside the unpatched ones; for flash attention each head-dim instance's)
+   and the dynamic shared memory of the TMA-fed kernels are printed;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
@@ -122,7 +125,39 @@ exit, no result line) on any failed phase:
    40-, 80- and 160-wide instances, 10, 10 and 12 times a forward; then
    ``unet_engine(max_batch=4)`` serves three SDXL requests (CFG 7, 5, 3)
    for min(``--steps``, 4) steps, each within 1e-2 of the same step at
-   batch 1.
+   batch 1;
+13. AuraFlow v0.3: ``AURA_V03_DIMS`` (hidden 3072, 12 heads of 256, 4
+   double + 32 single layers unless ``--aura-depth-single`` cuts them),
+   seed-made Q4_K stacked, with Pile-T5-XL (24 layers, Q8_0) through
+   ``AuraPipeline.generate`` at 1024² (4096 image + 256 text + 8 register
+   tokens), ``--aura-steps`` (20) steps, CFG 3.5, shift 1.73, with a
+   negative prompt, on the bf16-fused tree and then on the w8a8 tree;
+   K7's 256-wide instance must launch 36 times a forward; then one
+   forward of each tree runs with every kernel call also through its plain
+   version on the same operands: K4 and K1/K2 within 2e-3, K7 within 1e-2,
+   and each K4 call's control (its plain version with unrounded
+   activations) above 2e-3; on the w8a8 tree every block, fed the
+   bf16-fused tree's inputs to it, within 1e-1 of the bf16-fused block;
+   the w8a8 tree's distance from the bf16-fused one over a forward and in
+   the final latent is recorded (the random stack carries a last-bit
+   difference on through the int8 activation codes and grows it: PERF.md,
+   Findings, PR 9); a bf16-fused forward under ``attention_i8("pv")`` at
+   a 248-token prompt (4352 tokens, inside the int8 gate) takes K6's
+   256-wide instance in every layer, each K6 call within 1e-2 of its plain
+   version and every block within 3e-2 of the same block with the default
+   attention; then
+   ``aura_engine(max_batch=2)`` serves two requests for min(steps, 4)
+   steps, each within 1e-2 of ``sample_flow`` at batch 1;
+14. Lumina Image 2.0: ``LUMINA2_DIMS`` (dim 2304, 24 heads of 96, 26 layers
+   unless ``--lumina-depth`` cuts them, 2 + 2 refiners), seed-made Q4_K
+   stacked, with the llama graph at Gemma-2-2b's shapes (Q8_0,
+   ``--llama-layers`` (26) layers, its 256000-row embedding through the
+   loader's big-embed guard) through ``Lumina2Pipeline.generate`` at 1024²,
+   ``--lumina-steps`` (20) steps, CFG 4.0, shift 6.0; the same two trees,
+   checks and records as phase 13; K7's 96-wide launches (the 128-wide
+   instance) must be 30 a forward; then ``lumina2_engine`` as phase 13's
+   engine. Phases 13
+   and 14 free their trees (``lifecycle.free_tree``) when they end.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -131,10 +166,16 @@ paths from files the port's writers make: three tiny SD3 variants (qk-norm,
 a dual-attention prefix, neither) planar and w8a8 stacked, a tiny
 ``SD3Pipeline`` (negative prompt, img2img, inpainting, a kohya LoRA), tiny
 SD1 and SDXL pipelines and the refiner, and ``sd3_engine`` and
-``unet_engine`` with three requests each. Phase 3 also times K4, K7 and the
-split-K body at the serving shapes of four stacked requests, K7 at SD1's
-head dims 40, 80 and 160 and the sd3.5-large joint length, and K4 and the
-split-K body at the sd3.5-large and SD1 shapes.
+``unet_engine`` with three requests each. Phase 4e does it for tiny
+AuraFlow (two heads of 256) and Lumina 2 (16 heads of 96) GGUFs with a
+2-layer T5 and a 2-layer llama-family encoder (65536 tokens, so its
+embedding takes the big-embed guard): both pipelines with a negative
+prompt on the planar trees, then both engines on the w8a8 stacked trees.
+Phase 3 also times K4, K7 and the split-K body at the serving shapes of
+four stacked requests, K7 at SD1's head dims 40, 80 and 160 and the
+sd3.5-large joint length, K4 and the split-K body at the sd3.5-large and
+SD1 shapes, and K7 (96 and 256), K4, K1/K2 and K6 (256) at the AuraFlow,
+Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -144,10 +185,12 @@ the kernel table as JSON, then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -172,6 +215,27 @@ I8ATTN_DELTA_MAX = 3e-2
 # most relative L2 allowed between a sampler's latent on the card and on
 # the CPU (phase 4c), the tiny end-to-end limit of phase 4
 SAMPLER_DELTA_MAX = 3e-2
+# most relative L2 allowed between a kernel call of a full-width forward
+# and its plain version on the same operands (phases 13-14: every call of
+# one forward of each tree and under attention_i8). A call, not a forward
+# or a block: a w8a8 stack carries any last-bit difference on by moving
+# int8 activation codes a step, and each moved code moves the next
+# linear's rows and their codes in turn, so two forwards, and two runs of
+# one block already, drift apart by up to the int8 rounding noise itself
+# (PERF.md, Findings, PR 9). Set from readings (H100, PR 9): K4 read 0 (it
+# takes its plain version's int8 codes and sums them exactly) and its
+# control, the plain version with the activations left unrounded, 7.4e-3
+# at the least, which every K4 call's control must stay above; K1/K2 read
+# 2.7e-4 at most; K7 and K6 1.1e-3 and 4.2e-3, under phase 3's 1e-2
+CALL_PLAIN_DELTA_MAX = {"K4": 2e-3, "K1/K2": 2e-3, "K7": 1e-2, "K6": 1e-2}
+# most relative L2 allowed between a w8a8 block and the bf16-fused block on
+# the same inputs (phases 13-14): the accuracy cost of int8 activations and
+# weights in one block, before later blocks carry it on. Set from readings
+# (H100, PR 9): 5.7e-2 at most (AuraFlow's first block; Lumina 2 1.8e-2).
+# It bounds the conversion's local cost and catches gross faults; the K4
+# kernel is held by the call gate above, the conversion's arithmetic by the
+# CPU tests against the reference. The final latents' distance is recorded
+W8A8_BLOCK_DELTA_MAX = 1e-1
 # most relative L2 allowed between a served request's latent and the same
 # request sampled alone at batch 1 (phase 9), and between a restored
 # engine's and an uninterrupted one's
@@ -208,7 +272,7 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8mm.py:81"),
     **{f"flash_attn_d{d}": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                             "comfyui_gguf_tpu/nn/attention.py:168")
-       for d in (40, 64, 80, 128, 160)},
+       for d in (40, 64, 80, 96, 128, 160, 256)},
     "i8attn_pv": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
     "i8attn_qk": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
@@ -228,10 +292,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# sources whose ptxas lines phase 2 prints per instance: the LoRA
-# instances and the unpatched instances beside them
-LORA_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
-                "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu")
+# sources whose ptxas lines phase 2 prints per named instance: the LoRA
+# instances and the unpatched instances beside them, and flash attention's
+# head-dim instances
+NAMED_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
+                 "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu",
+                 "flash_attn.cu")
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -363,9 +429,16 @@ def kernel_phase(dev, sfu_per_s):
         plain = event_ms(lambda: plain_i8mm(x, ip, bias=bias,
                                             act_from_col=act))
         # the fair yardstick: B in the TN form cuBLASLt's int8 path reads,
-        # the (R, K) K-contiguous codes seen as (K, R); no copy
-        w_rk = ip.qs[:R, :K]
-        lib = library_ms(lambda: torch._int_mm(xq, w_rk.t()))
+        # the (R, K) K-contiguous codes seen as (K, R), no copy; then the
+        # f32 rescale and the bf16 cast. _int_mm refuses M <= 16, so there
+        # the quantized activation is padded to 32 rows (the same weight
+        # bytes are read)
+        w_rk, ws = ip.qs[:R, :K], ip.scales[:, :R]
+        xq_l, xs_l = ((torch.cat([xq, xq.new_zeros(32 - M, K)]),
+                       torch.cat([xs, xs.new_zeros(32 - M, 1)]))
+                      if M <= 16 else (xq, xs))
+        lib = library_ms(lambda: (torch._int_mm(xq_l, w_rk.t()) * xs_l
+                                  * ws).to(torch.bfloat16))
         nbytes = M * K + 4 * M + ip.nbytes_packed + 4 * R + 2 * M * R
         b_ms, b_by = bound(nbytes, 2.0 * M * K * R, PEAK_INT8)
         rows.append(dict(name=name, kernel="i8mm",
@@ -375,7 +448,9 @@ def kernel_phase(dev, sfu_per_s):
                          ms=tile_ms[pick], tile_ms=tile_ms, plain_ms=plain,
                          library_ms=lib,
                          library="torch._int_mm(xq, w_rk.t()) (s8 x s8 -> "
-                                 "s32 only, TN)",
+                                 "s32 only, TN) * xs * ws -> bf16"
+                                 + (f" (xq padded from {M} to 32 rows)"
+                                    if M <= 16 else ""),
                          bound_ms=b_ms, bound_by=b_by))
 
     def lora_operands(M, R, rank, unpatched):
@@ -492,9 +567,9 @@ def kernel_phase(dev, sfu_per_s):
         base_ms = graph_ms([lambda: i8mm_cuda_q(xq, xs, ip, **kw)])
         plain = event_ms(lambda: plain_i8mm(x, ip, lora_h=h, lora_up=upt,
                                             **kw))
-        w_rk = ip.qs[:R, :K]
-        lib = library_ms(lambda: (torch._int_mm(xq, w_rk.t()),
-                                  torch.matmul(h, upt)))
+        w_rk, ws = ip.qs[:R, :K], ip.scales[:, :R]
+        lib = library_ms(lambda: (torch._int_mm(xq, w_rk.t()) * xs * ws
+                                  + torch.matmul(h, upt)).to(torch.bfloat16))
         nbytes = (M * K + 4 * M + ip.nbytes_packed + 4 * R + 2 * M * R
                   + 2 * rank * (M + R))
         t_ops = 2.0 * M * K * R / PEAK_INT8 + 2.0 * M * R * rank / PEAK_BF16
@@ -815,6 +890,52 @@ def kernel_phase(dev, sfu_per_s):
         prep_case(f"i8attn_prep {mode} flux L=4608 D=128", mode, 1, 24, 4608)
     prep_case("i8attn_prep pv H=12 L=4608 D=256", "pv", 1, 12, 4608, 256)
     prep_case("i8attn_prep pv H=4 L=2048 D=512", "pv", 1, 4, 2048, 512)
+    # AuraFlow v0.3 and Lumina 2 at 1024² (phases 13 and 14). K7 at
+    # AuraFlow's joint length (4096 image + 256 Pile-T5 + 8 register tokens,
+    # 12 heads of 256, the 256-wide instance) and Lumina 2's three lengths
+    # (26 main layers over 256 caption + 4096 image tokens, the noise
+    # refiner over 4096, the context refiner over 256; 24 heads of 96 on
+    # the 128-wide instance)
+    attn_case("flash_attn aura joint L=4360 D=256", 1, 12, 4360, 4360, 256)
+    attn_case("flash_attn lumina2 joint L=4352 D=96", 1, 24, 4352, 4352, 96)
+    attn_case("flash_attn lumina2 noise refiner L=4096 D=96", 1, 24, 4096,
+              4096, 96)
+    attn_case("flash_attn lumina2 context refiner L=256 D=96", 1, 24, 256,
+              256, 96)
+    # K4 after requantize_i8: AuraFlow's image-stream projection, its
+    # single layers' gated MLP over the joint length, and modC (no
+    # modulation key by the reference's rule, so int8 at M = batch: ROADMAP
+    # queue 3); Lumina 2's fused qkv and FFN over the joint length
+    i8_case("i8mm aura w2q M=4096 3072->3072", 4096, 3072, 3072, None)
+    i8_case("i8mm aura c_fc1 M=4360 3072->8192", 4360, 3072, 8192, None)
+    i8_case("i8mm aura c_proj M=4360 8192->3072", 4360, 8192, 3072, None)
+    i8_case("i8mm aura modC M=1 3072->18432", 1, 3072, 18432, None)
+    i8_case("i8mm lumina2 qkv M=4352 2304->6912", 4352, 2304, 6912, None)
+    i8_case("i8mm lumina2 w1 M=4352 2304->6144", 4352, 2304, 6144, None)
+    i8_case("i8mm lumina2 w2 M=4352 6144->2304", 4352, 6144, 2304, None)
+    # K1's split-K body on Lumina 2's adaLN (kept planar on the w8a8
+    # tree); K1's wgmma body on the bf16-fused trees; K2 on the Pile-T5-XL
+    # and the Gemma-shaped llama-graph linears at 256 tokens (enough copies
+    # to exceed the L2 cache, as their 24 and 26 layers do)
+    qmm_case("qmm_nib4 lumina2 adaLN M=1 2304->9216 Q4_K", "qmm_nib4_smallm",
+             Q.Q4_K, 1, 2304, 9216, None, 4, 5e-3)
+    qmm_case("qmm_nib4 aura c_fc1 M=4360 3072->8192 Q4_K", "qmm_nib4",
+             Q.Q4_K, 4360, 3072, 8192, None, 1, 5e-3, with_bias=False)
+    qmm_case("qmm_nib4 lumina2 qkv M=4352 2304->6912 Q4_K", "qmm_nib4",
+             Q.Q4_K, 4352, 2304, 6912, None, 1, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 Pile-T5 q/k/v/o M=256 2048->2048 Q8_0", "qmm_int8",
+             Q.Q8_0, 256, 2048, 2048, None, 8, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 Pile-T5 wi M=256 2048->5120 Q8_0", "qmm_int8", Q.Q8_0,
+             256, 2048, 5120, None, 4, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 llama q M=256 2304->2048 Q8_0", "qmm_int8", Q.Q8_0,
+             256, 2304, 2048, None, 8, 5e-3, with_bias=False)
+    qmm_case("qmm_int8 llama gate/up M=256 2304->9216 Q8_0", "qmm_int8",
+             Q.Q8_0, 256, 2304, 9216, None, 2, 5e-3, with_bias=False)
+    # K6's 256-wide instance at AuraFlow's joint attention: the int8 gate
+    # admits 128-multiple lengths only, so a 248-token prompt (4352 tokens
+    # with the image and register tokens; the default 256 gives 4360, which
+    # the gate refuses)
+    i8attn_case("i8attn_pv aura H=12 L=4352 D=256", "pv", 1, 12, 4352, 256)
     # K8: the probes at the tool's problem size
     probe_cases()
     return rows
@@ -2198,6 +2319,156 @@ def sd_tiny_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: tiny AuraFlow and Lumina 2 end to end, card against CPU
+# ---------------------------------------------------------------------------
+
+# AuraFlow: two heads of 256 (K7's 256-wide instance); Lumina 2: 16 heads
+# of 96 (the 128-wide instance on zero-filled columns); linears wide enough
+# to load as packed leaves (K >= 512); a llama-family encoder of 65536
+# tokens, so that its embedding takes the loader's big-embed guard
+TINY_AURA = dict(hidden=512, depth_double=2, depth_single=2, mlp=1024,
+                 in_ch=4, cond_dim=512, n_register_tokens=8, max_tokens=256)
+TINY_LUMINA2 = dict(dim=1536, n_heads=16, n_layers=2, n_refiner=1,
+                    n_context_refiner=1, ffn=4096, in_ch=16, cap_dim=1024)
+TINY_LLAMA = dict(hidden=1024, n_layers=2, n_heads=32, n_kv_heads=8,
+                  head_dim=32, intermediate=2048, vocab=65536)
+
+
+def _write_dit_files(tmp):
+    """The tiny AuraFlow and Lumina 2 GGUFs (Q4_K, quantized as published
+    files are), a 2-layer Q8_0 T5 GGUF with tokenizer metadata and a
+    2-layer Q8_0 llama GGUF with gpt2-BPE metadata, written by the port's
+    writers under ``tmp``."""
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    f = {}
+    for arch, dims, spec in (
+            ("aura", testing.AuraDims(**TINY_AURA), testing.aura_shape_spec),
+            ("lumina2", testing.Lumina2Dims(**TINY_LUMINA2),
+             testing.lumina2_shape_spec)):
+        f[arch] = (os.path.join(tmp, f"{arch}.gguf"), dims)
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=0),
+            f[arch][0], arch, Q.Q4_K)
+    f["t5"] = os.path.join(tmp, "t5.gguf")
+    testing.write_t5_gguf(
+        testing.t5_state_dict(testing.T5Dims(
+            d_model=TINY_AURA["cond_dim"], d_kv=64, n_heads=8, d_ff=1024,
+            n_layers=2, vocab=128), seed=2), f["t5"], qtype=Q.Q8_0,
+        tokenizer=testing.unigram_spec(128))
+    f["llama"] = os.path.join(tmp, "llama.gguf")
+    ld = testing.LlamaDims(**TINY_LLAMA)
+    testing.write_llama_gguf(testing.llama_state_dict(ld, seed=3),
+                             f["llama"], qtype=Q.Q8_0,
+                             tokenizer=testing.bpe_spec(ld.vocab))
+    return f
+
+
+def dit_tiny_phase(dev):
+    """Phase 4e: AuraFlow and Lumina 2 at tiny widths from files written by
+    the port's writers, on the card and on the CPU with the same noise,
+    within 3e-2 (relative L2): ``load_diffusion_model``,
+    ``load_text_encoder`` (T5; the llama graph), ``AuraPipeline.generate``
+    and ``Lumina2Pipeline.generate`` with a negative prompt (CFG) on the
+    planar trees, then ``aura_engine`` and ``lumina2_engine`` serving two
+    requests each on the w8a8 stacked trees."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import (
+        AuraPipeline, Lumina2Pipeline, aura_engine, load_diffusion_model,
+        load_text_encoder, lumina2_engine)
+    from comfyui_gguf_tpu_torch.sampling import linear_schedule
+
+    devs = (dev, "cpu")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    f = _write_dit_files(tmp.name)
+
+    def check(name, a, b, counts, need):
+        a = torch.as_tensor(np.asarray(a, np.float32))
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        err = rel_l2(a, b)
+        out[name] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  {name}: card vs CPU plain rel L2 {err:.3e}, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if not bool(torch.isfinite(a).all()) or not err <= SAMPLER_DELTA_MAX:
+            raise SystemExit(f"{name}: card vs CPU rel L2 {err} > "
+                             f"{SAMPLER_DELTA_MAX}")
+        for k in need:
+            if counts[k] == 0:
+                raise SystemExit(f"{name} launched no {k}")
+
+    def on_card(fn):
+        _build.reset_launch_counts()
+        a = fn(0)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        return a, fn(1), counts
+
+    size = 128
+    models = {arch: [load_diffusion_model(f[arch][0], device=d)
+                     for d in devs] for arch in ("aura", "lumina2")}
+    t5 = [load_text_encoder(f["t5"], device=d) for d in devs]
+    text = [load_text_encoder(f["llama"], device=d) for d in devs]
+    if text[0].kind != "llama" or text[0].tokenizer is None:
+        raise SystemExit("load_text_encoder did not build the llama graph "
+                         "with its tokenizer")
+    if not isinstance(text[0].params["model.embed_tokens.weight"],
+                      torch.Tensor):
+        raise SystemExit("the 65536-row embedding did not take the "
+                         "big-embed guard")
+    pipes = {"aura": [AuraPipeline(models["aura"][i], t5[i])
+                      for i in range(2)],
+             "lumina2": [Lumina2Pipeline(models["lumina2"][i], text[i])
+                         for i in range(2)]}
+    need = {"aura": ("flash_attn_d256", "qmm_nib4", "qmm_int8"),
+            "lumina2": ("flash_attn_d96", "qmm_nib4", "qmm_nib4_smallm",
+                        "qmm_int8")}
+    for arch, cfg_scale in (("aura", 3.5), ("lumina2", 4.0)):
+        C = models[arch][0].config.in_channels
+        noise = torch.randn((1, size // 8, size // 8, C),
+                            generator=torch.Generator().manual_seed(7))
+        a, b, c = on_card(lambda i: pipes[arch][i].generate(
+            PROMPTS[0], width=size, height=size, steps=2,
+            cfg_scale=cfg_scale, negative_prompt="rain", max_len=32,
+            noise=noise))
+        check(f"tiny {type(pipes[arch][0]).__name__} (CFG {cfg_scale})", a,
+              b, c, need[arch])
+
+    # the engines on the w8a8 stacked trees: two requests each, at CFG 4
+    # and 1, of different lengths
+    rng = np.random.default_rng(11)
+    for arch, mk, ck, nk in (("aura", aura_engine, "ctx", "nctx"),
+                             ("lumina2", lumina2_engine, "cap", "ncap")):
+        ms = [m.requantize_i8().stack() for m in models[arch]]
+        cfg = ms[0].config
+        width = cfg.cond_dim if arch == "aura" else cfg.cap_dim
+        reqs = [(rng.standard_normal((16, 16, cfg.in_channels)).astype(
+                     np.float32),
+                 {ck: rng.standard_normal((24, width)).astype(np.float32),
+                  nk: rng.standard_normal((24, width)).astype(np.float32),
+                  "cfg_scale": np.float32(scale)}, linear_schedule(2 + i))
+                for i, scale in enumerate((4.0, 1.0))]
+
+        def serve(i):
+            eng = mk(ms[i], max_batch=2)
+            hs = [eng.submit(x.copy(), dict(c), s) for x, c, s in reqs]
+            eng.run_until_drained()
+            if any(h.error is not None or not h.finished for h in hs):
+                raise SystemExit(f"tiny {arch} engine: a request failed")
+            return np.stack([h.result for h in hs])
+        a, b, c = on_card(serve)
+        check(f"tiny {mk.__name__} w8a8 stacked (2 requests)", a, b, c,
+              ("i8mm", f"flash_attn_d{256 if arch == 'aura' else 96}"))
+    tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the SD3.5-large denoise at published width and full depth
 # ---------------------------------------------------------------------------
 
@@ -2630,6 +2901,562 @@ def unet_phase(dev, clip_l, clip_g, steps, engine_steps):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: AuraFlow v0.3 and Lumina 2 at published width and depth
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper a forward reaches replaced by its plain PyTorch
+    version, on the card's own tensors: the same arithmetic without the
+    hand-written kernels, the full-width oracle of phases 13-14. Fails if a
+    kernel was launched inside the scope."""
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.nn import attention, layers
+    from comfyui_gguf_tpu_torch.ops import i8attn
+    from comfyui_gguf_tpu_torch.ops.i8mm import plain_i8mm
+    from comfyui_gguf_tpu_torch.ops.qmatmul import plain_quantized_matmul
+    from comfyui_gguf_tpu_torch.quant.i8 import I8Planar
+
+    def packed(x, weight, cfg, **kw):
+        if isinstance(weight, I8Planar):
+            return plain_i8mm(x, weight, out_dtype=x.dtype, **kw)
+        return plain_quantized_matmul(x, weight,
+                                      dequant_dtype=cfg.dequant_dtype,
+                                      out_dtype=x.dtype, **kw)
+
+    saved = (layers._packed_matmul, attention.flash_attn_cuda,
+             i8attn.i8_attention_cuda)
+    layers._packed_matmul = packed
+    attention.flash_attn_cuda = attention.plain_attention
+    i8attn.i8_attention_cuda = i8attn.plain_i8_attention
+    before = dict(_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        (layers._packed_matmul, attention.flash_attn_cuda,
+         i8attn.i8_attention_cuda) = saved
+    # an oracle that reached a kernel would compare the kernel with itself
+    moved = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
+             if n != before.get(k, 0)}
+    if moved:
+        raise SystemExit(f"a forward through the plain versions launched "
+                         f"kernels: {moved}")
+
+
+@contextlib.contextmanager
+def _no_activation_rounding():
+    """The control of the K4 call gate: the plain w8a8 matmul with its
+    activations scaled per row but not rounded to int8 codes (a kernel that
+    skipped the rounding would compute this)."""
+    from comfyui_gguf_tpu_torch.ops import i8mm
+
+    saved = i8mm.quantize_rows
+
+    def unrounded(x2):
+        _, xs = saved(x2)
+        return x2.float() / xs, xs
+
+    i8mm.quantize_rows = unrounded
+    try:
+        yield
+    finally:
+        i8mm.quantize_rows = saved
+
+
+@contextlib.contextmanager
+def _block_taps(arch, tap):
+    """Every block call of an ``arch`` forward (AuraFlow's double and
+    single layers; Lumina 2's refiner and main blocks) goes through
+    ``tap(block, args)``; the forward carries on with what it returns."""
+    from comfyui_gguf_tpu_torch.models import aura, lumina2
+
+    mod, names = ((aura, ("_double_layer", "_single_layer"))
+                  if arch == "aura" else (lumina2, ("_block",)))
+    saved = {n: getattr(mod, n) for n in names}
+    for n, block in saved.items():
+        setattr(mod, n, lambda *a, _block=block: tap(_block, a))
+    try:
+        yield
+    finally:
+        for n, block in saved.items():
+            setattr(mod, n, block)
+
+
+def _rel_out(got, want):
+    """Relative L2 of a block's output: a tensor, or AuraFlow's (c, x)."""
+    import torch
+
+    if isinstance(got, tuple):
+        got, want = (torch.cat([t.float().flatten() for t in ts])
+                     for ts in (got, want))
+    return rel_l2(got.float(), want.float())
+
+
+@contextlib.contextmanager
+def _kernel_calls(errs, control=False):
+    """Every kernel wrapper a forward reaches also runs its plain version on
+    the same operands (under ``plain_versions``); the relative L2 of each
+    call goes to ``errs`` by kind ("K1/K2", "K4", "K7", "K6"). With
+    ``control`` each K4 call also runs the plain version with its
+    activations unrounded (→ ``errs["control"]``). The forward carries on
+    with the kernels' outputs."""
+    from comfyui_gguf_tpu_torch.nn import attention, layers
+    from comfyui_gguf_tpu_torch.ops import i8attn
+    from comfyui_gguf_tpu_torch.quant.i8 import I8Planar
+
+    saved = (layers._packed_matmul, attention.flash_attn_cuda,
+             i8attn.i8_attention_cuda)
+
+    def packed(x, weight, cfg, **kw):
+        out = saved[0](x, weight, cfg, **kw)
+        kind = "K4" if isinstance(weight, I8Planar) else "K1/K2"
+        with plain_versions():
+            errs[kind].append(rel_l2(
+                out.float(), layers._packed_matmul(x, weight, cfg,
+                                                   **kw).float()))
+            if control and kind == "K4":
+                with _no_activation_rounding():
+                    errs["control"].append(rel_l2(
+                        out.float(), layers._packed_matmul(x, weight, cfg,
+                                                           **kw).float()))
+        return out
+
+    def flash(q, k, v, scale):
+        out = saved[1](q, k, v, scale)
+        with plain_versions():
+            errs["K7"].append(rel_l2(
+                out.float(), attention.plain_attention(q, k, v,
+                                                       scale).float()))
+        return out
+
+    def i8(q, k, v, **kw):
+        out = saved[2](q, k, v, **kw)
+        with plain_versions():
+            errs["K6"].append(rel_l2(
+                out.float(), i8attn.plain_i8_attention(q, k, v,
+                                                       **kw).float()))
+        return out
+
+    (layers._packed_matmul, attention.flash_attn_cuda,
+     i8attn.i8_attention_cuda) = packed, flash, i8
+    try:
+        yield
+    finally:
+        (layers._packed_matmul, attention.flash_attn_cuda,
+         i8attn.i8_attention_cuda) = saved
+
+
+def _call_gate(errs, what, fails):
+    """Log the worst call of each kernel kind in ``errs`` and hold it to
+    ``CALL_PLAIN_DELTA_MAX``; the control's least K4 call must read above
+    the K4 limit."""
+    kinds = [k for k in ("K1/K2", "K4", "K7", "K6") if errs[k]]
+    log(f"  {what}: each kernel call vs its plain version on the same "
+        f"operands, worst rel L2 "
+        + ", ".join(f"{k} {_worst(errs[k]):.3e} ({len(errs[k])} calls)"
+                    for k in kinds)
+        + (f"; the control (K4 activations unrounded) least "
+           f"{min(errs['control']):.3e}" if errs["control"] else ""))
+    for k in kinds:
+        if not _worst(errs[k]) <= CALL_PLAIN_DELTA_MAX[k]:
+            fails.append(f"{what}: a {k} call differs from its plain "
+                         f"version by rel L2 {_worst(errs[k])} > "
+                         f"{CALL_PLAIN_DELTA_MAX[k]}")
+    if errs["control"] and not min(errs["control"]) > CALL_PLAIN_DELTA_MAX[
+            "K4"]:
+        fails.append(f"{what}: the K4 gate cannot tell the control from the "
+                     f"kernel (rel L2 {min(errs['control'])})")
+
+
+def _call_errs():
+    return {k: [] for k in ("K1/K2", "K4", "K7", "K6", "control")}
+
+
+def _block_check(model, arch, inputs, recorded, replay):
+    """One forward of ``model`` on ``inputs`` through ``_kernel_calls``
+    (its errors → ``calls``), block by block. With ``replay`` false the
+    blocks' inputs and outputs are appended to ``recorded``; with it true
+    each block takes the inputs ``recorded`` holds for it instead and its
+    output is held against the recorded one (→ ``vs_bf16``), and the K4
+    calls also run the control. → the relative L2s."""
+    import torch
+
+    errs = {"calls": _call_errs(), "vs_bf16": []}
+    rec = iter(list(recorded)) if replay else None
+
+    def tap(block, a):
+        if replay:
+            rec_a, rec_out = next(rec)
+            a = (a[0], *rec_a)
+        out = block(*a)
+        if replay:
+            errs["vs_bf16"].append(_rel_out(out, rec_out))
+        else:
+            recorded.append((a[1:], out))
+        return out
+
+    with (torch.no_grad(), _block_taps(arch, tap),
+          _kernel_calls(errs["calls"], control=replay)):
+        model.forward(*inputs)
+    return errs
+
+
+def _worst(errs):
+    return max(errs) if errs else float("nan")
+
+
+def _guarded_embedding(vocab, hidden, seed, dev):
+    """A random Q8_0 token embedding of ``vocab`` rows, as a llama.cpp file
+    stores it, through the loader's big-embed guard (decoded to f16 on the
+    host) and ``to_torch_params`` (a dense bf16 table on the card)."""
+    import numpy as np
+
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.loader import (QTensor, big_embed_guard,
+                                               to_torch_params)
+
+    rng = np.random.default_rng(seed)
+    n = vocab * hidden // 32
+    blocks = np.empty((n, 34), np.uint8)  # f16 scale + 32 s8 codes a block
+    blocks[:, :2] = (rng.random(n, dtype=np.float32) * 2e-4 + 1e-4).astype(
+        np.float16).view(np.uint8).reshape(n, 2)
+    blocks[:, 2:] = rng.integers(-127, 128, (n, 32), dtype=np.int8).view(
+        np.uint8)
+    sd = big_embed_guard({"token_embd.weight": QTensor(
+        name="token_embd.weight", qtype=Q.Q8_0, shape=(vocab, hidden),
+        data=blocks)})
+    if sd["token_embd.weight"].qtype != Q.F16:
+        raise SystemExit("the big-embed guard left the embedding packed")
+    return to_torch_params(sd, device=dev)["token_embd.weight"]
+
+
+def _dit_encoder(dev, arch, enc_layers):
+    """The published-width conditioning encoder of ``arch``, seed-made on
+    the card: Pile-T5-XL (Q8_0) for AuraFlow; for Lumina 2 the llama graph
+    at Gemma-2-2b's shapes (Q8_0, its 256000-row embedding through the
+    big-embed guard) with a 256000-entry byte-level BPE vocabulary."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import llama, t5, testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import TextEncoder
+    from comfyui_gguf_tpu_torch.tokenizer import (BPETokenizer,
+                                                  UnigramTokenizer)
+
+    device = torch.device(dev)
+    if arch == "aura":
+        dims = dataclasses.replace(testing.PILE_T5_XL_DIMS,
+                                   n_layers=enc_layers)
+        params = testing.t5_random_params(dims, qtype=Q.Q8_0, seed=20,
+                                          device=dev)
+        return TextEncoder("t5", params, t5.T5Config.from_state_dict(params),
+                           UnigramTokenizer(testing.unigram_spec(dims.vocab)),
+                           QuantConfig(), device)
+    dims = dataclasses.replace(testing.GEMMA2_2B_LLAMA_DIMS,
+                               n_layers=enc_layers)
+    params = testing.llama_random_params(dims, qtype=Q.Q8_0, seed=21,
+                                         device=dev)
+    params["model.embed_tokens.weight"] = _guarded_embedding(
+        dims.vocab, dims.hidden, 22, dev)
+    return TextEncoder("llama", params,
+                       llama.LlamaConfig.from_state_dict(params),
+                       BPETokenizer(testing.bpe_spec(dims.vocab)),
+                       QuantConfig(), device)
+
+
+def _aura_i8attn_check(model, enc, x0, t, n_attn, res, fails):
+    """AuraFlow on the bf16-fused tree under ``attention_i8("pv")``: K6's
+    256-wide instance in every layer. The int8 gate takes 128-multiple
+    lengths only, so a 248-token prompt (4352 tokens); at the default 256
+    (4360) the gate refuses and K7 runs. One forward counts the launches;
+    a second runs each block also with the default attention (within 3e-2,
+    phase 6's limit) and through the plain versions (the block gate), on
+    the same inputs; the whole forward's distance from the default
+    attention is recorded. → its launches."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.nn.attention import attention_i8
+    from comfyui_gguf_tpu_torch.pipeline import _text_states
+
+    c248 = _text_states(enc, PROMPTS[0], 248)
+    errs_default, calls = [], _call_errs()
+
+    def tap(block, a):
+        out = block(*a)
+        with attention_i8(""):
+            errs_default.append(_rel_out(out, block(*a)))
+        return out
+
+    with torch.no_grad():
+        ref = model.forward(x0, c248, t)
+        _build.reset_launch_counts()
+        with attention_i8("pv"):
+            got = model.forward(x0, c248, t)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        # the default-attention block inside the tap takes K7; its calls
+        # are held to plain too
+        with (attention_i8("pv"), _block_taps("aura", tap),
+              _kernel_calls(calls)):
+            model.forward(x0, c248, t)
+        torch.cuda.synchronize()
+    err = rel_l2(got.float(), ref.float())
+    res["attention_i8_pv"] = dict(
+        forward_rel_l2_vs_bf16_attn=err,
+        block_rel_l2_vs_bf16_attn=errs_default,
+        call_rel_l2_vs_plain=calls, launches=counts)
+    log(f"  attention_i8('pv') at 4352 tokens (bf16-fused tree): a block "
+        f"vs the default attention, worst rel L2 "
+        f"{_worst(errs_default):.3e} (whole forward {err:.3e}); launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    _call_gate(calls, "aura attention_i8('pv')", fails)
+    if counts["i8attn_pv"] != n_attn or counts["flash_attn_d256"] != 0:
+        fails.append("aura attention_i8('pv') did not take K6 in every "
+                     "layer")
+    if not _worst(errs_default) <= I8ATTN_DELTA_MAX:
+        fails.append(f"aura attention_i8('pv') moved a block by rel L2 "
+                     f"{_worst(errs_default)} > {I8ATTN_DELTA_MAX}")
+    return counts
+
+
+def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
+    """AuraFlow v0.3 (``AURA_V03_DIMS``, 4 double + ``depth`` single layers)
+    or Lumina 2 (``LUMINA2_DIMS``, ``depth`` main layers + 2 + 2 refiners),
+    seed-made Q4_K stacked, with its encoder at published width
+    (``_dit_encoder``), through ``AuraPipeline``/``Lumina2Pipeline.generate``
+    at 1024² with the reference's defaults (20 steps; CFG 3.5, shift 1.73 /
+    CFG 4.0, shift 6.0) and a negative prompt, on the bf16-fused tree and
+    then on the w8a8 tree: finite latents of the right shape, K7 exactly
+    its per-forward count (36 at 256 / 30 at 96) twice a step. Then one
+    forward of each tree runs with every kernel call also through its plain
+    version on the same operands (``_kernel_calls``), each within
+    ``CALL_PLAIN_DELTA_MAX``; on the w8a8 tree each block takes the
+    bf16-fused tree's inputs to it and must be within
+    ``W8A8_BLOCK_DELTA_MAX`` of the bf16-fused block, and every K4 call's
+    control (activations unrounded) must read above K4's limit. The w8a8
+    tree's distance from the bf16-fused one over a whole forward and in the
+    final latent is recorded. AuraFlow also runs the bf16-fused tree under
+    ``attention_i8("pv")`` (``_aura_i8attn_check``). Then the arch's engine
+    serves two requests for ``engine_steps`` steps, each within 1e-2 of the
+    direct sampler at batch 1. The trees are freed at the end."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (
+        AuraPipeline, DiffusionModel, Lumina2Pipeline, _text_states,
+        aura_engine, lumina2_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+
+    aura = arch == "aura"
+    if aura:
+        dims = dataclasses.replace(testing.AURA_V03_DIMS, depth_single=depth)
+        params = testing.aura_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                    seed=0, device=dev)
+        k7, n_attn = "flash_attn_d256", dims.depth_double + depth
+        pipe_cls, mk, ck, nk, cfg_scale = (AuraPipeline, aura_engine, "ctx",
+                                           "nctx", 3.5)
+        log(f"  AuraFlow v0.3 width (hidden 3072, 12 heads of 256), "
+            f"{dims.depth_double} double + {depth} single layers (of 4 + "
+            f"32), 1024² = 4096 image + 256 text + 8 register tokens")
+    else:
+        dims = dataclasses.replace(testing.LUMINA2_DIMS, n_layers=depth)
+        params = testing.lumina2_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                       seed=0, device=dev)
+        k7 = "flash_attn_d96"
+        n_attn = depth + dims.n_refiner + dims.n_context_refiner
+        pipe_cls, mk, ck, nk, cfg_scale = (Lumina2Pipeline, lumina2_engine,
+                                           "cap", "ncap", 4.0)
+        log(f"  Lumina 2 width (dim 2304, 24 heads of 96), {depth} of 26 "
+            f"layers + 2 noise + 2 context refiners, 1024² = 4096 image + "
+            f"256 caption tokens")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DiffusionModel(arch=arch, params=params, config=dims.config(),
+                           qcfg=QuantConfig(), device=torch.device(dev))
+    enc = _dit_encoder(dev, arch, enc_layers)
+    torch.cuda.synchronize()
+    pipe = pipe_cls(model, enc)
+    res = {"depth": depth, "steps": steps, "cfg_scale": cfg_scale,
+           "shift": pipe.shift, "encoder_layers": enc_layers,
+           "build_s": time.perf_counter() - t0}
+    log(f"  random Q4_K stacked tree and {enc.kind} encoder ({enc_layers} "
+        f"layers, Q8_0) built on the card in {res['build_s']:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    launches = {k: 0 for k in _build.LAUNCHES}
+    finals, fwds, recorded, fails = {}, {}, [], []
+    # one forward's inputs: noise at 1024², the prompt's states, t = 0.7
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x0 = torch.randn((1, 128, 128, dims.in_ch), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    cond = _text_states(enc, PROMPTS[0], 256)
+    t = torch.full((1,), 0.7, device=dev)
+
+    def check(tree):
+        # one forward of the tree with every kernel call also through its
+        # plain version (not a path: these launches are not counted). The
+        # bf16-fused tree's blocks record their inputs and outputs; the
+        # w8a8 tree's blocks take those inputs, each is held against the
+        # bf16-fused block, and its K4 calls run the control. The w8a8
+        # check runs before its image, so that the recorded blocks are
+        # gone when the image's peak memory is read
+        run = res.setdefault(tree, {})
+        before = dict(_build.LAUNCHES)
+        with torch.no_grad():
+            fwds[tree] = model.forward(x0, cond, t)
+        errs = _block_check(model, arch, (x0, cond, t), recorded,
+                            tree == "w8a8")
+        torch.cuda.synchronize()
+        _build.LAUNCHES.update(before)
+        run["call_rel_l2_vs_plain"] = errs["calls"]
+        if not bool(torch.isfinite(fwds[tree]).all()):
+            fails.append(f"{arch} {tree}: a non-finite forward")
+        _call_gate(errs["calls"], f"{arch} {tree}", fails)
+        if tree == "w8a8":
+            # Lumina 2's refiners are dense in both trees: equal, no int8
+            q = [e for e in errs["vs_bf16"] if e > 0]
+            run["block_rel_l2_vs_bf16"] = errs["vs_bf16"]
+            log(f"  w8a8: a block vs the bf16-fused block on the same "
+                f"inputs, worst rel L2 {_worst(q):.3e} (median "
+                f"{statistics.median(q):.3e}, {len(q)} blocks)")
+            if not _worst(q) <= W8A8_BLOCK_DELTA_MAX:
+                fails.append(f"{arch}: a w8a8 block differs from the "
+                             f"bf16-fused block by rel L2 {_worst(q)} > "
+                             f"{W8A8_BLOCK_DELTA_MAX}")
+            recorded.clear()
+
+    for tree in ("bf16_fused", "w8a8"):
+        if tree == "w8a8":
+            t0 = time.perf_counter()
+            model.requantize_i8()
+            torch.cuda.synchronize()
+            res["requantize_s"] = time.perf_counter() - t0
+            check(tree)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        lat = pipe.generate(PROMPTS[0], negative_prompt=PROMPTS[1],
+                            width=1024, height=1024, steps=steps, seed=0)
+        counts = dict(_build.LAUNCHES)
+        tm = dict(pipe.last_timings)
+        run = res.setdefault(tree, {})
+        run.update(timings_s=tm, s_per_step=tm["denoise_s"] / steps,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=counts)
+        log(f"  {tree}: prompt + negative prompt, {steps} steps, CFG "
+            f"{cfg_scale}: encode {tm['encode_s']:.4f}s, denoise "
+            f"{tm['denoise_s']:.3f}s ({run['s_per_step'] * 1e3:.1f} ms/step,"
+            f" two forwards), image {tm['total_s']:.3f}s; peak "
+            f"{run['peak_gib']:.2f} GiB; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if (lat.shape != (128, 128, dims.in_ch)
+                or not bool(np.isfinite(lat).all())):
+            raise SystemExit(f"{arch} {tree}: misshapen or non-finite latent")
+        finals[tree] = torch.from_numpy(lat)
+        if counts[k7] != 2 * n_attn * steps:
+            raise SystemExit(f"{arch} {tree}: {counts[k7]} launches of {k7}, "
+                             f"expected {n_attn} a forward, two a step")
+        want = {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
+                "qmm_int8": 2 * 7 * enc_layers}
+        for k, n in want.items():
+            if counts[k] < n:
+                raise SystemExit(f"{arch} {tree}: {counts[k]} launches of "
+                                 f"{k}, expected {n} or more")
+        for k, n in counts.items():
+            launches[k] += n
+        if tree == "bf16_fused":
+            check(tree)
+            if aura:
+                launches_i8 = _aura_i8attn_check(model, enc, x0, t, n_attn,
+                                                 res, fails)
+                for k, n in launches_i8.items():
+                    launches[k] += n
+    # the accuracy cost of the w8a8 conversion carried through the stack
+    # and the sampler: recorded (the block limit above is the gate); flux
+    # and sd3.5 hold it under LATENT_DELTA_MAX in phases 5 and 10
+    res["forward_rel_delta_w8a8_vs_bf16"] = rel_l2(fwds["w8a8"].float(),
+                                                   fwds["bf16_fused"].float())
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s; w8a8 vs bf16-fused: "
+        f"one forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, "
+        f"final latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e} (flux's "
+        f"and sd3.5's phases 5 and 10 hold this under {LATENT_DELTA_MAX})")
+
+    # where a w8a8 forward's device time goes (not a path: its launches are
+    # not counted)
+    before = dict(_build.LAUNCHES)
+    res["profile_w8a8_forward"] = profile_forward(
+        model, (x0, cond, t), res["w8a8"]["s_per_step"] / 2, f"{arch} w8a8")
+    _build.LAUNCHES.update(before)
+
+    # the engine: two requests (CFG cfg_scale and 1), against the direct
+    # sampler at batch 1 with the same f32 CFG mix
+    sig = shift_sigmas(linear_schedule(engine_steps), pipe.shift)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    nctx = _text_states(enc, PROMPTS[1], 256)
+    reqs = [(torch.randn((128, 128, dims.in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16),
+             {ck: cond[0], nk: nctx[0],
+              "cfg_scale": torch.tensor(scale, device=dev)})
+            for scale in (cfg_scale, 1.0)]
+    eng = mk(model, max_batch=2)
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    hs = [eng.submit(xr, c, sig) for xr, c in reqs]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    res["engine"] = dict(wall_s=time.perf_counter() - t1,
+                         ticks=eng.stats.batches_executed,
+                         launches=dict(_build.LAUNCHES))
+    for k, n in _build.LAUNCHES.items():
+        launches[k] += n
+    errs = []
+    for (xr, c), h in zip(reqs, hs):
+        if h.error is not None or not h.finished:
+            raise SystemExit(f"{mk.__name__}: a request failed: {h.error}")
+
+        def vel(xc, sg, c=c):
+            ts = sg.to(torch.float32).expand(1)
+            v_c = model.forward(xc, c[ck][None].to(torch.bfloat16), ts)
+            v_u = model.forward(xc, c[nk][None].to(torch.bfloat16), ts)
+            return v_u.float() + float(c["cfg_scale"]) * (v_c.float()
+                                                          - v_u.float())
+        with torch.no_grad():
+            want_x = sample_flow(vel, xr[None], sig)[0]
+        errs.append(rel_l2(torch.from_numpy(np.asarray(h.result,
+                                                        np.float32)),
+                           want_x.float().cpu()))
+    res["engine"]["rel_l2_vs_direct"] = errs
+    log(f"  {mk.__name__}(max_batch=2): 2 requests x {engine_steps} steps at "
+        f"1024² in {res['engine']['ticks']} ticks, "
+        f"{res['engine']['wall_s']:.3f}s; vs sample_flow at batch 1: rel L2 "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    if not max(errs) <= ENGINE_DELTA_MAX:
+        fails.append(f"{mk.__name__}: a served request differs from "
+                     f"sample_flow by rel L2 {max(errs)}")
+    if fails:
+        raise SystemExit(f"{arch}: " + "; ".join(fails))
+    res["launches"] = launches
+    free_tree(model.params)
+    free_tree(enc.params)
+    del model, enc, pipe, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -2639,6 +3466,11 @@ def main() -> int:
     ap.add_argument("--sd3-depth", type=int, default=38)
     ap.add_argument("--sd3-steps", type=int, default=28)
     ap.add_argument("--unet-steps", type=int, default=20)
+    ap.add_argument("--aura-depth-single", type=int, default=32)
+    ap.add_argument("--aura-steps", type=int, default=20)
+    ap.add_argument("--lumina-depth", type=int, default=26)
+    ap.add_argument("--lumina-steps", type=int, default=20)
+    ap.add_argument("--llama-layers", type=int, default=26)
     args = ap.parse_args()
 
     import torch
@@ -2677,9 +3509,10 @@ def main() -> int:
             f"{rep['total_s']:.2f}s")
         for src, lines in rep["ptxas"].items():
             spills = [ln.strip() for ln in lines if "spill" in ln]
-            if src in LORA_SOURCES:
+            if src in NAMED_SOURCES:
                 # registers and spills of each instance, by its template
-                # arguments (LoRA instances: the last argument is 1)
+                # arguments (LoRA instances: the last argument is 1; flash
+                # attention: the head dim)
                 for inst, used, spill in _build.ptxas_entries(lines):
                     log(f"  {src}: {inst}: {used}; {spill}")
                 continue
@@ -2699,7 +3532,7 @@ def main() -> int:
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
         + "; flash_attn.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
-                    for d in (40, 64, 80, 128, 160))
+                    for d in (40, 64, 80, 96, 128, 160, 256))
         + "; i8attn.cu "
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
                     for d in (128, 256, 512) for m in ("pv", "qk"))
@@ -2753,6 +3586,8 @@ def main() -> int:
     menu = sampler_menu_phase(dev)
     log("[4d tiny SD3 / SD1 / SDXL from files, card vs CPU]")
     sd_tiny = sd_tiny_phase(dev)
+    log("[4e tiny AuraFlow / Lumina 2 from files, card vs CPU]")
+    dit_tiny = dit_tiny_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -2796,6 +3631,16 @@ def main() -> int:
     log("[12 SDXL and SD1 at published widths, unet_engine]")
     unet_res = unet_phase(dev, clip_l, clip_g, args.unet_steps,
                           min(args.steps, 4))
+    del clip_l, clip_g
+    torch.cuda.empty_cache()
+    log("[13 AuraFlow v0.3 at published width and depth, aura_engine]")
+    aura_res = dit_full_phase(dev, "aura", args.aura_depth_single,
+                              args.aura_steps, 24, min(args.aura_steps, 4))
+    log("[14 Lumina Image 2.0 at published width and depth, "
+        "lumina2_engine]")
+    lumina_res = dit_full_phase(dev, "lumina2", args.lumina_depth,
+                                args.lumina_steps, args.llama_layers,
+                                min(args.lumina_steps, 4))
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
@@ -2803,10 +3648,12 @@ def main() -> int:
     for counts in (*(v["launches"] for v in tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
                    *(v["launches"] for v in sd_tiny.values()),
+                   *(v["launches"] for v in dit_tiny.values()),
                    menu["launches"], main_res["launches"], t2i["launches"],
                    serve_res["launches"], lora_res["launches"], tool_counts,
                    sd3_res["launches"], sd3_t2i["launches"],
-                   unet_res["launches"]):
+                   unet_res["launches"], aura_res["launches"],
+                   lumina_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

@@ -6,8 +6,10 @@ and CLIP-L encode → GGUF file → planar weights (LoRA patches attached) →
 w8a8 conversion → flux forward → sampler (Euler or any of the flow menu) →
 VAE decode, served one request at a time or continuously batched
 (``flux_engine``); SD3/SD3.5 (``SD3Pipeline``, ``sd3_engine``) and the
-SD1/SDXL UNet (``SD1Pipeline``, ``SDXLPipeline``, ``unet_engine``) run the
-same way, with
+SD1/SDXL UNet (``SD1Pipeline``, ``SDXLPipeline``, ``unet_engine``),
+AuraFlow (``AuraPipeline``, ``aura_engine``) and Lumina Image 2.0
+(``Lumina2Pipeline``, ``lumina2_engine``, with the llama-family text
+encoder) run the same way, with
 hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
 the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
@@ -33,6 +35,9 @@ _PUBLIC = {
     "SD3Pipeline": ".pipeline",
     "SD1Pipeline": ".pipeline",
     "SDXLPipeline": ".pipeline",
+    "AuraPipeline": ".pipeline",
+    "Lumina2Pipeline": ".pipeline",
+    "CFGFlowPipeline": ".pipeline",
     "QuantConfig": ".nn.layers",
     "quantized_matmul": ".ops.qmatmul",
     "i8_matmul": ".ops.i8mm",
@@ -46,6 +51,8 @@ _PUBLIC = {
     "flux_engine": ".pipeline",
     "sd3_engine": ".pipeline",
     "unet_engine": ".pipeline",
+    "aura_engine": ".pipeline",
+    "lumina2_engine": ".pipeline",
     "make_flow_engine": ".pipeline",
     "ContinuousBatchEngine": ".serving",
     "EngineGroup": ".serving",

@@ -92,7 +92,8 @@ LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "qmm_int8_lora": 0, "qmm_nib4_smallm_lora": 0,
             "qmm_int8_smallm_lora": 0, "i8mm_lora": 0, "flash_attn": 0,
             "flash_attn_d40": 0, "flash_attn_d64": 0, "flash_attn_d80": 0,
-            "flash_attn_d128": 0, "flash_attn_d160": 0,
+            "flash_attn_d96": 0, "flash_attn_d128": 0,
+            "flash_attn_d160": 0, "flash_attn_d256": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
             "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}

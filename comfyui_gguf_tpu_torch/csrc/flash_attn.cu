@@ -28,15 +28,29 @@
 // TMA and masked to -inf; query rows past Lq are not stored. q/k/v may be
 // strided views: their tensor maps are 4-D (D, L, H, B).
 //
-// Head dims that are no multiple of 64 (SD1's 40, 80 and 160) run the
-// instance of the next multiple, DP: the tensor maps carry the true D and a
-// box of whole 64-value chunks, so TMA zero-fills the columns past D. The
-// pad columns add nothing to the scores, the pad columns of P·V come out
-// zero and are not stored, and nothing is copied. At DP = 192 one K or V
-// tile of 128 keys is 48 KB and a block would need 1 + 48 + 4 x 48 = 241
-// KB, past the 227 KB a block may have; that instance takes 64-key tiles
-// (1 + 48 + 4 x 24 = 145 KB) and keeps the 2-stage ring, so loads still
-// overlap the products. Its P·V is one m64n192k16 wgmma a 16-key step.
+// Head dims that are no multiple of 64 (SD1's 40, 80 and 160, Lumina 2's
+// 96) run the instance of the next multiple, DP: the tensor maps carry the
+// true D and a box of whole 64-value chunks, so TMA zero-fills the columns
+// past D. The pad columns add nothing to the scores, the pad columns of P·V
+// come out zero and are not stored, and nothing is copied. At D = 96 that
+// is a quarter of the 128-wide instance's products spent on zeros. At DP =
+// 192 one K or V tile of 128 keys is 48 KB and a block would need 1 + 48 +
+// 4 x 48 = 241 KB, past the 227 KB a block may have; that instance takes
+// 64-key tiles (1 + 48 + 4 x 24 = 145 KB) and keeps the 2-stage ring, so
+// loads still overlap the products. Its P·V is one m64n192k16 wgmma a
+// 16-key step.
+//
+// D = 256 (AuraFlow's heads) takes 64-key tiles too: 1 + 64 (Q) + 4 x 32
+// = 193 KB, where 128-key tiles would need 321 KB. A consumer thread then
+// holds the 64 x 256 f32 O accumulator (128 registers), the 64 x 64 S
+// accumulator (32) and the bf16 P fragments (16) beside the softmax state;
+// the producer warpgroup gives its registers up (setmaxnreg 40, the
+// consumers 232), which is what lets the three fit in one thread without
+// spilling. P·V is one m64n256k16 wgmma a 16-key step, A (P) from
+// registers and V from shared memory with the transpose bit, rather than
+// two n128 halves: one instruction reads each P fragment once and issues
+// half the wgmmas. The O rescale by the softmax correction is an in-place
+// multiply of the accumulator registers and needs no temporary.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -78,7 +92,9 @@ template <int DP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
-  if constexpr (DP == 192) {
+  if constexpr (DP == 256) {
+    wgmma_m64n256k16_rs_tb(o, a, desc_v);
+  } else if constexpr (DP == 192) {
     wgmma_m64n192k16_rs_tb(o, a, desc_v);
   } else if constexpr (DP == 128) {
     wgmma_m64n128k16_rs_tb(o, a, desc_v);
@@ -328,17 +344,19 @@ extern "C" int flash_attn_smem_bytes(int D) {
     case 40: return FShape<40>::SMEM;
     case 64: return FShape<64>::SMEM;
     case 80: return FShape<80>::SMEM;
+    case 96: return FShape<96>::SMEM;
     case 128: return FShape<128>::SMEM;
     case 160: return FShape<160>::SMEM;
+    case 256: return FShape<256>::SMEM;
     default: return 0;
   }
 }
 
 // Plain C entry (bound with ctypes). q/k/v/out are (B, H, L, D) views with
 // unit stride along D; strides[12] = (b, h, l) element strides of q, k, v
-// and out. The wrapper checks D in {40, 64, 80, 128, 160}, Lk >= 1, and
-// TMA's rule for the base and the strides (multiples of 16 bytes). Returns
-// cudaGetLastError().
+// and out. The wrapper checks D in {40, 64, 80, 96, 128, 160, 256}, Lk >= 1,
+// and TMA's rule for the base and the strides (multiples of 16 bytes).
+// Returns cudaGetLastError().
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int H, int Lq, int Lk,
                                  int D, const long long* strides, float scale,
@@ -348,10 +366,13 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     case 40: return launch<40>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     case 64: return launch<64>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     case 80: return launch<80>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 96: return launch<96>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     case 128:
       return launch<128>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     case 160:
       return launch<160>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 256:
+      return launch<256>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

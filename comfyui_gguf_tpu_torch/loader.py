@@ -271,10 +271,7 @@ def gguf_clip_loader(path: str):
             sd[temb_key] = _dense(sd[temb_key], np.float16)
         sd = sd_map_replace(sd, T5_SD_MAP)
     elif arch in ("llama", "qwen2vl", "qwen3", "qwen3vl"):
-        if temb_key in sd and sd[temb_key].shape[0] >= BIG_EMBED_VOCAB:
-            log.warning("dequantizing %s early (big-embed guard)", temb_key)
-            sd[temb_key] = _dense(sd[temb_key], np.float16)
-        sd = sd_map_replace(sd, LLAMA_SD_MAP)
+        sd = sd_map_replace(big_embed_guard(sd), LLAMA_SD_MAP)
         if arch == "llama":
             # L3 / Mistral GQA layout
             for k in list(sd.keys()):
@@ -287,6 +284,18 @@ def gguf_clip_loader(path: str):
                 "the mmproj sidecar of qwen2vl text encoders is not ported "
                 "yet (it comes with the qwen_image slice)")
     return sd, arch, tok
+
+
+def big_embed_guard(sd: dict[str, QTensor]) -> dict[str, QTensor]:
+    """A llama-family token embedding of ``BIG_EMBED_VOCAB`` rows or more
+    (llama.cpp names) is decoded to f16 here, on the host, as the reference
+    loader does; ``to_torch_params`` then places it as a dense table.
+    Mutates ``sd`` and returns it."""
+    key = "token_embd.weight"
+    if key in sd and sd[key].shape[0] >= BIG_EMBED_VOCAB:
+        log.warning("dequantizing %s early (big-embed guard)", key)
+        sd[key] = _dense(sd[key], np.float16)
+    return sd
 
 
 def _dense(qt: QTensor, dtype) -> QTensor:

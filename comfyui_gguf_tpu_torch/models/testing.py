@@ -1,8 +1,9 @@
 """Synthetic builders for tests, smoke runs and benches (PyTorch port of the
-flux, SD3, SD1/SDXL UNet, T5, CLIP and VAE parts of
-comfyui_gguf_tpu/models/testing.py): flux, SD3 and UNet trees and files,
-T5 / CLIP-L / CLIP-G / AutoencoderKL parameter trees at tiny and at
-published widths, and synthetic vocabularies for the native tokenizers.
+flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, T5, CLIP, llama and VAE parts
+of comfyui_gguf_tpu/models/testing.py): flux, SD3, UNet, AuraFlow and
+Lumina 2 trees and files, T5 / CLIP-L / CLIP-G / llama-family /
+AutoencoderKL parameter trees at tiny and at published widths, and
+synthetic vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
 (``torch.Generator``) at the real planar layout, so a full-width tree is
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..archs import get_arch_spec
+from ..gguf.constants import GGML_QUANT_SIZES
 from ..gguf.constants import GGMLQuantizationType as Q
 from ..quant import codecs
 from ..quant.planar import LANE, PlanarQuant, _NIB4_TYPES
@@ -780,6 +783,267 @@ def sdxl_random_params(d: SDXLDims = SDXL_DIMS, qtype=Q.Q4_K, seed: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# spec-driven trees: AuraFlow and Lumina 2
+# ---------------------------------------------------------------------------
+
+def published_qtype(arch: str, key: str, shape, qtype):
+    """The format ``key`` has in a published ``arch`` GGUF quantized to
+    ``qtype``: None (stored as float) for the arch's no-quant and
+    high-precision keys (``archs.py``), for norms, for anything that is not
+    a 2-D weight and for rows the format's blocks do not tile; ``qtype``
+    otherwise."""
+    spec = get_arch_spec(arch)
+    if (len(shape) != 2 or not key.endswith(".weight") or "norm" in key
+            or shape[1] % GGML_QUANT_SIZES[qtype][0]):
+        return None
+    if spec is not None and (
+            any(k in key for k in spec.keys_noquant + spec.keys_hiprec)
+            or key in spec.keys_noquant_exact):
+        return None
+    return qtype
+
+
+def random_flat_sd_from_spec(nonblock: dict, groups: dict,
+                             seed: int = 0) -> dict:
+    """Flat float32 numpy state dict from a shape spec: the nonblock keys
+    plus ``{out_key}.{i}.{suffix}`` for each group. Norm gains ("norm" in
+    the key, 1-D) center at 1. The same numbers as the reference package's
+    helper of this name."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, key):
+        w = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        if "norm" in key and len(shape) == 1:
+            w = w + 1.0
+        return w
+
+    sd = {k: t(tuple(s), k) for k, s in nonblock.items()}
+    for out_key, (depth, suffixes) in groups.items():
+        for i in range(depth):
+            for suf, s in suffixes.items():
+                sd[f"{out_key}.{i}.{suf}"] = t(tuple(s), suf)
+    return sd
+
+
+def random_stacked_from_spec(nonblock: dict, groups: dict, arch: str,
+                             qtype=Q.Q4_K, seed: int = 0,
+                             device="cuda") -> dict:
+    """A full-depth stacked tree (``flux.stack_block_groups`` layout) made
+    on ``device`` from a seed. A 2-D weight that a published ``arch`` GGUF
+    quantizes (``published_qtype``) and whose dims are both >= 256 is a
+    random PlanarQuant of ``qtype`` at ``random_planar``'s scale (the
+    reference package's helper of this name's: a Q4_K weight of standard
+    deviation ~0.087, as every other seed-made tree here), a group's
+    generated directly at depth (no per-block copies); everything else is
+    dense: the arch's no-quant keys (positional tables, register tokens,
+    embedders, final layers, refiners) as in a published file. Norm gains
+    center at 1."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+
+    def leaf(key, shape, depth=None):
+        lead = () if depth is None else (depth,)
+        if (published_qtype(arch, key, shape, qtype) is not None
+                and min(shape) >= 256):
+            return random_planar(qtype, shape, gen, device=device,
+                                 stack=depth)
+        w = dense(*lead, *shape)
+        return w + 1 if "norm" in key and len(shape) == 1 else w
+
+    params = {k: leaf(k, tuple(s)) for k, s in nonblock.items()}
+    for out_key, (depth, suffixes) in groups.items():
+        params[out_key] = {suf: leaf(f"{out_key}.0.{suf}", tuple(s), depth)
+                           for suf, s in suffixes.items()}
+    return params
+
+
+def write_spec_gguf(sd: dict, path: str, arch: str, qtype) -> None:
+    """Write a flat ``arch`` state dict as a GGUF quantized the way a
+    published file of ``qtype`` is (``published_qtype``)."""
+    write_gguf(sd, path, lambda k, v: published_qtype(arch, k, v.shape,
+                                                      qtype), arch)
+
+
+@dataclasses.dataclass(frozen=True)
+class AuraDims:
+    """AuraFlow dims (models/aura.py AuraConfig fields)."""
+    hidden: int = 256
+    depth_double: int = 2
+    depth_single: int = 2
+    mlp: int = 512
+    in_ch: int = 4
+    cond_dim: int = 64
+    n_register_tokens: int = 3
+    max_tokens: int = 64  # positional_encoding length
+
+    def config(self):
+        from .aura import AuraConfig
+
+        return AuraConfig(hidden=self.hidden, n_heads=self.hidden // 256,
+                          depth_double=self.depth_double,
+                          depth_single=self.depth_single,
+                          in_channels=self.in_ch, cond_dim=self.cond_dim,
+                          n_register_tokens=self.n_register_tokens)
+
+
+# AuraFlow v0.3 (6.8B): hidden 3072, 12 heads of 256, 4 double + 32 single
+# layers, gated mlp 8192, Pile-T5-XL cond states (2048), 4-channel latents,
+# 8 register tokens, a positional table of 9216 tokens (1536² images)
+AURA_V03_DIMS = AuraDims(hidden=3072, depth_double=4, depth_single=32,
+                         mlp=8192, in_ch=4, cond_dim=2048,
+                         n_register_tokens=8, max_tokens=9216)
+
+
+def aura_shape_spec(d: AuraDims):
+    """(nonblock, groups) shape spec of models/aura.py's keys."""
+    H, M, C = d.hidden, d.mlp, d.in_ch
+    nonblock = {
+        "init_x_linear.weight": (H, C * 4),
+        "init_x_linear.bias": (H,),
+        "positional_encoding": (1, d.max_tokens, H),
+        "register_tokens": (1, d.n_register_tokens, H),
+        "cond_seq_linear.weight": (H, d.cond_dim),
+        "t_embedder.mlp.0.weight": (H, 256),
+        "t_embedder.mlp.0.bias": (H,),
+        "t_embedder.mlp.2.weight": (H, H),
+        "t_embedder.mlp.2.bias": (H,),
+        "modF.1.weight": (2 * H, H),
+        "modF.1.bias": (2 * H,),
+        "final_linear.weight": (C * 4, H),
+    }
+
+    def mlp(prefix):
+        return {f"{prefix}.c_fc1.weight": (M, H),
+                f"{prefix}.c_fc2.weight": (M, H),
+                f"{prefix}.c_proj.weight": (H, M)}
+
+    double = {"modC.1.weight": (6 * H, H), "modX.1.weight": (6 * H, H)}
+    for w in ("w1q", "w1k", "w1v", "w1o", "w2q", "w2k", "w2v", "w2o"):
+        double[f"attn.{w}.weight"] = (H, H)
+    double.update(mlp("mlpC"))
+    double.update(mlp("mlpX"))
+    single = {"modCX.1.weight": (6 * H, H)}
+    for w in ("w1q", "w1k", "w1v", "w1o"):
+        single[f"attn.{w}.weight"] = (H, H)
+    single.update(mlp("mlp"))
+    return nonblock, {"double_layers": (d.depth_double, double),
+                      "single_layers": (d.depth_single, single)}
+
+
+def aura_random_stacked_params(d: AuraDims, qtype=Q.Q4_K, seed: int = 0,
+                               device="cuda") -> dict:
+    return random_stacked_from_spec(*aura_shape_spec(d), "aura",
+                                    qtype=qtype, seed=seed, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lumina2Dims:
+    """Lumina Image 2.0 NextDiT dims (models/lumina2.py fields)."""
+    dim: int = 120
+    n_heads: int = 2
+    n_layers: int = 2
+    n_refiner: int = 1
+    n_context_refiner: int = 1
+    ffn: int = 240
+    in_ch: int = 4
+    cap_dim: int = 64
+
+    def config(self):
+        from .lumina2 import Lumina2Config
+
+        hd = self.dim // self.n_heads
+        third = 2 * (hd // 6)
+        return Lumina2Config(dim=self.dim, n_layers=self.n_layers,
+                             n_refiner=self.n_refiner, n_heads=self.n_heads,
+                             in_channels=self.in_ch, cap_dim=self.cap_dim,
+                             axes_dim=(hd - 2 * third, third, third))
+
+
+# Lumina-Image-2.0 (2.6B NextDiT): dim 2304, 24 heads of 96, 26 layers + 2
+# noise-refiner + 2 context-refiner blocks, SwiGLU ffn 6144, Gemma-2-2b
+# caption states (2304), 16-channel latents
+LUMINA2_DIMS = Lumina2Dims(dim=2304, n_heads=24, n_layers=26, n_refiner=2,
+                           n_context_refiner=2, ffn=6144, in_ch=16,
+                           cap_dim=2304)
+
+
+def _lumina2_block_spec(d: Lumina2Dims, adaln: bool) -> dict:
+    D, F = d.dim, d.ffn
+    hd = d.dim // d.n_heads
+    s = {
+        "attention.qkv.weight": (3 * D, D),
+        "attention.out.weight": (D, D),
+        "attention.q_norm.weight": (hd,),
+        "attention.k_norm.weight": (hd,),
+        "attention_norm1.weight": (D,),
+        "attention_norm2.weight": (D,),
+        "ffn_norm1.weight": (D,),
+        "ffn_norm2.weight": (D,),
+        "feed_forward.w1.weight": (F, D),
+        "feed_forward.w2.weight": (D, F),
+        "feed_forward.w3.weight": (F, D),
+    }
+    if adaln:
+        s["adaLN_modulation.1.weight"] = (4 * D, D)
+        s["adaLN_modulation.1.bias"] = (4 * D,)
+    return s
+
+
+def lumina2_shape_spec(d: Lumina2Dims):
+    """(nonblock, groups) shape spec of models/lumina2.py's keys; the
+    noise and context refiners are nonblock keys (flat, and on the arch's
+    no-quant list)."""
+    D, C = d.dim, d.in_ch
+    nonblock = {
+        "x_embedder.weight": (D, C * 4),
+        "x_embedder.bias": (D,),
+        "cap_embedder.0.weight": (d.cap_dim,),
+        "cap_embedder.1.weight": (D, d.cap_dim),
+        "cap_embedder.1.bias": (D,),
+        "t_embedder.mlp.0.weight": (D, 256),
+        "t_embedder.mlp.0.bias": (D,),
+        "t_embedder.mlp.2.weight": (D, D),
+        "t_embedder.mlp.2.bias": (D,),
+        "norm_final.weight": (D,),
+        "final_layer.linear.weight": (C * 4, D),
+        "final_layer.linear.bias": (C * 4,),
+        "final_layer.adaLN_modulation.1.weight": (2 * D, D),
+        "final_layer.adaLN_modulation.1.bias": (2 * D,),
+    }
+    for i in range(d.n_refiner):
+        for suf, s in _lumina2_block_spec(d, adaln=True).items():
+            nonblock[f"noise_refiner.{i}.{suf}"] = s
+    for i in range(d.n_context_refiner):
+        for suf, s in _lumina2_block_spec(d, adaln=False).items():
+            nonblock[f"context_refiner.{i}.{suf}"] = s
+    return nonblock, {"layers": (d.n_layers,
+                                 _lumina2_block_spec(d, adaln=True))}
+
+
+def lumina2_random_stacked_params(d: Lumina2Dims, qtype=Q.Q4_K,
+                                  seed: int = 0, device="cuda") -> dict:
+    return random_stacked_from_spec(*lumina2_shape_spec(d), "lumina2",
+                                    qtype=qtype, seed=seed, device=device)
+
+
+def dit_example_inputs(latent_shape, cond_shape, ts=0.7, seed: int = 1,
+                       dtype=torch.bfloat16, device="cuda"):
+    """(latent, cond, t) for an AuraFlow or Lumina 2 forward, made from a
+    numpy seed."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    lat, cond = t(latent_shape), t(cond_shape)
+    return lat, cond, torch.full((lat.shape[0],), ts, dtype=torch.float32,
+                                 device=device)
+
+
+# ---------------------------------------------------------------------------
 # text encoders and VAE
 # ---------------------------------------------------------------------------
 
@@ -797,6 +1061,9 @@ class T5Dims:
 # t5-v1_1-xxl encoder (flux / sd3 conditioning)
 T5_XXL_DIMS = T5Dims(d_model=4096, d_kv=64, n_heads=64, d_ff=10240,
                      n_layers=24, vocab=32128, rel_buckets=32)
+# Pile-T5-XL encoder (AuraFlow conditioning)
+PILE_T5_XL_DIMS = T5Dims(d_model=2048, d_kv=64, n_heads=32, d_ff=5120,
+                         n_layers=24, vocab=32128, rel_buckets=32)
 
 _T5_REL = "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
 
@@ -879,26 +1146,169 @@ def write_t5_gguf(sd: dict, path: str, qtype=Q.Q8_0, tokenizer=None) -> None:
 
     w = GGUFWriter("t5")
     if tokenizer is not None:
-        w.add_string("tokenizer.ggml.model", tokenizer.model)
-        w.add_array("tokenizer.ggml.tokens", list(tokenizer.tokens))
-        if tokenizer.scores is not None:
-            w.add_array("tokenizer.ggml.scores",
-                        [float(x) for x in tokenizer.scores])
-        if tokenizer.token_types is not None:
-            w.add_array("tokenizer.ggml.token_type",
-                        [int(x) for x in tokenizer.token_types])
-        for key, val in (("eos_token_id", tokenizer.eos_id),
-                         ("padding_token_id", tokenizer.pad_id),
-                         ("unknown_token_id", tokenizer.unk_id)):
-            if val is not None:
-                w.add_uint32("tokenizer.ggml." + key, int(val))
-        w.add_bool("tokenizer.ggml.add_eos_token", bool(tokenizer.add_eos))
+        _add_tokenizer(w, tokenizer)
     for k, v in sd.items():
         for hf, gg in _T5_GGUF_NAMES.items():
             k = k.replace(hf, gg)
         quant = (v.ndim == 2 and "attn_rel_b" not in k
                  and v.shape[1] % 32 == 0)
         if quant:
+            w.add_tensor(k, codecs.quantize(v, qtype), raw_dtype=qtype,
+                         raw_shape=v.shape)
+        else:
+            w.add_tensor(k, np.ascontiguousarray(v, np.float32))
+    w.write_to_file(str(path))
+
+
+def _add_tokenizer(w, spec) -> None:
+    """The ``tokenizer.ggml.*`` metadata of a ``loader.TokenizerSpec`` that
+    ``gguf_tokenizer_spec`` reads back."""
+    w.add_string("tokenizer.ggml.model", spec.model)
+    w.add_array("tokenizer.ggml.tokens", list(spec.tokens))
+    if spec.scores is not None:
+        w.add_array("tokenizer.ggml.scores", [float(x) for x in spec.scores])
+    if spec.token_types is not None:
+        w.add_array("tokenizer.ggml.token_type",
+                    [int(x) for x in spec.token_types])
+    if spec.merges:
+        w.add_array("tokenizer.ggml.merges", list(spec.merges))
+    for key, val in (("bos_token_id", spec.bos_id),
+                     ("eos_token_id", spec.eos_id),
+                     ("padding_token_id", spec.pad_id),
+                     ("unknown_token_id", spec.unk_id)):
+        if val is not None:
+            w.add_uint32("tokenizer.ggml." + key, int(val))
+    w.add_bool("tokenizer.ggml.add_bos_token", bool(spec.add_bos))
+    w.add_bool("tokenizer.ggml.add_eos_token", bool(spec.add_eos))
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaDims:
+    """A llama-family text encoder (models/llama.py LlamaConfig fields)."""
+    hidden: int = 128
+    n_layers: int = 2
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 4
+    intermediate: int = 256
+    vocab: int = 120
+    qk_norm: bool = False  # qwen3
+
+    def config(self):
+        from .llama import LlamaConfig
+
+        return LlamaConfig(hidden=self.hidden, n_layers=self.n_layers,
+                           n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                           intermediate=self.intermediate,
+                           vocab_size=self.vocab, head_dim=self.head_dim,
+                           qk_norm=self.qk_norm)
+
+
+# Gemma-2-2b's published shapes (Lumina 2's caption encoder) as the llama
+# graph reads them: hidden 2304, 26 layers, q 2048 and k/v 1024 rows,
+# intermediate 9216, vocab 256000. The graph takes the default 32 heads
+# (of 64) and so 16 kv heads; Gemma-2's own 8 heads of 256 are not in the
+# shapes (ROADMAP queue 3)
+GEMMA2_2B_LLAMA_DIMS = LlamaDims(hidden=2304, n_layers=26, n_heads=32,
+                                 n_kv_heads=16, head_dim=64,
+                                 intermediate=9216, vocab=256000)
+
+
+def _llama_linear_shapes(d: LlamaDims) -> dict[str, tuple[int, int]]:
+    q, kv = d.n_heads * d.head_dim, d.n_kv_heads * d.head_dim
+    return {"self_attn.q_proj": (q, d.hidden),
+            "self_attn.k_proj": (kv, d.hidden),
+            "self_attn.v_proj": (kv, d.hidden),
+            "self_attn.o_proj": (d.hidden, q),
+            "mlp.gate_proj": (d.intermediate, d.hidden),
+            "mlp.up_proj": (d.intermediate, d.hidden),
+            "mlp.down_proj": (d.hidden, d.intermediate)}
+
+
+def _llama_norm_shapes(d: LlamaDims) -> dict[str, tuple[int]]:
+    out = {"input_layernorm": (d.hidden,),
+           "post_attention_layernorm": (d.hidden,)}
+    if d.qk_norm:
+        out["self_attn.q_norm"] = (d.head_dim,)
+        out["self_attn.k_norm"] = (d.head_dim,)
+    return out
+
+
+def llama_state_dict(dims: LlamaDims, seed: int = 0,
+                     scale: float = 0.05) -> dict[str, np.ndarray]:
+    """Random llama-family encoder state dict (numpy float32, the HF key
+    names the loader maps llama.cpp's to)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*s):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    sd = {"model.embed_tokens.weight": t(dims.vocab, dims.hidden),
+          "model.norm.weight": t(dims.hidden) + 1}
+    for i in range(dims.n_layers):
+        p = f"model.layers.{i}."
+        for name, shape in _llama_linear_shapes(dims).items():
+            sd[f"{p}{name}.weight"] = t(*shape)
+        for name, shape in _llama_norm_shapes(dims).items():
+            sd[f"{p}{name}.weight"] = t(*shape) + 1
+    return sd
+
+
+def llama_random_params(dims: LlamaDims, qtype=Q.Q8_0, seed: int = 0,
+                        device="cuda") -> dict:
+    """A llama-family encoder's params with random packed linears made on
+    ``device`` (a full-width tree is never built on the host); scale planes
+    sized so that each linear keeps unit-variance inputs near unit
+    variance. The token embedding is the dense bf16 table the loader's
+    big-embed guard leaves a large vocabulary as."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+    params = {"model.embed_tokens.weight": dense(dims.vocab, dims.hidden),
+              "model.norm.weight": dense(dims.hidden) + 1}
+    for i in range(dims.n_layers):
+        p = f"model.layers.{i}."
+        for name, (r, k) in _llama_linear_shapes(dims).items():
+            params[f"{p}{name}.weight"] = random_planar(
+                qtype, (r, k), gen, device=device,
+                scale=1.0 / (73.0 * k ** 0.5))
+        for name, shape in _llama_norm_shapes(dims).items():
+            params[f"{p}{name}.weight"] = dense(*shape) + 1
+    return params
+
+
+def llamacpp_permute(w: np.ndarray, n_head: int) -> np.ndarray:
+    """The row permutation llama.cpp's converter applies to q/k (the
+    inverse of ``maps.unpermute_gqa_rows``)."""
+    r = w.shape[0]
+    return (w.reshape(n_head, 2, r // n_head // 2, *w.shape[1:])
+            .swapaxes(1, 2).reshape(w.shape))
+
+
+def write_llama_gguf(sd: dict, path: str, qtype=Q.Q8_0, tokenizer=None,
+                     arch: str = "llama") -> None:
+    """Write an HF-named llama-family state dict as a GGUF with llama.cpp's
+    names: for arch "llama" the q and k rows permuted as llama.cpp's
+    converter does (32 and 8 heads, the loader's un-permute), 2-D weights
+    in ``qtype`` where the format's blocks tile their rows (norms stay
+    float32), plus ``tokenizer``'s metadata (a ``loader.TokenizerSpec``)."""
+    from ..gguf.writer import GGUFWriter
+    from ..maps import LLAMA_SD_MAP
+
+    inv = sorted(((dst, src) for src, dst in LLAMA_SD_MAP.items()),
+                 key=lambda p: -len(p[0]))
+    block = GGML_QUANT_SIZES[qtype][0]
+    w = GGUFWriter(arch)
+    if tokenizer is not None:
+        _add_tokenizer(w, tokenizer)
+    for k, v in sd.items():
+        if arch == "llama" and k.endswith("q_proj.weight"):
+            v = llamacpp_permute(v, 32)
+        elif arch == "llama" and k.endswith("k_proj.weight"):
+            v = llamacpp_permute(v, 8)
+        for dst, src in inv:
+            k = k.replace(dst, src)
+        if v.ndim == 2 and v.shape[1] % block == 0 and "norm" not in k:
             w.add_tensor(k, codecs.quantize(v, qtype), raw_dtype=qtype,
                          raw_shape=v.shape)
         else:
@@ -1109,6 +1519,39 @@ def unigram_spec(vocab_size: int = 64, words=SMOKE_WORDS):
         types.append(5)
     return TokenizerSpec(model="t5", tokens=tokens, scores=scores,
                          token_types=types, eos_id=1, pad_id=0, unk_id=2)
+
+
+def bpe_spec(vocab_size: int = 300, words=SMOKE_WORDS):
+    """A synthetic byte-level BPE ("gpt2") ``TokenizerSpec`` of exactly
+    ``vocab_size`` entries: the 256 byte symbols, the merge products of
+    ``words`` with and without the leading-space symbol, filler, and the
+    pad and end-of-text specials last (control tokens)."""
+    from ..loader import TokenizerSpec
+    from ..tokenizer.bpe import bytes_to_unicode
+
+    tokens = list(bytes_to_unicode().values())
+    merges = []
+    space = bytes_to_unicode()[ord(" ")]
+    for wd in words:
+        for parts in (list(wd), [space] + list(wd)):
+            while len(parts) > 1:
+                pair = f"{parts[0]} {parts[1]}"
+                merged = parts[0] + parts[1]
+                if pair not in merges:
+                    merges.append(pair)
+                    tokens.append(merged)
+                parts = [merged] + parts[2:]
+    tokens = list(dict.fromkeys(tokens))[: vocab_size - 2]
+    keep = set(tokens)
+    merges = [m for m in merges if m.replace(" ", "") in keep]
+    while len(tokens) < vocab_size - 2:
+        tokens.append(f"<filler_{len(tokens)}>")
+    tokens += ["<pad>", "<|endoftext|>"]
+    types = [1] * (vocab_size - 2) + [3, 3]
+    return TokenizerSpec(model="gpt2", tokens=tokens, scores=None,
+                         token_types=types, merges=merges,
+                         eos_id=vocab_size - 1, pad_id=vocab_size - 2,
+                         add_bos=False, add_eos=True)
 
 
 def clip_vocab(vocab_size: int = 49408, words=SMOKE_WORDS):

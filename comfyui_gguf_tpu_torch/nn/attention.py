@@ -6,8 +6,9 @@ cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
   ``csrc/flash_attn.cu`` (K7): bf16 CUDA tensors, head dims
-  ``FLASH_HEAD_DIMS`` (40, 80 and 160 run the 64-, 128- and 192-wide
-  instances on zero-filled pad columns). Any other head dim or dtype on the
+  ``FLASH_HEAD_DIMS`` (40, 80, 96 and 160 run the 64-, 128-, 128- and
+  192-wide instances on zero-filled pad columns; 256 has a 256-wide
+  instance on 64-key tiles). Any other head dim or dtype on the
   card raises ``NotImplementedError`` (no route exists for it yet), and so
   does a view TMA cannot read; the same call on CPU tensors takes the plain
   version.
@@ -79,7 +80,7 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 # head dims the flash kernel has instances for
-FLASH_HEAD_DIMS = (40, 64, 80, 128, 160)
+FLASH_HEAD_DIMS = (40, 64, 80, 96, 128, 160, 256)
 
 
 def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:

@@ -20,14 +20,21 @@ comfyui_gguf_tpu/pipeline.py).
 * ``SD1Pipeline`` / ``SDXLPipeline`` ``.generate_from_ids(...)`` — the
   eps-prediction UNets sampled in σ space (``sampling.kdiffusion``), with
   CFG, img2img, SDXL inpainting and the SDXL refiner pass.
-* ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` — continuous-batching
-  engines (serving.ContinuousBatchEngine) over a loaded model: ``submit``
+* ``AuraPipeline(model, t5).generate(prompt)`` — AuraFlow: Pile-T5
+  conditioning, CFG over the rectified-flow ODE, latent out.
+* ``Lumina2Pipeline(model, text).generate(prompt)`` — Lumina Image 2.0:
+  conditioning by a llama-family encoder (``load_text_encoder`` of a
+  llama / qwen3 / qwen3vl GGUF), CFG over the rectified-flow ODE, latent
+  out. Both build a ``CFGFlowPipeline`` with the reference's defaults.
+* ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` / ``aura_engine`` /
+  ``lumina2_engine`` — continuous-batching engines
+  (serving.ContinuousBatchEngine) over a loaded model: ``submit``
   requests, ``run_until_drained``; each tick advances every pooled request
-  by one Euler or per-lane DPM-Solver++(2M) step (the UNet engine with
-  per-request CFG).
+  by one Euler or per-lane DPM-Solver++(2M) step (the UNet, AuraFlow and
+  Lumina 2 engines with per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-The llama text encoders, the video VAEs and the other architectures are
+The qwen2vl text encoder, the video VAEs and the other architectures are
 not ported yet and raise ``NotImplementedError``.
 """
 
@@ -45,8 +52,11 @@ from . import _safetensors
 from . import lora as lora_mod
 from ._device import resolve_device
 from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
+from .models import aura as aura_model
 from .models import clip as clip_model
 from .models import flux as flux_model
+from .models import llama as llama_model
+from .models import lumina2 as lumina2_model
 from .models import sd3 as sd3_model
 from .models import t5 as t5_model
 from .models import unet as unet_model
@@ -64,6 +74,8 @@ _ARCH_TABLE = {
     "sd3": (sd3_model, sd3_model.SD3Config, "joint_blocks"),
     "sd1": (unet_model, unet_model.UNetConfig, None),
     "sdxl": (unet_model, unet_model.UNetConfig, None),
+    "aura": (aura_model, aura_model.AuraConfig, "double_layers"),
+    "lumina2": (lumina2_model, lumina2_model.Lumina2Config, "layers"),
 }
 
 
@@ -146,16 +158,19 @@ class DiffusionModel:
 
     def stack(self) -> "DiffusionModel":
         """Restack per-block params along a depth axis (copies the block
-        weights once); forward then runs forward_stacked. Flux and SD3
-        stack (SD3.5-medium's dual-attention blocks as their own prefix
-        group); an SD3 tree whose dual layers are not a contiguous prefix,
-        and the UNets, are returned unchanged."""
+        weights once); forward then runs forward_stacked. Flux, SD3,
+        AuraFlow and Lumina 2 stack (SD3.5-medium's dual-attention blocks
+        as their own prefix group, Lumina 2's refiners stay flat); an SD3
+        tree whose dual layers are not a contiguous prefix, and the UNets,
+        are returned unchanged."""
         if self.is_stacked:
             return self
-        if self.arch == "flux":
+        stackers = {"flux": flux_model.stack_flux_params,
+                    "aura": aura_model.stack_aura_params,
+                    "lumina2": lumina2_model.stack_lumina2_params}
+        if self.arch in stackers:
             return dataclasses.replace(
-                self, params=flux_model.stack_flux_params(self.params,
-                                                          self.config))
+                self, params=stackers[self.arch](self.params, self.config))
         dual = self.config.dual_attn_layers if self.arch == "sd3" else ()
         if self.arch == "sd3" and dual == tuple(range(len(dual))):
             return dataclasses.replace(
@@ -186,7 +201,7 @@ def load_diffusion_model(path: str, device="cuda") -> DiffusionModel:
 
 @dataclasses.dataclass
 class TextEncoder:
-    kind: str  # "t5" | "clip_l" | "clip_g"
+    kind: str  # "t5" | "clip_l" | "clip_g" | "llama"
     params: dict
     config: object
     tokenizer: object | None
@@ -194,8 +209,8 @@ class TextEncoder:
     device: torch.device
 
     def encode(self, *args, **kwargs):
-        mod = {"t5": t5_model, "clip_l": clip_model,
-               "clip_g": clip_model}[self.kind]
+        mod = {"t5": t5_model, "clip_l": clip_model, "clip_g": clip_model,
+               "llama": llama_model}[self.kind]
         with torch.no_grad():
             return mod.encode(self.params, self.config, *args,
                               qcfg=self.qcfg, **kwargs)
@@ -203,10 +218,11 @@ class TextEncoder:
     def apply_lora(self, path: str, strength: float = 1.0):
         """Attach this encoder's slice of a LoRA file (kohya ``lora_te_``
         for SD1's CLIP, ``lora_te1_``/``lora_te2_`` for the SDXL pair,
-        ``lora_te3_`` for T5; the ``lora_unet_`` slice goes to
+        ``lora_te3_`` for T5, ``lora_te_``/``lora_llama_`` for a llama
+        encoder; the ``lora_unet_`` slice goes to
         DiffusionModel.apply_lora). Mutates self and returns it."""
         prefixes = {"clip_l": ("te1", "te"), "clip_g": ("te2",),
-                    "t5": ("te3", "te")}[self.kind]
+                    "t5": ("te3", "te"), "llama": ("te", "llama")}[self.kind]
         self.params = lora_mod.load_and_attach_te(
             self.params, path, strength=strength,
             dtype=_patch_dtype(self.qcfg), prefixes=prefixes)
@@ -262,17 +278,16 @@ def load_vae(path: str, device="cuda"):
 
 
 def load_text_encoder(path: str, device="cuda") -> TextEncoder:
-    """One text-encoder file (gguf or safetensors) → TextEncoder."""
+    """One text-encoder file (gguf or safetensors) → TextEncoder: a T5
+    GGUF, a llama / qwen3 / qwen3vl GGUF (the llama graph; a qwen2vl file
+    raises until its mmproj is ported), or a CLIP or T5 safetensors
+    file."""
     device = resolve_device(device)
     qcfg = QuantConfig()
     tokenizer = None
     if path.endswith(".gguf"):
         sd, arch, tok_spec = gguf_clip_loader(path)
-        if arch not in ("t5", "t5encoder"):
-            if arch in ("llama", "qwen2vl", "qwen3", "qwen3vl"):
-                raise NotImplementedError(
-                    f"the {arch} text encoder is not ported yet (ROADMAP "
-                    f"queue 1, the llama item)")
+        if arch not in ("t5", "t5encoder", "llama", "qwen3", "qwen3vl"):
             raise ValueError(f"unsupported text arch {arch!r}")
         params = to_torch_params(sd, qcfg, device=device)
         if tok_spec is not None:
@@ -282,8 +297,12 @@ def load_text_encoder(path: str, device="cuda") -> TextEncoder:
                 tokenizer = build_tokenizer(tok_spec)
             except NotImplementedError:
                 log.warning("no native tokenizer for %s", tok_spec.model)
-        return TextEncoder("t5", params,
-                           t5_model.T5Config.from_state_dict(params),
+        if arch in ("t5", "t5encoder"):
+            return TextEncoder("t5", params,
+                               t5_model.T5Config.from_state_dict(params),
+                               tokenizer, qcfg, device)
+        return TextEncoder("llama", params,
+                           llama_model.LlamaConfig.from_state_dict(params),
                            tokenizer, qcfg, device)
 
     raw = _load_safetensors_sd(path)
@@ -737,6 +756,83 @@ class SD3Pipeline:
         return result
 
 
+def _text_states(enc: TextEncoder, text: str, max_len: int):
+    """A prompt through an encoder's tokenizer (padded to ``max_len``, with
+    its mask) and graph → (1, max_len, width) states."""
+    if enc.tokenizer is None:
+        raise ValueError(f"the {enc.kind} encoder has no tokenizer")
+    ids, mask = enc.tokenizer.encode_batch([text], max_length=max_len)
+    out = enc.encode(_ids(ids, enc.device), _ids(mask, enc.device))
+    return out["last_hidden"] if isinstance(out, dict) else out
+
+
+@dataclasses.dataclass
+class CFGFlowPipeline:
+    """txt2img of a single-encoder CFG flow model (AuraFlow, Lumina 2):
+    ``encoder``'s final states of the prompt (``max_len`` tokens) as the
+    conditioning, CFG at ``cfg_scale`` over the rectified flow at
+    ``shift``, latent out: neither model has a VAE wired in the reference.
+    ``AuraPipeline`` and ``Lumina2Pipeline`` build it with the reference's
+    defaults."""
+
+    model: DiffusionModel
+    encoder: TextEncoder
+    shift: float
+    cfg_scale: float
+    # of the last generate() call: host-clock seconds of its stages, and
+    # its final latent (1, H/8, W/8, C) on the device
+    last_timings: dict = dataclasses.field(default_factory=dict)
+    last_latent: torch.Tensor | None = None
+
+    @torch.no_grad()
+    def generate(self, prompt: str, width: int = 1024, height: int = 1024,
+                 steps: int = 20, cfg_scale: float | None = None,
+                 seed: int = 0, negative_prompt: str = "",
+                 max_len: int = 256, noise=None) -> np.ndarray:
+        """→ the (H/8, W/8, C) float32 latent; ``cfg_scale`` None takes the
+        pipeline's. ``noise`` is the (1, H/8, W/8, C) initial noise;
+        without it the noise is drawn from
+        ``torch.Generator(device).manual_seed(seed)``."""
+        cfg_scale = self.cfg_scale if cfg_scale is None else cfg_scale
+        model = self.model
+        device = model.device
+        clock = _StageClock(device)
+        cond = _text_states(self.encoder, prompt, max_len)
+        use_cfg = cfg_scale != 1.0
+        ncond = (_text_states(self.encoder, negative_prompt, max_len)
+                 if use_cfg else None)
+        clock.mark("encode_s")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = _noise_or_draw(noise, (1, height // 8, width // 8,
+                                   model.config.in_channels),
+                           gen, device, torch.bfloat16)
+        velocity = cfg_wrap(
+            lambda xc, sigma, c: model.forward(
+                xc, c, sigma.to(torch.float32).expand(xc.shape[0])),
+            cond, ncond, cfg_scale)
+        latent = sample_flow(velocity, x,
+                             shift_sigmas(linear_schedule(steps), self.shift))
+        self.last_latent = latent
+        clock.mark("denoise_s")
+        self.last_timings = clock.timings()
+        return latent[0].to(torch.float32).cpu().numpy()
+
+
+def AuraPipeline(model: DiffusionModel, t5: TextEncoder,
+                 shift: float = 1.73) -> CFGFlowPipeline:
+    """AuraFlow txt2img: Pile-T5 conditioning, CFG 3.5 at shift 1.73."""
+    return CFGFlowPipeline(model, t5, shift, 3.5)
+
+
+def Lumina2Pipeline(model: DiffusionModel, text: TextEncoder,
+                    shift: float = 6.0) -> CFGFlowPipeline:
+    """Lumina Image 2.0 txt2img: the llama-graph encoder's final states as
+    the caption, CFG 4.0 at shift 6.0. The reference conditions on a llama
+    graph at Gemma-2's shapes, not on Gemma-2 itself (ROADMAP queue 3); the
+    port matches it."""
+    return CFGFlowPipeline(model, text, shift, 4.0)
+
+
 def _size_embedding(values, like: torch.Tensor) -> torch.Tensor:
     """SDXL's micro-conditioning: each value's 256-wide sinusoidal
     embedding, concatenated → (1, 256·len(values)) in ``like``'s dtype."""
@@ -1099,6 +1195,47 @@ def sd3_engine(model: DiffusionModel, max_batch: int = 4,
         model, velocity, {"ctx": torch.bfloat16, "pooled": torch.bfloat16},
         max_batch=max_batch, pipeline_depth=pipeline_depth,
         sampler=sampler, dp_mesh=dp_mesh)
+
+
+def _cfg_flow_engine(model: DiffusionModel, mod, ckey: str, nkey: str,
+                     max_batch: int, pipeline_depth: int, sampler: str,
+                     dp_mesh):
+    """A CFG-mixing flow engine over ``mod``'s forward (forward_stacked on a
+    stacked tree): cond {ckey, nkey, "cfg_scale"}."""
+    fwd = mod.forward_stacked if model.is_stacked else mod.forward
+    return make_flow_engine(
+        model, _cfg_mix_velocity(fwd, model, ckey=ckey, nkey=nkey),
+        {ckey: torch.bfloat16, nkey: torch.bfloat16,
+         "cfg_scale": torch.float32},
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler,
+        dp_mesh=dp_mesh)
+
+
+def aura_engine(model: DiffusionModel, max_batch: int = 4,
+                pipeline_depth: int = 1, sampler: str = "euler",
+                dp_mesh=None):
+    """Continuous-batching engine for a loaded AuraFlow model: requests
+    carry (H, W, C) spatial latents + cond {"ctx", "nctx", "cfg_scale"}
+    (Pile-T5 states, padded to one length per engine); each tick runs the
+    conditional and the unconditional forward and mixes them at each
+    request's own scale. A depth-stacked tree takes ``forward_stacked``;
+    ``dp_mesh`` is not ported yet and raises."""
+    return _cfg_flow_engine(model, aura_model, "ctx", "nctx", max_batch,
+                            pipeline_depth, sampler, dp_mesh)
+
+
+def lumina2_engine(model: DiffusionModel, max_batch: int = 4,
+                   pipeline_depth: int = 1, sampler: str = "euler",
+                   dp_mesh=None):
+    """Continuous-batching engine for a loaded Lumina Image 2.0 model:
+    requests carry (H, W, C) spatial latents + cond {"cap", "ncap",
+    "cfg_scale"} (the llama-graph encoder's states, padded to one length
+    per engine); each tick runs the conditional and the unconditional
+    forward and mixes them at each request's own scale. A depth-stacked
+    tree takes ``forward_stacked``; ``dp_mesh`` is not ported yet and
+    raises."""
+    return _cfg_flow_engine(model, lumina2_model, "cap", "ncap", max_batch,
+                            pipeline_depth, sampler, dp_mesh)
 
 
 def unet_engine(model: DiffusionModel, max_batch: int = 4,

@@ -5,9 +5,9 @@ int8 flash attention and its prep, K7 flash attention, K8 GEMM probes)
 runs on the card beside its plain version on the same inputs, at small
 shapes that cover the ragged edges: M=1, M not a multiple of the tile, K
 padded, R not a multiple of 128, the GELU tail, odd key lengths, Lq != Lk
-and strided views; K7 also at SD1's head dims 40, 80 and 160; K6 at head
-dims 128 and 256 and in its split instance
-(384, 512). K1/K2 run through
+and strided views; K7 also at SD1's head dims 40, 80 and 160, Lumina 2's
+96 and AuraFlow's 256; K6 at head dims 128 and 256 and in its split
+instance (384, 512). K1/K2 run through
 both of their bodies (split-K for M <= 8, wgmma above) over every format
 of each layout; K4 through both of its tile widths. One-hot rows check
 every tile position of K1/K2/K4 bit for bit. The LoRA instances of K1/K2
@@ -426,14 +426,66 @@ def test_flash_kernel_padded_on_projection_views(cuda, D):
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
 
 
+LUMINA_AURA_ATTN_CASES = [
+    # B, H, Lq, Lk, D: Lumina 2's head dim 96 on the 128-wide instance and
+    # AuraFlow's 256 on the 256-wide one (64-key tiles) — ragged query and
+    # key tiles, Lk below one key tile, cross attention with Lq != Lk over
+    # several key tiles, B > 1, Lk = 1
+    (1, 3, 300, 300, 96),
+    (2, 2, 77, 77, 96),
+    (1, 2, 130, 513, 96),
+    (2, 3, 257, 45, 96),
+    (1, 2, 300, 300, 256),
+    (2, 1, 77, 77, 256),
+    (1, 2, 130, 513, 256),
+    (2, 2, 257, 45, 256),
+    (1, 1, 64, 1, 256),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", LUMINA_AURA_ATTN_CASES, ids=str)
+def test_flash_kernel_d96_d256(cuda, B, H, Lq, Lk, D):
+    """Head dims 96 (Lumina 2) and 256 (AuraFlow) against plain_attention,
+    each counted under its own instance."""
+    g = torch.Generator(device=cuda).manual_seed(Lq * 11 + Lk + D)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"flash_attn_d{D}"] == before[
+        f"flash_attn_d{D}"] + 1
+    assert _build.LAUNCHES["flash_attn"] == before["flash_attn"] + 1
+    assert got.shape == (B, H, Lq, D) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+@pytest.mark.parametrize("D", [96, 256])
+def test_flash_kernel_d96_d256_on_projection_views(cuda, D):
+    """q/k/v as views of one fused (B, L, 3·H·D) projection split into
+    thirds, the way Lumina 2 hands v to the kernel (q and k are rewritten
+    by its qk-norm; here all three stay views), at a length that is no
+    multiple of the tiles; read in place."""
+    B, L, H = 2, 333, 3
+    g = torch.Generator(device=cuda).manual_seed(D)
+    qkv = torch.randn((B, L, 3 * H * D), generator=g, device=cuda).bfloat16()
+    q, k, v = (a.reshape(B, L, H, D).transpose(1, 2)
+               for a in torch.chunk(qkv, 3, dim=-1))
+    assert not v.is_contiguous()
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
 def test_flash_kernel_refuses_what_it_has_no_instance_for(cuda):
     """A head dim without an instance raises and names the ones there are;
     a view TMA cannot read (an 8-byte offset) raises rather than being
     copied; nothing falls back to another attention route."""
     before = _build.LAUNCHES["flash_attn"]
-    for D in (32, 96, 256):
+    for D in (32, 48):
         q = torch.zeros((1, 2, 16, D), device=cuda, dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="40, 64, 80, 128, 160"):
+        with pytest.raises(NotImplementedError,
+                           match="40, 64, 80, 96, 128, 160, 256"):
             flash_attn_cuda(q, q, q, D ** -0.5)
     buf = torch.zeros((1, 2, 16, 40 + 4), device=cuda, dtype=torch.bfloat16)
     q = buf[..., 4:]
