@@ -8,11 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--unet-steps N] [--aura-depth-single N]
                           [--aura-steps N] [--lumina-depth N]
                           [--lumina-steps N] [--llama-layers N]
+                          [--qwen-depth N] [--qwen-steps N]
+                          [--qwen-encoder-layers N] [--qwen-vision-layers N]
+                          [--hidream-depth-double N]
+                          [--hidream-depth-single N] [--hidream-steps N]
+                          [--hidream-t5-layers N] [--hidream-llama-layers N]
+                          [--hidream-budget-blocks DOUBLE SINGLE]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
 CLIP-L encode, denoise, VAE decode), SD3.5-large, the SD1/SDXL UNets,
-AuraFlow v0.3 and Lumina Image 2.0 — on the card through the entry points
+AuraFlow v0.3, Lumina Image 2.0, Qwen-Image (with Qwen-Image-Edit and the
+Qwen2.5-VL vision tower) and HiDream-I1 — on the card through the entry points
 a user calls, and fails (non-zero exit, no result line) on any failed
 phase:
 
@@ -157,7 +164,39 @@ phase:
    checks and records as phase 13; K7's 96-wide launches (the 128-wide
    instance) must be 30 a forward; then ``lumina2_engine`` as phase 13's
    engine. Phases 13
-   and 14 free their trees (``lifecycle.free_tree``) when they end.
+   and 14 free their trees (``lifecycle.free_tree``) when they end;
+15. Qwen-Image: ``QWEN_IMAGE_20B_DIMS`` (hidden 3072, 24 heads of 128, 60
+   blocks unless ``--qwen-depth`` cuts them), seed-made Q4_K stacked, with
+   the llama graph at Qwen2.5-VL-7B's shapes (Q8_0, 28 layers, 28 heads /
+   4 kv heads of 128, q/k/v biases, its 152064-row embedding through the
+   big-embed guard; the config built as the reference's own test builds
+   it: 28 heads, rope theta 1e6, M-RoPE (16, 24, 24), eps 1e-6) through
+   ``QwenImagePipeline.generate`` at 1024² with the reference's defaults
+   (20 steps, CFG 4.0, shift 2.2, 256 tokens, negative " "), on the
+   bf16-fused tree and then on the w8a8 tree (img_mod / txt_mod planar): K7
+   60 times a forward, two forwards a step, and phase 13's gates and
+   records; the Qwen2.5-VL vision tower (1280 wide, 32 blocks of 16 heads ×
+   80, windowed, full blocks 7/15/23/31, merged to 3584) on a 448² image
+   spliced through ``qwen_vl_encode_with_image``, then ``generate_edit``
+   with one 128 × 128 × 16 reference latent for 4 steps on it (about 8480
+   tokens); ``qwen_image_engine`` as phase 13's engine;
+16. HiDream-I1: ``HIDREAM_I1_DIMS`` (hidden 2560, 20 heads of 128, 16 + 32
+   blocks, FFN 6912, 4 routed experts top-2 plus the shared one), seed-made
+   Q4_K stacked, with CLIP-L, CLIP-G, T5-xxl (Q8_0) and the llama graph at
+   Llama-3.1-8B's shapes (Q8_0, 32 layers, 128256 rows through the guard)
+   through ``HiDreamPipeline.generate_from_ids`` at 1024², 20 steps (one
+   forward a step), 128 T5 + 128 llama tokens, both trees: K7 48 times a
+   forward, phase 13's gates (each block's top-2 routing recorded on both
+   trees: the tokens whose sets differ), w8a8 forwards in "capacity"
+   dispatch with each block also run in "dense" dispatch on the same
+   inputs, at the default capacity factor 1.5 (overflows recorded) and at
+   E/k = 2, where no expert can overflow (each block within 1e-2),
+   ``hidream_engine`` as phase 13's engine; then a ``--hidream-budget-
+   blocks`` (2 + 4) tree at published width converts on the card and, a
+   fresh one, under a budget of its planar bytes plus 60% of the full
+   conversion's byte delta with ``host_stage=True``: the planned share and
+   the card's peak during each conversion are printed. Phases 15 and 16
+   free their trees when they end.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -171,11 +210,20 @@ AuraFlow (two heads of 256) and Lumina 2 (16 heads of 96) GGUFs with a
 2-layer T5 and a 2-layer llama-family encoder (65536 tokens, so its
 embedding takes the big-embed guard): both pipelines with a negative
 prompt on the planar trees, then both engines on the w8a8 stacked trees.
+Phase 4f does it for tiny Qwen-Image and HiDream GGUFs (4 heads of 128,
+HiDream's 4 experts top-2) with a 2-layer qwen2vl encoder GGUF whose tiny
+mmproj sidecar sits beside it, a 2-layer T5 and tiny CLIP-L / CLIP-G:
+``QwenImagePipeline.generate`` and ``generate_edit`` (on an image through
+``qwen_vl_encode_with_image``), ``HiDreamPipeline.generate_from_ids`` in
+dense and capacity dispatch, then both engines on the w8a8 stacked trees,
+each request also within 1e-2 of the direct sampler on the card.
 Phase 3 also times K4, K7 and the split-K body at the serving shapes of
 four stacked requests, K7 at SD1's head dims 40, 80 and 160 and the
 sd3.5-large joint length, K4 and the split-K body at the sd3.5-large and
 SD1 shapes, and K7 (96 and 256), K4, K1/K2 and K6 (256) at the AuraFlow,
-Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes.
+Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes, and K4, K1's
+split-K body, K2 and K7 at the Qwen-Image, HiDream and Qwen2.5-VL encoder
+shapes.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -936,6 +984,32 @@ def kernel_phase(dev, sfu_per_s):
     # with the image and register tokens; the default 256 gives 4360, which
     # the gate refuses)
     i8attn_case("i8attn_pv aura H=12 L=4352 D=256", "pv", 1, 12, 4352, 256)
+    # Qwen-Image and HiDream-I1 at 1024² (phases 15 and 16): K4 on
+    # Qwen-Image's image-stream MLP (GELU in the epilogue) and projections,
+    # and on HiDream's routed-expert SwiGLU over the single blocks' joint
+    # length (dense dispatch: every expert on every token); K1's split-K
+    # body on HiDream's double-block adaLN (kept planar); K2 on the
+    # Qwen2.5-VL-7B-shaped encoder's linears at 256 tokens (q/k/v biases);
+    # K7 at both joint lengths (256 + 4096 tokens, 24 and 20 heads of 128)
+    i8_case("i8mm qwen_image img_mlp.0 M=4096 3072->12288 gelu", 4096, 3072,
+            12288, 0)
+    i8_case("i8mm qwen_image img_mlp.2 M=4096 12288->3072", 4096, 12288,
+            3072, None)
+    i8_case("i8mm qwen_image to_q M=4096 3072->3072", 4096, 3072, 3072, None)
+    i8_case("i8mm hidream expert w1 M=4352 2560->6912", 4352, 2560, 6912,
+            None)
+    i8_case("i8mm hidream expert w2 M=4352 6912->2560", 4352, 6912, 2560,
+            None)
+    qmm_case("qmm_nib4 hidream adaLN M=1 2560->30720 Q4_K",
+             "qmm_nib4_smallm", Q.Q4_K, 1, 2560, 30720, None, 4, 5e-3)
+    qmm_case("qmm_int8 qwen2.5-vl q M=256 3584->3584 Q8_0", "qmm_int8",
+             Q.Q8_0, 256, 3584, 3584, None, 8, 5e-3)
+    qmm_case("qmm_int8 qwen2.5-vl gate M=256 3584->18944 Q8_0", "qmm_int8",
+             Q.Q8_0, 256, 3584, 18944, None, 2, 5e-3, with_bias=False)
+    attn_case("flash_attn qwen_image joint L=4352 D=128", 1, 24, 4352, 4352,
+              128)
+    attn_case("flash_attn hidream joint L=4352 D=128", 1, 20, 4352, 4352,
+              128)
     # K8: the probes at the tool's problem size
     probe_cases()
     return rows
@@ -2469,6 +2543,254 @@ def dit_tiny_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: tiny Qwen-Image and HiDream from files, card against CPU
+# ---------------------------------------------------------------------------
+
+# head dim 128 (K7's instance of both archs); widths of 512 and up, so every
+# block linear is a packed leaf; the qwen2vl encoder doubles as HiDream's
+# llama-graph encoder
+TINY_QWEN_IMAGE = dict(hidden=512, n_heads=4, n_layers=2, in_ch=64,
+                       context_dim=1024)
+TINY_QWEN2VL = dict(hidden=1024, n_layers=2, n_heads=32, n_kv_heads=8,
+                    head_dim=32, intermediate=2048, vocab=1024,
+                    qkv_bias=True)
+TINY_VISION = dict(dim=160, n_layers=2, out_dim=1024, intermediate=320,
+                   patch=14)
+TINY_HIDREAM = dict(hidden=512, heads=4, depth_double=2, depth_single=2,
+                    ffn=1024, n_experts=4, top_k=2, t5_dim=512,
+                    llama_dim=1024, pooled=128)
+TINY_PAD_ID = 1023  # the tiny vocabulary's <|image_pad|>
+
+
+def _write_qh_files(tmp):
+    """The tiny Qwen-Image and HiDream GGUFs (Q4_K, quantized as published
+    files are), a 2-layer Q8_0 qwen2vl encoder GGUF with gpt2-BPE metadata
+    and its mmproj sidecar beside it, a 2-layer Q8_0 T5 GGUF and tiny CLIP-L
+    / CLIP-G safetensors with a vocabulary, written by the port's writers
+    under ``tmp``."""
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    f = {}
+    for arch, dims, spec in (
+            ("qwen_image", testing.QwenImageDims(**TINY_QWEN_IMAGE),
+             testing.qwen_image_shape_spec),
+            ("hidream", testing.TinyHiDreamDims(**TINY_HIDREAM),
+             testing.hidream_shape_spec)):
+        f[arch] = os.path.join(tmp, f"{arch}.gguf")
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=0), f[arch],
+            arch, Q.Q4_K)
+    f["qwen2vl"] = os.path.join(tmp, "qwen2.5-vl-tiny-Q8_0.gguf")
+    ld = testing.LlamaDims(**TINY_QWEN2VL)
+    testing.write_llama_gguf(testing.llama_state_dict(ld, seed=3),
+                             f["qwen2vl"], qtype=Q.Q8_0,
+                             tokenizer=testing.bpe_spec(ld.vocab),
+                             arch="qwen2vl")
+    testing.write_mmproj_gguf(
+        testing.qwen_vl_vision_state_dict(
+            testing.QwenVLVisionDims(**TINY_VISION), seed=4),
+        os.path.join(tmp, "mmproj-qwen2.5-vl-tiny-F16.gguf"))
+    f["t5"] = os.path.join(tmp, "t5.gguf")
+    testing.write_t5_gguf(
+        testing.t5_state_dict(testing.T5Dims(
+            d_model=TINY_HIDREAM["t5_dim"], d_kv=64, n_heads=8, d_ff=1024,
+            n_layers=2, vocab=128), seed=2), f["t5"], qtype=Q.Q8_0,
+        tokenizer=testing.unigram_spec(128))
+    clip_dir = os.path.join(tmp, "clip")
+    os.mkdir(clip_dir)
+    for name, dims, seed in (("clip_l", TINY_CLIP_L, 5),
+                             ("clip_g", TINY_CLIP_G, 6)):
+        f[name] = os.path.join(clip_dir, f"{name}.safetensors")
+        _safetensors.save_file(testing.clip_state_dict(
+            testing.CLIPDims(**dims), seed=seed), f[name])
+    testing.write_clip_vocab(clip_dir, *testing.clip_vocab(600))
+    return f
+
+
+@contextlib.contextmanager
+def _moe_dispatch(mode):
+    """HiDream's MoE dispatch mode for the enclosed scope."""
+    from comfyui_gguf_tpu_torch.models import hidream
+
+    saved = hidream.MOE_DISPATCH
+    hidream.MOE_DISPATCH = mode
+    try:
+        yield
+    finally:
+        hidream.MOE_DISPATCH = saved
+
+
+def qh_tiny_phase(dev):
+    """Phase 4f: Qwen-Image and HiDream at tiny widths from files written
+    by the port's writers, on the card and on the CPU with the same noise,
+    within 3e-2 (relative L2): ``load_diffusion_model``,
+    ``load_text_encoder`` (the qwen2vl file merges its mmproj sidecar),
+    ``QwenImagePipeline.generate`` (CFG) and ``generate_edit`` (a reference
+    latent, the conditioning from ``qwen_vl_encode_with_image`` on an
+    image), ``HiDreamPipeline.generate_from_ids`` in dense and capacity
+    dispatch; then ``qwen_image_engine`` and ``hidream_engine`` serving two
+    requests each on the w8a8 stacked trees, each request within 1e-2 of
+    the direct sampler at batch 1 on the card."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import (
+        HiDreamPipeline, QwenImagePipeline, hidream_engine,
+        load_diffusion_model, load_text_encoder, qwen_image_engine,
+        qwen_vl_encode_with_image)
+    from comfyui_gguf_tpu_torch.models.flux import make_img_ids
+    from comfyui_gguf_tpu_torch.sampling import linear_schedule, sample_flow
+
+    devs = (dev, "cpu")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    f = _write_qh_files(tmp.name)
+
+    def check(name, a, b, counts, need):
+        a = torch.as_tensor(np.asarray(a, np.float32))
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        err = rel_l2(a, b)
+        out[name] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  {name}: card vs CPU plain rel L2 {err:.3e}, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if not bool(torch.isfinite(a).all()) or not err <= SAMPLER_DELTA_MAX:
+            raise SystemExit(f"{name}: card vs CPU rel L2 {err} > "
+                             f"{SAMPLER_DELTA_MAX}")
+        for k in need:
+            if counts[k] == 0:
+                raise SystemExit(f"{name} launched no {k}")
+
+    def on_card(fn):
+        _build.reset_launch_counts()
+        a = fn(0)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        return a, fn(1), counts
+
+    qi = [load_diffusion_model(f["qwen_image"], device=d) for d in devs]
+    hd = [load_diffusion_model(f["hidream"], device=d) for d in devs]
+    text = [load_text_encoder(f["qwen2vl"], device=d) for d in devs]
+    if (text[0].kind != "llama" or text[0].tokenizer is None
+            or "visual.merger.mlp.2.weight" not in text[0].params):
+        raise SystemExit("load_text_encoder did not merge the qwen2vl "
+                         "file's mmproj sidecar")
+    t5 = [load_text_encoder(f["t5"], device=d) for d in devs]
+    clip_l = [load_text_encoder(f["clip_l"], device=d) for d in devs]
+    clip_g = [load_text_encoder(f["clip_g"], device=d) for d in devs]
+    qpipes = [QwenImagePipeline(qi[i], text[i]) for i in range(2)]
+    size, C = 128, qi[0].config.in_channels
+    L = (size // 16) ** 2
+    noise = torch.randn((1, L, C), generator=torch.Generator().manual_seed(7))
+    kw = dict(width=size, height=size, steps=2, max_len=32, noise=noise)
+    a, b, c = on_card(lambda i: qpipes[i].generate(
+        PROMPTS[0], negative_prompt="rain", **kw))
+    check("tiny QwenImagePipeline.generate (CFG 4)", a, b, c,
+          ("flash_attn_d128", "qmm_nib4", "qmm_nib4_smallm", "qmm_int8"))
+
+    # edit: one reference latent, the prompt's states from the vision tower
+    rng = np.random.default_rng(8)
+    ref = rng.standard_normal((size // 8, size // 8, 16)).astype(np.float32)
+    image = rng.random((112, 112, 3)).astype(np.float32)  # 16 merged tokens
+    ids = rng.integers(0, 1000, (1, 24))
+    ids[0, 4:20] = TINY_PAD_ID
+
+    def edit(i):
+        txt = qwen_vl_encode_with_image(text[i], text[i].params, ids, image,
+                                        TINY_PAD_ID)["last_hidden"]
+        return qpipes[i].generate_edit("", [ref], txt_override=txt,
+                                       negative_prompt="rain", **kw)
+
+    a, b, c = on_card(edit)
+    check("tiny QwenImagePipeline.generate_edit (vision tower, 1 ref)", a,
+          b, c, ("flash_attn_d128", "qmm_nib4", "qmm_int8"))
+
+    hpipes = [HiDreamPipeline(hd[i], clip_l[i], clip_g[i], t5[i], text[i])
+              for i in range(2)]
+    hids = (clip_l[0].tokenizer.encode_batch([PROMPTS[0]], 77)[0],
+            clip_g[0].tokenizer.encode_batch([PROMPTS[0]], 77)[0],
+            t5[0].tokenizer.encode_batch([PROMPTS[0]], 32)[0],
+            text[0].tokenizer.encode_batch([PROMPTS[0]], 32)[0])
+    hnoise = torch.randn((1, size // 8, size // 8, hd[0].config.in_channels),
+                         generator=torch.Generator().manual_seed(9))
+    for mode in ("dense", "capacity"):
+        with _moe_dispatch(mode):
+            a, b, c = on_card(lambda i: hpipes[i].generate_from_ids(
+                *hids, width=size, height=size, steps=2, noise=hnoise))
+        check(f"tiny HiDreamPipeline.generate_from_ids ({mode})", a, b, c,
+              ("flash_attn_d128", "qmm_nib4", "qmm_nib4_smallm",
+               "qmm_int8"))
+
+    # the engines on the w8a8 stacked trees, each request against the
+    # direct sampler on the card
+    qm = [m.requantize_i8().stack() for m in qi]
+    hm = [m.requantize_i8().stack() for m in hd]
+    h_tok = size // 16
+    img_ids = torch.as_tensor(np.array(make_img_ids(h_tok, h_tok, 1)))
+    reqs = {"qwen_image": [], "hidream": []}
+    for i in range(2):
+        sig = linear_schedule(2 + i)
+        reqs["qwen_image"].append((
+            rng.standard_normal((L, C)).astype(np.float32),
+            {"txt": rng.standard_normal((24, 1024)).astype(np.float32)},
+            sig))
+        reqs["hidream"].append((
+            rng.standard_normal((size // 8, size // 8, 16)).astype(
+                np.float32),
+            {"t5": rng.standard_normal((16, 512)).astype(np.float32),
+             "llama": rng.standard_normal((16, 1024)).astype(np.float32),
+             "pooled": rng.standard_normal((128,)).astype(np.float32)},
+            sig))
+
+    def vel(arch, model, c, d):
+        cond = {k: torch.as_tensor(v)[None].to(d, torch.bfloat16)
+                for k, v in c.items()}
+
+        def fn(xc, s):
+            t = s.to(torch.float32).expand(1)
+            if arch == "hidream":
+                return model.forward(xc, cond["t5"], cond["llama"],
+                                     cond["pooled"], t)
+            ids_t = torch.zeros((1, 24, 3), dtype=torch.int32, device=d)
+            return model.forward(xc, img_ids.to(d), cond["txt"], ids_t, t)
+        return fn
+
+    for arch, ms, mk in (("qwen_image", qm, lambda m: qwen_image_engine(
+            m, h_tok, h_tok, 24, max_batch=2)),
+                         ("hidream", hm, lambda m: hidream_engine(
+                             m, max_batch=2))):
+        def serve(i):
+            eng = mk(ms[i])
+            hs = [eng.submit(x.copy(), dict(c), s) for x, c, s in reqs[arch]]
+            eng.run_until_drained()
+            if any(h.error is not None or not h.finished for h in hs):
+                raise SystemExit(f"tiny {arch} engine: a request failed")
+            return np.stack([h.result for h in hs])
+
+        a, b, c = on_card(serve)
+        check(f"tiny {arch} engine w8a8 stacked (2 requests)", a, b, c,
+              ("i8mm", "flash_attn_d128"))
+        errs = []
+        for (x, cd, sig), got in zip(reqs[arch], a):
+            with torch.no_grad():
+                direct = sample_flow(vel(arch, ms[0], cd, dev), torch.as_tensor(
+                    x)[None].to(dev, torch.bfloat16), sig)[0]
+            errs.append(rel_l2(torch.from_numpy(got), direct.float().cpu()))
+        out[f"tiny {arch} engine w8a8 stacked (2 requests)"][
+            "rel_l2_vs_direct"] = errs
+        log(f"  tiny {arch} engine vs the direct sampler on the card: rel L2 "
+            + ", ".join(f"{e:.3e}" for e in errs))
+        if not max(errs) <= ENGINE_DELTA_MAX:
+            raise SystemExit(f"tiny {arch} engine: a request differs from "
+                             f"the direct sampler by {max(errs)}")
+    tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the SD3.5-large denoise at published width and full depth
 # ---------------------------------------------------------------------------
 
@@ -2909,8 +3231,12 @@ def unet_phase(dev, clip_l, clip_g, steps, engine_steps):
 def plain_versions():
     """Every kernel wrapper a forward reaches replaced by its plain PyTorch
     version, on the card's own tensors: the same arithmetic without the
-    hand-written kernels, the full-width oracle of phases 13-14. Fails if a
-    kernel was launched inside the scope."""
+    hand-written kernels, the full-width oracle of phases 13-16. The fused
+    matmul's epilogue (LoRA term, bias, GELU) runs on the f32 product and
+    rounds once, as the kernels and the Pallas kernels' ``_epilogue`` do.
+    Fails if a kernel was launched inside the scope."""
+    import torch
+
     from comfyui_gguf_tpu_torch import _build
     from comfyui_gguf_tpu_torch.nn import attention, layers
     from comfyui_gguf_tpu_torch.ops import i8attn
@@ -2923,7 +3249,8 @@ def plain_versions():
             return plain_i8mm(x, weight, out_dtype=x.dtype, **kw)
         return plain_quantized_matmul(x, weight,
                                       dequant_dtype=cfg.dequant_dtype,
-                                      out_dtype=x.dtype, **kw)
+                                      out_dtype=torch.float32,
+                                      **kw).to(x.dtype)
 
     saved = (layers._packed_matmul, attention.flash_attn_cuda,
              i8attn.i8_attention_cuda)
@@ -2967,12 +3294,17 @@ def _no_activation_rounding():
 @contextlib.contextmanager
 def _block_taps(arch, tap):
     """Every block call of an ``arch`` forward (AuraFlow's double and
-    single layers; Lumina 2's refiner and main blocks) goes through
-    ``tap(block, args)``; the forward carries on with what it returns."""
-    from comfyui_gguf_tpu_torch.models import aura, lumina2
+    single layers; Lumina 2's refiner and main blocks; Qwen-Image's blocks;
+    HiDream's double and single blocks) goes through ``tap(block, args)``;
+    the forward carries on with what it returns."""
+    from comfyui_gguf_tpu_torch.models import aura, hidream, lumina2
+    from comfyui_gguf_tpu_torch.models import qwen_image
 
-    mod, names = ((aura, ("_double_layer", "_single_layer"))
-                  if arch == "aura" else (lumina2, ("_block",)))
+    mod, names = {"aura": (aura, ("_double_layer", "_single_layer")),
+                  "lumina2": (lumina2, ("_block",)),
+                  "qwen_image": (qwen_image, ("_block",)),
+                  "hidream": (hidream, ("_double_block",
+                                        "_single_block"))}[arch]
     saved = {n: getattr(mod, n) for n in names}
     for n, block in saved.items():
         setattr(mod, n, lambda *a, _block=block: tap(_block, a))
@@ -2984,7 +3316,7 @@ def _block_taps(arch, tap):
 
 
 def _rel_out(got, want):
-    """Relative L2 of a block's output: a tensor, or AuraFlow's (c, x)."""
+    """Relative L2 of a block's output: a tensor, or a pair of streams."""
     import torch
 
     if isinstance(got, tuple):
@@ -3296,7 +3628,7 @@ def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     launches = {k: 0 for k in _build.LAUNCHES}
-    finals, fwds, recorded, fails = {}, {}, [], []
+    fwds, recorded, fails = {}, [], []
     # one forward's inputs: noise at 1024², the prompt's states, t = 0.7
     gen = torch.Generator(device=dev).manual_seed(31)
     x0 = torch.randn((1, 128, 128, dims.in_ch), generator=gen,
@@ -3305,83 +3637,24 @@ def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     t = torch.full((1,), 0.7, device=dev)
 
     def check(tree):
-        # one forward of the tree with every kernel call also through its
-        # plain version (not a path: these launches are not counted). The
-        # bf16-fused tree's blocks record their inputs and outputs; the
-        # w8a8 tree's blocks take those inputs, each is held against the
-        # bf16-fused block, and its K4 calls run the control. The w8a8
-        # check runs before its image, so that the recorded blocks are
-        # gone when the image's peak memory is read
-        run = res.setdefault(tree, {})
-        before = dict(_build.LAUNCHES)
-        with torch.no_grad():
-            fwds[tree] = model.forward(x0, cond, t)
-        errs = _block_check(model, arch, (x0, cond, t), recorded,
-                            tree == "w8a8")
-        torch.cuda.synchronize()
-        _build.LAUNCHES.update(before)
-        run["call_rel_l2_vs_plain"] = errs["calls"]
-        if not bool(torch.isfinite(fwds[tree]).all()):
-            fails.append(f"{arch} {tree}: a non-finite forward")
-        _call_gate(errs["calls"], f"{arch} {tree}", fails)
-        if tree == "w8a8":
-            # Lumina 2's refiners are dense in both trees: equal, no int8
-            q = [e for e in errs["vs_bf16"] if e > 0]
-            run["block_rel_l2_vs_bf16"] = errs["vs_bf16"]
-            log(f"  w8a8: a block vs the bf16-fused block on the same "
-                f"inputs, worst rel L2 {_worst(q):.3e} (median "
-                f"{statistics.median(q):.3e}, {len(q)} blocks)")
-            if not _worst(q) <= W8A8_BLOCK_DELTA_MAX:
-                fails.append(f"{arch}: a w8a8 block differs from the "
-                             f"bf16-fused block by rel L2 {_worst(q)} > "
-                             f"{W8A8_BLOCK_DELTA_MAX}")
-            recorded.clear()
+        fwds[tree] = _tree_check(model, arch, (x0, cond, t), tree,
+                                 res.setdefault(tree, {}), recorded, fails)
+        if aura and tree == "bf16_fused":
+            for k, n in _aura_i8attn_check(model, enc, x0, t, n_attn, res,
+                                           fails).items():
+                launches[k] += n
 
-    for tree in ("bf16_fused", "w8a8"):
-        if tree == "w8a8":
-            t0 = time.perf_counter()
-            model.requantize_i8()
-            torch.cuda.synchronize()
-            res["requantize_s"] = time.perf_counter() - t0
-            check(tree)
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
+    def generate():
         lat = pipe.generate(PROMPTS[0], negative_prompt=PROMPTS[1],
                             width=1024, height=1024, steps=steps, seed=0)
-        counts = dict(_build.LAUNCHES)
-        tm = dict(pipe.last_timings)
-        run = res.setdefault(tree, {})
-        run.update(timings_s=tm, s_per_step=tm["denoise_s"] / steps,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   launches=counts)
-        log(f"  {tree}: prompt + negative prompt, {steps} steps, CFG "
-            f"{cfg_scale}: encode {tm['encode_s']:.4f}s, denoise "
-            f"{tm['denoise_s']:.3f}s ({run['s_per_step'] * 1e3:.1f} ms/step,"
-            f" two forwards), image {tm['total_s']:.3f}s; peak "
-            f"{run['peak_gib']:.2f} GiB; launches "
-            f"{ {k: n for k, n in counts.items() if n} }")
-        if (lat.shape != (128, 128, dims.in_ch)
-                or not bool(np.isfinite(lat).all())):
-            raise SystemExit(f"{arch} {tree}: misshapen or non-finite latent")
-        finals[tree] = torch.from_numpy(lat)
-        if counts[k7] != 2 * n_attn * steps:
-            raise SystemExit(f"{arch} {tree}: {counts[k7]} launches of {k7}, "
-                             f"expected {n_attn} a forward, two a step")
-        want = {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
-                "qmm_int8": 2 * 7 * enc_layers}
-        for k, n in want.items():
-            if counts[k] < n:
-                raise SystemExit(f"{arch} {tree}: {counts[k]} launches of "
-                                 f"{k}, expected {n} or more")
-        for k, n in counts.items():
-            launches[k] += n
-        if tree == "bf16_fused":
-            check(tree)
-            if aura:
-                launches_i8 = _aura_i8attn_check(model, enc, x0, t, n_attn,
-                                                 res, fails)
-                for k, n in launches_i8.items():
-                    launches[k] += n
+        if lat.shape != (128, 128, dims.in_ch):
+            raise SystemExit(f"{arch}: a latent of shape {lat.shape}")
+        return lat, dict(pipe.last_timings)
+
+    finals = _run_trees(
+        arch, model, generate, check, k7, n_attn, steps, 2, res, launches,
+        lambda tree: {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
+                      "qmm_int8": 2 * 7 * enc_layers})
     # the accuracy cost of the w8a8 conversion carried through the stack
     # and the sampler: recorded (the block limit above is the gate); flux
     # and sd3.5 hold it under LATENT_DELTA_MAX in phases 5 and 10
@@ -3389,10 +3662,11 @@ def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
                                                    fwds["bf16_fused"].float())
     res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
                                                   finals["bf16_fused"])
-    log(f"  requantize_i8 {res['requantize_s']:.3f}s; w8a8 vs bf16-fused: "
-        f"one forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, "
-        f"final latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e} (flux's "
-        f"and sd3.5's phases 5 and 10 hold this under {LATENT_DELTA_MAX})")
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s (peak "
+        f"{res['requantize_peak_gib']:.2f} GiB); w8a8 vs bf16-fused: one "
+        f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
+        f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e} (flux's and "
+        f"sd3.5's phases 5 and 10 hold this under {LATENT_DELTA_MAX})")
 
     # where a w8a8 forward's device time goes (not a path: its launches are
     # not counted)
@@ -3409,12 +3683,170 @@ def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     reqs = [(torch.randn((128, 128, dims.in_ch), generator=gen,
                          device=dev).to(torch.bfloat16),
              {ck: cond[0], nk: nctx[0],
-              "cfg_scale": torch.tensor(scale, device=dev)})
+              "cfg_scale": torch.tensor(scale, device=dev)}, sig)
             for scale in (cfg_scale, 1.0)]
-    eng = mk(model, max_batch=2)
+
+    def direct(x, c, s):
+        def vel(xc, sg):
+            ts = sg.to(torch.float32).expand(1)
+            v_c = model.forward(xc, c[ck][None].to(torch.bfloat16), ts)
+            v_u = model.forward(xc, c[nk][None].to(torch.bfloat16), ts)
+            return v_u.float() + float(c["cfg_scale"]) * (v_c.float()
+                                                          - v_u.float())
+        return sample_flow(vel, x[None], s)[0]
+
+    _engine_check(lambda: mk(model, max_batch=2), reqs, direct, res,
+                  launches, fails)
+    if fails:
+        raise SystemExit(f"{arch}: " + "; ".join(fails))
+    res["launches"] = launches
+    free_tree(model.params)
+    free_tree(enc.params)
+    del model, enc, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: Qwen-Image and HiDream-I1 at published width and depth
+# ---------------------------------------------------------------------------
+
+QWEN_PAD_ID = 151655  # Qwen2.5-VL's <|image_pad|>
+
+
+def _llama_encoder(dev, dims, layers, seed, **cfg):
+    """A llama-graph encoder of ``dims`` (``layers`` of its layers), seed-
+    made on the card at Q8_0, its embedding through the big-embed guard,
+    with a byte-level BPE vocabulary of its size; ``cfg`` overrides
+    ``LlamaConfig.from_state_dict``'s reading (heads, rope theta) and then
+    the config's other fields."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import llama, testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import TextEncoder
+    from comfyui_gguf_tpu_torch.tokenizer import BPETokenizer
+
+    dims = dataclasses.replace(dims, n_layers=layers)
+    params = testing.llama_random_params(dims, qtype=Q.Q8_0, seed=seed,
+                                         device=dev)
+    params["model.embed_tokens.weight"] = _guarded_embedding(
+        dims.vocab, dims.hidden, seed + 1, dev)
+    read = {k: cfg.pop(k) for k in ("n_heads", "rope_theta") if k in cfg}
+    config = dataclasses.replace(
+        llama.LlamaConfig.from_state_dict(params, **read), **cfg)
+    return TextEncoder("llama", params, config,
+                       BPETokenizer(testing.bpe_spec(dims.vocab)),
+                       QuantConfig(), torch.device(dev))
+
+
+def _tree_check(model, arch, inputs, tree, run, recorded, fails):
+    """One forward of ``model`` on ``inputs`` with every kernel call also
+    through its plain version (``_block_check``; not a path: its launches
+    are not counted), held to ``CALL_PLAIN_DELTA_MAX``. The bf16-fused tree
+    records its blocks' inputs and outputs in ``recorded``; the w8a8 tree's
+    blocks take those inputs, each is held within ``W8A8_BLOCK_DELTA_MAX``
+    of the bf16-fused block, and its K4 calls run the control. → the plain
+    forward's output."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        out = model.forward(*inputs)
+    errs = _block_check(model, arch, inputs, recorded, tree == "w8a8")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.update(before)
+    run["call_rel_l2_vs_plain"] = errs["calls"]
+    if not bool(torch.isfinite(out).all()):
+        fails.append(f"{arch} {tree}: a non-finite forward")
+    _call_gate(errs["calls"], f"{arch} {tree}", fails)
+    if tree == "w8a8":
+        # blocks whose linears all stay dense (Lumina 2's refiners) are
+        # equal in both trees: no int8
+        q = [e for e in errs["vs_bf16"] if e > 0]
+        run["block_rel_l2_vs_bf16"] = errs["vs_bf16"]
+        log(f"  w8a8: a block vs the bf16-fused block on the same inputs, "
+            f"worst rel L2 {_worst(q):.3e} (median "
+            f"{statistics.median(q):.3e}, {len(q)} blocks)")
+        if not _worst(q) <= W8A8_BLOCK_DELTA_MAX:
+            fails.append(f"{arch}: a w8a8 block differs from the bf16-fused "
+                         f"block by rel L2 {_worst(q)} > "
+                         f"{W8A8_BLOCK_DELTA_MAX}")
+        recorded.clear()
+    return out
+
+
+def _run_trees(arch, model, generate, check, k7, n_k7, steps, fwd_per_step,
+               res, launches, want_launches):
+    """Text to image on the bf16-fused tree, then ``requantize_i8()`` (its
+    seconds and peak memory) and the same on the w8a8 tree; each tree's
+    ``check`` runs its gates (the w8a8 one before its image, so that the
+    recorded blocks are gone when the image's peak memory is read). K7's
+    instance ``k7`` must launch ``n_k7`` times a forward; the latents must
+    be finite. → the final latents by tree."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+
+    finals = {}
+    for tree in ("bf16_fused", "w8a8"):
+        if tree == "w8a8":
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model.requantize_i8()
+            torch.cuda.synchronize()
+            res["requantize_s"] = time.perf_counter() - t0
+            res["requantize_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                          / 2**30)
+            check(tree)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        lat, tm = generate()
+        counts = dict(_build.LAUNCHES)
+        run = res.setdefault(tree, {})
+        run.update(timings_s=tm, s_per_step=tm["denoise_s"] / steps,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=counts)
+        log(f"  {tree}: {steps} steps, {fwd_per_step} forward(s) a step: "
+            f"encode {tm['encode_s']:.4f}s, denoise {tm['denoise_s']:.3f}s "
+            f"({run['s_per_step'] * 1e3:.1f} ms/step), image "
+            f"{tm['total_s']:.3f}s; peak {run['peak_gib']:.2f} GiB; "
+            f"launches { {k: n for k, n in counts.items() if n} }")
+        if not bool(np.isfinite(lat).all()):
+            raise SystemExit(f"{arch} {tree}: a non-finite latent")
+        finals[tree] = torch.from_numpy(lat)
+        if counts[k7] != n_k7 * fwd_per_step * steps:
+            raise SystemExit(f"{arch} {tree}: {counts[k7]} launches of "
+                             f"{k7}, expected {n_k7} a forward")
+        for k, n in want_launches(tree).items():
+            if counts[k] < n:
+                raise SystemExit(f"{arch} {tree}: {counts[k]} launches of "
+                                 f"{k}, expected {n} or more")
+        for k, n in counts.items():
+            launches[k] += n
+        if tree == "bf16_fused":
+            check(tree)
+    return finals
+
+
+def _engine_check(mk_engine, reqs, direct, res, launches, fails):
+    """Two requests through an engine (max_batch 2), each against the
+    direct sampler at batch 1 (``direct(x, cond)``)."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+
+    eng = mk_engine()
     _build.reset_launch_counts()
     t1 = time.perf_counter()
-    hs = [eng.submit(xr, c, sig) for xr, c in reqs]
+    hs = [eng.submit(x, c, s) for x, c, s in reqs]
     eng.run_until_drained()
     torch.cuda.synchronize()
     res["engine"] = dict(wall_s=time.perf_counter() - t1,
@@ -3423,35 +3855,530 @@ def dit_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     for k, n in _build.LAUNCHES.items():
         launches[k] += n
     errs = []
-    for (xr, c), h in zip(reqs, hs):
+    for (x, c, s), h in zip(reqs, hs):
         if h.error is not None or not h.finished:
-            raise SystemExit(f"{mk.__name__}: a request failed: {h.error}")
-
-        def vel(xc, sg, c=c):
-            ts = sg.to(torch.float32).expand(1)
-            v_c = model.forward(xc, c[ck][None].to(torch.bfloat16), ts)
-            v_u = model.forward(xc, c[nk][None].to(torch.bfloat16), ts)
-            return v_u.float() + float(c["cfg_scale"]) * (v_c.float()
-                                                          - v_u.float())
+            raise SystemExit(f"engine: a request failed: {h.error}")
         with torch.no_grad():
-            want_x = sample_flow(vel, xr[None], sig)[0]
+            want = direct(x, c, s)
         errs.append(rel_l2(torch.from_numpy(np.asarray(h.result,
-                                                        np.float32)),
-                           want_x.float().cpu()))
+                                                       np.float32)),
+                           want.float().cpu()))
     res["engine"]["rel_l2_vs_direct"] = errs
-    log(f"  {mk.__name__}(max_batch=2): 2 requests x {engine_steps} steps at "
-        f"1024² in {res['engine']['ticks']} ticks, "
-        f"{res['engine']['wall_s']:.3f}s; vs sample_flow at batch 1: rel L2 "
-        + ", ".join(f"{e:.3e}" for e in errs))
+    log(f"  engine(max_batch=2): 2 requests in {res['engine']['ticks']} "
+        f"ticks, {res['engine']['wall_s']:.3f}s; vs the direct sampler at "
+        f"batch 1: rel L2 " + ", ".join(f"{e:.3e}" for e in errs))
     if not max(errs) <= ENGINE_DELTA_MAX:
-        fails.append(f"{mk.__name__}: a served request differs from "
-                     f"sample_flow by rel L2 {max(errs)}")
+        fails.append(f"engine: a served request differs from the direct "
+                     f"sampler by rel L2 {max(errs)}")
+
+
+def qwen_image_phase(dev, depth, steps, enc_layers, vision_layers,
+                     engine_steps):
+    """Phase 15: Qwen-Image (``QWEN_IMAGE_20B_DIMS``, ``depth`` of 60
+    blocks), seed-made Q4_K stacked, with the Qwen2.5-VL-7B-shaped llama
+    graph (Q8_0, ``enc_layers`` of 28 layers, its config built as the
+    reference's own test builds the published one: 28 heads, rope theta 1e6,
+    M-RoPE (16, 24, 24), eps 1e-6) through ``QwenImagePipeline.generate`` at
+    1024² with the reference's defaults (20 steps, CFG 4.0, shift 2.2,
+    max_len 256, negative " "), on the bf16-fused tree and then on the w8a8
+    tree (img_mod / txt_mod kept planar): finite latent tokens, K7 exactly
+    ``depth`` times a forward, two forwards a step; the gates of phases
+    13-14 on one forward of each tree; the w8a8 tree's distance over a
+    forward and in the final latent recorded. Then the Qwen2.5-VL vision
+    tower at published width (``vision_layers`` of 32 blocks) on a 448²
+    image (1024 patches, 256 merged tokens) spliced through
+    ``qwen_vl_encode_with_image``, and ``generate_edit`` with one
+    128 × 128 × 16 reference latent for 4 steps on that conditioning; and
+    ``qwen_image_engine`` serving two requests for ``engine_steps`` steps,
+    each within 1e-2 of the direct sampler at batch 1. The trees are freed
+    at the end."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.models.flux import make_img_ids
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (
+        DiffusionModel, QwenImagePipeline, _text_states, qwen_image_engine,
+        qwen_vl_encode_with_image)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+
+    dims = dataclasses.replace(testing.QWEN_IMAGE_20B_DIMS, n_layers=depth)
+    log(f"  Qwen-Image width (hidden 3072, 24 heads of 128), {depth} of 60 "
+        f"blocks, 1024² = 4096 image + 256 text tokens")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DiffusionModel(
+        arch="qwen_image", params=testing.qwen_image_random_stacked_params(
+            dims, qtype=Q.Q4_K, seed=0, device=dev),
+        config=dims.config(), qcfg=QuantConfig(), device=torch.device(dev))
+    enc = _llama_encoder(dev, testing.QWEN25_VL_7B_LLAMA_DIMS, enc_layers,
+                         40, n_heads=28, rope_theta=1e6,
+                         mrope_section=(16, 24, 24), eps=1e-6)
+    vdims = dataclasses.replace(testing.QWEN25_VL_7B_VISION_DIMS,
+                                n_layers=vision_layers)
+    enc.params.update(testing.qwen_vl_vision_random_params(vdims, seed=42,
+                                                           device=dev))
+    torch.cuda.synchronize()
+    pipe = QwenImagePipeline(model, enc)
+    res = {"depth": depth, "steps": steps, "cfg_scale": 4.0,
+           "shift": pipe.shift, "encoder_layers": enc_layers,
+           "vision_layers": vision_layers,
+           "build_s": time.perf_counter() - t0}
+    log(f"  random Q4_K stacked tree, Qwen2.5-VL-7B-shaped encoder "
+        f"({enc_layers} layers, Q8_0, {enc.config.n_heads} heads / "
+        f"{enc.config.n_kv_heads} kv of {enc.config.head_dim}) and vision "
+        f"tower ({vision_layers} blocks, dense bf16) built on the card in "
+        f"{res['build_s']:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    launches = {k: 0 for k in _build.LAUNCHES}
+    fwds, recorded, fails = {}, [], []
+    gen = torch.Generator(device=dev).manual_seed(31)
+    img_ids = torch.as_tensor(np.array(make_img_ids(64, 64, 1)), device=dev)
+    x0 = torch.randn((1, 4096, dims.in_ch), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    cond = _text_states(enc, PROMPTS[0], 256)
+    txt_ids = torch.zeros((1, 256, 3), dtype=torch.int32, device=dev)
+    inputs = (x0, img_ids, cond, txt_ids, torch.full((1,), 0.7, device=dev))
+
+    def check(tree):
+        fwds[tree] = _tree_check(model, "qwen_image", inputs, tree,
+                                 res.setdefault(tree, {}), recorded, fails)
+
+    def generate():
+        lat = pipe.generate(PROMPTS[0], width=1024, height=1024, steps=steps,
+                            seed=0)
+        if lat.shape != (4096, dims.in_ch):
+            raise SystemExit(f"qwen_image: latent tokens of shape "
+                             f"{lat.shape}")
+        return lat, dict(pipe.last_timings)
+
+    finals = _run_trees(
+        "qwen_image", model, generate, check, "flash_attn_d128", depth, steps,
+        2, res, launches,
+        lambda tree: {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
+                      "qmm_nib4_smallm": 2 * 2 * depth * steps,
+                      "qmm_int8": 2 * 7 * enc_layers})
+    res["forward_rel_delta_w8a8_vs_bf16"] = rel_l2(
+        fwds["w8a8"].float(), fwds["bf16_fused"].float())
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s (peak "
+        f"{res['requantize_peak_gib']:.2f} GiB); w8a8 vs bf16-fused: one "
+        f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
+        f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e} (flux's and "
+        f"sd3.5's phases 5 and 10 hold this under {LATENT_DELTA_MAX})")
+    before = dict(_build.LAUNCHES)
+    res["profile_w8a8_forward"] = profile_forward(
+        model, inputs, res["w8a8"]["s_per_step"] / 2, "qwen_image w8a8")
+    _build.LAUNCHES.update(before)
+
+    # the vision tower at published width, spliced into the encoder, and
+    # Qwen-Image-Edit on that conditioning with one reference latent
+    rng = np.random.default_rng(43)
+    image = rng.random((448, 448, 3)).astype(np.float32)
+    head = enc.tokenizer.encode_batch([PROMPTS[1]], max_length=32)[0]
+    ids = np.concatenate([head, np.full((1, 256), QWEN_PAD_ID)], axis=1)
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    txt = qwen_vl_encode_with_image(enc, enc.params, ids, image,
+                                    QWEN_PAD_ID)["last_hidden"]
+    torch.cuda.synchronize()
+    vis_s = time.perf_counter() - t1
+    ntxt = _text_states(enc, " ", ids.shape[1])
+    ref = torch.randn((128, 128, 16), generator=gen, device=dev)
+    lat = pipe.generate_edit("", [ref], width=1024, height=1024, steps=4,
+                             txt_override=txt, ntxt_override=ntxt, seed=1)
+    counts = dict(_build.LAUNCHES)
+    for k, n in counts.items():
+        launches[k] += n
+    tm = dict(pipe.last_timings)
+    L_edit = ids.shape[1] + 2 * 4096
+    res["edit"] = dict(vision_encode_s=vis_s, timings_s=tm,
+                       s_per_step=tm["denoise_s"] / 4, tokens=L_edit,
+                       launches=counts)
+    log(f"  vision tower + splice ({ids.shape[1]} ids, 256 image tokens "
+        f"from 1024 patches) {vis_s:.3f}s; generate_edit at {L_edit} "
+        f"tokens (text + image + reference): "
+        f"{res['edit']['s_per_step'] * 1e3:.1f} ms/step (CFG); launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if (lat.shape != (4096, dims.in_ch) or not bool(np.isfinite(lat).all())
+            or counts["flash_attn_d128"] != 2 * depth * 4):
+        raise SystemExit("qwen_image edit: a misshapen or non-finite latent, "
+                         "or K7 not once a block")
+
+    sig = shift_sigmas(linear_schedule(engine_steps), pipe.shift)
+    reqs = [(torch.randn((4096, dims.in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16),
+             {"txt": c[0]}, sig)
+            for c in (cond, _text_states(enc, PROMPTS[1], 256))]
+
+    def direct(x, c, s):
+        def vel(xc, sg):
+            return model.forward(xc, img_ids, c["txt"][None].to(
+                torch.bfloat16), txt_ids, sg.to(torch.float32).expand(1))
+        return sample_flow(vel, x[None], s)[0]
+
+    _engine_check(lambda: qwen_image_engine(model, 64, 64, 256, max_batch=2),
+                  reqs, direct, res, launches, fails)
     if fails:
-        raise SystemExit(f"{arch}: " + "; ".join(fails))
+        raise SystemExit("qwen_image: " + "; ".join(fails))
     res["launches"] = launches
     free_tree(model.params)
     free_tree(enc.params)
-    del model, enc, pipe, eng
+    del model, enc, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _routes(store):
+    """Each HiDream router call's top-k mask (tokens × experts, on the host)
+    appended to ``store``."""
+    from comfyui_gguf_tpu_torch.models import hidream
+
+    saved = hidream._routing_probs
+
+    def spy(*a, **kw):
+        probs, k = saved(*a, **kw)
+        store.append((probs.reshape(-1, probs.shape[-1]) > 0).cpu())
+        return probs, k
+
+    hidream._routing_probs = spy
+    try:
+        yield
+    finally:
+        hidream._routing_probs = saved
+
+
+@contextlib.contextmanager
+def _capacity_factor(factor):
+    from comfyui_gguf_tpu_torch.models import hidream
+
+    saved = hidream.MOE_CAPACITY_FACTOR
+    hidream.MOE_CAPACITY_FACTOR = factor
+    try:
+        yield
+    finally:
+        hidream.MOE_CAPACITY_FACTOR = saved
+
+
+def _capacity_check(model, inputs, dims, factor, dense_out):
+    """One HiDream forward in "capacity" dispatch at capacity ``factor``,
+    each block also run in "dense" dispatch on the same inputs (the forward
+    carries on with the capacity block's output). → the per-block and the
+    whole-forward relative L2 against dense, and the overflows: the
+    (block, expert) pairs routed more tokens than they take, and the
+    tokens they drop."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.models import hidream
+
+    errs, routes = [], []
+
+    def tap(block, a):
+        with _moe_dispatch("capacity"):
+            out = block(*a)
+        errs.append(_rel_out(out, block(*a)))
+        return out
+
+    with (torch.no_grad(), _capacity_factor(factor),
+          _block_taps("hidream", tap), _routes(routes)):
+        out = model.forward(*inputs)
+        caps = {m.shape[0]: hidream.capacity(m.shape[0], dims.top_k,
+                                             dims.n_experts)
+                for m in routes}
+    torch.cuda.synchronize()
+    routes = routes[::2]  # each block's capacity call (dense: the same)
+    over = [max(0, int(m[:, e].sum()) - caps[m.shape[0]])
+            for m in routes for e in range(dims.n_experts)]
+    rec = dict(capacity_by_tokens=caps,
+               overflowing_experts=sum(o > 0 for o in over),
+               dropped_tokens=sum(over), block_rel_l2_vs_dense=errs,
+               forward_rel_l2_vs_dense=rel_l2(out.float(),
+                                              dense_out.float()))
+    log(f"  capacity dispatch at factor {factor} (tokens an expert takes, "
+        f"by tokens: {caps}): {rec['overflowing_experts']} of {len(over)} "
+        f"(block, expert) pairs overflowed ({sum(over)} tokens dropped); a "
+        f"w8a8 block vs the same block in dense dispatch, worst rel L2 "
+        f"{_worst(errs):.3e} (whole forward "
+        f"{rec['forward_rel_l2_vs_dense']:.3e})")
+    return rec
+
+
+def _budget_check(dev, dims, blocks, fails):
+    """``requantize_i8(max_bytes=, host_stage=True)`` on a HiDream tree of
+    ``blocks`` (double, single) blocks at published width, under a budget
+    of its planar footprint plus 60% of the full conversion's byte delta
+    (60% of the full int8 tree's bytes would sit below the planar tree's
+    own: Q4_K takes 0.75 bytes a weight here, int8 one), beside the
+    unbudgeted on-device conversion of the same tree: the planned share of
+    the delta and the card's peak during each conversion. → the record."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree, tree_leaves
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import DiffusionModel
+    from comfyui_gguf_tpu_torch.quant.i8 import (_leaf_bytes,
+                                                 is_modulation_key,
+                                                 plan_i8_budget)
+    from comfyui_gguf_tpu_torch.quant.planar import PlanarQuant
+
+    dims = dataclasses.replace(dims, depth_double=blocks[0],
+                               depth_single=blocks[1])
+    pred = lambda k, v: not is_modulation_key(k)  # noqa: E731
+    out = {"blocks": list(blocks)}
+    for mode in ("on_device", "budget_host_staged"):
+        model = DiffusionModel(
+            arch="hidream", params=testing.hidream_random_stacked_params(
+                dims, qtype=Q.Q4_K, seed=0, device=dev),
+            config=dims.config(), qcfg=QuantConfig(),
+            device=torch.device(dev))
+        leaves = {}
+
+        def scan(node, path):
+            for k, v in node.items():
+                kp = f"{path}.{k}" if path else k
+                if isinstance(v, dict):
+                    scan(v, kp)
+                elif isinstance(v, PlanarQuant):
+                    leaves[kp] = (*_leaf_bytes(v), pred(kp, v))
+
+        scan(model.params, "")
+        planar = sum(p for p, _, _ in leaves.values())
+        delta = sum(i - p for p, i, ok in leaves.values() if ok)
+        kw, plan = {}, None
+        if mode != "on_device":
+            kw = dict(max_bytes=int(planar + 0.6 * delta), host_stage=True)
+            plan = plan_i8_budget(model.params, max_bytes=kw["max_bytes"],
+                                  pred=pred)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model.requantize_i8(**kw)
+        torch.cuda.synchronize()
+        run = dict(seconds=time.perf_counter() - t0,
+                   before_gib=before / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   after_gib=torch.cuda.memory_allocated() / 2**30,
+                   planar_gb=planar / 1e9, full_int8_gb=(planar + delta)
+                   / 1e9)
+        if plan is not None:
+            done = sum(i - p for k, (p, i, _) in leaves.items() if k in plan)
+            run.update(budget_gb=kw["max_bytes"] / 1e9,
+                       leaves_planned=len(plan), leaves=len(leaves),
+                       planned_share_of_delta=done / delta,
+                       budget_share_of_full_int8=kw["max_bytes"]
+                       / (planar + delta))
+            n_i8 = sum(1 for x in tree_leaves(model.params)
+                       if x.dtype == torch.int8 and x.dim() >= 2)
+            if n_i8 == 0 or not plan:
+                fails.append("hidream: the budgeted conversion converted "
+                             "nothing")
+        out[mode] = run
+        log(f"  {mode.replace('_', ' ')} conversion of a {blocks[0]} + "
+            f"{blocks[1]}-block tree (planar {planar / 1e9:.2f} GB, full "
+            f"int8 {(planar + delta) / 1e9:.2f} GB)"
+            + (f" under {kw['max_bytes'] / 1e9:.2f} GB "
+               f"({run['budget_share_of_full_int8']:.0%} of the full int8 "
+               f"tree): {len(plan)} of {len(leaves)} leaves planned, "
+               f"{run['planned_share_of_delta']:.0%} of the delta"
+               if plan is not None else "")
+            + f": {run['seconds']:.2f}s, card peak {run['peak_gib']:.2f} GiB "
+            f"(from {run['before_gib']:.2f}, after {run['after_gib']:.2f})")
+        free_tree(model.params)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def hidream_phase(dev, depth_double, depth_single, steps, t5_layers,
+                  llama_layers, engine_steps, budget_blocks):
+    """Phase 16: HiDream-I1 (``HIDREAM_I1_DIMS``: 4 routed experts top-2
+    plus the shared one; ``depth_double`` of 16 and ``depth_single`` of 32
+    blocks), seed-made Q4_K stacked, with CLIP-L and CLIP-G, T5-xxl
+    (``t5_layers``, Q8_0) and the Llama-3.1-8B-shaped llama graph
+    (``llama_layers``, Q8_0, 128256 rows through the big-embed guard)
+    through ``HiDreamPipeline.generate_from_ids`` at 1024², 20 steps (one
+    forward a step), 128 T5 and 128 llama tokens (4352 joint tokens), on
+    the bf16-fused tree and then on the w8a8 tree (adaLN kept planar): K7
+    exactly ``depth_double + depth_single`` times a forward; the gates of
+    phases 13-14, with the routing of each block recorded on both trees
+    (the tokens whose top-2 sets differ); w8a8 forwards in "capacity"
+    dispatch (``_capacity_check``) at the default factor (overflows
+    recorded) and at E/k, where no expert can overflow and each block must
+    be within 1e-2 of dense; ``hidream_engine`` serving two requests within
+    1e-2 of the direct sampler. Then ``_budget_check`` on a tree of
+    ``budget_blocks`` (double, single) blocks."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree
+    from comfyui_gguf_tpu_torch.models import hidream, t5, testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (DiffusionModel,
+                                                 HiDreamPipeline, TextEncoder,
+                                                 hidream_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+    from comfyui_gguf_tpu_torch.tokenizer import UnigramTokenizer
+
+    dims = dataclasses.replace(testing.HIDREAM_I1_DIMS,
+                               depth_double=depth_double,
+                               depth_single=depth_single)
+    n_attn = depth_double + depth_single
+    log(f"  HiDream-I1 width (hidden 2560, 20 heads of 128, FFN 6912, 4 "
+        f"experts top-2 + shared), {depth_double} double + {depth_single} "
+        f"single blocks (of 16 + 32), 1024² = 4096 image + 128 T5 + 128 "
+        f"llama tokens")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+
+    model = DiffusionModel(
+        arch="hidream", params=testing.hidream_random_stacked_params(
+            dims, qtype=Q.Q4_K, seed=0, device=dev),
+        config=dims.config(), qcfg=QuantConfig(), device=torch.device(dev))
+    clip_l, clip_g = _published_clips(dev)
+    t5_dims = dataclasses.replace(testing.T5_XXL_DIMS, n_layers=t5_layers)
+    t5_params = testing.t5_random_params(t5_dims, qtype=Q.Q8_0, seed=50,
+                                         device=dev)
+    t5_enc = TextEncoder("t5", t5_params,
+                         t5.T5Config.from_state_dict(t5_params),
+                         UnigramTokenizer(testing.unigram_spec(
+                             t5_dims.vocab)), QuantConfig(),
+                         torch.device(dev))
+    llama_enc = _llama_encoder(dev, testing.LLAMA31_8B_DIMS, llama_layers,
+                               52)
+    torch.cuda.synchronize()
+    pipe = HiDreamPipeline(model, clip_l, clip_g, t5_enc, llama_enc)
+    res = {"depth_double": depth_double, "depth_single": depth_single,
+           "steps": steps, "shift": pipe.shift, "t5_layers": t5_layers,
+           "llama_layers": llama_layers,
+           "build_s": time.perf_counter() - t0}
+    log(f"  random Q4_K stacked tree, CLIP-L, CLIP-G, T5-xxl ({t5_layers} "
+        f"layers) and Llama-3.1-8B-shaped encoder ({llama_layers} layers, "
+        f"{llama_enc.config.n_heads} heads / {llama_enc.config.n_kv_heads} kv)"
+        f" built on the card in {res['build_s']:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    ids = (clip_l.tokenizer.encode_batch([PROMPTS[0]], max_length=77)[0],
+           clip_g.tokenizer.encode_batch([PROMPTS[0]], max_length=77)[0],
+           t5_enc.tokenizer.encode_batch([PROMPTS[0]], max_length=128)[0],
+           llama_enc.tokenizer.encode_batch([PROMPTS[0]],
+                                            max_length=128)[0])
+    launches = {k: 0 for k in _build.LAUNCHES}
+    fwds, recorded, fails, routes = {}, [], [], {}
+    gen = torch.Generator(device=dev).manual_seed(32)
+    dev_ids = [torch.as_tensor(i, device=dev) for i in ids]
+    with torch.no_grad():
+        pooled = torch.cat([clip_l.encode(dev_ids[0])["pooled"],
+                            clip_g.encode(dev_ids[1])["pooled"]], dim=-1)
+        t5s = t5_enc.encode(dev_ids[2])
+        lls = llama_enc.encode(dev_ids[3])["last_hidden"]
+    x0 = torch.randn((1, 128, 128, dims.in_ch), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    inputs = (x0, t5s, lls, pooled, torch.full((1,), 0.7, device=dev))
+
+    def check(tree):
+        with _routes(routes.setdefault(tree, [])):
+            fwds[tree] = _tree_check(model, "hidream", inputs, tree,
+                                     res.setdefault(tree, {}), recorded,
+                                     fails)
+
+    def generate():
+        lat = pipe.generate_from_ids(*ids, width=1024, height=1024,
+                                     steps=steps, seed=0)
+        if lat.shape != (128, 128, dims.in_ch):
+            raise SystemExit(f"hidream: a latent of shape {lat.shape}")
+        return lat, dict(pipe.last_timings)
+
+    finals = _run_trees(
+        "hidream", model, generate, check, "flash_attn_d128", n_attn, steps,
+        1, res, launches,
+        lambda tree: {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
+                      "qmm_nib4_smallm": n_attn * steps,
+                      "qmm_int8": 7 * (t5_layers + llama_layers)})
+    res["forward_rel_delta_w8a8_vs_bf16"] = rel_l2(
+        fwds["w8a8"].float(), fwds["bf16_fused"].float())
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    # each router call of the gates' forwards: the bf16-fused forward and
+    # the w8a8 replay (each block on the bf16-fused inputs) come in the
+    # same order, after the plain forward's calls
+    n_moe = depth_double + depth_single
+    pairs = list(zip(routes["bf16_fused"][-n_moe:], routes["w8a8"][-n_moe:]))
+    flips = [int((a != b).any(dim=-1).sum()) for a, b in pairs]
+    res["routing_flips_per_block"] = flips
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s (peak "
+        f"{res['requantize_peak_gib']:.2f} GiB); w8a8 vs bf16-fused: one "
+        f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
+        f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e}; tokens whose "
+        f"top-2 experts differ between the trees, by block (of "
+        f"{pairs[0][0].shape[0] if pairs else 0}): {flips}")
+    before = dict(_build.LAUNCHES)
+    res["profile_w8a8_forward"] = profile_forward(
+        model, inputs, res["w8a8"]["s_per_step"], "hidream w8a8")
+
+    # capacity dispatch against dense on the w8a8 tree, block by block (the
+    # dispatch's own effect; over a whole forward the stack carries its
+    # bf16 rounding differences on through the int8 activation codes, as
+    # any last-bit difference: PERF.md, Findings): at the default
+    # capacity factor (overflows recorded), and at E/k, where an expert
+    # takes every token (C = T) and none can overflow
+    res["capacity"] = {}
+    for factor in (hidream.MOE_CAPACITY_FACTOR,
+                   dims.n_experts / dims.top_k):
+        res["capacity"][factor] = _capacity_check(model, inputs, dims,
+                                                  factor, fwds["w8a8"])
+        _build.LAUNCHES.update(before)
+    no_drop = [r for r in res["capacity"].values()
+               if r["dropped_tokens"] == 0]
+    if not no_drop or not all(_worst(r["block_rel_l2_vs_dense"]) <= 1e-2
+                              for r in no_drop):
+        fails.append("hidream: capacity dispatch moved a block by more than "
+                     "1e-2 from dense with no expert overflowed")
+
+    sig = shift_sigmas(linear_schedule(engine_steps), pipe.shift)
+    reqs = [(torch.randn((128, 128, dims.in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16),
+             {"t5": t5s[0], "llama": lls[0], "pooled": pooled[0] * scale},
+             sig) for scale in (1.0, 0.5)]
+
+    def direct(x, c, s):
+        def vel(xc, sg):
+            return model.forward(xc, *(c[k][None].to(torch.bfloat16)
+                                       for k in ("t5", "llama", "pooled")),
+                                 sg.to(torch.float32).expand(1))
+        return sample_flow(vel, x[None], s)[0]
+
+    _engine_check(lambda: hidream_engine(model, max_batch=2), reqs, direct,
+                  res, launches, fails)
+    free_tree(model.params)
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["budget"] = _budget_check(dev, dims, budget_blocks, fails)
+    if fails:
+        raise SystemExit("hidream: " + "; ".join(fails))
+    res["launches"] = launches
+    for tree in (clip_l.params, clip_g.params, t5_enc.params,
+                 llama_enc.params):
+        free_tree(tree)
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -3471,6 +4398,17 @@ def main() -> int:
     ap.add_argument("--lumina-depth", type=int, default=26)
     ap.add_argument("--lumina-steps", type=int, default=20)
     ap.add_argument("--llama-layers", type=int, default=26)
+    ap.add_argument("--qwen-depth", type=int, default=60)
+    ap.add_argument("--qwen-steps", type=int, default=20)
+    ap.add_argument("--qwen-encoder-layers", type=int, default=28)
+    ap.add_argument("--qwen-vision-layers", type=int, default=32)
+    ap.add_argument("--hidream-depth-double", type=int, default=16)
+    ap.add_argument("--hidream-depth-single", type=int, default=32)
+    ap.add_argument("--hidream-steps", type=int, default=20)
+    ap.add_argument("--hidream-t5-layers", type=int, default=24)
+    ap.add_argument("--hidream-llama-layers", type=int, default=32)
+    ap.add_argument("--hidream-budget-blocks", type=int, nargs=2,
+                    default=(2, 4), metavar=("DOUBLE", "SINGLE"))
     args = ap.parse_args()
 
     import torch
@@ -3588,6 +4526,8 @@ def main() -> int:
     sd_tiny = sd_tiny_phase(dev)
     log("[4e tiny AuraFlow / Lumina 2 from files, card vs CPU]")
     dit_tiny = dit_tiny_phase(dev)
+    log("[4f tiny Qwen-Image / HiDream from files, card vs CPU]")
+    qh_tiny = qh_tiny_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -3641,6 +4581,20 @@ def main() -> int:
     lumina_res = dit_full_phase(dev, "lumina2", args.lumina_depth,
                                 args.lumina_steps, args.llama_layers,
                                 min(args.lumina_steps, 4))
+    log("[15 Qwen-Image at published width and depth, the Qwen2.5-VL "
+        "vision tower, Qwen-Image-Edit, qwen_image_engine]")
+    qwen_res = qwen_image_phase(dev, args.qwen_depth, args.qwen_steps,
+                                args.qwen_encoder_layers,
+                                args.qwen_vision_layers,
+                                min(args.qwen_steps, 4))
+    log("[16 HiDream-I1 at published width and depth, hidream_engine, the "
+        "budgeted conversion]")
+    hidream_res = hidream_phase(dev, args.hidream_depth_double,
+                                args.hidream_depth_single,
+                                args.hidream_steps, args.hidream_t5_layers,
+                                args.hidream_llama_layers,
+                                min(args.hidream_steps, 4),
+                                args.hidream_budget_blocks)
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
@@ -3649,11 +4603,13 @@ def main() -> int:
                    *(v["launches"] for v in tiny_pipe.values()),
                    *(v["launches"] for v in sd_tiny.values()),
                    *(v["launches"] for v in dit_tiny.values()),
+                   *(v["launches"] for v in qh_tiny.values()),
                    menu["launches"], main_res["launches"], t2i["launches"],
                    serve_res["launches"], lora_res["launches"], tool_counts,
                    sd3_res["launches"], sd3_t2i["launches"],
                    unet_res["launches"], aura_res["launches"],
-                   lumina_res["launches"]):
+                   lumina_res["launches"], qwen_res["launches"],
+                   hidream_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

@@ -7,9 +7,11 @@ w8a8 conversion → flux forward → sampler (Euler or any of the flow menu) →
 VAE decode, served one request at a time or continuously batched
 (``flux_engine``); SD3/SD3.5 (``SD3Pipeline``, ``sd3_engine``) and the
 SD1/SDXL UNet (``SD1Pipeline``, ``SDXLPipeline``, ``unet_engine``),
-AuraFlow (``AuraPipeline``, ``aura_engine``) and Lumina Image 2.0
+AuraFlow (``AuraPipeline``, ``aura_engine``), Lumina Image 2.0
 (``Lumina2Pipeline``, ``lumina2_engine``, with the llama-family text
-encoder) run the same way, with
+encoder), Qwen-Image (``QwenImagePipeline``, ``qwen_image_engine``, with
+the Qwen2.5-VL encoder and its vision tower) and HiDream-I1
+(``HiDreamPipeline``, ``hidream_engine``, the MoE DiT) run the same way, with
 hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
 the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
@@ -38,6 +40,9 @@ _PUBLIC = {
     "AuraPipeline": ".pipeline",
     "Lumina2Pipeline": ".pipeline",
     "CFGFlowPipeline": ".pipeline",
+    "QwenImagePipeline": ".pipeline",
+    "HiDreamPipeline": ".pipeline",
+    "qwen_vl_encode_with_image": ".pipeline",
     "QuantConfig": ".nn.layers",
     "quantized_matmul": ".ops.qmatmul",
     "i8_matmul": ".ops.i8mm",
@@ -53,6 +58,8 @@ _PUBLIC = {
     "unet_engine": ".pipeline",
     "aura_engine": ".pipeline",
     "lumina2_engine": ".pipeline",
+    "qwen_image_engine": ".pipeline",
+    "hidream_engine": ".pipeline",
     "make_flow_engine": ".pipeline",
     "ContinuousBatchEngine": ".serving",
     "EngineGroup": ".serving",

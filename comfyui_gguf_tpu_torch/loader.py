@@ -10,14 +10,16 @@
   offset planes stay float32.
 
 ``gguf_clip_loader`` is the text-encoder entry: key maps, tokenizer
-metadata (``TokenizerSpec``) and the early decode of huge token embeddings.
-The mmproj sidecar of the vision-language encoders is not ported yet.
+metadata (``TokenizerSpec``), the early decode of huge token embeddings and,
+for a qwen2vl encoder, the merge of its mmproj sidecar (the Qwen2-VL /
+Qwen2.5-VL vision tower, ``gguf_mmproj_loader``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import re
 
 import numpy as np
@@ -27,8 +29,8 @@ from ._device import resolve_device
 from .archs import IMG_ARCH_LIST, TXT_ARCH_LIST, VIS_TYPE_LIST, detect_arch
 from .gguf.constants import GGML_QUANT_SIZES, GGMLQuantizationType
 from .gguf.reader import GGUFReader
-from .maps import (LLAMA_SD_MAP, T5_SD_MAP, sd_map_replace,
-                   unpermute_gqa_rows)
+from .maps import (CLIP_VISION_SD_MAP, LLAMA_SD_MAP, T5_SD_MAP,
+                   sd_map_replace, unpermute_gqa_rows)
 from .nn.layers import DEFAULT_CONFIG, QuantConfig
 from .quant import codecs
 from .quant.planar import planarize
@@ -244,6 +246,65 @@ def strip_quant_suffix(name: str) -> str:
     return name[: m.start()] if m else name
 
 
+def find_mmproj(path: str) -> str | None:
+    """The mmproj sidecar GGUF next to a text-encoder file: the one ``.gguf``
+    in its directory whose name holds "mmproj" and the encoder's file name
+    without its quant tag (case-insensitive); the first in sorted order
+    where several match, None (logged) where none does."""
+    tenc = strip_quant_suffix(
+        os.path.splitext(os.path.basename(path))[0].lower())
+    root = os.path.dirname(path) or "."
+    matches = []
+    for fname in sorted(os.listdir(root)):
+        name, ext = os.path.splitext(fname)
+        if ext.lower() != ".gguf" or "mmproj" not in name.lower():
+            continue
+        if tenc in name.lower():
+            matches.append(fname)
+    if not matches:
+        log.error("no mmproj sidecar found for %r (matching %r)", path, tenc)
+        return None
+    if len(matches) > 1:
+        log.error("ambiguous mmproj for %r; using first match", path)
+    return os.path.join(root, matches[0])
+
+
+def _f32(name: str, arr: np.ndarray) -> QTensor:
+    arr = np.ascontiguousarray(arr, np.float32)
+    return QTensor(name=name, qtype=Q.F32, shape=arr.shape, data=arr)
+
+
+def gguf_mmproj_loader(path: str) -> dict[str, QTensor]:
+    """The vision tower of the text encoder at ``path`` from its mmproj
+    sidecar (``find_mmproj``), as ``visual.*`` keys: the two 4-D
+    ``v.patch_embd.weight`` chunks stacked along axis 2 into the 5-D
+    temporal patch kernel, llama.cpp's names mapped by
+    ``CLIP_VISION_SD_MAP``, and split q/k/v re-fused into one float32
+    ``attn.qkv`` per block. {} where there is no sidecar."""
+    target = find_mmproj(path)
+    if target is None:
+        return {}
+    vsd = gguf_sd_loader(target, is_text_model=True)
+    if "v.patch_embd.weight.1" in vsd:
+        w1 = vsd.pop("v.patch_embd.weight").dequantize()
+        w2 = vsd.pop("v.patch_embd.weight.1").dequantize()
+        vsd["v.patch_embd.weight"] = _f32("v.patch_embd.weight",
+                                          np.stack([w1, w2], axis=2))
+    vsd = sd_map_replace(vsd, CLIP_VISION_SD_MAP)
+    if "visual.blocks.0.attn_q.weight" in vsd:
+        groups: dict[str, dict[str, np.ndarray]] = {}
+        for k in list(vsd):
+            if any(x in k for x in ("attn_q", "attn_k", "attn_v")):
+                prefix, leaf = k.rsplit(".attn_", 1)
+                fused = f"{prefix}.attn.qkv.{leaf.split('.')[-1]}"
+                groups.setdefault(fused, {})[leaf] = vsd.pop(k).dequantize()
+        for fused, parts in groups.items():
+            suffix = fused.split(".")[-1]
+            vsd[fused] = _f32(fused, np.concatenate(
+                [parts[f"{c}.{suffix}"] for c in "qkv"], axis=0))
+    return vsd
+
+
 # ---------------------------------------------------------------------------
 # text-encoder entry
 # ---------------------------------------------------------------------------
@@ -253,7 +314,8 @@ BIG_EMBED_VOCAB = 64 * 1024  # dequant-early threshold
 
 def gguf_clip_loader(path: str):
     """Load a text-encoder GGUF: remap keys, recover tokenizer metadata,
-    eagerly decode huge token embeddings.
+    eagerly decode huge token embeddings, merge a qwen2vl file's mmproj
+    sidecar (``gguf_mmproj_loader``).
 
     Returns ``(state_dict, arch, TokenizerSpec | None)``.
     """
@@ -280,9 +342,7 @@ def gguf_clip_loader(path: str):
                 elif k.endswith(("k_proj.weight", "k_proj.bias")):
                     sd[k] = sd[k].permute_rows(8)
         if arch == "qwen2vl":
-            raise NotImplementedError(
-                "the mmproj sidecar of qwen2vl text encoders is not ported "
-                "yet (it comes with the qwen_image slice)")
+            sd.update(gguf_mmproj_loader(path))
     return sd, arch, tok
 
 

@@ -314,6 +314,9 @@ def _stack_opt(ts):
 
 def _stack_leaves(leaves, key: str = ""):
     first = leaves[0]
+    if isinstance(first, dict):  # a nested subtree (HiDream's experts)
+        return {k: _stack_leaves([l[k] for l in leaves], f"{key}.{k}")
+                for k in first}
     if any(isinstance(l, PatchedWeight) for l in leaves):
         # blocks stack only where every block carries patches of the same
         # kinds, ranks and scales (the reference's tree map refuses other
@@ -380,8 +383,9 @@ def stack_flux_params(params: dict, cfg: FluxConfig) -> dict:
 
 def block_view(stacked: dict, i: int) -> dict:
     """Block i of a stacked subtree: every leaf is a view, no copy (a
-    PatchedWeight's base and factors too)."""
-    return {k: v[i] for k, v in stacked.items()}
+    PatchedWeight's base and factors too; nested subtrees alike)."""
+    return {k: block_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
 
 
 def forward_stacked(sparams: dict, cfg: FluxConfig, img, img_ids, txt,

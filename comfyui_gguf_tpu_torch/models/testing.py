@@ -1,9 +1,10 @@
 """Synthetic builders for tests, smoke runs and benches (PyTorch port of the
-flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, T5, CLIP, llama and VAE parts
-of comfyui_gguf_tpu/models/testing.py): flux, SD3, UNet, AuraFlow and
-Lumina 2 trees and files, T5 / CLIP-L / CLIP-G / llama-family /
-AutoencoderKL parameter trees at tiny and at published widths, and
-synthetic vocabularies for the native tokenizers.
+flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, T5,
+CLIP, llama and VAE parts of comfyui_gguf_tpu/models/testing.py): flux,
+SD3, UNet, AuraFlow, Lumina 2, Qwen-Image and HiDream trees and files, T5 /
+CLIP-L / CLIP-G / llama-family / Qwen-VL vision tower / AutoencoderKL
+parameter trees at tiny and at published widths, an mmproj sidecar writer,
+and synthetic vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
 (``torch.Generator``) at the real planar layout, so a full-width tree is
@@ -1027,6 +1028,193 @@ def lumina2_random_stacked_params(d: Lumina2Dims, qtype=Q.Q4_K,
                                     qtype=qtype, seed=seed, device=device)
 
 
+@dataclasses.dataclass(frozen=True)
+class QwenImageDims:
+    """Qwen-Image dims (models/qwen_image.py QwenImageConfig fields)."""
+    hidden: int = 128
+    n_heads: int = 2
+    n_layers: int = 2
+    in_ch: int = 32
+    context_dim: int = 96
+
+    def config(self):
+        from .qwen_image import QwenImageConfig
+
+        hd = self.hidden // self.n_heads
+        third = 2 * ((hd - hd // 8) // 4)
+        return QwenImageConfig(hidden=self.hidden, n_layers=self.n_layers,
+                               n_heads=self.n_heads, in_channels=self.in_ch,
+                               context_dim=self.context_dim,
+                               axes_dim=(hd - 2 * third, third, third))
+
+
+# Qwen-Image (20B MMDiT): hidden 3072, 24 heads of 128, 60 joint blocks,
+# Qwen2.5-VL-7B text states (3584), 64 input features (16-channel latents,
+# 2×2 patches)
+QWEN_IMAGE_20B_DIMS = QwenImageDims(hidden=3072, n_heads=24, n_layers=60,
+                                    in_ch=64, context_dim=3584)
+
+
+def qwen_image_shape_spec(d: QwenImageDims):
+    """(nonblock, groups) shape spec of models/qwen_image.py's keys."""
+    H, T, I = d.hidden, d.context_dim, d.in_ch
+    hd = H // d.n_heads
+    nonblock = {
+        "img_in.weight": (H, I), "img_in.bias": (H,),
+        "txt_in.weight": (H, T), "txt_in.bias": (H,),
+        "txt_norm.weight": (T,),
+        "time_text_embed.timestep_embedder.linear_1.weight": (H, 256),
+        "time_text_embed.timestep_embedder.linear_1.bias": (H,),
+        "time_text_embed.timestep_embedder.linear_2.weight": (H, H),
+        "time_text_embed.timestep_embedder.linear_2.bias": (H,),
+        "norm_out.linear.weight": (2 * H, H),
+        "norm_out.linear.bias": (2 * H,),
+        "proj_out.weight": (I, H), "proj_out.bias": (I,),
+    }
+    block = {
+        "img_mod.1.weight": (6 * H, H), "img_mod.1.bias": (6 * H,),
+        "txt_mod.1.weight": (6 * H, H), "txt_mod.1.bias": (6 * H,),
+        "attn.to_out.0.weight": (H, H), "attn.to_out.0.bias": (H,),
+        "attn.to_add_out.weight": (H, H), "attn.to_add_out.bias": (H,),
+    }
+    for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
+              "add_v_proj"):
+        block[f"attn.{n}.weight"] = (H, H)
+        block[f"attn.{n}.bias"] = (H,)
+    for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+        block[f"attn.{n}.weight"] = (hd,)
+    for st in ("img", "txt"):
+        block[f"{st}_mlp.net.0.proj.weight"] = (4 * H, H)
+        block[f"{st}_mlp.net.0.proj.bias"] = (4 * H,)
+        block[f"{st}_mlp.net.2.weight"] = (H, 4 * H)
+        block[f"{st}_mlp.net.2.bias"] = (H,)
+    return nonblock, {"transformer_blocks": (d.n_layers, block)}
+
+
+def qwen_image_random_stacked_params(d: QwenImageDims, qtype=Q.Q4_K,
+                                     seed: int = 0, device="cuda") -> dict:
+    return random_stacked_from_spec(*qwen_image_shape_spec(d), "qwen_image",
+                                    qtype=qtype, seed=seed, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyHiDreamDims:
+    """HiDream-I1 dims (models/hidream.py HiDreamConfig fields)."""
+    hidden: int = 128
+    heads: int = 2
+    depth_double: int = 2
+    depth_single: int = 2
+    ffn: int = 256
+    n_experts: int = 2
+    top_k: int = 1
+    t5_dim: int = 64
+    llama_dim: int = 96
+    pooled: int = 48
+    in_ch: int = 16
+    patch: int = 2
+
+    def config(self):
+        from .hidream import HiDreamConfig
+
+        hd = self.hidden // self.heads
+        return HiDreamConfig(
+            hidden=self.hidden, n_heads=self.heads,
+            depth_double=self.depth_double, depth_single=self.depth_single,
+            in_channels=self.in_ch, patch_size=self.patch,
+            n_experts=self.n_experts, top_k=self.top_k,
+            axes_dim=(hd // 2, hd // 4, hd // 4))
+
+
+# HiDream-I1 (17B): hidden 2560, 20 heads of 128, 16 double + 32 single
+# blocks, SwiGLU FFN 6912, 4 routed experts (top-2) + the shared one, T5-xxl
+# and Llama-3.1-8B states (4096), CLIP-L ⊕ CLIP-G pooled (2048)
+HIDREAM_I1_DIMS = TinyHiDreamDims(
+    hidden=2560, heads=20, depth_double=16, depth_single=32, ffn=6912,
+    n_experts=4, top_k=2, t5_dim=4096, llama_dim=4096, pooled=2048)
+
+
+def hidream_shape_spec(d: TinyHiDreamDims, experts: bool = True):
+    """(nonblock, groups) shape spec of models/hidream.py's flat keys (the
+    experts per expert, ``{p}.experts.{e}.w*``); ``experts=False`` leaves
+    the routed experts out."""
+    H, F, E = d.hidden, d.ffn, d.n_experts
+    hd = H // d.heads
+    C4 = d.in_ch * d.patch ** 2
+    nonblock = {
+        "x_embedder.proj.weight": (H, C4), "x_embedder.proj.bias": (H,),
+        "t_embedder.mlp.0.weight": (H, 256), "t_embedder.mlp.0.bias": (H,),
+        "t_embedder.mlp.2.weight": (H, H), "t_embedder.mlp.2.bias": (H,),
+        "p_embedder.mlp.0.weight": (H, d.pooled),
+        "p_embedder.mlp.0.bias": (H,),
+        "p_embedder.mlp.2.weight": (H, H), "p_embedder.mlp.2.bias": (H,),
+        # the published order: 0..N-2 take the llama states, the last T5
+        "caption_projection.0.linear.weight": (H, d.llama_dim),
+        "caption_projection.1.linear.weight": (H, d.t5_dim),
+        "final_layer.linear.weight": (C4, H),
+        "final_layer.linear.bias": (C4,),
+        "final_layer.adaLN_modulation.1.weight": (2 * H, H),
+        "final_layer.adaLN_modulation.1.bias": (2 * H,),
+    }
+
+    def swiglu(prefix):
+        return {f"{prefix}.w1.weight": (F, H), f"{prefix}.w2.weight": (H, F),
+                f"{prefix}.w3.weight": (F, H)}
+
+    def moe(prefix):
+        s = {f"{prefix}.gate.weight": (E, H)}
+        s.update(swiglu(f"{prefix}.shared_experts"))
+        for e in range(E if experts else 0):
+            s.update(swiglu(f"{prefix}.experts.{e}"))
+        return s
+
+    double = {"block.adaLN_modulation.1.weight": (12 * H, H),
+              "block.adaLN_modulation.1.bias": (12 * H,)}
+    for t in ("", "_t"):
+        for n in ("to_q", "to_k", "to_v", "to_out"):
+            double[f"block.attn1.{n}{t}.weight"] = (H, H)
+        double[f"block.attn1.q_rms_norm{t}.weight"] = (hd,)
+        double[f"block.attn1.k_rms_norm{t}.weight"] = (hd,)
+    double.update(moe("block.ff_i"))
+    double.update(swiglu("block.ff_t"))
+    single = {"block.adaLN_modulation.1.weight": (6 * H, H),
+              "block.adaLN_modulation.1.bias": (6 * H,)}
+    for n in ("to_q", "to_k", "to_v", "to_out"):
+        single[f"block.attn1.{n}.weight"] = (H, H)
+    single["block.attn1.q_rms_norm.weight"] = (hd,)
+    single["block.attn1.k_rms_norm.weight"] = (hd,)
+    single.update(moe("block.ff_i"))
+    return nonblock, {"double_stream_blocks": (d.depth_double, double),
+                      "single_stream_blocks": (d.depth_single, single)}
+
+
+def hidream_random_stacked_params(d: TinyHiDreamDims, qtype=Q.Q4_K,
+                                  seed: int = 0, device="cuda") -> dict:
+    """A full-depth HiDream tree in ``stack_hidream_params``'s layout made on
+    ``device`` from a seed (``random_stacked_from_spec``), the routed
+    experts of each group generated as one (depth·E)-stack and viewed as
+    the (depth, E, …) ``experts_stacked`` leaves."""
+    device = resolve_device(device)
+    params = random_stacked_from_spec(*hidream_shape_spec(d, experts=False),
+                                      "hidream", qtype=qtype, seed=seed,
+                                      device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    H, F, E = d.hidden, d.ffn, d.n_experts
+
+    def experts(n, r, k):
+        leaf = random_planar(qtype, (r, k), gen, device=device, stack=n * E)
+        return dataclasses.replace(
+            leaf, **{f: getattr(leaf, f).reshape(n, E, *getattr(
+                leaf, f).shape[1:]) for f in ("qs", "scales", "offsets")
+                if getattr(leaf, f) is not None})
+
+    for group, n in (("double_stream_blocks", d.depth_double),
+                     ("single_stream_blocks", d.depth_single)):
+        params[group]["block.ff_i.experts_stacked"] = {
+            "w1": experts(n, F, H), "w2": experts(n, H, F),
+            "w3": experts(n, F, H)}
+    return params
+
+
 def dit_example_inputs(latent_shape, cond_shape, ts=0.7, seed: int = 1,
                        dtype=torch.bfloat16, device="cuda"):
     """(latent, cond, t) for an AuraFlow or Lumina 2 forward, made from a
@@ -1193,6 +1381,7 @@ class LlamaDims:
     intermediate: int = 256
     vocab: int = 120
     qk_norm: bool = False  # qwen3
+    qkv_bias: bool = False  # qwen2 / qwen2.5
 
     def config(self):
         from .llama import LlamaConfig
@@ -1212,6 +1401,29 @@ class LlamaDims:
 GEMMA2_2B_LLAMA_DIMS = LlamaDims(hidden=2304, n_layers=26, n_heads=32,
                                  n_kv_heads=16, head_dim=64,
                                  intermediate=9216, vocab=256000)
+
+
+# Qwen2.5-VL-7B's text model (Qwen-Image's encoder): hidden 3584, 28
+# layers, 28 heads of 128 and 4 kv heads, intermediate 18944, q/k/v biases,
+# vocab 152064. The llama graph's default 32 heads misread this shape: its
+# config is built with n_heads=28 (ROADMAP queue 3)
+QWEN25_VL_7B_LLAMA_DIMS = LlamaDims(hidden=3584, n_layers=28, n_heads=28,
+                                    n_kv_heads=4, head_dim=128,
+                                    intermediate=18944, vocab=152064,
+                                    qkv_bias=True)
+# Llama-3.1-8B (HiDream-I1's fourth encoder): hidden 4096, 32 layers, 32
+# heads of 128 and 8 kv heads, intermediate 14336, vocab 128256
+LLAMA31_8B_DIMS = LlamaDims(hidden=4096, n_layers=32, n_heads=32,
+                            n_kv_heads=8, head_dim=128, intermediate=14336,
+                            vocab=128256)
+
+
+def _llama_bias_shapes(d: LlamaDims) -> dict[str, tuple[int]]:
+    if not d.qkv_bias:
+        return {}
+    q, kv = d.n_heads * d.head_dim, d.n_kv_heads * d.head_dim
+    return {"self_attn.q_proj": (q,), "self_attn.k_proj": (kv,),
+            "self_attn.v_proj": (kv,)}
 
 
 def _llama_linear_shapes(d: LlamaDims) -> dict[str, tuple[int, int]]:
@@ -1249,6 +1461,8 @@ def llama_state_dict(dims: LlamaDims, seed: int = 0,
         p = f"model.layers.{i}."
         for name, shape in _llama_linear_shapes(dims).items():
             sd[f"{p}{name}.weight"] = t(*shape)
+        for name, shape in _llama_bias_shapes(dims).items():
+            sd[f"{p}{name}.bias"] = t(*shape)
         for name, shape in _llama_norm_shapes(dims).items():
             sd[f"{p}{name}.weight"] = t(*shape) + 1
     return sd
@@ -1272,6 +1486,8 @@ def llama_random_params(dims: LlamaDims, qtype=Q.Q8_0, seed: int = 0,
             params[f"{p}{name}.weight"] = random_planar(
                 qtype, (r, k), gen, device=device,
                 scale=1.0 / (73.0 * k ** 0.5))
+        for name, shape in _llama_bias_shapes(dims).items():
+            params[f"{p}{name}.bias"] = dense(*shape)
         for name, shape in _llama_norm_shapes(dims).items():
             params[f"{p}{name}.weight"] = dense(*shape) + 1
     return params
@@ -1313,6 +1529,129 @@ def write_llama_gguf(sd: dict, path: str, qtype=Q.Q8_0, tokenizer=None,
                          raw_shape=v.shape)
         else:
             w.add_tensor(k, np.ascontiguousarray(v, np.float32))
+    w.write_to_file(str(path))
+
+
+@dataclasses.dataclass(frozen=True)
+class QwenVLVisionDims:
+    """A Qwen-VL vision tower (models/qwen_vl_vision.py): ``dim`` wide
+    (heads of 80 at published widths), SwiGLU (2.5) or fc + quick-GELU
+    (2.0) MLPs of ``intermediate``, a 2×2 merger to ``out_dim``."""
+    dim: int = 160
+    n_layers: int = 2
+    out_dim: int = 96
+    intermediate: int = 320
+    patch: int = 4
+    temporal: int = 2
+    v25: bool = True
+
+
+# Qwen2.5-VL-7B's vision tower: 1280 wide, 32 blocks of 16 heads × 80,
+# SwiGLU 3420, patches of 14 over 2 frames, windowed with full attention in
+# blocks 7/15/23/31, merged to the 3584-wide text model
+QWEN25_VL_7B_VISION_DIMS = QwenVLVisionDims(dim=1280, n_layers=32,
+                                            out_dim=3584, intermediate=3420,
+                                            patch=14)
+
+
+def _vision_shapes(d: QwenVLVisionDims) -> dict[str, tuple]:
+    D, M = d.dim, d.intermediate
+    s = {"visual.patch_embed.proj.weight": (D, 3, d.temporal, d.patch,
+                                            d.patch),
+         "visual.merger.ln_q.weight": (D,),
+         "visual.merger.mlp.0.weight": (4 * D, 4 * D),
+         "visual.merger.mlp.0.bias": (4 * D,),
+         "visual.merger.mlp.2.weight": (d.out_dim, 4 * D),
+         "visual.merger.mlp.2.bias": (d.out_dim,)}
+    if not d.v25:
+        s["visual.patch_embed.proj.bias"] = (D,)
+        s["visual.merger.ln_q.bias"] = (D,)
+    for i in range(d.n_layers):
+        p = f"visual.blocks.{i}."
+        s.update({p + "attn.qkv.weight": (3 * D, D),
+                  p + "attn.qkv.bias": (3 * D,),
+                  p + "attn.proj.weight": (D, D), p + "attn.proj.bias": (D,),
+                  p + "norm1.weight": (D,), p + "norm2.weight": (D,),
+                  p + "mlp.up_proj.weight": (M, D),
+                  p + "mlp.up_proj.bias": (M,),
+                  p + "mlp.down_proj.weight": (D, M),
+                  p + "mlp.down_proj.bias": (D,)})
+        if d.v25:
+            s[p + "mlp.gate_proj.weight"] = (M, D)
+            s[p + "mlp.gate_proj.bias"] = (M,)
+        else:
+            s[p + "norm1.bias"] = (D,)
+            s[p + "norm2.bias"] = (D,)
+    return s
+
+
+def qwen_vl_vision_state_dict(d: QwenVLVisionDims, seed: int = 0,
+                              scale: float = 0.02) -> dict[str, np.ndarray]:
+    """A random vision tower as numpy float32 ``visual.*`` keys (the names
+    ``loader.gguf_mmproj_loader`` gives); norm gains center at 1."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in _vision_shapes(d).items():
+        w = (rng.standard_normal(shape) * scale).astype(np.float32)
+        sd[k] = w + 1 if ".norm" in k or "ln_q.weight" in k else w
+    return sd
+
+
+def qwen_vl_vision_random_params(d: QwenVLVisionDims, seed: int = 0,
+                                 device="cuda") -> dict:
+    """The vision tower as the loader places a published mmproj (F16
+    linears and patch kernel → dense bf16, norms and biases float32), made
+    on ``device`` from a seed."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = _dense_maker(gen, device)
+    out = {}
+    for k, shape in _vision_shapes(d).items():
+        w = dense(*shape)
+        out[k] = w + 1 if ".norm" in k or "ln_q.weight" in k else w
+    return out
+
+
+def _mmproj_name(key: str) -> str:
+    """llama.cpp's mmproj name of a ``visual.*`` key (the inverse of
+    ``maps.CLIP_VISION_SD_MAP``)."""
+    for hf, cpp in (("visual.merger.mlp.", "mm."),
+                    ("visual.merger.ln_q.", "v.post_ln."),
+                    ("visual.patch_embed.proj", "v.patch_embd"),
+                    ("visual.blocks.", "v.blk."), ("mlp.up_proj", "ffn_up"),
+                    ("mlp.down_proj", "ffn_down"),
+                    ("mlp.gate_proj", "ffn_gate"),
+                    ("attn.proj.", "attn_out."), ("norm1.", "ln1."),
+                    ("norm2.", "ln2.")):
+        key = key.replace(hf, cpp)
+    return key
+
+
+def write_mmproj_gguf(sd: dict, path: str) -> None:
+    """Write a ``visual.*`` state dict as a llama.cpp mmproj GGUF
+    (architecture "clip", type "mmproj"): the fused qkv split into
+    ``attn_q/k/v``, the 5-D patch kernel split into its two 4-D temporal
+    chunks (``v.patch_embd.weight`` and ``.weight.1``), 2-D weights F16 and
+    the rest F32."""
+    from ..gguf.writer import GGUFWriter
+
+    w = GGUFWriter("clip")
+    w.add_string("general.type", "mmproj")
+
+    def put(name, arr):
+        dt = np.float16 if arr.ndim >= 2 else np.float32
+        w.add_tensor(name, np.ascontiguousarray(arr, dt))
+
+    for k, v in sd.items():
+        name = _mmproj_name(k)
+        if k == "visual.patch_embed.proj.weight":
+            put(name, v[:, :, 0])
+            put(name + ".1", v[:, :, 1])
+        elif ".attn.qkv." in k:
+            for c, part in zip("qkv", np.split(v, 3, axis=0)):
+                put(name.replace("attn.qkv.", f"attn_{c}."), part)
+        else:
+            put(name, v)
     w.write_to_file(str(path))
 
 

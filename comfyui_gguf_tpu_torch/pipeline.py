@@ -26,16 +26,26 @@ comfyui_gguf_tpu/pipeline.py).
   conditioning by a llama-family encoder (``load_text_encoder`` of a
   llama / qwen3 / qwen3vl GGUF), CFG over the rectified-flow ODE, latent
   out. Both build a ``CFGFlowPipeline`` with the reference's defaults.
+* ``QwenImagePipeline(model, text).generate(prompt)`` — Qwen-Image:
+  Qwen2.5-VL conditioning (``load_text_encoder`` of a qwen2vl GGUF merges
+  its mmproj sidecar, the vision tower), CFG over the rectified-flow ODE
+  on patchified tokens, latent tokens out; ``generate_edit`` adds
+  reference latents (Qwen-Image-Edit), and ``qwen_vl_encode_with_image``
+  conditions the encoder on an image through the vision tower.
+* ``HiDreamPipeline(...).generate_from_ids(...)`` — HiDream-I1: CLIP-L ⊕
+  CLIP-G pooled, T5 and llama states, the MoE DiT guidance-distilled (one
+  forward a step), latent out. ``DiffusionModel.requantize_i8(max_bytes=,
+  host_stage=)`` converts such a model under a byte budget.
 * ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` / ``aura_engine`` /
-  ``lumina2_engine`` — continuous-batching engines
-  (serving.ContinuousBatchEngine) over a loaded model: ``submit``
-  requests, ``run_until_drained``; each tick advances every pooled request
-  by one Euler or per-lane DPM-Solver++(2M) step (the UNet, AuraFlow and
-  Lumina 2 engines with per-request CFG).
+  ``lumina2_engine`` / ``qwen_image_engine`` / ``hidream_engine`` —
+  continuous-batching engines (serving.ContinuousBatchEngine) over a
+  loaded model: ``submit`` requests, ``run_until_drained``; each tick
+  advances every pooled request by one Euler or per-lane DPM-Solver++(2M)
+  step (the UNet, AuraFlow and Lumina 2 engines with per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-The qwen2vl text encoder, the video VAEs and the other architectures are
-not ported yet and raise ``NotImplementedError``.
+The video VAEs, the other architectures (cosmos, wan, hyvid, ltxv) and the
+parallel engines are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,13 +65,16 @@ from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
 from .models import aura as aura_model
 from .models import clip as clip_model
 from .models import flux as flux_model
+from .models import hidream as hidream_model
 from .models import llama as llama_model
 from .models import lumina2 as lumina2_model
+from .models import qwen_image as qi_model
+from .models import qwen_vl_vision as vision_model
 from .models import sd3 as sd3_model
 from .models import t5 as t5_model
 from .models import unet as unet_model
 from .models import vae as vae_model
-from .nn.layers import QuantConfig
+from .nn.layers import QuantConfig, embedding
 from .sampling import (cfg_wrap, euler_sample_inpaint, flux_schedule,
                        linear_schedule, sample_flow, shift_sigmas)
 from .sampling import kdiffusion as kd
@@ -76,6 +89,9 @@ _ARCH_TABLE = {
     "sdxl": (unet_model, unet_model.UNetConfig, None),
     "aura": (aura_model, aura_model.AuraConfig, "double_layers"),
     "lumina2": (lumina2_model, lumina2_model.Lumina2Config, "layers"),
+    "qwen_image": (qi_model, qi_model.QwenImageConfig, "transformer_blocks"),
+    "hidream": (hidream_model, hidream_model.HiDreamConfig,
+                "double_stream_blocks"),
 }
 
 
@@ -137,37 +153,50 @@ class DiffusionModel:
         self.base_params = None
         return self
 
-    def requantize_i8(self, *, mod_planar: bool = True) -> "DiffusionModel":
+    def requantize_i8(self, *, mod_planar: bool = True,
+                      free_source: bool = True,
+                      max_bytes: int | None = None,
+                      host_stage: bool | None = None) -> "DiffusionModel":
         """Convert packed planar weights to the w8a8 format (quant/i8.py).
 
         mod_planar: keep the adaLN/modulation projections (M=batch rows,
-        bandwidth-bound) on the planar path. Each planar leaf is dropped as
-        it converts, so both trees never sit on the card at once, and the
-        model cannot go back to the planar tree. Patched leaves convert
-        their base and keep their patches. Call AFTER apply_lora. Mutates
-        self and returns it.
+        bandwidth-bound) on the planar path. free_source: drop each planar
+        leaf as it converts, so both trees never sit on the card at once
+        (the model cannot go back to the planar tree). max_bytes: convert
+        only what ``plan_i8_budget`` fits under this total packed-byte
+        budget; the rest stays planar. host_stage (default: on when a budget
+        is given): stage each leaf through host memory, so that the card's
+        peak stays at the converted footprint. Patched leaves convert their
+        base and keep their patches. Call AFTER apply_lora. Mutates self and
+        returns it.
         """
         from .quant.i8 import convert_tree_i8, is_modulation_key
 
         pred = (lambda k, v: not is_modulation_key(k)) if mod_planar \
             else None
-        self.params = convert_tree_i8(self.params, free_source=True,
-                                      pred=pred)
+        if host_stage is None:
+            host_stage = max_bytes is not None
+        self.params = convert_tree_i8(self.params, free_source=free_source,
+                                      pred=pred, max_bytes=max_bytes,
+                                      host_stage=host_stage)
         self.base_params = None
         return self
 
     def stack(self) -> "DiffusionModel":
         """Restack per-block params along a depth axis (copies the block
         weights once); forward then runs forward_stacked. Flux, SD3,
-        AuraFlow and Lumina 2 stack (SD3.5-medium's dual-attention blocks
-        as their own prefix group, Lumina 2's refiners stay flat); an SD3
-        tree whose dual layers are not a contiguous prefix, and the UNets,
-        are returned unchanged."""
+        AuraFlow, Lumina 2, Qwen-Image and HiDream stack (SD3.5-medium's
+        dual-attention blocks as their own prefix group, Lumina 2's
+        refiners stay flat, HiDream's experts leaf-stacked as (depth, E,
+        …)); an SD3 tree whose dual layers are not a contiguous prefix, and
+        the UNets, are returned unchanged."""
         if self.is_stacked:
             return self
         stackers = {"flux": flux_model.stack_flux_params,
                     "aura": aura_model.stack_aura_params,
-                    "lumina2": lumina2_model.stack_lumina2_params}
+                    "lumina2": lumina2_model.stack_lumina2_params,
+                    "qwen_image": qi_model.stack_qwen_params,
+                    "hidream": hidream_model.stack_hidream_params}
         if self.arch in stackers:
             return dataclasses.replace(
                 self, params=stackers[self.arch](self.params, self.config))
@@ -202,6 +231,7 @@ def load_diffusion_model(path: str, device="cuda") -> DiffusionModel:
 @dataclasses.dataclass
 class TextEncoder:
     kind: str  # "t5" | "clip_l" | "clip_g" | "llama"
+    # a qwen2vl encoder's tree also holds its vision tower (``visual.*``)
     params: dict
     config: object
     tokenizer: object | None
@@ -279,15 +309,22 @@ def load_vae(path: str, device="cuda"):
 
 def load_text_encoder(path: str, device="cuda") -> TextEncoder:
     """One text-encoder file (gguf or safetensors) → TextEncoder: a T5
-    GGUF, a llama / qwen3 / qwen3vl GGUF (the llama graph; a qwen2vl file
-    raises until its mmproj is ported), or a CLIP or T5 safetensors
-    file."""
+    GGUF, a llama / qwen2vl / qwen3 / qwen3vl GGUF (the llama graph; a
+    qwen2vl file with its mmproj sidecar's vision tower merged), or a CLIP
+    or T5 safetensors file.
+
+    The llama graph's config is read with ``LlamaConfig.from_state_dict``'s
+    defaults (32 heads, rope theta 5e5), as the reference package reads it;
+    a published Qwen2.5-VL-7B has 28 heads and theta 1e6 (ROADMAP queue
+    3): build its config with ``from_state_dict(params, n_heads=28,
+    rope_theta=1e6)``."""
     device = resolve_device(device)
     qcfg = QuantConfig()
     tokenizer = None
     if path.endswith(".gguf"):
         sd, arch, tok_spec = gguf_clip_loader(path)
-        if arch not in ("t5", "t5encoder", "llama", "qwen3", "qwen3vl"):
+        if arch not in ("t5", "t5encoder", "llama", "qwen2vl", "qwen3",
+                        "qwen3vl"):
             raise ValueError(f"unsupported text arch {arch!r}")
         params = to_torch_params(sd, qcfg, device=device)
         if tok_spec is not None:
@@ -329,6 +366,66 @@ def load_text_encoder(path: str, device="cuda") -> TextEncoder:
                            t5_model.T5Config.from_state_dict(params), None,
                            qcfg, device)
     raise ValueError(f"unrecognized text encoder format: {path}")
+
+
+def qwen_vl_encode_with_image(llama_enc: TextEncoder, vision_params: dict,
+                              ids, image: np.ndarray,
+                              image_pad_token_id: int, mask=None) -> dict:
+    """Image-conditioned Qwen-VL encoding: the vision tower's merged
+    embeddings of ``image`` ((H, W, 3) float) replace the
+    ``<|image_pad|>`` tokens of ``ids`` (B, L) in the token embedding (the
+    port's ``embedding`` on the encoder's table), and the llama graph
+    encodes that through ``inputs_embeds`` with Qwen-VL's (3, B, L) M-RoPE
+    position streams (HF ``get_rope_index``: text tokens advance all three
+    streams together; vision tokens carry their (t, h, w) grid positions
+    offset by the text position at the image, and the following text
+    resumes at that offset + max(grid dims)). The positions and the pad
+    indices are computed on the host from ``ids``; the splice is an index
+    write on the encoder's device. ``ids`` must hold exactly as many pad
+    tokens as the tower emits ((H/14/m)·(W/14/m), merge m), else
+    ``ValueError``. → the encoder's output dict."""
+    vcfg = vision_model.QwenVLVisionConfig.from_state_dict(vision_params)
+    dev = llama_enc.device
+    image = np.asarray(image, np.float32)
+    pe_shape = tuple(vision_params["visual.patch_embed.proj.weight"].shape)
+    patches = vision_model.extract_patches(image, patch=pe_shape[-1],
+                                           temporal=pe_shape[2])
+    with torch.no_grad():
+        vis = vision_model.forward(
+            vision_params, vcfg, torch.from_numpy(patches).to(dev),
+            qcfg=llama_enc.qcfg).to(torch.float32)  # (n_img_tokens, D)
+        ids = np.asarray(ids)
+        tok = embedding(_ids(ids, dev),
+                        llama_enc.params["model.embed_tokens.weight"],
+                        cfg=llama_enc.qcfg).to(torch.float32)
+    n = vis.shape[0]
+    gh = image.shape[0] // pe_shape[-1] // vcfg.merge_size
+    gw = n // max(gh, 1)
+    B, L = ids.shape
+    pos3 = np.zeros((3, B, L), np.int64)
+    for b in range(B):
+        pos = np.nonzero(ids[b] == image_pad_token_id)[0]
+        if len(pos) != n:
+            raise ValueError(
+                f"prompt has {len(pos)} image_pad tokens but the vision "
+                f"tower produced {n} embeddings")
+        tok[b, torch.from_numpy(pos).to(dev)] = vis
+        st = i = 0
+        while i < L:
+            if ids[b, i] == image_pad_token_id:
+                grid = np.arange(n)
+                pos3[0, b, i: i + n] = st  # t (a single frame)
+                pos3[1, b, i: i + n] = st + grid // gw
+                pos3[2, b, i: i + n] = st + grid % gw
+                st += max(1, gh, gw)
+                i += n
+            else:
+                pos3[:, b, i] = st
+                st += 1
+                i += 1
+    return llama_enc.encode(
+        _ids(ids, dev), None if mask is None else _ids(mask, dev),
+        inputs_embeds=tok, position_ids=torch.from_numpy(pos3).to(dev))
 
 
 def load_text_encoders(*paths: str, device="cuda") -> dict[str, TextEncoder]:
@@ -833,6 +930,156 @@ def Lumina2Pipeline(model: DiffusionModel, text: TextEncoder,
     return CFGFlowPipeline(model, text, shift, 4.0)
 
 
+@dataclasses.dataclass
+class QwenImagePipeline:
+    """Qwen-Image txt2img: the Qwen2.5-VL encoder's final states (a
+    qwen2vl GGUF through the llama graph) as the conditioning, flux-style
+    2×2-patchified latent tokens with 3-axis RoPE ids, CFG over the
+    rectified flow; latent tokens out (the reference wires no VAE)."""
+
+    model: DiffusionModel
+    text: TextEncoder
+    shift: float = 2.2
+    # of the last generate/generate_edit call: host-clock seconds of its
+    # stages, and its final latent tokens (1, L, in_channels) on the device
+    last_timings: dict = dataclasses.field(default_factory=dict)
+    last_latent: torch.Tensor | None = None
+
+    @torch.no_grad()
+    def generate(self, prompt: str, width: int = 1024, height: int = 1024,
+                 steps: int = 20, cfg_scale: float = 4.0, seed: int = 0,
+                 negative_prompt: str = " ", max_len: int = 256,
+                 noise=None) -> np.ndarray:
+        """→ the (H/16 · W/16, in_channels) float32 latent tokens. ``noise``
+        is the (1, L, in_channels) initial noise; without it the noise is
+        drawn from ``torch.Generator(device).manual_seed(seed)``."""
+        return self.generate_edit(prompt, [], width=width, height=height,
+                                  steps=steps, cfg_scale=cfg_scale,
+                                  seed=seed, negative_prompt=negative_prompt,
+                                  max_len=max_len, noise=noise)
+
+    @torch.no_grad()
+    def generate_edit(self, prompt: str, ref_latents, width: int = 1024,
+                      height: int = 1024, steps: int = 20,
+                      cfg_scale: float = 4.0, seed: int = 0,
+                      negative_prompt: str = " ", max_len: int = 256,
+                      txt_override=None, ntxt_override=None,
+                      noise=None) -> np.ndarray:
+        """Qwen-Image-Edit: generation conditioned on reference latents.
+        Each reference ((H_lat, W_lat, C) spatial latent, e.g. a VAE encode
+        of the source image) is 2×2-patchified and appended to the image
+        token stream with RoPE frame index 1, 2, … (the generated tokens
+        keep frame 0); the velocity over the reference span is dropped each
+        step. ``txt_override`` / ``ntxt_override`` take precomputed
+        conditioning states, e.g. ``qwen_vl_encode_with_image``'s
+        ``last_hidden`` where the prompt embeds the source image. Other
+        arguments as ``generate``."""
+        model = self.model
+        device = model.device
+        clock = _StageClock(device)
+        txt = (_on(txt_override, device, torch.bfloat16)
+               if txt_override is not None
+               else _text_states(self.text, prompt, max_len))
+        use_cfg = cfg_scale != 1.0
+        ntxt = None
+        if use_cfg:
+            ntxt = (_on(ntxt_override, device, torch.bfloat16)
+                    if ntxt_override is not None
+                    else _text_states(self.text, negative_prompt, max_len))
+        clock.mark("encode_s")
+        h_tok, w_tok = height // 16, width // 16
+        L = h_tok * w_tok
+        ids = [np.array(flux_model.make_img_ids(h_tok, w_tok, 1))]
+        ref_tok = []
+        for ri, r in enumerate(_as_list(ref_latents), start=1):
+            r = _on(r, device, torch.float32)[None]
+            ref_tok.append(flux_model.patchify(r).to(torch.bfloat16))
+            rid = np.array(flux_model.make_img_ids(r.shape[1] // 2,
+                                                   r.shape[2] // 2, 1))
+            rid[:, :, 0] = ri
+            ids.append(rid)
+        img_ids = torch.as_tensor(np.concatenate(ids, axis=1), device=device)
+        ref = torch.cat(ref_tok, dim=1) if ref_tok else None
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = _noise_or_draw(noise, (1, L, model.config.in_channels), gen,
+                           device, torch.bfloat16)
+
+        def fwd(xc, sigma, c):
+            txt_ids = torch.zeros((xc.shape[0], c.shape[1], 3),
+                                  dtype=torch.int32, device=device)
+            xa = xc if ref is None else torch.cat(
+                [xc, ref.expand(xc.shape[0], -1, -1)], dim=1)
+            out = model.forward(xa, img_ids.expand(xc.shape[0], -1, -1), c,
+                                txt_ids,
+                                sigma.to(torch.float32).expand(xc.shape[0]))
+            return out[:, :L]
+
+        latent = sample_flow(cfg_wrap(fwd, txt, ntxt, cfg_scale), x,
+                             shift_sigmas(linear_schedule(steps),
+                                          self.shift))
+        self.last_latent = latent
+        clock.mark("denoise_s")
+        self.last_timings = clock.timings()
+        return latent[0].to(torch.float32).cpu().numpy()
+
+
+@dataclasses.dataclass
+class HiDreamPipeline:
+    """HiDream-I1 txt2img: CLIP-L ⊕ CLIP-G pooled vectors and the T5 and
+    llama final states condition the MoE DiT; guidance-distilled (CFG 1,
+    one forward a step) over the rectified flow at shift 3.0; latent out."""
+
+    model: DiffusionModel
+    clip_l: TextEncoder
+    clip_g: TextEncoder
+    t5: TextEncoder
+    llama: TextEncoder
+    shift: float = 3.0
+    # of the last generate_from_ids call: host-clock seconds of its stages,
+    # and its final latent (1, H/8, W/8, C) on the device
+    last_timings: dict = dataclasses.field(default_factory=dict)
+    last_latent: torch.Tensor | None = None
+
+    @torch.no_grad()
+    def generate_from_ids(self, clip_l_ids, clip_g_ids, t5_ids, llama_ids,
+                          width: int = 1024, height: int = 1024,
+                          steps: int = 20, seed: int = 0,
+                          noise=None) -> np.ndarray:
+        """Token ids of each encoder → the (H/8, W/8, C) float32 latent.
+        ``noise`` is the (1, H/8, W/8, C) initial noise; without it the
+        noise is drawn from ``torch.Generator(device).manual_seed(seed)``."""
+        model = self.model
+        device = model.device
+        clock = _StageClock(device)
+        pooled = torch.cat(
+            [self.clip_l.encode(_ids(clip_l_ids, device))["pooled"],
+             self.clip_g.encode(_ids(clip_g_ids, device))["pooled"]],
+            dim=-1)
+
+        def states(enc, ids):
+            out = enc.encode(_ids(ids, device))
+            return out["last_hidden"] if isinstance(out, dict) else out
+
+        cond = (states(self.t5, t5_ids), states(self.llama, llama_ids),
+                pooled)
+        clock.mark("encode_s")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = _noise_or_draw(noise, (1, height // 8, width // 8,
+                                   model.config.in_channels),
+                           gen, device, torch.bfloat16)
+
+        def velocity(xc, sigma):
+            return model.forward(xc, *cond, sigma.to(torch.float32).expand(
+                xc.shape[0]))
+
+        latent = sample_flow(velocity, x,
+                             shift_sigmas(linear_schedule(steps), self.shift))
+        self.last_latent = latent
+        clock.mark("denoise_s")
+        self.last_timings = clock.timings()
+        return latent[0].to(torch.float32).cpu().numpy()
+
+
 def _size_embedding(values, like: torch.Tensor) -> torch.Tensor:
     """SDXL's micro-conditioning: each value's 256-wide sinusoidal
     embedding, concatenated → (1, 256·len(values)) in ``like``'s dtype."""
@@ -1236,6 +1483,66 @@ def lumina2_engine(model: DiffusionModel, max_batch: int = 4,
     raises."""
     return _cfg_flow_engine(model, lumina2_model, "cap", "ncap", max_batch,
                             pipeline_depth, sampler, dp_mesh)
+
+
+def qwen_image_engine(model: DiffusionModel, h_tok: int, w_tok: int,
+                      txt_len: int, max_batch: int = 4,
+                      pipeline_depth: int = 1, sampler: str = "euler",
+                      dp_mesh=None, mesh=None):
+    """Continuous-batching engine for a loaded Qwen-Image model.
+
+    Requests carry patchified latent tokens (h_tok·w_tok, in_channels) and
+    cond {"txt": (txt_len, context_dim)}; the flux-style RoPE ids are fixed
+    per engine (one resolution bucket). One conditional forward a tick, as
+    in the reference. A depth-stacked tree takes ``forward_stacked``;
+    ``sampler="dpmpp_2m"`` runs per-lane 2nd-order multistep. ``mesh``
+    (tensor-parallel ticks) and ``dp_mesh`` are not ported yet and
+    raise."""
+    if mesh is not None or dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    device = model.device
+    img_ids = torch.as_tensor(np.array(flux_model.make_img_ids(
+        h_tok, w_tok, 1))[0], device=device)
+    txt_ids = torch.zeros((txt_len, 3), dtype=torch.int32, device=device)
+    fwd = qi_model.forward_stacked if model.is_stacked else qi_model.forward
+
+    def velocity(params, x, s_cur, cond):
+        B = x.shape[0]
+        return fwd(params, model.config, x,
+                   img_ids[None].expand(B, *img_ids.shape), cond["txt"],
+                   txt_ids[None].expand(B, *txt_ids.shape), s_cur,
+                   qcfg=model.qcfg)
+
+    return make_flow_engine(model, velocity, {"txt": torch.bfloat16},
+                            max_batch=max_batch,
+                            pipeline_depth=pipeline_depth, sampler=sampler)
+
+
+def hidream_engine(model: DiffusionModel, max_batch: int = 2,
+                   pipeline_depth: int = 1, sampler: str = "euler",
+                   dp_mesh=None, mesh=None):
+    """Continuous-batching engine for a loaded HiDream-I1 model: requests
+    carry (H, W, C) spatial latents and cond {"t5", "llama", "pooled"}
+    (guidance-distilled: one forward a tick); the MoE FFNs run in the
+    process's ``hidream.MOE_DISPATCH`` mode. A depth-stacked tree takes
+    ``forward_stacked``. Passing both ``dp_mesh`` and ``mesh`` raises
+    ``ValueError`` (the reference takes both and fails when it traces);
+    either alone is not ported yet and raises ``NotImplementedError``."""
+    if dp_mesh is not None and mesh is not None:
+        raise ValueError("hidream_engine takes dp_mesh or mesh, not both")
+    if mesh is not None or dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    fwd = (hidream_model.forward_stacked if model.is_stacked
+           else hidream_model.forward)
+
+    def velocity(params, x, s_cur, cond):
+        return fwd(params, model.config, x, cond["t5"], cond["llama"],
+                   cond["pooled"], s_cur, qcfg=model.qcfg)
+
+    return make_flow_engine(
+        model, velocity, {"t5": torch.bfloat16, "llama": torch.bfloat16,
+                          "pooled": torch.bfloat16},
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
 
 
 def unet_engine(model: DiffusionModel, max_batch: int = 4,

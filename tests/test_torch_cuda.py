@@ -7,7 +7,9 @@ shapes that cover the ragged edges: M=1, M not a multiple of the tile, K
 padded, R not a multiple of 128, the GELU tail, odd key lengths, Lq != Lk
 and strided views; K7 also at SD1's head dims 40, 80 and 160, Lumina 2's
 96 and AuraFlow's 256; K6 at head dims 128 and 256 and in its split
-instance (384, 512). K1/K2 run through
+instance (384, 512). Qwen-Image's and HiDream-I1's shapes at 1024² (K4,
+K1/K2, K7) run too, and K4 and K1 on one expert of a (depth, E, …) stacked
+leaf. K1/K2 run through
 both of their bodies (split-K for M <= 8, wgmma above) over every format
 of each layout; K4 through both of its tile widths. One-hot rows check
 every tile position of K1/K2/K4 bit for bit. The LoRA instances of K1/K2
@@ -1089,3 +1091,63 @@ def test_unet_forward_is_batch_invariant(cuda):
             one = unet.forward(params, cfg, x[i:i + 1], t[i:i + 1],
                                ctx[i:i + 1], y[i:i + 1])
             assert torch.equal(both[i:i + 1], one)
+
+
+# Qwen-Image and HiDream-I1 at 1024²: K4 on Qwen-Image's image-stream MLP
+# (GELU in the epilogue) and projections and on HiDream's expert SwiGLU
+# over the joint length; K1's split-K body on HiDream's double-block adaLN;
+# K2 on the Qwen2.5-VL-7B-shaped encoder's linears (q/k/v biases); K7 at
+# both joint lengths
+QH_I8_CASES = [
+    # M, R, K, act_from_col
+    (4096, 12288, 3072, 0),
+    (4096, 3072, 12288, None),
+    (4096, 3072, 3072, None),
+    (4352, 6912, 2560, None),
+    (4352, 2560, 6912, None),
+]
+QH_QMM_CASES = [
+    # qtype, M, R, K, bias
+    (Q.Q4_K, 1, 30720, 2560, True),
+    (Q.Q8_0, 256, 3584, 3584, True),
+    (Q.Q8_0, 256, 18944, 3584, False),
+]
+QH_ATTN_CASES = [(1, 24, 4352, 4352, 128), (1, 20, 4352, 4352, 128)]
+
+
+@pytest.mark.parametrize("M,R,K,act", QH_I8_CASES, ids=str)
+def test_i8mm_qwen_image_hidream_shapes(cuda, M, R, K, act):
+    ip = requantize_i8(_planar(Q.Q4_K, R, K, seed=K, device=cuda))
+    _check_i8(cuda, ip, M, True, act, seed=R)
+
+
+@pytest.mark.parametrize("qtype,M,R,K,bias", QH_QMM_CASES,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_qmm_qwen_image_hidream_shapes(cuda, qtype, M, R, K, bias):
+    pq = _planar(qtype, R, K, seed=R, device=cuda)
+    _check_qmm(cuda, pq, M, K, R, bias, None, seed=K)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", QH_ATTN_CASES, ids=str)
+def test_flash_qwen_image_hidream_shapes(cuda, B, H, Lq, Lk, D):
+    test_flash_kernel_matches_plain(cuda, B, H, Lq, Lk, D)
+
+
+def test_kernels_on_expert_views(cuda):
+    """K4 and K1 on one expert of a (depth, E, …) stacked leaf, HiDream's
+    ``experts_stacked`` layout: the view ``leaf[d][e]`` is read in place and
+    gives the expert's own launch."""
+    from comfyui_gguf_tpu_torch.models.flux import _stack_leaves
+
+    pqs = [[_planar(Q.Q4_K, 384, 1024, seed=10 * d + e, device=cuda)
+            for e in range(3)] for d in range(2)]
+    st = _stack_leaves([_stack_leaves(row) for row in pqs])
+    ip = requantize_i8(st)
+    assert tuple(ip.qs.shape[:2]) == (2, 3)
+    x = torch.randn((200, 1024), device=cuda).to(torch.bfloat16)
+    for leaf, one, fn in ((st, pqs[1][2], qmm_cuda),
+                          (ip, requantize_i8(pqs[1][2]), i8mm_cuda)):
+        view = leaf[1][2]
+        assert (view.qs.untyped_storage().data_ptr()
+                == leaf.qs.untyped_storage().data_ptr())
+        assert torch.equal(fn(x, view), fn(x, one))

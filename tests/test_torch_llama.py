@@ -9,7 +9,7 @@ float32 and Q8_0 (planar: hidden 512, so every linear is a packed leaf),
 with GQA (32 heads, 8 kv heads), a padded mask and ``return_layers``; the
 qwen3 variant (per-head q/k RMS norms, no permutation); Qwen-VL's M-RoPE
 over 3-D ``position_ids`` and ``inputs_embeds``; ``load_text_encoder`` on
-llama and qwen3 files (tokenizer included), a qwen2vl file refused; and
+llama, qwen3 and qwen2vl files (tokenizer included); and
 the llama slice of a kohya LoRA file through ``TextEncoder.apply_lora``.
 
 Tolerance (relative L2): 1e-4 with float32 compute (the same products in
@@ -182,9 +182,22 @@ def test_load_text_encoder_matches_reference(files, name):
 
 
 def test_qwen2vl_still_raises(tmp_path):
+    """A qwen2vl file used to raise until its mmproj sidecar was ported
+    (the qwen_image slice); now it loads into the llama graph as the
+    reference loads it: the same config and keys (no sidecar beside it,
+    so no vision tower) and the same states."""
     path = _write(tmp_path / "qwen2vl.gguf", QWEN3, Q.Q8_0, "qwen2vl")
-    with pytest.raises(NotImplementedError, match="qwen_image"):
-        load_text_encoder(path, device="cpu")
+    enc = load_text_encoder(path, device="cpu")
+    jenc = jpipeline.load_text_encoder(path)
+    assert enc.kind == jenc.kind == "llama"
+    assert dataclasses.asdict(enc.config) == dataclasses.asdict(jenc.config)
+    assert set(enc.params) == set(jenc.params)
+    assert not any(k.startswith("visual.") for k in enc.params)
+    ids, mask = _ids(seed=7)
+    got = enc.encode(torch.as_tensor(ids), torch.as_tensor(mask))
+    want = jenc.encode(jnp.asarray(ids), jnp.asarray(mask))
+    assert _rel(got["last_hidden"].float(),
+                np.asarray(want["last_hidden"], np.float32)) < TOL_BF16
 
 
 def test_llama_lora_slice_matches_reference(files, tmp_path):

@@ -2,9 +2,11 @@
 reference, on the CPU.
 
 AuraFlow v0.3 (hidden 3072, 12 heads of 256, MLP 8192; 1 double + 2
-single layers) and Lumina 2 (dim 2304, 24 heads of 96, FFN 6144; 2 layers
-and the 2 + 2 refiners) at their published widths, cut in depth and run
-on a 16 x 16 latent, so that a run fits a CPU. The tree is the reference's
+single layers), Lumina 2 (dim 2304, 24 heads of 96, FFN 6144; 2 layers
+and the 2 + 2 refiners) and Qwen-Image (hidden 3072, 24 heads of 128, MLP
+12288, Qwen2.5-VL-7B text states of 3584; 2 blocks) at their published
+widths, cut in depth and run on a 16 x 16 latent (Qwen-Image: 64 patch
+tokens), so that a run fits a CPU. The tree is the reference's
 ``random_stacked_from_spec`` (Q4_K, seed 0), carried into the port. Both
 packages compute in float32 and convert with ``convert_tree_i8`` and the
 reference's modulation predicate. Checked: the port's planar forward
@@ -32,11 +34,13 @@ import torch
 
 from comfyui_gguf_tpu.models import aura as jaura
 from comfyui_gguf_tpu.models import lumina2 as jlumina2
+from comfyui_gguf_tpu.models import qwen_image as jqwen_image
 from comfyui_gguf_tpu.models import testing as jtesting
 from comfyui_gguf_tpu.nn.layers import QuantConfig as JQuantConfig
 from comfyui_gguf_tpu.quant import i8 as ji8
 from comfyui_gguf_tpu_torch.interop import params_from_numpy
-from comfyui_gguf_tpu_torch.models import aura, lumina2
+from comfyui_gguf_tpu_torch.models import aura, lumina2, qwen_image
+from comfyui_gguf_tpu_torch.models.flux import make_img_ids
 from comfyui_gguf_tpu_torch.models import testing as ttesting
 from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
 from comfyui_gguf_tpu_torch.quant.i8 import convert_tree_i8, is_modulation_key
@@ -56,9 +60,26 @@ CASES = {
              jtesting.aura_random_stacked_params, 2048),
     "lumina2": (jlumina2, lumina2, dict(n_layers=2),
                 jtesting.lumina2_random_stacked_params, 2304),
+    "qwen_image": (jqwen_image, qwen_image, dict(n_layers=2),
+                   jtesting.qwen_image_random_stacked_params, 3584),
 }
 DIMS = {"aura": (jtesting.AURA_V03_DIMS, ttesting.AURA_V03_DIMS),
-        "lumina2": (jtesting.LUMINA2_DIMS, ttesting.LUMINA2_DIMS)}
+        "lumina2": (jtesting.LUMINA2_DIMS, ttesting.LUMINA2_DIMS),
+        "qwen_image": (jtesting.QWEN_IMAGE_20B_DIMS,
+                       ttesting.QWEN_IMAGE_20B_DIMS)}
+
+
+def _inputs(arch, rng, in_ch, cond_dim):
+    """One forward's numpy inputs: a 16 x 16 latent (Qwen-Image: its 64
+    patch tokens and their ids), 32 text states, t = 0.7."""
+    cond = rng.standard_normal((1, 32, cond_dim)).astype(np.float32)
+    t = np.asarray([0.7], np.float32)
+    if arch != "qwen_image":
+        lat = rng.standard_normal((1, 16, 16, in_ch)).astype(np.float32)
+        return [lat, cond, t]
+    tok = rng.standard_normal((1, 64, in_ch)).astype(np.float32)
+    return [tok, np.array(make_img_ids(8, 8, 1)), cond,
+            np.zeros((1, 32, 3), np.int32), t]
 
 
 def _rel(a, b):
@@ -75,12 +96,10 @@ def test_w8a8_cost_at_published_width_matches_reference(arch):
     jcfg, tcfg = jdims.config(), tdims.config()
     jsp = make(jdims, seed=0)
     tsp = params_from_numpy(jax.tree.map(np.asarray, jsp), "cpu")
-    rng = np.random.default_rng(7)
-    lat = rng.standard_normal((1, 16, 16, jdims.in_ch)).astype(np.float32)
-    cond = rng.standard_normal((1, 32, cond_dim)).astype(np.float32)
-    t = np.asarray([0.7], np.float32)
-    jx = [jnp.asarray(a) for a in (lat, cond, t)]
-    tx = [torch.from_numpy(a) for a in (lat, cond, t)]
+    arrays = _inputs(arch, np.random.default_rng(7),
+                     jdims.in_ch, cond_dim)
+    jx = [jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a) for a in arrays]
 
     want_p = np.asarray(jmod.forward_stacked(jsp, jcfg, *jx, qcfg=JQCFG))
     got_p = tmod.forward_stacked(tsp, tcfg, *tx, qcfg=QCFG).numpy()
