@@ -30,14 +30,22 @@ phase:
    for the int8 attention, its prep and the GEMM probes, spills; for the
    fused matmuls each instance's registers and spills, the LoRA instances
    beside the unpatched ones; for flash attention each head-dim instance's)
-   and the dynamic shared memory of the TMA-fed kernels are printed;
+   and the dynamic shared memory of the TMA-fed kernels are printed; a
+   ``wgmma`` serialization advisory (ptxas C751x) or a spill in any K1/K2
+   instance fails, and the wgmma body's resident blocks per K-split
+   cluster size are printed beside the plan's;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
    PyTorch library call computing the same product, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the H100 SXM peak).
    K1/K2 run through both of their bodies (split-K for M <= 8, wgmma
-   above), and the split-K body must give the same bits twice; K4 runs at
+   above, its K split over a cluster where the plan says so), on float32
+   and, at the flux modulation and the T5-xxl projection, bfloat16 scale
+   planes, and every launch must give the same bits twice; at the encoder
+   shapes and flux's qkv and linear1 the wgmma body also runs at the other
+   (token tiles, K split) pairs, each checked and timed as a row of its
+   own beside the plan's pick; K4 runs at
    both of its tile widths, the one ``i8mm_plan`` picks giving the row's
    time, and its library call reads the int8 weight in the TN form
    cuBLASLt's int8 path takes; K6 runs at head dims 128, 256 and 512 (its
@@ -396,26 +404,42 @@ def kernel_phase(dev, sfu_per_s):
     from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
                                                     i8mm_plan,
                                                     plain_quantized_matmul,
-                                                    qmm_cuda, qmm_route)
+                                                    qmm_cuda, qmm_route,
+                                                    smallm_plan,
+                                                    wgmma_split_plan)
     from comfyui_gguf_tpu_torch.quant.i8 import quantize_rows, requantize_i8
     from comfyui_gguf_tpu_torch.quant.planar import dequantize_kmajor
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = []
+    sweep_rows = []  # the wgmma body at other (nt, split): phase 3's sweep
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
+    def bf16_planes(pq):
+        """The same weight with bfloat16 scale and offset planes (what
+        ``planarize(scale_dtype=torch.bfloat16)`` and the loader under
+        GGUF_TPU_BF16_SCALES=1 store)."""
+        return dataclasses.replace(
+            pq, scales=pq.scales.to(torch.bfloat16),
+            offsets=(None if pq.offsets is None
+                     else pq.offsets.to(torch.bfloat16)))
+
     def qmm_case(name, kernel, qtype, M, K, R, act, n_copies, tol,
-                 with_bias=True):
+                 with_bias=True, bf16_scales=False, sweep=()):
         """K1/K2 through the body the dispatch picks for M (``kernel`` must
-        name it); the split-K body is also launched twice and must give the
-        same bits."""
+        name it), launched twice for the same bits; ``bf16_scales``: the
+        weight with bf16 scale planes. ``sweep``: (token sub-tiles, K
+        split) pairs of the wgmma body each checked the same way and timed
+        as a row of its own beside the plan's pick."""
         ws = [random_planar(qtype, (R, K), gen, device=dev)
               for _ in range(n_copies)]
-        small = qmm_route(M, ws[0].padded_in, R,
-                          ws[0].layout == "nib4") == "smallm"
+        if bf16_scales:
+            ws = [bf16_planes(w) for w in ws]
+        kp = ws[0].padded_in
+        small = qmm_route(M, kp, R, ws[0].layout == "nib4") == "smallm"
         if small != kernel.endswith("_smallm"):
             raise SystemExit(f"{name}: the dispatch did not pick {kernel}")
         x = randn(M, K)
@@ -426,9 +450,26 @@ def kernel_phase(dev, sfu_per_s):
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         ok = bool(torch.isfinite(got).all()) and err <= tol
-        if small:
-            again = qmm_cuda(x, ws[0], bias=bias, act_from_col=act)
-            ok = ok and torch.equal(got, again)
+        again = qmm_cuda(x, ws[0], bias=bias, act_from_col=act)
+        ok = ok and torch.equal(got, again)
+        for tiles in sweep:
+            t_got = qmm_cuda(x, ws[0], bias=bias, act_from_col=act,
+                             tiles=tiles)
+            t_again = qmm_cuda(x, ws[0], bias=bias, act_from_col=act,
+                               tiles=tiles)
+            torch.cuda.synchronize()
+            t_err = rel_l2(t_got, want)
+            t_ms = graph_ms([lambda w=w: qmm_cuda(
+                x, w, bias=bias, act_from_col=act, tiles=tiles)
+                for w in ws])
+            sweep_rows.append(dict(
+                name=f"{name} nt={tiles[0]} split={tiles[1]}",
+                kernel=kernel, ms=t_ms, rel_l2=t_err,
+                max_abs_err=float((t_got.float() - want.float()).abs()
+                                  .max()),
+                pick=tuple(tiles) == wgmma_split_plan(M, kp, R),
+                ok=(bool(torch.isfinite(t_got).all()) and t_err <= tol
+                    and torch.equal(t_got, t_again))))
         ms = graph_ms([lambda w=w: qmm_cuda(x, w, bias=bias,
                                             act_from_col=act) for w in ws])
         plain = event_ms(lambda: plain_quantized_matmul(
@@ -439,14 +480,23 @@ def kernel_phase(dev, sfu_per_s):
         nbytes = (ws[0].nbytes_packed + 2 * M * K + 2 * M * R
                   + (4 * R if with_bias else 0))
         b_ms, b_by = bound(nbytes, 2.0 * M * K * R, PEAK_BF16)
-        rows.append(dict(name=name, kernel=kernel, shape=f"M={M} K={K} R={R}",
+        pick = ("split-K " + str(smallm_plan(M, kp, R, ws[0].layout
+                                             == "nib4")[0]) if small
+                else "nt={} split={}".format(*wgmma_split_plan(M, kp, R)))
+        rows.append(dict(name=name, kernel=kernel,
+                         shape=f"M={M} K={K} R={R} {pick}",
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
-                         rel_l2=err, tol=f"rel L2 <= {tol}", ok=ok, ms=ms,
+                         rel_l2=err, tol=f"rel L2 <= {tol}, two launches "
+                                         f"equal", ok=ok, ms=ms,
                          plain_ms=plain, library_ms=lib,
                          library="torch.matmul on the dequantized bf16 "
                                  "weight",
                          bound_ms=b_ms, bound_by=b_by))
+        for r in sweep_rows[len(sweep_rows) - len(sweep):]:
+            r.update(shape=rows[-1]["shape"], plain_ms=plain, library_ms=lib,
+                     library=rows[-1]["library"], bound_ms=b_ms,
+                     bound_by=b_by, tol=rows[-1]["tol"])
 
     def i8_case(name, M, K, R, act):
         """K4 at both tile widths (each within 1 bf16 ulp of the plain
@@ -835,11 +885,22 @@ def kernel_phase(dev, sfu_per_s):
              Q.Q4_K, 131, 2992, 3000, 1500, 1, 5e-3)
     qmm_case("qmm_int8 ragged M=131 2992->3000 Q5_K gelu@1500", "qmm_int8",
              Q.Q5_K, 131, 2992, 3000, 1500, 1, 5e-3)
-    # K1 on the bf16-fused path: img qkv and the single-block linear1
+    # K1 on the bf16-fused path: img qkv and the single-block linear1 (the
+    # persistent tiles beside a 2-block K split)
     qmm_case("qmm_nib4 qkv M=4096 3072->9216 Q4_K", "qmm_nib4", Q.Q4_K,
-             4096, 3072, 9216, None, 1, 5e-3)
+             4096, 3072, 9216, None, 1, 5e-3, sweep=((2, 2),))
     qmm_case("qmm_nib4 linear1 M=4608 3072->21504 Q4_K gelu@9216",
-             "qmm_nib4", Q.Q4_K, 4608, 3072, 21504, 9216, 1, 5e-3)
+             "qmm_nib4", Q.Q4_K, 4608, 3072, 21504, 9216, 1, 5e-3,
+             sweep=((2, 2),))
+    # both bodies on bf16 scale planes: the split-K body at the flux
+    # modulation (bound by the planes' bytes too) and the wgmma body at the
+    # T5-xxl projection
+    qmm_case("qmm_nib4 mod M=1 3072->18432 Q4_K bf16 scales",
+             "qmm_nib4_smallm", Q.Q4_K, 1, 3072, 18432, None, 4, 5e-3,
+             bf16_scales=True)
+    qmm_case("qmm_int8 T5 q/k/v/o M=512 4096->4096 Q8_0 bf16 scales",
+             "qmm_int8", Q.Q8_0, 512, 4096, 4096, None, 4, 5e-3,
+             with_bias=False, bf16_scales=True)
     # K2: Q8_0 at M=4608, 3072->3072
     qmm_case("qmm_int8 M=4608 3072->3072 Q8_0", "qmm_int8", Q.Q8_0,
              4608, 3072, 3072, None, 1, 5e-3)
@@ -917,7 +978,8 @@ def kernel_phase(dev, sfu_per_s):
     # K2 at the T5-xxl shapes (M = 512 tokens, no bias; enough copies of
     # each weight to exceed the L2 cache, as 24 layers of them do)
     qmm_case("qmm_int8 T5 q/k/v/o M=512 4096->4096 Q8_0", "qmm_int8", Q.Q8_0,
-             512, 4096, 4096, None, 4, 5e-3, with_bias=False)
+             512, 4096, 4096, None, 4, 5e-3, with_bias=False,
+             sweep=((1, 1), (2, 1), (2, 2), (2, 4), (2, 8)))
     qmm_case("qmm_int8 T5 wi M=512 4096->10240 Q8_0", "qmm_int8", Q.Q8_0,
              512, 4096, 10240, None, 2, 5e-3, with_bias=False)
     qmm_case("qmm_int8 T5 wo M=512 10240->4096 Q8_0", "qmm_int8", Q.Q8_0,
@@ -972,11 +1034,13 @@ def kernel_phase(dev, sfu_per_s):
     qmm_case("qmm_nib4 lumina2 qkv M=4352 2304->6912 Q4_K", "qmm_nib4",
              Q.Q4_K, 4352, 2304, 6912, None, 1, 5e-3, with_bias=False)
     qmm_case("qmm_int8 Pile-T5 q/k/v/o M=256 2048->2048 Q8_0", "qmm_int8",
-             Q.Q8_0, 256, 2048, 2048, None, 8, 5e-3, with_bias=False)
+             Q.Q8_0, 256, 2048, 2048, None, 8, 5e-3, with_bias=False,
+             sweep=((1, 1), (2, 1), (2, 2), (2, 4), (2, 8)))
     qmm_case("qmm_int8 Pile-T5 wi M=256 2048->5120 Q8_0", "qmm_int8", Q.Q8_0,
              256, 2048, 5120, None, 4, 5e-3, with_bias=False)
     qmm_case("qmm_int8 llama q M=256 2304->2048 Q8_0", "qmm_int8", Q.Q8_0,
-             256, 2304, 2048, None, 8, 5e-3, with_bias=False)
+             256, 2304, 2048, None, 8, 5e-3, with_bias=False,
+             sweep=((1, 1), (2, 2), (2, 4)))
     qmm_case("qmm_int8 llama gate/up M=256 2304->9216 Q8_0", "qmm_int8",
              Q.Q8_0, 256, 2304, 9216, None, 2, 5e-3, with_bias=False)
     # K6's 256-wide instance at AuraFlow's joint attention: the int8 gate
@@ -1003,16 +1067,18 @@ def kernel_phase(dev, sfu_per_s):
     qmm_case("qmm_nib4 hidream adaLN M=1 2560->30720 Q4_K",
              "qmm_nib4_smallm", Q.Q4_K, 1, 2560, 30720, None, 4, 5e-3)
     qmm_case("qmm_int8 qwen2.5-vl q M=256 3584->3584 Q8_0", "qmm_int8",
-             Q.Q8_0, 256, 3584, 3584, None, 8, 5e-3)
+             Q.Q8_0, 256, 3584, 3584, None, 8, 5e-3,
+             sweep=((1, 1), (2, 2), (2, 4)))
     qmm_case("qmm_int8 qwen2.5-vl gate M=256 3584->18944 Q8_0", "qmm_int8",
-             Q.Q8_0, 256, 3584, 18944, None, 2, 5e-3, with_bias=False)
+             Q.Q8_0, 256, 3584, 18944, None, 2, 5e-3, with_bias=False,
+             sweep=((2, 1), (2, 2), (2, 4)))
     attn_case("flash_attn qwen_image joint L=4352 D=128", 1, 24, 4352, 4352,
               128)
     attn_case("flash_attn hidream joint L=4352 D=128", 1, 20, 4352, 4352,
               128)
     # K8: the probes at the tool's problem size
     probe_cases()
-    return rows
+    return rows + sweep_rows
 
 
 # ---------------------------------------------------------------------------
@@ -4464,7 +4530,25 @@ def main() -> int:
                                        "stores, 0 bytes spill loads")
                      for ln in spills):
                 log(f"  {src}: spills or stack: {spills}")
+    # K1/K2: no wgmma serialization advisory (ptxas C751x) and no spill
+    # in any instance
+    qmm_flags = [f"{src}: {ln.strip()[:160]}"
+                 for src in ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu",
+                             "qmm_int8_lora.cu", "qmm_smallm.cu")
+                 for ln in rep.get("ptxas", {}).get(src, [])
+                 if "C751" in ln or ("spill" in ln
+                                     and " 0 bytes spill stores, 0 bytes "
+                                         "spill loads" not in ln)]
+    if qmm_flags:
+        raise SystemExit("K1/K2 ptxas advisories or spills: "
+                         + "; ".join(qmm_flags))
     lib = _build.lib()
+    from comfyui_gguf_tpu_torch.ops.qmatmul import _RESIDENT
+    resident = {s: lib.qmm_wgmma_resident_blocks(2, s) for s in _RESIDENT}
+    log("  K1/K2 wgmma body: no C751x advisory, no spill; blocks resident "
+        "at once by K-split cluster size (cudaOccupancyMaxActiveClusters x "
+        "size): " + ", ".join(f"{s}: {n} (plan {_RESIDENT[s]})"
+                              for s, n in resident.items()))
     log("  dynamic shared memory a block: i8mm.cu and gemm_probe.cu (one "
         "body, gemm_wgmma.cuh) "
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))

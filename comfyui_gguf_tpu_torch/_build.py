@@ -46,16 +46,24 @@ _SIGNATURES = {
     # token sub-tiles, stream
     "qmm_wgmma_nib4_launch": [_VP] * 6 + [_I] * 9 + [_VP],
     "qmm_wgmma_int8_launch": [_VP] * 6 + [_I] * 9 + [_VP],
+    # the same with a K split over a cluster and the scale planes' type:
+    # ..., act_from, token sub-tiles, K split, bf16 scales, stream
+    "qmm_wgmma_nib4_split_launch": [_VP] * 6 + [_I] * 11 + [_VP],
+    "qmm_wgmma_int8_split_launch": [_VP] * 6 + [_I] * 11 + [_VP],
     # x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp,
-    # rk, act_from, token sub-tiles, stream
-    "qmm_wgmma_nib4_lora_launch": [_VP] * 8 + [_I] * 10 + [_VP],
-    "qmm_wgmma_int8_lora_launch": [_VP] * 8 + [_I] * 10 + [_VP],
+    # rk, act_from, token sub-tiles, K split, bf16 scales, stream
+    "qmm_wgmma_nib4_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    "qmm_wgmma_int8_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    # token sub-tiles, K split -> resident blocks of the wgmma body
+    "qmm_wgmma_resident_blocks": [_I, _I],
     # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
     # act_from, K split, stream
     "qmm_smallm_launch": [_VP] * 6 + [_I] * 10 + [_VP],
+    # the same and the scale planes' type (bf16 scales) before the stream
+    "qmm_smallm_ex_launch": [_VP] * 6 + [_I] * 11 + [_VP],
     # x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp, rk,
-    # nib4, act_from, K split, stream
-    "qmm_smallm_lora_launch": [_VP] * 8 + [_I] * 11 + [_VP],
+    # nib4, act_from, K split, bf16 scales, stream
+    "qmm_smallm_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
     # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, out row stride,
     # act_from, tile width, stream
     "i8mm_launch": [_VP] * 6 + [_I] * 8 + [_VP],

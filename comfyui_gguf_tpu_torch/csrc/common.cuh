@@ -1028,4 +1028,46 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// ---- thread-block clusters: rank, barrier, distributed shared memory -----
+
+// This block's rank in its cluster (0 for a launch without clusters).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits: the
+// shared-memory writes before it are visible to the whole cluster after it
+// (release / acquire). Not .aligned, so the threads of a warp may reach it
+// from different branches.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of this block's shared-memory location `addr` in the block
+// of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 }  // namespace gguf_cuda

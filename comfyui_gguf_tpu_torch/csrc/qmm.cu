@@ -28,9 +28,14 @@
 // a trip through shared memory and no warp waits for another warp's
 // unpacking. x is the B operand, K-major, and arrives by TMA as 64-byte-
 // swizzled 32-column tiles exactly as the wgmma descriptor reads them. (The
-// alternative, dequant warps writing a swizzled MN-major B tile, costs a
-// shared-memory store and load per weight element and a hand-over barrier
-// per tile; the first measurement of this form gave no reason to try it.)
+// alternative was built and measured on the H100: a dequant warpgroup that
+// writes the bf16 weight into a 64-byte-swizzled K-major tile, alone for a
+// block's 256 tokens or shared with a second block of a cluster through
+// distributed shared memory, 512 tokens an unpack, and two consumer
+// warpgroups issuing m64n256k16 with both operands in shared memory. It
+// ran slower than this body at flux's qkv, paired slower than alone, and
+// still slower with the unpack arithmetic taken out: its hand-over through
+// shared memory and mbarriers, not the unpack, set its pace.)
 // A k16 slice needs no permuted k order: a thread pairs the low nibbles of
 // two adjacent code rows (k, k+1) for the low slice and the high nibbles of
 // the same two bytes for the slice Kp/2 further on, which multiplies a
@@ -56,6 +61,17 @@
 // retired. Ragged edges: TMA zero-fills x past M and past K (the tensor
 // map's extents are M and K, not the padded ones); columns past R are
 // masked in the epilogue.
+//   Where the output tiles are too few to fill the card (the encoders' 256
+// and 512 tokens: 32 tiles of 128 x 128 for 132 SMs at M = 256, R = 2048),
+// the blocks of one tile form a thread-block cluster along K, 2 to 8 of
+// them, each walking 1/split of the K steps; they then sum their f32
+// accumulators through distributed shared memory, each rank a slice of the
+// tile in rank order, and run the epilogue on it (the split-K body's
+// scheme: no atomics, no workspace, two launches give the same bits). The
+// wrapper's plan (ops/qmatmul.py wgmma_split_plan) picks the token tile and
+// the split from a time model fitted to measurements on the card.
+//   Scale and offset planes are float32 or bfloat16; a bf16 value widens to
+// f32 exactly, so either gives the plain version's weight bits.
 //
 // The split-K body (qmm_smallm.cu), for M <= 8; bound by bytes: the packed
 // weight is read once. A 256-thread block owns a 128-column strip and a
@@ -84,5 +100,24 @@ extern "C" int qmm_wgmma_nib4_launch(const void* x, const void* qs,
                                      void* stream) {
   return launch_wgmma<true, false>(
       x, qs, scales, offsets, bias, out, nullptr, nullptr, M, K, Kp, R, Rp,
-      gs, zp, 0, act_from, nt, static_cast<cudaStream_t>(stream));
+      gs, zp, 0, act_from, nt, 1, 0, static_cast<cudaStream_t>(stream));
+}
+
+// qmm_wgmma_nib4_launch with a K split over a cluster of `split` blocks
+// (1, 2, 4 or 8; Kp / 64 a multiple of 2 * split) and the scale planes'
+// type (sbf16 = 1: bfloat16 scales and offsets, else float32).
+extern "C" int qmm_wgmma_nib4_split_launch(
+    const void* x, const void* qs, const void* scales, const void* offsets,
+    const void* bias, void* out, int M, int K, int Kp, int R, int Rp, int gs,
+    int zp, int act_from, int nt, int split, int sbf16, void* stream) {
+  return launch_wgmma<true, false>(
+      x, qs, scales, offsets, bias, out, nullptr, nullptr, M, K, Kp, R, Rp,
+      gs, zp, 0, act_from, nt, split, sbf16,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the wgmma body resident at once with clusters of `split`
+// (cudaOccupancyMaxActiveClusters x split), or -1 on an error.
+extern "C" int qmm_wgmma_resident_blocks(int nt, int split) {
+  return wgmma_resident_blocks<true>(nt, split);
 }

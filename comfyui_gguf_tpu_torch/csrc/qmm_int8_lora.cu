@@ -11,8 +11,9 @@ extern "C" int qmm_wgmma_int8_lora_launch(
     const void* x, const void* qs, const void* scales, const void* offsets,
     const void* bias, void* out, const void* h, const void* up, int M, int K,
     int Kp, int R, int Rp, int gs, int zp, int rk, int act_from, int nt,
-    void* stream) {
+    int split, int sbf16, void* stream) {
   return launch_wgmma<false, true>(x, qs, scales, offsets, bias, out, h, up,
                                    M, K, Kp, R, Rp, gs, zp, rk, act_from, nt,
+                                   split, sbf16,
                                    static_cast<cudaStream_t>(stream));
 }

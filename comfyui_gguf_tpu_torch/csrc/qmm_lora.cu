@@ -19,15 +19,17 @@
 
 using namespace gguf_cuda;
 
-// Plain C entry (bound with ctypes): qmm_wgmma_nib4_launch (qmm.cu) plus h
-// (M, rk) and up (Rp, rk) bf16, contiguous and 16-byte aligned, rk > 0 a
-// multiple of 16 (checked by the Python wrapper).
+// Plain C entry (bound with ctypes): qmm_wgmma_nib4_split_launch (qmm.cu)
+// plus h (M, rk) and up (Rp, rk) bf16, contiguous and 16-byte aligned,
+// rk > 0 a multiple of 16 (checked by the Python wrapper); with a K split,
+// cluster rank 0 adds the rank term.
 extern "C" int qmm_wgmma_nib4_lora_launch(
     const void* x, const void* qs, const void* scales, const void* offsets,
     const void* bias, void* out, const void* h, const void* up, int M, int K,
     int Kp, int R, int Rp, int gs, int zp, int rk, int act_from, int nt,
-    void* stream) {
+    int split, int sbf16, void* stream) {
   return launch_wgmma<true, true>(x, qs, scales, offsets, bias, out, h, up, M,
                                   K, Kp, R, Rp, gs, zp, rk, act_from, nt,
+                                  split, sbf16,
                                   static_cast<cudaStream_t>(stream));
 }

@@ -10,6 +10,11 @@
 // so two launches still give the same bits. At M <= 8 the term reads
 // R·rk·2 bytes of up (0.6 MB at R = 18432, r = 16) beside the packed weight
 // (28 MB at Q4_K).
+//
+// Scale and offset planes come in float32 or bfloat16 (SBF16): a bf16
+// plane halves their bytes (Q4_K reads 0.625 instead of 0.75 bytes a
+// weight, and this body is bound by those bytes); each value is widened to
+// f32 exactly, so the dequantized weight keeps its bits.
 #include <cooperative_groups.h>
 
 #include "qmm_common.cuh"
@@ -57,12 +62,12 @@ __device__ __forceinline__ void smallm_frags(
   }
 }
 
-template <bool NIB4, bool HAS_OFF, bool LORA>
+template <bool NIB4, bool HAS_OFF, bool LORA, bool SBF16>
 __global__ void __launch_bounds__(SM_THREADS)
 qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
                   const uint8_t* __restrict__ qs,       // (Kp/2 or Kp, Rp)
-                  const float* __restrict__ scales,     // (Kp/gs, Rp)
-                  const float* __restrict__ offsets,    // (Kp/gs, Rp) | null
+                  const void* __restrict__ scales,      // (Kp/gs, Rp)
+                  const void* __restrict__ offsets,     // (Kp/gs, Rp) | null
                   const float* __restrict__ bias,       // (R) | null
                   __nv_bfloat16* __restrict__ out,      // (M, R)
                   int M, int K, int Kp, int R, int Rp, int gs, float zp,
@@ -108,12 +113,25 @@ qmm_smallm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
-  auto load8 = [&](const float* plane, int grow, float (&v)[8]) {
-    const float4* p = reinterpret_cast<const float4*>(
-        plane + static_cast<size_t>(grow) * Rp + col);
-    const float4 a = __ldg(p), b = __ldg(p + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  auto load8 = [&](const void* plane, int grow, float (&v)[8]) {
+    const size_t at = static_cast<size_t>(grow) * Rp + col;
+    if constexpr (SBF16) {  // 8 bf16 in one 16-byte load, widened exactly
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const __nv_bfloat16*>(plane) + at));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+      }
+    } else {
+      const float4* p =
+          reinterpret_cast<const float4*>(static_cast<const float*>(plane) +
+                                          at);
+      const float4 a = __ldg(p), b = __ldg(p + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
   };
   // the B fragment of token g: x[g][k0 + 2t .. +1] and x[g][k0 + 2t + 8 ..]
   auto x_frag = [&](int plane, int k0, uint32_t& b0, uint32_t& b1) {
@@ -258,14 +276,14 @@ int smallm_smem(bool nib4, int Kp, int split) {
   return (x_bytes > red_bytes ? x_bytes : red_bytes) + SM_MT * SM_BN * 4;
 }
 
-template <bool NIB4, bool HAS_OFF, bool LORA>
+template <bool NIB4, bool HAS_OFF, bool LORA, bool SBF16>
 cudaError_t launch_smallm(const void* x, const void* qs, const void* scales,
                           const void* offsets, const void* bias, void* out,
                           const void* h, const void* up, int M, int K, int Kp,
                           int R, int Rp, int gs, int zp, int rk, int act_from,
                           int split, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_smallm_kernel<NIB4, HAS_OFF, LORA>,
+      qmm_smallm_kernel<NIB4, HAS_OFF, LORA, SBF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
@@ -281,28 +299,33 @@ cudaError_t launch_smallm(const void* x, const void* qs, const void* scales,
   cfg.attrs = at;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(
-      &cfg, qmm_smallm_kernel<NIB4, HAS_OFF, LORA>,
+      &cfg, qmm_smallm_kernel<NIB4, HAS_OFF, LORA, SBF16>,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-      static_cast<const float*>(scales), static_cast<const float*>(offsets),
+      scales, offsets,
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M, K,
       Kp, R, Rp, gs, static_cast<float>(zp), act_from,
       static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(up), rk);
 }
 
-// The instance for the layout and the offsets.
+// The instance for the layout, the offsets and the scale planes' type.
 template <bool LORA>
 int launch_smallm_any(const void* x, const void* qs, const void* scales,
                       const void* offsets, const void* bias, void* out,
                       const void* h, const void* up, int M, int K, int Kp,
                       int R, int Rp, int gs, int zp, int rk, int nib4,
-                      int act_from, int split, cudaStream_t s) {
-#define GGUF_SMALLM(NIB, OFF)                                                \
-  launch_smallm<NIB, OFF, LORA>(x, qs, scales, offsets, bias, out, h, up, M, \
-                                K, Kp, R, Rp, gs, zp, rk, act_from, split, s)
+                      int act_from, int split, int sbf16, cudaStream_t s) {
+#define GGUF_SMALLM(NIB, OFF, SB)                                          \
+  launch_smallm<NIB, OFF, LORA, SB>(x, qs, scales, offsets, bias, out, h, \
+                                    up, M, K, Kp, R, Rp, gs, zp, rk,      \
+                                    act_from, split, s)
+#define GGUF_SMALLM_SB(NIB, OFF) \
+  (sbf16 ? GGUF_SMALLM(NIB, OFF, true) : GGUF_SMALLM(NIB, OFF, false))
   if (nib4)
-    return offsets ? GGUF_SMALLM(true, true) : GGUF_SMALLM(true, false);
-  return offsets ? GGUF_SMALLM(false, true) : GGUF_SMALLM(false, false);
+    return offsets ? GGUF_SMALLM_SB(true, true) : GGUF_SMALLM_SB(true, false);
+  return offsets ? GGUF_SMALLM_SB(false, true)
+                 : GGUF_SMALLM_SB(false, false);
+#undef GGUF_SMALLM_SB
 #undef GGUF_SMALLM
 }
 
@@ -321,20 +344,33 @@ extern "C" int qmm_smallm_launch(const void* x, const void* qs,
                                  void* stream) {
   return launch_smallm_any<false>(x, qs, scales, offsets, bias, out, nullptr,
                                   nullptr, M, K, Kp, R, Rp, gs, zp, 0, nib4,
-                                  act_from, split,
+                                  act_from, split, 0,
                                   static_cast<cudaStream_t>(stream));
 }
 
-// The LORA instance: qmm_smallm_launch plus h (M, rk) and up (Rp, rk) bf16,
-// rk > 0 a multiple of 16 (checked by the Python wrapper).
-extern "C" int qmm_smallm_lora_launch(const void* x, const void* qs,
-                                      const void* scales, const void* offsets,
-                                      const void* bias, void* out,
-                                      const void* h, const void* up, int M,
-                                      int K, int Kp, int R, int Rp, int gs,
-                                      int zp, int rk, int nib4, int act_from,
-                                      int split, void* stream) {
+// qmm_smallm_launch with the scale planes' type (sbf16 = 1: bfloat16
+// scales and offsets, else float32).
+extern "C" int qmm_smallm_ex_launch(const void* x, const void* qs,
+                                    const void* scales, const void* offsets,
+                                    const void* bias, void* out, int M,
+                                    int K, int Kp, int R, int Rp, int gs,
+                                    int zp, int nib4, int act_from,
+                                    int split, int sbf16, void* stream) {
+  return launch_smallm_any<false>(x, qs, scales, offsets, bias, out, nullptr,
+                                  nullptr, M, K, Kp, R, Rp, gs, zp, 0, nib4,
+                                  act_from, split, sbf16,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The LORA instance: qmm_smallm_ex_launch plus h (M, rk) and up (Rp, rk)
+// bf16, rk > 0 a multiple of 16 (checked by the Python wrapper).
+extern "C" int qmm_smallm_lora_launch(
+    const void* x, const void* qs, const void* scales, const void* offsets,
+    const void* bias, void* out, const void* h, const void* up, int M, int K,
+    int Kp, int R, int Rp, int gs, int zp, int rk, int nib4, int act_from,
+    int split, int sbf16, void* stream) {
   return launch_smallm_any<true>(x, qs, scales, offsets, bias, out, h, up, M,
                                  K, Kp, R, Rp, gs, zp, rk, nib4, act_from,
-                                 split, static_cast<cudaStream_t>(stream));
+                                 split, sbf16,
+                                 static_cast<cudaStream_t>(stream));
 }

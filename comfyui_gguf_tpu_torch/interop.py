@@ -71,9 +71,10 @@ def _leaf(v, device):
     if all(hasattr(v, f) for f in _PLANAR_FIELDS):
         return PlanarQuant(
             qs=tensor_from_numpy(v.qs, device),
-            scales=tensor_from_numpy(v.scales, device).to(torch.float32),
+            # float32 or bfloat16 planes (the reference's scale_dtype), kept
+            scales=tensor_from_numpy(v.scales, device),
             offsets=(None if v.offsets is None else
-                     tensor_from_numpy(v.offsets, device).to(torch.float32)),
+                     tensor_from_numpy(v.offsets, device)),
             qtype=int(v.qtype), layout=str(v.layout),
             group_size=int(v.group_size), zero_point=int(v.zero_point),
             shape=tuple(int(d) for d in v.shape))

@@ -11,7 +11,9 @@ Two implementations of one function, ``epi(x @ W^T)`` with W kept packed:
   Two kernel bodies, picked from the shape alone by ``qmm_route``: a
   weight-streaming split-K body for M <= ``SMALL_M_MAX`` rows of x (bound by
   the bytes of the packed weight) and a TMA + ``wgmma`` body for every larger
-  M (bound by tensor-core operations).
+  M (bound by tensor-core operations), whose K may be split over a cluster
+  of blocks where its output tiles are too few for the card
+  (``wgmma_split_plan``). Both read float32 or bfloat16 scale planes.
 * ``plain_quantized_matmul`` — the plain PyTorch version, the counterpart
   of the reference's ``xla_qmm`` + ``_host_epilogue``: dequantize to a
   dense weight, one f32-accumulated matmul, then the unfused epilogue.
@@ -89,6 +91,18 @@ WGMMA_TILE = (128, 128)  # (tokens, out-features) of a wgmma sub-tile
 # time of a 128-token tile spent unpacking the weight, relative to its
 # tensor-core time (measured on the H100 with tools_qmm_cuda.py)
 _UNPACK_SHARE = 1.5
+WGMMA_SPLITS = (1, 2, 4, 8)  # blocks of a K-split cluster (8: portable max)
+# blocks of the wgmma body resident at once in clusters of each size
+# (cudaOccupancyMaxActiveClusters x size on the H100 SXM; chip_smoke.py
+# phase 2 prints them as qmm_wgmma_resident_blocks)
+_RESIDENT = {1: N_SM, 2: N_SM, 4: 120, 8: 120}
+# a block's fixed time (the ring's fill, the epilogue) and the cluster's
+# reduction per 128 tokens, in units of one K step's tensor-core time at
+# 128 tokens (0.275 us on the H100; fitted to the (nt, split) sweep of
+# chip_smoke.py phase 3 at Pile-T5's and T5-xxl's shapes: 3.2 us and 1.75
+# us)
+_FIXED_STEPS = 11.6
+_REDUCE_STEPS = 6.4
 
 
 def smallm_plan(m: int, kp: int, r: int, nib4: bool):
@@ -148,6 +162,49 @@ def wgmma_plan(m: int, r: int) -> tuple[int, int, int, int]:
     nt = 2 if m > WGMMA_TILE[0] and cost(2) < cost(1) else 1
     m_tiles = -(-m // (nt * WGMMA_TILE[0]))
     return nt, m_tiles, r_tiles, min(m_tiles * r_tiles, N_SM)
+
+
+def wgmma_split_ok(kp: int, nt: int, split: int) -> bool:
+    """Whether the wgmma body takes a K split of ``split`` blocks: each
+    walks an even number of 64-wide K steps, and the tile's 16·nt groups of
+    accumulators divide evenly among the ranks that reduce them."""
+    return (split in WGMMA_SPLITS and (kp // 64) % (2 * split) == 0
+            and (16 * nt) % split == 0)
+
+
+def wgmma_cost(m: int, kp: int, r: int, nt: int, split: int) -> float:
+    """Modelled time of the wgmma body at (nt, split), in K steps of one
+    128-token tile: waves x a block's time. A block walks its K slice at
+    nt + ``_UNPACK_SHARE`` a step (the unpack adds to the tensor cores, it
+    does not hide), plus ``_FIXED_STEPS`` and, in a cluster, the
+    reduction's ``_REDUCE_STEPS`` per 128 tokens."""
+    tiles = -(-m // (nt * WGMMA_TILE[0])) * -(-r // WGMMA_TILE[1])
+    blocks = tiles * split
+    waves = -(-blocks // _RESIDENT[split])
+    block = ((kp // 64) // split * (nt + _UNPACK_SHARE) + _FIXED_STEPS
+             + (_REDUCE_STEPS * nt if split > 1 else 0.0))
+    return waves * block
+
+
+def wgmma_split_plan(m: int, kp: int, r: int) -> tuple[int, int]:
+    """(token sub-tiles, K split) of the wgmma launch: the pair of least
+    ``wgmma_cost``, ties to the smaller split, then to nt 1.
+
+    Where tiles are few (the encoders' 256-512 tokens) the blocks of one
+    output tile form a cluster along K and each walks 1/split of it, so
+    the card fills and 256-token tiles unpack each weight element once for
+    twice the tokens; where they are many, split stays 1 and the blocks
+    are persistent.
+    """
+    best = None
+    for nt in ((1, 2) if m > WGMMA_TILE[0] else (1,)):
+        for split in WGMMA_SPLITS:
+            if not wgmma_split_ok(kp, nt, split):
+                continue
+            c = wgmma_cost(m, kp, r, nt, split)
+            if best is None or c < best[0]:
+                best = (c, nt, split)
+    return best[1], best[2]
 
 
 I8MM_TILE_M = 128  # tokens per K4 tile (2 consumer warpgroups x 64)
@@ -233,13 +290,16 @@ def prep_lora(lora_h: torch.Tensor, lora_up: torch.Tensor, m: int, r: int,
 
 def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
              act_from_col: int | None = None, out_dtype=None, lora_h=None,
-             lora_up=None) -> torch.Tensor:
+             lora_up=None, tiles: tuple[int, int] | None = None
+             ) -> torch.Tensor:
     """Launch the fused dequant-matmul kernel (K1 nib4 / K2 int8), the
     body ``qmm_route`` names for the shape; with ``lora_h``/``lora_up``
     (see ``prep_lora``) that body's LoRA instance.
 
     x: (..., K) CUDA tensor (cast to bf16, as the kernel's operands are);
-    pq: 2-D planar weight (a depth slice of a stacked one is fine).
+    pq: 2-D planar weight (a depth slice of a stacked one is fine), float32
+    or bfloat16 scale planes. ``tiles``: the wgmma body's (token sub-tiles,
+    K split) instead of ``wgmma_split_plan``'s, for measurements and tests.
     Output (..., R) in ``out_dtype`` (default x.dtype), written as bf16.
     """
     R, K = pq.shape
@@ -254,8 +314,11 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
     kp = kc * 2 if nib4 else kc
     gs = pq.group_size
     want_q = torch.uint8 if nib4 else torch.int8
-    if pq.qs.dtype != want_q or pq.scales.dtype != torch.float32:
-        raise TypeError(f"planar dtypes {pq.qs.dtype}/{pq.scales.dtype}")
+    sdt = pq.scales.dtype
+    if (pq.qs.dtype != want_q or sdt not in (torch.float32, torch.bfloat16)
+            or (pq.offsets is not None and pq.offsets.dtype != sdt)):
+        raise TypeError(f"planar dtypes {pq.qs.dtype}/{sdt}/"
+                        f"{None if pq.offsets is None else pq.offsets.dtype}")
     if (kp % 512 or rp % 128 or R > rp or K > kp or K % 8
             or gs not in (16, 32)
             or (pq.offsets is not None and pq.zero_point)):
@@ -293,6 +356,7 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
                 None if b is None else b.data_ptr(), out.data_ptr())
         dims = (m, K, kp, R, rp, gs, int(pq.zero_point))
         act = -1 if act_from_col is None else int(act_from_col)
+        sbf16 = int(sdt == torch.bfloat16)
         stream = ctypes.c_void_p(_build.stream_handle(dev))
         name = "qmm_nib4" if nib4 else "qmm_int8"
         plan = smallm_plan(m, kp, R, nib4)
@@ -301,21 +365,24 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
             if lora:
                 rc = lib.qmm_smallm_lora_launch(
                     *ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
-                    int(nib4), act, plan[0], stream)
+                    int(nib4), act, plan[0], sbf16, stream)
             else:
-                rc = lib.qmm_smallm_launch(*ptrs, *dims, int(nib4), act,
-                                           plan[0], stream)
+                rc = lib.qmm_smallm_ex_launch(*ptrs, *dims, int(nib4), act,
+                                              plan[0], sbf16, stream)
         else:
-            nt = wgmma_plan(m, R)[0]
+            nt, split = wgmma_split_plan(m, kp, R) if tiles is None else tiles
+            if not (nt in (1, 2) and wgmma_split_ok(kp, nt, split)):
+                raise ValueError(f"wgmma tiles nt={nt} split={split} do not "
+                                 f"fit Kp={kp}")
             if lora:
                 launch = (lib.qmm_wgmma_nib4_lora_launch if nib4
                           else lib.qmm_wgmma_int8_lora_launch)
                 rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
-                            act, nt, stream)
+                            act, nt, split, sbf16, stream)
             else:
-                launch = (lib.qmm_wgmma_nib4_launch if nib4
-                          else lib.qmm_wgmma_int8_launch)
-                rc = launch(*ptrs, *dims, act, nt, stream)
+                launch = (lib.qmm_wgmma_nib4_split_launch if nib4
+                          else lib.qmm_wgmma_int8_split_launch)
+                rc = launch(*ptrs, *dims, act, nt, split, sbf16, stream)
         if lora:
             name += "_lora"
         _build.check(rc, name + " launch")

@@ -214,11 +214,59 @@ class DiffusionModel:
         return memory_report(self.params)
 
 
-def load_diffusion_model(path: str, device="cuda") -> DiffusionModel:
+_DTYPE_NAMES = {
+    "default": None, "target": None,
+    "float32": torch.float32, "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+}
+
+
+def _resolve_qcfg(dequant_dtype="default",
+                  patch_dtype="default") -> QuantConfig:
+    """Map the reference's Advanced-loader string knobs (``"default"``,
+    ``"target"``, ``"float32"``, ``"float16"``, ``"bfloat16"``, or a torch
+    dtype) onto a QuantConfig, as the reference's ``_resolve_qcfg`` does."""
+    def resolve(v):
+        if isinstance(v, torch.dtype) or v is None:
+            return v
+        if v not in _DTYPE_NAMES:
+            raise ValueError(f"unknown dtype knob {v!r}: one of "
+                             f"{sorted(_DTYPE_NAMES)} or a torch dtype")
+        return _DTYPE_NAMES[v]
+
+    return QuantConfig(dequant_dtype=resolve(dequant_dtype) or torch.bfloat16,
+                       patch_dtype=resolve(patch_dtype))
+
+
+def _check_card_dtypes(qcfg: QuantConfig) -> None:
+    """The card's kernels dequantize to bfloat16 and take bfloat16 LoRA
+    operands; refuse any other knob value before a weight moves (the plain
+    path on the CPU honours every dtype)."""
+    for what, dt in (("dequant_dtype", qcfg.dequant_dtype),
+                     ("patch_dtype", qcfg.effective_patch_dtype)):
+        if dt != torch.bfloat16:
+            raise ValueError(
+                f"{what}={dt} is not available on the card: its kernels "
+                f"dequantize to bfloat16 and take bfloat16 LoRA operands "
+                f"(pass device='cpu' for the plain path, which takes any)")
+
+
+def load_diffusion_model(path: str, device="cuda", dequant_dtype="default",
+                         patch_dtype="default") -> DiffusionModel:
     """GGUF diffusion model → DiffusionModel on ``device`` (the card unless
-    the caller asks for the CPU; raises if CUDA is asked for and absent)."""
+    the caller asks for the CPU; raises if CUDA is asked for and absent).
+
+    ``dequant_dtype`` / ``patch_dtype``: the reference's Advanced-loader
+    knobs (``_resolve_qcfg``); on the card only bfloat16 (the default).
+    ``GGUF_TPU_COMPILE_CACHE`` names a persistent kernel build directory
+    (``compile_cache.enable_from_env``)."""
+    from .compile_cache import enable_from_env
+
     device = resolve_device(device)
-    qcfg = QuantConfig()
+    qcfg = _resolve_qcfg(dequant_dtype, patch_dtype)
+    if device.type == "cuda":
+        _check_card_dtypes(qcfg)
+    enable_from_env()
     sd, arch = gguf_sd_loader(path, return_arch=True)
     params = to_torch_params(sd, qcfg, device=device)
     config = None

@@ -15,7 +15,10 @@ bytes as the Pallas kernels:
   * ``nib4``: 4-bit codes two per byte with a **global split along K** —
     ``qs[j, r]`` holds the code for k=j in its low nibble and k=j+Kp/2 in its
     high nibble;
-  * ``int8``: one zero-point-folded int8 code per element.
+  * ``int8``: one zero-point-folded int8 code per element;
+  * scale and offset planes in float32, or in bfloat16 on request
+    (``scale_dtype``): every consumer widens them to float32 exactly and
+    runs the same float32 arithmetic.
 
 A layout shaped for Hopper (n-major tiles, interleaved scales) is a later
 change; the kernels here read this one.
@@ -76,8 +79,8 @@ class PlanarQuant:
     """
 
     qs: torch.Tensor  # nib4: (Kp//2, Rp) uint8 | int8: (Kp, Rp) int8
-    scales: torch.Tensor  # (Kp//gs, Rp) float32
-    offsets: torch.Tensor | None  # (Kp//gs, Rp) float32 or None
+    scales: torch.Tensor  # (Kp//gs, Rp) float32 or bfloat16
+    offsets: torch.Tensor | None  # (Kp//gs, Rp) as scales, or None
     qtype: int
     layout: str  # "nib4" | "int8"
     group_size: int
@@ -121,11 +124,15 @@ class PlanarQuant:
 
 
 def planarize(data: np.ndarray, qtype: GGMLQuantizationType,
-              shape: tuple[int, int], device="cpu") -> PlanarQuant:
+              shape: tuple[int, int], device="cpu",
+              scale_dtype=torch.float32) -> PlanarQuant:
     """Re-tile raw GGUF packed blocks into PlanarQuant (host-side, one-time).
 
     data: (n_blocks, type_size) uint8 (as produced by gguf.reader).
     shape: logical (out=R, in=K) weight shape.
+    scale_dtype: float32, or bfloat16 to halve the scale and offset bytes
+    (Q4_K drops from 0.75 to 0.625 bytes a weight; the ~2^-9 relative
+    rounding of a scale sits far below the quantization noise).
     """
     qtype = GGMLQuantizationType(qtype)
     if len(shape) != 2:
@@ -133,20 +140,25 @@ def planarize(data: np.ndarray, qtype: GGMLQuantizationType,
     R, K = int(shape[0]), int(shape[1])
     comp = codecs.COMPONENT_EXTRACTORS[qtype](np.ascontiguousarray(data))
     out = _components_to_planar(comp.q, comp.scales, comp.offsets, qtype,
-                                comp.zero_point, comp.group_size, (R, K))
+                                comp.zero_point, comp.group_size, (R, K),
+                                scale_dtype=scale_dtype)
     return out.to(device)
 
 
 def _components_to_planar(q, scales, offsets, qtype, zero_point, gs,
-                          shape) -> PlanarQuant:
+                          shape, scale_dtype=torch.float32) -> PlanarQuant:
     """Assemble a PlanarQuant (CPU tensors) from extracted components.
 
     K is padded up to a multiple of 512 (zero-contribution pad codes, zero
     scales), then K and R are padded within a ≤6.25% byte-waste cap to
     sizes with deep tile divisors — the reference package's rule, kept so
     both packages hold identical bytes. Pad codes dequantize to exactly 0;
-    pad output columns are never returned.
+    pad output columns are never returned. The scale and offset planes are
+    rounded once from float32 to ``scale_dtype`` (round to nearest even).
     """
+    if scale_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scale_dtype must be float32 or bfloat16, got "
+                         f"{scale_dtype}")
     R, K = shape
     kp = _pad_for_deep_tiles(
         -(-K // 512) * 512, 512,
@@ -188,9 +200,10 @@ def _components_to_planar(q, scales, offsets, qtype, zero_point, gs,
     return PlanarQuant(
         qs=torch.from_numpy(np.ascontiguousarray(qs)),
         scales=torch.from_numpy(
-            np.ascontiguousarray(scales_t, dtype=np.float32)),
+            np.ascontiguousarray(scales_t, dtype=np.float32)).to(scale_dtype),
         offsets=(None if offsets_t is None else torch.from_numpy(
-            np.ascontiguousarray(offsets_t, dtype=np.float32))),
+            np.ascontiguousarray(offsets_t, dtype=np.float32)).to(
+                scale_dtype)),
         qtype=int(qtype), layout=layout, group_size=gs, zero_point=zp,
         shape=(R, shape[1]),
     )

@@ -53,3 +53,30 @@ def test_enable_from_env(tmp_path, monkeypatch, fake_nvcc):
     monkeypatch.setenv("GGUF_TPU_COMPILE_CACHE", d)
     assert compile_cache.enable_from_env()
     assert os.path.isdir(d) and str(_build.BUILD_DIR) == d
+
+
+def test_load_diffusion_model_honours_the_env(tmp_path, monkeypatch,
+                                              fake_nvcc):
+    """The reference's ``load_diffusion_model`` calls ``enable_from_env``;
+    so does the port's: a load with ``GGUF_TPU_COMPILE_CACHE`` set points
+    the kernel build at that directory, and a library already built there
+    is the one the first kernel launch would load."""
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    dims = testing.TinyFluxDims(hidden=512, heads=4, depth_double=1,
+                                depth_single=1, axes_dim=(16, 56, 56))
+    path = str(tmp_path / "tiny.gguf")
+    testing.write_flux_gguf(
+        testing.flux_state_dict(dims, seed=0), path,
+        lambda k, v: testing.flux_block_qtype(k, v, Q.Q8_0))
+    d = tmp_path / "loadcc"
+    monkeypatch.setenv("GGUF_TPU_COMPILE_CACHE", str(d))
+    model = load_diffusion_model(path, device="cpu")
+    assert model.arch == "flux"
+    assert _build.BUILD_DIR == d and d.is_dir()
+    lib = d / f"libgguf_kernels_{_build._digest(fake_nvcc)}.so"
+    lib.write_bytes(b"built earlier")
+    assert _build.build() == lib and _build.BUILD_REPORT["cached"] is True

@@ -16,7 +16,9 @@ every tile position of K1/K2/K4 bit for bit. The LoRA instances of K1/K2
 (both bodies) and K4 (both widths) run at ranks 1, 16 and 16 + 64 against
 the plain versions with the same rank operands, with one-hot rank rows, at
 strength 0 (equal to the unpatched launch) and on stacked views. The
-serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+wgmma body also runs with its K split over a cluster (1, 2 and 8 blocks) at
+both token-tile widths, and both bodies with bfloat16 scale planes, each
+launched twice for equal bits. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
 4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
 M = 4) and one continuous-batching engine run on the card against the
 same engine on the CPU (launch counts per tick) run here too. Whether a
@@ -49,7 +51,8 @@ from comfyui_gguf_tpu_torch.ops.i8mm import (i8mm_cuda, i8mm_cuda_q,
 from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
                                                 plain_quantized_matmul,
                                                 qmm_cuda, qmm_route,
-                                                smallm_plan)
+                                                smallm_plan,
+                                                wgmma_split_plan)
 from comfyui_gguf_tpu_torch.quant import codecs, planar
 from comfyui_gguf_tpu_torch.quant.i8 import (I8Planar, quantize_rows,
                                              requantize_i8)
@@ -77,11 +80,11 @@ def _bf16_ulp(t):
     return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
 
 
-def _planar(qtype, R, K, seed, device):
+def _planar(qtype, R, K, seed, device, scale_dtype=torch.float32):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((R, K), dtype=np.float32)
     return planar.planarize(codecs.quantize(w, qtype), qtype, (R, K),
-                            device=device)
+                            device=device, scale_dtype=scale_dtype)
 
 
 QMM_CASES = [
@@ -1151,3 +1154,137 @@ def test_kernels_on_expert_views(cuda):
         assert (view.qs.untyped_storage().data_ptr()
                 == leaf.qs.untyped_storage().data_ptr())
         assert torch.equal(fn(x, view), fn(x, one))
+
+
+# -- the wgmma body's K split over a cluster, and bf16 scale planes --------
+
+SPLIT_TYPES = [Q.Q4_K, Q.Q2_K, Q.Q4_0, Q.Q8_0, Q.Q6_K, Q.Q5_K]
+SCALE_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("sdt", SCALE_DTYPES, ids=str)
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("nt", [1, 2])
+@pytest.mark.parametrize("qtype", SPLIT_TYPES, ids=lambda q: q.name)
+def test_qmm_wgmma_split_and_scale_planes(cuda, qtype, nt, split, sdt):
+    """Every (token sub-tiles, K split) of the wgmma body, both scale-plane
+    types, over both layouts (group sizes 16 and 32, offsets or a zero
+    point): ragged M, R and K (300 x 1792 -> 328; Kp = 2048), bias and a
+    GELU tail, against the plain version (which widens bf16 planes the
+    same way); two launches give the same bits."""
+    M, R, K = 300, 328, 1792
+    pq = _planar(qtype, R, K, seed=int(qtype) + 31, device=cuda,
+                 scale_dtype=sdt)
+    assert pq.scales.dtype == sdt
+    g = torch.Generator(device=cuda).manual_seed(split + 10 * nt)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((R,), generator=g, device=cuda)
+    key = "qmm_nib4" if pq.layout == "nib4" else "qmm_int8"
+    before = _build.LAUNCHES[key]
+    got = qmm_cuda(x, pq, bias=b, act_from_col=136, tiles=(nt, split))
+    again = qmm_cuda(x, pq, bias=b, act_from_col=136, tiles=(nt, split))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    want = plain_quantized_matmul(x, pq, bias=b, act_from_col=136)
+    assert got.shape == (M, R) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) < 5e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("sdt", SCALE_DTYPES, ids=str)
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q6_K], ids=lambda q: q.name)
+def test_qmm_wgmma_split_every_tile_position(cuda, qtype, sdt):
+    """One-hot x rows through an 8-block K split: each output is one
+    dequantized bf16 weight, bit for bit (the ranks that do not hold that k
+    add exact zeros), at every k of every rank's slice."""
+    R, K = 256, 2048
+    pq = _planar(qtype, R, K, seed=7, device=cuda, scale_dtype=sdt)
+    w = planar.dequantize_kmajor(pq, torch.bfloat16)  # (K, R)
+    for k0 in range(0, K, 256):
+        ks = torch.arange(k0, k0 + 256, device=cuda)
+        x = torch.zeros((256, K), device=cuda, dtype=torch.bfloat16)
+        x[torch.arange(256, device=cuda), ks] = 1.0
+        got = qmm_cuda(x, pq, tiles=(2, 8))
+        assert torch.equal(got, w[ks])
+
+
+@pytest.mark.parametrize("sdt", SCALE_DTYPES, ids=str)
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("rank", [16, 80])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q8_0], ids=lambda q: q.name)
+def test_qmm_lora_wgmma_split_and_scale_planes(cuda, qtype, rank, split,
+                                               sdt):
+    """The LoRA instances with a K split (rank 0 adds the rank term once)
+    and both scale-plane types; strength 0 equals the unpatched launch and
+    two launches give the same bits."""
+    M, R, K = 300, 328, 1792
+    pq = _planar(qtype, R, K, seed=rank + split, device=cuda,
+                 scale_dtype=sdt)
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((R,), generator=g, device=cuda)
+    h, upt = _lora_ops(cuda, M, R, rank, seed=split)
+    kw = dict(bias=b, act_from_col=136, tiles=(2, split))
+    key = ("qmm_nib4" if pq.layout == "nib4" else "qmm_int8") + "_lora"
+    before = _build.LAUNCHES[key]
+    got = qmm_cuda(x, pq, lora_h=h, lora_up=upt, **kw)
+    again = qmm_cuda(x, pq, lora_h=h, lora_up=upt, **kw)
+    zero = qmm_cuda(x, pq, lora_h=h, lora_up=upt * 0, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 3
+    want = plain_quantized_matmul(x, pq, bias=b, act_from_col=136,
+                                  lora_h=h, lora_up=upt)
+    assert _rel_l2(got, want) < 5e-3
+    assert _rel_l2(qmm_cuda(x, pq, **kw), want) > 1e-2
+    assert torch.equal(got, again)
+    assert torch.equal(zero, qmm_cuda(x, pq, **kw))
+
+
+@pytest.mark.parametrize("M", [1, 3, SMALL_M_MAX, 9, 130])
+@pytest.mark.parametrize("qtype", NIB4_TYPES + INT8_TYPES,
+                         ids=lambda q: q.name)
+def test_qmm_bf16_scale_planes_every_format(cuda, qtype, M):
+    """bf16 scale planes through both bodies (split-K at M <= 8, wgmma
+    above, the planned split), every format of each layout, with and
+    without the LoRA term; two launches give the same bits."""
+    R, K = 328, 768
+    pq = _planar(qtype, R, K, seed=int(qtype) + 5, device=cuda,
+                 scale_dtype=torch.bfloat16)
+    for bias, act in ((True, None), (False, 0), (True, 136)):
+        x, b, got = _check_qmm(cuda, pq, M, K, R, bias, act, seed=M)
+        assert torch.equal(got, qmm_cuda(x, pq, bias=b, act_from_col=act))
+    _qmm_lora_case(cuda, pq, M, 16, True, 136, seed=M)
+
+
+@pytest.mark.parametrize("M", [1, 130])
+def test_qmm_bf16_scale_planes_every_tile_position(cuda, M):
+    """One-hot rows through both bodies with bf16 planes: the outputs are
+    the plain dequantized weight bit for bit (a bf16 scale widens to f32
+    exactly, so the weight keeps the plain version's bits)."""
+    R, K = 256, 1024
+    pq = _planar(Q.Q4_K, R, K, seed=9, device=cuda,
+                 scale_dtype=torch.bfloat16)
+    w = planar.dequantize_kmajor(pq, torch.bfloat16)
+    picks = ([torch.arange(k0, k0 + 128) for k0 in range(0, K, 128)]
+             if M > 1 else
+             [torch.tensor([k]) for k in (0, 1, 517, K // 2, K - 1)])
+    for ks in picks:
+        ks = ks.to(cuda)
+        x = torch.zeros((M, K), device=cuda, dtype=torch.bfloat16)
+        x[torch.arange(ks.numel(), device=cuda), ks] = 1.0
+        got = qmm_cuda(x, pq)
+        assert torch.equal(got[: ks.numel()], w[ks])
+
+
+# the encoder shapes the plan splits: Pile-T5 and llama q at 256 tokens,
+# T5-xxl at 512
+ENCODER_CASES = [(256, 2048, 2048), (256, 2304, 2048), (512, 4096, 4096)]
+
+
+@pytest.mark.parametrize("M,K,R", ENCODER_CASES, ids=str)
+def test_qmm_planned_split_at_encoder_shapes(cuda, M, K, R):
+    pq = _planar(Q.Q8_0, R, K, seed=M + K, device=cuda)
+    assert wgmma_split_plan(M, pq.padded_in, R)[1] > 1
+    x, b, got = _check_qmm(cuda, pq, M, K, R, True, None, seed=R)
+    assert torch.equal(got, qmm_cuda(x, pq, bias=b))
+

@@ -26,11 +26,14 @@ from comfyui_gguf_tpu.ops import qmatmul as jqmm
 from comfyui_gguf_tpu.quant import planar as jplanar
 from comfyui_gguf_tpu_torch.gguf.constants import GGMLQuantizationType as Q
 from comfyui_gguf_tpu_torch.interop import params_from_numpy
-from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, N_SM,
-                                                SMALL_M_MAX, i8mm_plan,
+from comfyui_gguf_tpu_torch.ops.qmatmul import (_RESIDENT, I8MM_WIDTHS,
+                                                N_SM, SMALL_M_MAX,
+                                                WGMMA_SPLITS, i8mm_plan,
                                                 plain_quantized_matmul,
                                                 qmm_route, quantized_matmul,
-                                                smallm_plan, wgmma_plan)
+                                                smallm_plan, wgmma_cost,
+                                                wgmma_plan, wgmma_split_ok,
+                                                wgmma_split_plan)
 from comfyui_gguf_tpu_torch.quant import codecs
 
 torch.set_num_threads(2)
@@ -186,6 +189,75 @@ def test_wgmma_plan_covers_the_output_once(M, R):
     def waves(n):
         return -(-(-(-M // (128 * n)) * r_tiles) // N_SM)
     assert (nt == 2) == (M > 128 and waves(2) * 3.5 < waves(1) * 2.5)
+    # every (nt, K split) the body takes covers the output and K once
+    for kp in (2048,):
+        for n in (1, 2):
+            for split in WGMMA_SPLITS:
+                if wgmma_split_ok(kp, n, split):
+                    _walk_wgmma(M, R, kp, n, split)
+
+
+def _walk_wgmma(M, R, kp, nt, split):
+    """The wgmma body's walk, stated on its own: split == 1, persistent
+    blocks over the tile list; else ``split`` blocks a tile (a cluster),
+    rank b % split walking its 1/split of the K steps and then summing and
+    storing its 1/split of the tile's accumulator groups (group a: rows
+    128 (a // 16) + 8 (a % 16) .. + 7 of the tile, all 128 columns).
+    Every K step of every tile is walked once and every output element is
+    stored once."""
+    m_tiles, r_tiles = -(-M // (128 * nt)), -(-R // 128)
+    n_tiles, n_steps = m_tiles * r_tiles, kp // 64
+    grid = n_tiles * split if split > 1 else min(n_tiles, N_SM)
+    spb, per = n_steps // split, 16 * nt // split
+    walked = np.zeros((n_tiles, n_steps), np.int32)
+    hit = np.zeros((m_tiles * 128 * nt, r_tiles * 128), np.int32)
+    for b in range(grid):
+        rank = b % split
+        for t in range(b // split, n_tiles, grid // split):
+            walked[t, rank * spb:(rank + 1) * spb] += 1
+            m0, r0 = (t % m_tiles) * 128 * nt, (t // m_tiles) * 128
+            for a in range(rank * per, (rank + 1) * per):
+                m = m0 + (a // 16) * 128 + 8 * (a % 16)
+                hit[m: m + 8, r0: r0 + 128] += 1
+    assert (walked == 1).all(), (nt, split)
+    assert (hit == 1).all(), (nt, split)
+
+
+# the encoders' linears: Pile-T5-XL and the Gemma-shaped llama at 256
+# tokens, Qwen2.5-VL-7B, T5-xxl at 512
+ENCODER_SHAPES = [(256, 2048, 2048), (256, 2048, 5120), (256, 2304, 2048),
+                  (256, 2304, 9216), (256, 3584, 3584), (256, 3584, 18944),
+                  (512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096)]
+
+
+@pytest.mark.parametrize("M,K,R", ENCODER_SHAPES, ids=str)
+def test_wgmma_split_fills_the_card_at_encoder_shapes(M, K, R):
+    """Where the persistent plan leaves most SMs idle (fewer than half
+    busy: 32 blocks for 132 SMs at M = 256, R = 2048), the plan splits K
+    over a cluster and at least doubles the busy SMs; nowhere does it run
+    fewer blocks or take longer by the model than the persistent plan, and
+    its pick is the least modelled time of every pair the body takes."""
+    kp = -(-K // 512) * 512
+    nt, split = wgmma_split_plan(M, kp, R)
+    assert wgmma_split_ok(kp, nt, split)
+    blocks = -(-M // (128 * nt)) * -(-R // 128) * split
+    old_nt, _, _, old_blocks = wgmma_plan(M, R)
+    assert blocks >= old_blocks
+    if old_blocks < 0.5 * N_SM:
+        assert split > 1 and min(blocks, _RESIDENT[split]) >= 2 * old_blocks
+    cost = wgmma_cost(M, kp, R, nt, split)
+    assert cost <= wgmma_cost(M, kp, R, old_nt, 1)
+    assert cost == min(wgmma_cost(M, kp, R, n, s) for n in (1, 2)
+                       for s in WGMMA_SPLITS if wgmma_split_ok(kp, n, s))
+
+
+@pytest.mark.parametrize("M,K,R", [(4096, 3072, 9216), (4608, 3072, 21504),
+                                   (4360, 3072, 8192), (4352, 2304, 6912)],
+                         ids=str)
+def test_wgmma_no_split_where_tiles_fill_the_card(M, K, R):
+    """The DiT linears (thousands of tokens) have tiles for several waves:
+    no cluster, persistent blocks at 256-token tiles, as before."""
+    assert wgmma_split_plan(M, -(-K // 512) * 512, R) == (2, 1)
 
 
 # (M, R, the width the plan must pick): flux's w8a8 linears, text stream
@@ -270,3 +342,28 @@ def test_nib4_rows_pair_with_x_columns_half_apart():
     want = plain_quantized_matmul(torch.from_numpy(x), pq,
                                   dequant_dtype=torch.float32).numpy()
     assert _rel_l2((lo + hi)[:, :R], want) < 1e-5
+
+
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q8_0], ids=lambda q: q.name)
+def test_plain_with_bf16_scales_matches_reference(qtype):
+    """The reference's ``test_pallas_qmm_with_bf16_scales``: bf16 scale
+    planes through the port's plain version, the reference's ``xla_qmm``
+    and its kernel in interpret mode, on the same blocks (f32 dequant)."""
+    K, M = 512, 16
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal((R, K), dtype=np.float32)
+    blocks = codecs.quantize(w, qtype)
+    jp = jplanar.planarize(blocks, JQ(int(qtype)), (R, K),
+                           scale_dtype=jnp.bfloat16)
+    pq = params_from_numpy({"w": jp}, device="cpu")["w"]
+    assert pq.scales.dtype == torch.bfloat16
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    got = plain_quantized_matmul(_torch(x, torch.float32), pq,
+                                 dequant_dtype=torch.float32).numpy()
+    want = np.asarray(jqmm.xla_qmm(jnp.asarray(x), jp,
+                                   dequant_dtype=jnp.float32))
+    assert _rel_l2(got, want) < 1e-5
+    kern = np.asarray(jqmm.pallas_qmm(jnp.asarray(x), jp,
+                                      dequant_dtype=jnp.float32,
+                                      interpret=True))
+    np.testing.assert_allclose(got, kern, rtol=1e-3, atol=1e-3)
