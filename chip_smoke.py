@@ -14,14 +14,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--hidream-depth-single N] [--hidream-steps N]
                           [--hidream-t5-layers N] [--hidream-llama-layers N]
                           [--hidream-budget-blocks DOUBLE SINGLE]
+                          [--wan-depth N] [--wan-steps N] [--umt5-layers N]
+                          [--cosmos-depth N] [--cosmos-steps N]
+                          [--cosmos-t5-layers N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
 CLIP-L encode, denoise, VAE decode), SD3.5-large, the SD1/SDXL UNets,
 AuraFlow v0.3, Lumina Image 2.0, Qwen-Image (with Qwen-Image-Edit and the
-Qwen2.5-VL vision tower) and HiDream-I1 — on the card through the entry points
-a user calls, and fails (non-zero exit, no result line) on any failed
-phase:
+Qwen2.5-VL vision tower), HiDream-I1, Wan 2.1 t2v (with its causal 3-D VAE)
+and Cosmos — on the card through the entry points a user calls, and fails
+(non-zero exit, no result line) on any failed phase:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
    is a failure;
@@ -49,20 +52,33 @@ phase:
    both of its tile widths, the one ``i8mm_plan`` picks giving the row's
    time, and its library call reads the int8 weight in the TN form
    cuBLASLt's int8 path takes; K6 runs at head dims 128, 256 and 512 (its
-   split instance) on the operands of its prep kernel, which is held against the plain prep (q
+   split instance) on the operands of its prep kernel, which is held
+   against the plain prep (q
    and v codes and their scales equal, k codes within one step, two
    launches equal) and timed beside it. The LoRA instances of K1/K2 (both
    bodies) and K4 (the rank term h @ upᵀ in the epilogue) run at the main
    path's shapes against their plain versions with the same rank operands,
    timed beside the unpatched instance; at strength 0 (up scaled by 0) each
-   must equal the unpatched launch;
+   must equal the unpatched launch. The f16 and f32 instances of K1/K2
+   (dequant_dtype float16 / float32) run at flux's modulation (the split-K
+   body, nib4 and int8), flux's qkv (K1: the wgmma body at f16, the f32
+   SIMT body) and the T5-xxl q projection (K2), with and without a rank-16
+   LoRA in the dequant dtype, against the plain version in the same dtype
+   (f16 ≤ 2e-3, f32 ≤ 1e-5), their library call one ``torch.matmul`` in
+   that dtype; K7 at D = 128 at Wan 2.1's self- and cross-attention and
+   Cosmos's, and at D = 384 at the Wan VAE's mid-block (3 frames of 60 x
+   104);
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; then with a LoRA of every
    patch type (rank patches on every block linear, LoCon mid, LoHa, GLoRA)
    through ``apply_lora``, planar and after ``requantize_i8()`` and
    ``stack()``; then ``unapply_loras()``, which must give the unpatched
-   stacked model's latent exactly; (b) a tiny ``FluxPipeline``
+   stacked model's latent exactly; the same GGUF then loads with
+   ``dequant_dtype="float16"`` and ``"float32"`` (``patch_dtype`` float16)
+   and runs planar and with the LoRA, each launching that dtype's instances
+   of both bodies over both layouts and no bf16 one; (b) a tiny
+   ``FluxPipeline``
    (flux GGUF, 2-layer T5 Q8_0 GGUF with tokenizer metadata, CLIP and VAE
    safetensors with ``vocab.json``/``merges.txt``, all written by the port's
    own writers) through ``FluxPipeline.load`` and ``generate``, with and
@@ -204,7 +220,29 @@ phase:
    fresh one, under a budget of its planar bytes plus 60% of the full
    conversion's byte delta with ``host_stage=True``: the planned share and
    the card's peak during each conversion are printed. Phases 15 and 16
-   free their trees when they end.
+   free their trees when they end;
+17. Wan 2.1 14B: ``WAN_14B_DIMS`` (dim 5120, 40 heads of 128, ffn 13824,
+   40 blocks unless ``--wan-depth`` cuts them), seed-made Q4_K stacked,
+   with the UMT5-xxl-shaped encoder (Q8_0, ``--umt5-layers`` (24) layers, a
+   relative-bias table in each, 256384 rows) and the Wan 2.1 VAE at its
+   published widths (base 96, z 16, mult 1/2/4/4) through
+   ``WanPipeline.generate`` at 480×832 with 9 pixel frames (a 3 × 60 × 104
+   latent, 4680 tokens; 512 UMT5 tokens with the padded positions
+   zeroed), shift 5.0, CFG 5.0, ``--wan-steps`` (20) steps and a dispatch
+   window of 4, decoded to 9 frames (the VAE's mid-block attention on K7's
+   D = 384 instance), on the bf16-fused tree and then on the w8a8 tree,
+   with phase 13's gates (K7 D = 128 80 times a forward) and records;
+   ``wan_engine`` as phase 13's engine (two steps). Published Wan 480p is
+   81 frames (32760 tokens): the frame count is the cut;
+18. Cosmos: ``COSMOS_7B_DIMS`` (dim 4096, 32 heads of 128, 28 blocks unless
+   ``--cosmos-depth`` cuts them), seed-made Q4_K stacked, with a T5
+   encoder of output width 1024 (t5-v1_1-large widths, Q8_0,
+   ``--cosmos-t5-layers`` (24) layers) through ``CosmosPipeline.generate``
+   at 1024² (one 128 × 128 latent frame, 4096 tokens; 256 T5 tokens),
+   shift 1.0, CFG 4.0, ``--cosmos-steps`` (20) steps, both trees, phase
+   13's gates and records (the adaLN modulations planar: the split-K body
+   3 times a block), ``cosmos_engine`` (two steps). Phases 17 and 18 free
+   their trees when they end.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -224,7 +262,14 @@ mmproj sidecar sits beside it, a 2-layer T5 and tiny CLIP-L / CLIP-G:
 ``QwenImagePipeline.generate`` and ``generate_edit`` (on an image through
 ``qwen_vl_encode_with_image``), ``HiDreamPipeline.generate_from_ids`` in
 dense and capacity dispatch, then both engines on the w8a8 stacked trees,
-each request also within 1e-2 of the direct sampler on the card.
+each request also within 1e-2 of the direct sampler on the card. Phase 4g
+does it for tiny Wan 2.1 and Cosmos GGUFs (4 heads of 128) with 2-layer
+UMT5 and T5 GGUFs and a small Wan VAE safetensors file (its middle 64
+wide): ``WanPipeline.generate`` (CFG, latent statistics, the VAE decode, a
+dispatch window) and ``CosmosPipeline.generate``, then ``wan_engine`` and
+``cosmos_engine`` on the w8a8 stacked trees, each request within 1e-2 of
+the direct sampler on the card and a snapshot after one tick restored
+into a fresh engine within 1e-3 of the uninterrupted run.
 Phase 3 also times K4, K7 and the split-K body at the serving shapes of
 four stacked requests, K7 at SD1's head dims 40, 80 and 160 and the
 sd3.5-large joint length, K4 and the split-K body at the sd3.5-large and
@@ -262,6 +307,8 @@ from comfyui_gguf_tpu_torch._timing import (  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+# f32 FMAs outside the tensor cores (the f32 instances of K1/K2)
+PEAK_F32 = 67e12
 
 # most relative L2 allowed between the w8a8 and bf16-fused final latents
 LATENT_DELTA_MAX = 2e-2
@@ -304,6 +351,10 @@ SFU_PER_SM_CLK = 16
 PROMPTS = ("a photo of a cat sitting on the moon",
            "an oil painting of a lighthouse in a storm at night")
 
+# the Pallas kernel (or its has_lora operands) an instance of K1/K2 replaces
+_QMM_LINE = {("nib4", ""): 97, ("int8", ""): 169, ("nib4", "_lora"): 117,
+             ("int8", "_lora"): 181}
+
 SOURCES = {
     "qmm_nib4": ("comfyui_gguf_tpu_torch/csrc/qmm.cu",
                  "comfyui_gguf_tpu/ops/qmatmul.py:97"),
@@ -328,7 +379,19 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8mm.py:81"),
     **{f"flash_attn_d{d}": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                             "comfyui_gguf_tpu/nn/attention.py:168")
-       for d in (40, 64, 80, 96, 128, 160, 256)},
+       for d in (40, 64, 80, 96, 128, 160, 256, 384)},
+    # the f16 and f32 instances (dequant_dtype float16 / float32): the
+    # Pallas bodies run with compute_dtype = dequant_dtype
+    **{f"qmm_{lay}{body}{lora}{dt}": (
+        f"comfyui_gguf_tpu_torch/csrc/{src}",
+        f"comfyui_gguf_tpu/ops/qmatmul.py:{_QMM_LINE[lay, lora]}")
+       for lay in ("nib4", "int8") for lora in ("", "_lora")
+       for body, dt, src in (
+           ("", "_f16", f"qmm{'_int8' if lay == 'int8' else ''}"
+                        f"{'_lora' if lora else ''}_f16.cu"),
+           ("_smallm", "_f16", "qmm_smallm_f16.cu"),
+           ("_smallm", "_f32", "qmm_smallm_f32.cu"),
+           ("_simt", "_f32", "qmm_simt.cu"))},
     "i8attn_pv": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
     "i8attn_qk": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
@@ -351,9 +414,14 @@ def log(msg: str) -> None:
 # sources whose ptxas lines phase 2 prints per named instance: the LoRA
 # instances and the unpatched instances beside them, and flash attention's
 # head-dim instances
-NAMED_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
-                 "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu",
-                 "flash_attn.cu")
+# the fused dequant-matmul's sources (K1/K2: every instance's ptxas lines
+# are printed, and a C751x advisory or a spill in any of them fails)
+QMM_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
+               "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
+               "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
+               "qmm_smallm_f32.cu", "qmm_simt.cu")
+NAMED_SOURCES = QMM_SOURCES + ("i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu",
+                               "flash_attn.cu")
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -497,6 +565,60 @@ def kernel_phase(dev, sfu_per_s):
             r.update(shape=rows[-1]["shape"], plain_ms=plain, library_ms=lib,
                      library=rows[-1]["library"], bound_ms=b_ms,
                      bound_by=b_by, tol=rows[-1]["tol"])
+
+    def qmm_dt_case(name, kernel, qtype, M, K, R, act, n_copies, dt, tol,
+                    rank=0):
+        """K1/K2 at dequant dtype ``dt`` (float16 or float32) through the
+        body and instance the dispatch picks (``kernel`` must name it): x
+        and the weight rounded to ``dt``, an f32 output, against the plain
+        version computing in ``dt``, launched twice for the same bits; with
+        ``rank`` the LoRA instance, rank operands in ``dt``. The library
+        call is one torch.matmul in ``dt`` on the dequantized weight."""
+        ws = [random_planar(qtype, (R, K), gen, device=dev)
+              for _ in range(n_copies)]
+        x = randn(M, K)
+        kw = dict(bias=torch.randn(R, generator=gen, device=dev) * 0.1,
+                  act_from_col=act, out_dtype=torch.float32,
+                  dequant_dtype=dt)
+        if rank:
+            base = qmm_cuda(x, ws[0], **kw)
+            h, upt = lora_operands(M, R, rank, base)
+            kw.update(lora_h=h.to(dt), lora_up=upt.to(dt))
+        before = _build.LAUNCHES[kernel]
+        got = qmm_cuda(x, ws[0], **kw)
+        if _build.LAUNCHES[kernel] != before + 1:
+            raise SystemExit(f"{name}: the dispatch did not pick {kernel}")
+        again = qmm_cuda(x, ws[0], **kw)
+        want = plain_quantized_matmul(x, ws[0], **kw)
+        torch.cuda.synchronize()
+        err = rel_l2(got, want)
+        ok = (bool(torch.isfinite(got).all()) and err <= tol
+              and torch.equal(got, again))
+        if rank:  # the term is really there: far off without it
+            ok = ok and rel_l2(base, want) >= 3 * tol
+        ms = graph_ms([lambda w=w: qmm_cuda(x, w, **kw) for w in ws])
+        plain = event_ms(lambda: plain_quantized_matmul(x, ws[0], **kw))
+        wd = dequantize_kmajor(ws[0], dt).contiguous()
+        xd = x.to(dt)
+        lib = library_ms(lambda: torch.matmul(xd, wd))
+        del wd
+        es = 2 if dt == torch.float16 else 4
+        nbytes = (ws[0].nbytes_packed + es * M * K + 4 * M * R + 4 * R
+                  + es * rank * (M + R))
+        peak = PEAK_BF16 if dt == torch.float16 else PEAK_F32
+        b_ms, b_by = bound(nbytes, 2.0 * M * R * (K + rank), peak)
+        rows.append(dict(name=name + (f" LoRA r={rank}" if rank else ""),
+                         kernel=kernel,
+                         shape=f"M={M} K={K} R={R} {dt}",
+                         max_abs_err=float((got.float() - want.float())
+                                           .abs().max()),
+                         rel_l2=err, tol=f"rel L2 <= {tol} against the plain "
+                                         f"version in {dt}, two launches "
+                                         f"equal", ok=ok, ms=ms,
+                         plain_ms=plain, library_ms=lib,
+                         library=f"torch.matmul in {dt} on the dequantized "
+                                 f"weight",
+                         bound_ms=b_ms, bound_by=b_by))
 
     def i8_case(name, M, K, R, act):
         """K4 at both tile widths (each within 1 bf16 ulp of the plain
@@ -1076,6 +1198,40 @@ def kernel_phase(dev, sfu_per_s):
               128)
     attn_case("flash_attn hidream joint L=4352 D=128", 1, 20, 4352, 4352,
               128)
+    # the f16 and f32 instances of K1/K2 (dequant_dtype float16 / float32:
+    # f16 operands on the tensor cores, f32 on FMAs), flux's modulation
+    # (the split-K body at M = 1, nib4 and int8), flux's qkv (K1's wgmma
+    # body at f16, the f32 SIMT body) and the T5-xxl q projection (K2);
+    # their LoRA instances with rank operands in the dequant dtype
+    for dt, tol in ((torch.float16, 2e-3), (torch.float32, 1e-5)):
+        sfx = "_f16" if dt == torch.float16 else "_f32"
+        body = "" if dt == torch.float16 else "_simt"
+        for lora in (0, 16):
+            lt = "_lora" if lora else ""
+            qmm_dt_case(f"qmm_nib4 {sfx[1:]} flux mod M=1 3072->18432 Q4_K",
+                        f"qmm_nib4_smallm{lt}{sfx}", Q.Q4_K, 1, 3072, 18432,
+                        None, 4, dt, tol, lora)
+            qmm_dt_case(f"qmm_int8 {sfx[1:]} flux img_mod M=1 3072->18432 "
+                        f"Q8_0", f"qmm_int8_smallm{lt}{sfx}", Q.Q8_0, 1,
+                        3072, 18432, None, 2, dt, tol, lora)
+            qmm_dt_case(f"qmm_nib4 {sfx[1:]} flux qkv M=4096 3072->9216 "
+                        f"Q4_K", f"qmm_nib4{body}{lt}{sfx}", Q.Q4_K, 4096,
+                        3072, 9216, None, 1, dt, tol, lora)
+            qmm_dt_case(f"qmm_int8 {sfx[1:]} T5-xxl q M=512 4096->4096 "
+                        f"Q8_0", f"qmm_int8{body}{lt}{sfx}", Q.Q8_0, 512,
+                        4096, 4096, None, 4, dt, tol, lora)
+    # Wan 2.1 14B and Cosmos at their phases' sizes: K7's D = 128 instance
+    # at Wan's self-attention (40 heads over 3 x 30 x 52 = 4680 tokens) and
+    # cross-attention (512 UMT5 tokens), Cosmos's self-attention (32 heads
+    # over 64 x 64 = 4096 tokens); the D = 384 instance at the Wan VAE's
+    # mid-block (one head of 384 channels over a 60 x 104 latent frame, 3
+    # frames)
+    attn_case("flash_attn wan self L=4680 D=128", 1, 40, 4680, 4680, 128)
+    attn_case("flash_attn wan cross Lq=4680 Lk=512 D=128", 1, 40, 4680, 512,
+              128)
+    attn_case("flash_attn cosmos self L=4096 D=128", 1, 32, 4096, 4096, 128)
+    attn_case("flash_attn wan vae mid B=3 L=6240 D=384", 3, 1, 6240, 6240,
+              384)
     # K8: the probes at the tool's problem size
     probe_cases()
     return rows + sweep_rows
@@ -1085,15 +1241,14 @@ def kernel_phase(dev, sfu_per_s):
 # phase 4: tiny end to end through the normal entry, card against CPU
 # ---------------------------------------------------------------------------
 
-def tiny_e2e_phase(dev):
-    import torch
-
-    from comfyui_gguf_tpu_torch import _build, _safetensors
+def _tiny_mixed_files(tmp):
+    """Phase 4a's files in directory ``tmp``: a tiny flux GGUF mixing
+    Q4_K, Q8_0 and Q6_K tensors and a LoRA of every patch type. → (dims,
+    GGUF path, LoRA path)."""
+    from comfyui_gguf_tpu_torch import _safetensors
     from comfyui_gguf_tpu_torch.gguf.constants import (
         GGMLQuantizationType as Q)
     from comfyui_gguf_tpu_torch.models import testing
-    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
-    from comfyui_gguf_tpu_torch.sampling import euler_sample, flux_schedule
 
     dims = testing.TinyFluxDims(hidden=512, heads=4, depth_double=2,
                                 depth_single=2, axes_dim=(16, 56, 56))
@@ -1108,22 +1263,27 @@ def tiny_e2e_phase(dev):
             return Q.Q6_K
         return q
 
-    out = {}
-    tmp = tempfile.TemporaryDirectory()
-    path = os.path.join(tmp.name, "tiny_flux_mixed.gguf")
+    path = os.path.join(tmp, "tiny_flux_mixed.gguf")
     testing.write_flux_gguf(testing.flux_state_dict(dims, seed=0), path,
                             mixed)
     # a LoRA of every patch type: rank patches on every block linear, the
     # modulations included; a LoCon mid, a LoHa (the unfused path), a GLoRA
-    lora_path = os.path.join(tmp.name, "tiny_lora.safetensors")
+    lora_path = os.path.join(tmp, "tiny_lora.safetensors")
     _safetensors.save_file(testing.flux_mixed_lora_state_dict(dims, seed=7),
                            lora_path)
-    gpu = load_diffusion_model(path)
-    cpu = load_diffusion_model(path, device="cpu")
-    steps, h_lat = 3, 16
+    return dims, path, lora_path
+
+
+def _tiny_flux_run(dims, dev, steps=3, h_lat=16):
+    """Phase 4a's run: ``steps`` Euler steps of a tiny flux model from the
+    same seed-made inputs on ``dev`` and on the CPU. → run(model, device
+    name)."""
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.sampling import euler_sample, flux_schedule
+
     inputs = {d: testing.flux_example_inputs(dims, h_lat=h_lat, w_lat=h_lat,
                                              txt_len=16, seed=5, device=d)
-              for d in ("cuda", "cpu")}
+              for d in {dev, "cpu"}}
     sigmas = flux_schedule(steps, (h_lat // 2) ** 2)
 
     def run(model, dev_name):
@@ -1133,10 +1293,26 @@ def tiny_e2e_phase(dev):
             return model.forward(x, ids, txt, tids, s.expand(x.shape[0]), y,
                                  g)
         return euler_sample(vel, img, sigmas)
+    return run
+
+
+def tiny_e2e_phase(dev):
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    dims, path, lora_path = _tiny_mixed_files(tmp.name)
+    gpu = load_diffusion_model(path)
+    cpu = load_diffusion_model(path, device="cpu")
+    steps = 3
+    run = _tiny_flux_run(dims, dev, steps)
 
     def both(tree):
         _build.reset_launch_counts()
-        a = run(gpu, "cuda")
+        a = run(gpu, dev)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
         b = run(cpu, "cpu")
@@ -1159,7 +1335,7 @@ def tiny_e2e_phase(dev):
     both("w8a8")
     gpu = gpu.stack()
     _build.reset_launch_counts()
-    unpatched = run(gpu, "cuda")  # the stacked w8a8 tree, no LoRA
+    unpatched = run(gpu, dev)  # the stacked w8a8 tree, no LoRA
     torch.cuda.synchronize()
     out["w8a8_stacked"] = dict(launches=dict(_build.LAUNCHES))
     # the user's order: apply_lora, then requantize_i8() and stack()
@@ -1172,7 +1348,7 @@ def tiny_e2e_phase(dev):
     both("w8a8_lora_stacked")
     gpu.unapply_loras()
     _build.reset_launch_counts()
-    a = run(gpu, "cuda")
+    a = run(gpu, dev)
     torch.cuda.synchronize()
     out["w8a8_unapplied"] = dict(launches=dict(_build.LAUNCHES),
                                  equal_to_unpatched=torch.equal(a, unpatched))
@@ -1206,6 +1382,61 @@ def tiny_e2e_phase(dev):
            if k.endswith("_lora")):
         raise SystemExit("the unapplied model still launched a LoRA "
                          "instance")
+    return out
+
+
+def tiny_dtype_phase(dev):
+    """Phase 4a at dequant_dtype float16 and float32: the same tiny mixed
+    GGUF through ``load_diffusion_model(..., device="cuda",
+    dequant_dtype=..., patch_dtype="float16")`` and on the CPU with the same
+    knobs, three Euler steps planar and then with the LoRA of every patch
+    type (f16 rank factors, which the kernels round to the dequant dtype,
+    as the reference's ``_prep_lora`` does), card vs CPU within 3e-2 each.
+    Each run must launch that dtype's instances of both bodies over both
+    layouts (at f32 the SIMT body in the wgmma body's place), the LoRA runs
+    their LoRA instances, and no bf16 instance of the fused matmul."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    dims, path, lora_path = _tiny_mixed_files(tmp.name)
+    run = _tiny_flux_run(dims, dev)
+    bf16_keys = ("qmm_nib4", "qmm_int8", "qmm_nib4_smallm",
+                 "qmm_int8_smallm", "qmm_nib4_lora", "qmm_int8_lora",
+                 "qmm_nib4_smallm_lora", "qmm_int8_smallm_lora")
+    for name in ("float16", "float32"):
+        sfx = "_f16" if name == "float16" else "_f32"
+        wide = "" if name == "float16" else "_simt"
+        models = [load_diffusion_model(path, device=d, dequant_dtype=name,
+                                       patch_dtype="float16")
+                  for d in (dev, "cpu")]
+        for lora in ("", "_lora"):
+            if lora:
+                for m in models:
+                    m.apply_lora(lora_path, strength=0.8)
+            _build.reset_launch_counts()
+            a = run(models[0], dev)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            b = run(models[1], "cpu")
+            err = rel_l2(a.float().cpu(), b.float())
+            key = f"{name}{lora or '_planar'}"
+            out[key] = dict(rel_l2_vs_cpu=err, launches=counts)
+            log(f"  tiny {key}: card vs CPU plain rel L2 {err:.3e}, "
+                f"launches { {k: n for k, n in counts.items() if n} }")
+            if not bool(torch.isfinite(a).all()) or not err <= 3e-2:
+                raise SystemExit(f"tiny {key}: card vs CPU rel L2 {err}")
+            need = [f"qmm_{lay}{body}{lora}{sfx}" for lay in ("nib4", "int8")
+                    for body in (wide, "_smallm")]
+            idle = [k for k in need if counts[k] == 0]
+            if idle or any(counts[k] for k in bf16_keys):
+                raise SystemExit(f"tiny {key}: launched none of {idle} or a "
+                                 f"bf16 instance: "
+                                 f"{ {k: counts[k] for k in bf16_keys} }")
+    tmp.cleanup()
     return out
 
 
@@ -1449,6 +1680,192 @@ def sampler_menu_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: tiny Wan / Cosmos from files, card against CPU
+# ---------------------------------------------------------------------------
+
+VIDEO_TINY = dict(dim=512, n_heads=4, n_layers=2, in_ch=16, text_dim=512)
+
+
+def _write_video_files(tmp):
+    """Tiny Wan and Cosmos GGUFs (Q4_K, four heads of 128), 2-layer Q8_0
+    UMT5 (a relative-bias table in each layer) and T5 GGUFs with unigram
+    tokenizers, and a small Wan VAE (16 latent channels, its middle 64
+    wide: K7's D = 64 instance) as safetensors, all by the port's writers.
+    → their paths."""
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    out = {}
+    for name, dims, spec in (
+            ("wan", testing.WanDims(ffn_dim=1024, **VIDEO_TINY),
+             testing.wan_shape_spec),
+            ("cosmos", testing.CosmosDims(**VIDEO_TINY),
+             testing.cosmos_shape_spec)):
+        out[name] = os.path.join(tmp, f"{name}.gguf")
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=0),
+            out[name], name, Q.Q4_K)
+    for name, per_layer in (("umt5", True), ("t5", False)):
+        out[name] = os.path.join(tmp, f"{name}.gguf")
+        testing.write_t5_gguf(
+            testing.t5_state_dict(testing.T5Dims(
+                d_model=512, d_kv=64, n_heads=8, d_ff=1024, n_layers=2,
+                vocab=64, per_layer_bias=per_layer), seed=2),
+            out[name], qtype=Q.Q8_0, tokenizer=testing.unigram_spec(64))
+    out["vae"] = os.path.join(tmp, "wan_vae.safetensors")
+    _safetensors.save_file(testing.wan_vae_state_dict(testing.WanVAEDims(
+        base=16, z=16, mult=(1, 2, 4), num_res=1,
+        temporal_down=(True, False)), seed=3), out["vae"])
+    return out
+
+
+def video_tiny_phase(dev):
+    """Phase 4g: Wan 2.1 and Cosmos at tiny widths from files, on the card
+    and on the CPU with the same noise, within 3e-2 (relative L2):
+    ``load_diffusion_model``, ``load_text_encoder`` (UMT5, T5), ``load_vae``
+    (kind "wan"), ``WanPipeline.generate`` (CFG 5, the padded positions
+    zeroed, ``latents_mean``/``latents_std``, the causal VAE decode with its
+    mid-block attention on K7, a dispatch window of 2) and
+    ``CosmosPipeline.generate`` (CFG 4) on the planar trees; then
+    ``wan_engine`` and ``cosmos_engine`` serving two requests each (CFG and
+    1, different lengths) on the w8a8 stacked trees, card vs CPU, each
+    request on the card within 1e-2 of the direct sampler at batch 1, and a
+    snapshot after one tick restored into a fresh engine within 1e-3 of
+    the uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import (
+        CosmosPipeline, WanPipeline, cosmos_engine, load_diffusion_model,
+        load_text_encoder, load_vae, wan_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow)
+
+    devs = (dev, "cpu")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    f = _write_video_files(tmp.name)
+
+    def check(name, a, b, counts, need):
+        a = torch.as_tensor(np.asarray(a, np.float32))
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        err = rel_l2(a, b)
+        out[name] = dict(rel_l2_vs_cpu=err, launches=counts)
+        log(f"  {name}: card vs CPU plain rel L2 {err:.3e}, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if not bool(torch.isfinite(a).all()) or not err <= SAMPLER_DELTA_MAX:
+            raise SystemExit(f"{name}: card vs CPU rel L2 {err} > "
+                             f"{SAMPLER_DELTA_MAX}")
+        for k in need:
+            if counts[k] == 0:
+                raise SystemExit(f"{name} launched no {k}")
+
+    def on_card(fn):
+        _build.reset_launch_counts()
+        a = fn(0)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        return a, fn(1), counts
+
+    models = {a: [load_diffusion_model(f[a], device=d) for d in devs]
+              for a in ("wan", "cosmos")}
+    umt5 = [load_text_encoder(f["umt5"], device=d) for d in devs]
+    t5 = [load_text_encoder(f["t5"], device=d) for d in devs]
+    vaes = [load_vae(f["vae"], device=d) for d in devs]
+    if vaes[0][0] != "wan":
+        raise SystemExit(f"load_vae read a Wan VAE as {vaes[0][0]!r}")
+    rng = np.random.default_rng(12)
+    mean = (rng.standard_normal(16) * 0.1).astype(np.float32)
+    std = (1.0 + rng.random(16) * 0.5).astype(np.float32)
+    wan = [WanPipeline(models["wan"][i], umt5[i], vae_params=vaes[i][1],
+                       latents_mean=mean, latents_std=std)
+           for i in range(2)]
+    cos = [CosmosPipeline(models["cosmos"][i], t5[i]) for i in range(2)]
+    noise = torch.randn((1, 3, 8, 8, 16),
+                        generator=torch.Generator().manual_seed(7))
+    a, b, c = on_card(lambda i: wan[i].generate(
+        PROMPTS[0], "rain", latent_frames=3, latent_height=8,
+        latent_width=8, steps=3, max_t5_len=32, dispatch_window=2,
+        noise=noise))
+    if a.shape != (5, 32, 32, 3):
+        raise SystemExit(f"tiny WanPipeline: a video of shape {a.shape}")
+    check("tiny WanPipeline (CFG 5, VAE decode)", a, b, c,
+          ("flash_attn_d128", "flash_attn_d64", "qmm_nib4", "qmm_int8"))
+    a, b, c = on_card(lambda i: cos[i].generate(
+        PROMPTS[0], latent_frames=2, latent_height=8, latent_width=8,
+        steps=3, negative_prompt="rain", max_len=32, noise=noise[:, :2]))
+    check("tiny CosmosPipeline (CFG 4)", a, b, c,
+          ("flash_attn_d128", "qmm_nib4", "qmm_nib4_smallm", "qmm_int8"))
+
+    # the engines on the w8a8 stacked trees
+    for arch, mk in (("wan", wan_engine), ("cosmos", cosmos_engine)):
+        ms = [m.requantize_i8().stack() for m in models[arch]]
+        cfg = ms[0].config
+        reqs = [(rng.standard_normal((2, 8, 8, cfg.in_channels)).astype(
+                     np.float32),
+                 {"ctx": rng.standard_normal((24, cfg.text_dim)).astype(
+                     np.float32),
+                  "nctx": rng.standard_normal((24, cfg.text_dim)).astype(
+                      np.float32),
+                  "cfg_scale": np.float32(scale)}, linear_schedule(2 + i))
+                for i, scale in enumerate((4.0, 1.0))]
+
+        def serve(i, interrupt=False, ms=ms, mk=mk, reqs=reqs):
+            eng = mk(ms[i], max_batch=2)
+            hs = [eng.submit(x.copy(), dict(c), s) for x, c, s in reqs]
+            if interrupt:
+                eng.tick()
+                snap = eng.snapshot()
+                open_ = [j for j, h in enumerate(hs)
+                         if not h.done_event.is_set()]
+                eng2 = mk(ms[i], max_batch=2)
+                for j, h in zip(open_, eng2.restore(snap)):
+                    hs[j] = h
+                eng = eng2
+            eng.run_until_drained()
+            if any(h.error is not None or not h.finished for h in hs):
+                raise SystemExit(f"tiny {arch} engine: a request failed")
+            return np.stack([h.result for h in hs])
+        a, b, c = on_card(serve)
+        name = f"tiny {mk.__name__} w8a8 stacked (2 requests)"
+        check(name, a, b, c, ("i8mm", "flash_attn_d128"))
+
+        def direct(x, cond, sig, m=ms[0]):
+            def vel(xc, sg):
+                ts = sg.to(torch.float32).expand(1)
+                v_c = m.forward(xc, torch.as_tensor(cond["ctx"], device=dev)
+                                [None].to(torch.bfloat16), ts)
+                v_u = m.forward(xc, torch.as_tensor(cond["nctx"], device=dev)
+                                [None].to(torch.bfloat16), ts)
+                return v_u.float() + float(cond["cfg_scale"]) * (
+                    v_c.float() - v_u.float())
+            x0 = torch.as_tensor(x, device=dev)[None].to(torch.bfloat16)
+            with torch.no_grad():
+                return sample_flow(vel, x0, sig)[0].float().cpu()
+        vs_direct = [rel_l2(torch.from_numpy(np.asarray(r, np.float32)),
+                            direct(*req)) for r, req in zip(a, reqs)]
+        restored = serve(0, interrupt=True)
+        vs_whole = rel_l2(torch.from_numpy(restored.astype(np.float32)),
+                          torch.from_numpy(a.astype(np.float32)))
+        out[name].update(rel_l2_vs_direct=vs_direct,
+                         restored_rel_l2=vs_whole)
+        log(f"  {name}: vs the direct sampler rel L2 "
+            f"{', '.join(f'{e:.3e}' for e in vs_direct)}; snapshot after a "
+            f"tick -> restore vs uninterrupted {vs_whole:.3e}")
+        if not max(vs_direct) <= ENGINE_DELTA_MAX:
+            raise SystemExit(f"{name}: a served request differs from the "
+                             f"direct sampler by {max(vs_direct)}")
+        if not vs_whole <= RESTORE_DELTA_MAX:
+            raise SystemExit(f"{name}: the restored engine diverged "
+                             f"({vs_whole})")
+    tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the denoise path at flux-dev width
 # ---------------------------------------------------------------------------
 
@@ -1560,6 +1977,7 @@ def profile_forward(model, inputs, step_s, tree):
         torch.cuda.synchronize()
     fams = {"qmm_wgmma_kernel": "K1/K2 qmm (wgmma)",
             "qmm_smallm_kernel": "K1/K2 qmm (split-K)",
+            "qmm_simt_kernel": "K1/K2 qmm (f32 SIMT)",
             "gemm_wgmma_kernel": "K4 i8mm",
             "flash_fwd_kernel": "K7 flash_attn",
             "i8attn_kernel": "K6 i8attn",
@@ -3360,15 +3778,18 @@ def _no_activation_rounding():
 @contextlib.contextmanager
 def _block_taps(arch, tap):
     """Every block call of an ``arch`` forward (AuraFlow's double and
-    single layers; Lumina 2's refiner and main blocks; Qwen-Image's blocks;
-    HiDream's double and single blocks) goes through ``tap(block, args)``;
+    single layers; Lumina 2's refiner and main blocks; Qwen-Image's, Wan's
+    and Cosmos's blocks; HiDream's double and single blocks) goes through
+    ``tap(block, args)``;
     the forward carries on with what it returns."""
-    from comfyui_gguf_tpu_torch.models import aura, hidream, lumina2
-    from comfyui_gguf_tpu_torch.models import qwen_image
+    from comfyui_gguf_tpu_torch.models import (aura, cosmos, hidream,
+                                               lumina2, qwen_image, wan)
 
     mod, names = {"aura": (aura, ("_double_layer", "_single_layer")),
                   "lumina2": (lumina2, ("_block",)),
                   "qwen_image": (qwen_image, ("_block",)),
+                  "wan": (wan, ("_block",)),
+                  "cosmos": (cosmos, ("_block",)),
                   "hidream": (hidream, ("_double_block",
                                         "_single_block"))}[arch]
     saved = {n: getattr(mod, n) for n in names}
@@ -4450,6 +4871,226 @@ def hidream_phase(dev, depth_double, depth_single, steps, t5_layers,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: Wan 2.1 14B and Cosmos at published width
+# ---------------------------------------------------------------------------
+
+# Wan 2.1's VAE latent statistics, per channel (the published VAE config's
+# latents_mean / latents_std)
+WAN21_LATENTS_MEAN = (-0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653,
+                      -0.1517, 1.5508, 0.4134, -0.0715, 0.5517, -0.3632,
+                      -0.1922, -0.9497, 0.2503, -0.2921)
+WAN21_LATENTS_STD = (2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052,
+                     2.0743, 3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253,
+                     2.8251, 1.9160)
+
+
+# phase 17's latent: 480x832 with 9 pixel frames (published Wan 480p is 81
+# frames, 21 latent frames, 32760 tokens: the frame count is the cut);
+# phase 18's: one 1024² frame
+WAN_LATENT = (3, 60, 104)
+COSMOS_LATENT = (1, 128, 128)
+
+
+def _t5_encoder(dev, dims, layers, seed):
+    """A T5-family encoder at ``dims`` (``layers`` of its layers), seed-made
+    on the card at Q8_0, its token embedding dense bf16 as the loader
+    leaves it, with a unigram vocabulary of its size."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import t5, testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import TextEncoder
+    from comfyui_gguf_tpu_torch.tokenizer import UnigramTokenizer
+
+    dims = dataclasses.replace(dims, n_layers=layers)
+    params = testing.t5_random_params(dims, qtype=Q.Q8_0, seed=seed,
+                                      device=dev)
+    return TextEncoder("t5", params, t5.T5Config.from_state_dict(params),
+                       UnigramTokenizer(testing.unigram_spec(dims.vocab)),
+                       QuantConfig(), torch.device(dev))
+
+
+def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
+    """Phase 17, Wan 2.1 14B (``WAN_14B_DIMS``, ``depth`` of 40 blocks) with
+    the UMT5-xxl-shaped encoder (Q8_0, ``enc_layers`` of 24, its 256384-row
+    embedding) and the Wan 2.1 VAE at its published widths
+    (``WAN21_VAE_DIMS``), through ``WanPipeline.generate`` at 480×832 with
+    9 pixel frames (a 3 × 60 × 104 latent, 4680 DiT tokens; 512 UMT5
+    tokens), shift 5.0, CFG 5.0, ``steps`` steps, decoded to 9 frames; or
+    phase 18, Cosmos (``COSMOS_7B_DIMS``, ``depth`` of 28 blocks) with a
+    T5 encoder of output width 1024 (t5-v1_1-large widths, Q8_0,
+    ``enc_layers`` of 24) through ``CosmosPipeline.generate`` at 1024² (one
+    128 × 128 latent frame, 4096 tokens; 256 T5 tokens), shift 1.0, CFG
+    4.0. Both seed-made Q4_K stacked, on the bf16-fused tree and then on
+    the w8a8 tree, with phases 13-16's gates (``_run_trees``,
+    ``_tree_check``: K7 D = 128 twice a block and forward, each kernel call
+    against its plain version, each w8a8 block within
+    ``W8A8_BLOCK_DELTA_MAX`` of the bf16-fused block); the Wan VAE decode
+    must launch K7's D = 384 instance. Then the arch's engine serves two
+    requests for ``engine_steps`` steps, each within 1e-2 of the direct
+    sampler at batch 1. The final latents' distance, s/step, the stage
+    seconds, one profiled w8a8 forward (the busy share) and the peak memory
+    are recorded. The trees are freed at the end."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (
+        CosmosPipeline, DiffusionModel, WanPipeline, _text_states,
+        cosmos_engine, wan_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+
+    is_wan = arch == "wan"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vae = None
+    if is_wan:
+        dims = dataclasses.replace(testing.WAN_14B_DIMS, n_layers=depth)
+        params = testing.wan_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                   seed=0, device=dev)
+        enc = _t5_encoder(dev, testing.UMT5_XXL_DIMS, enc_layers, 40)
+        vae = testing.wan_vae_random_params(testing.WAN21_VAE_DIMS, seed=41,
+                                            device=dev)
+        lat_shape, txt_len, mk, cfg_scale = (WAN_LATENT, 512, wan_engine,
+                                             5.0)
+        log(f"  Wan 2.1 14B width (dim 5120, 40 heads of 128, ffn 13824), "
+            f"{depth} of 40 blocks; 480x832, 9 frames = a 3 x 60 x 104 "
+            f"latent, 4680 tokens; UMT5-xxl ({enc_layers} of 24 layers, "
+            f"Q8_0, 256384-row embedding); the Wan 2.1 VAE (base 96, z 16, "
+            f"mult 1/2/4/4, 127M parameters)")
+    else:
+        dims = dataclasses.replace(testing.COSMOS_7B_DIMS, n_layers=depth)
+        params = testing.cosmos_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                      seed=0, device=dev)
+        enc = _t5_encoder(dev, testing.T5_V11_LARGE_DIMS, enc_layers, 42)
+        lat_shape, txt_len, mk, cfg_scale = (COSMOS_LATENT, 256,
+                                             cosmos_engine, 4.0)
+        log(f"  Cosmos 7B geometry (dim 4096, 32 heads of 128), {depth} of "
+            f"28 blocks; 1024² = one 128 x 128 latent frame, 4096 tokens; "
+            f"a t5-v1_1-large-shaped T5 ({enc_layers} of 24 layers, Q8_0, "
+            f"1024 wide)")
+    model = DiffusionModel(arch=arch, params=params, config=dims.config(),
+                           qcfg=QuantConfig(), device=torch.device(dev))
+    torch.cuda.synchronize()
+    if is_wan:
+        pipe = WanPipeline(model, enc, vae_params=vae,
+                           latents_mean=np.asarray(WAN21_LATENTS_MEAN),
+                           latents_std=np.asarray(WAN21_LATENTS_STD))
+    else:
+        pipe = CosmosPipeline(model, enc)
+    res = {"depth": depth, "steps": steps, "cfg_scale": cfg_scale,
+           "shift": pipe.shift, "encoder_layers": enc_layers,
+           "latent": lat_shape, "build_s": time.perf_counter() - t0}
+    log(f"  random Q4_K stacked tree, encoder and VAE built on the card in "
+        f"{res['build_s']:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB")
+
+    launches = {k: 0 for k in _build.LAUNCHES}
+    fwds, recorded, fails = {}, [], []
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x0 = torch.randn((1, *lat_shape, dims.in_ch), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    cond = _text_states(enc, PROMPTS[0], txt_len, zero_masked=is_wan)
+    t = torch.full((1,), 0.7, device=dev)
+
+    def check(tree):
+        fwds[tree] = _tree_check(model, arch, (x0, cond, t), tree,
+                                 res.setdefault(tree, {}), recorded, fails)
+
+    videos = {}
+
+    def generate():
+        if is_wan:
+            f, h, w = lat_shape
+            vid = pipe.generate(PROMPTS[0], PROMPTS[1], latent_frames=f,
+                                latent_height=h, latent_width=w,
+                                steps=steps, cfg_scale=cfg_scale, seed=0,
+                                max_t5_len=txt_len, dispatch_window=4)
+            if (vid.shape != (1 + 4 * (f - 1), 8 * h, 8 * w, 3)
+                    or not np.isfinite(vid).all()):
+                raise SystemExit(f"wan: a video of shape {vid.shape} or "
+                                 f"non-finite")
+            videos[len(videos)] = vid
+        else:
+            pipe.generate(PROMPTS[0], latent_frames=lat_shape[0],
+                          latent_height=lat_shape[1],
+                          latent_width=lat_shape[2], steps=steps,
+                          cfg_scale=cfg_scale, seed=0,
+                          negative_prompt=PROMPTS[1], max_len=txt_len)
+        return (pipe.last_latent[0].float().cpu().numpy(),
+                dict(pipe.last_timings))
+
+    def want(tree):
+        need = {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
+                "qmm_int8": 2 * 7 * enc_layers}
+        if is_wan:
+            need["flash_attn_d384"] = 1  # the VAE's mid-block attention
+        else:
+            need["qmm_nib4_smallm"] = 3 * depth  # the adaLN, planar
+        return need
+
+    finals = _run_trees(arch, model, generate, check, "flash_attn_d128",
+                        2 * depth, steps, 2, res, launches, want)
+    res["forward_rel_delta_w8a8_vs_bf16"] = rel_l2(fwds["w8a8"].float(),
+                                                   fwds["bf16_fused"].float())
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    if is_wan:
+        res["video_rel_delta_w8a8_vs_bf16"] = rel_l2(
+            torch.from_numpy(videos[1]), torch.from_numpy(videos[0]))
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s (peak "
+        f"{res['requantize_peak_gib']:.2f} GiB); w8a8 vs bf16-fused: one "
+        f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
+        f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e}"
+        + (f", decoded video {res['video_rel_delta_w8a8_vs_bf16']:.3e}"
+           if is_wan else ""))
+    before = dict(_build.LAUNCHES)
+    res["profile_w8a8_forward"] = profile_forward(
+        model, (x0, cond, t), res["w8a8"]["s_per_step"] / 2, f"{arch} w8a8")
+    _build.LAUNCHES.update(before)
+
+    # the engine: two requests (CFG cfg_scale and 1) against the direct
+    # sampler at batch 1 with the same f32 CFG mix
+    sig = shift_sigmas(linear_schedule(engine_steps), pipe.shift)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    nctx = _text_states(enc, PROMPTS[1], txt_len, zero_masked=is_wan)
+    reqs = [(torch.randn((*lat_shape, dims.in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16),
+             {"ctx": cond[0], "nctx": nctx[0],
+              "cfg_scale": torch.tensor(scale, device=dev)}, sig)
+            for scale in (cfg_scale, 1.0)]
+
+    def direct(x, c, s):
+        def vel(xc, sg):
+            ts = sg.to(torch.float32).expand(1)
+            v_c = model.forward(xc, c["ctx"][None].to(torch.bfloat16), ts)
+            v_u = model.forward(xc, c["nctx"][None].to(torch.bfloat16), ts)
+            return v_u.float() + float(c["cfg_scale"]) * (v_c.float()
+                                                          - v_u.float())
+        return sample_flow(vel, x[None], s)[0]
+
+    _engine_check(lambda: mk(model, max_batch=2), reqs, direct, res,
+                  launches, fails)
+    if fails:
+        raise SystemExit(f"{arch}: " + "; ".join(fails))
+    res["launches"] = launches
+    free_tree(model.params)
+    free_tree(enc.params)
+    del model, enc, pipe, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -4475,6 +5116,12 @@ def main() -> int:
     ap.add_argument("--hidream-llama-layers", type=int, default=32)
     ap.add_argument("--hidream-budget-blocks", type=int, nargs=2,
                     default=(2, 4), metavar=("DOUBLE", "SINGLE"))
+    ap.add_argument("--wan-depth", type=int, default=40)
+    ap.add_argument("--wan-steps", type=int, default=20)
+    ap.add_argument("--umt5-layers", type=int, default=24)
+    ap.add_argument("--cosmos-depth", type=int, default=28)
+    ap.add_argument("--cosmos-steps", type=int, default=20)
+    ap.add_argument("--cosmos-t5-layers", type=int, default=24)
     args = ap.parse_args()
 
     import torch
@@ -4533,8 +5180,7 @@ def main() -> int:
     # K1/K2: no wgmma serialization advisory (ptxas C751x) and no spill
     # in any instance
     qmm_flags = [f"{src}: {ln.strip()[:160]}"
-                 for src in ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu",
-                             "qmm_int8_lora.cu", "qmm_smallm.cu")
+                 for src in QMM_SOURCES
                  for ln in rep.get("ptxas", {}).get(src, [])
                  if "C751" in ln or ("spill" in ln
                                      and " 0 bytes spill stores, 0 bytes "
@@ -4554,7 +5200,7 @@ def main() -> int:
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
         + "; flash_attn.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
-                    for d in (40, 64, 80, 96, 128, 160, 256))
+                    for d in (40, 64, 80, 96, 128, 160, 256, 384))
         + "; i8attn.cu "
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
                     for d in (128, 256, 512) for m in ("pv", "qk"))
@@ -4601,6 +5247,9 @@ def main() -> int:
 
     log("[4a tiny end to end: mixed Q4_K/Q8_0/Q6_K GGUF, card vs CPU]")
     tiny = tiny_e2e_phase(dev)
+    log("[4a the same GGUF at dequant_dtype float16 and float32, with an "
+        "f16 LoRA, card vs CPU]")
+    tiny_dt = tiny_dtype_phase(dev)
     log("[4b tiny FluxPipeline from files, card vs CPU, with and without "
         "attention_i8]")
     tiny_pipe = tiny_pipeline_phase(dev)
@@ -4612,6 +5261,8 @@ def main() -> int:
     dit_tiny = dit_tiny_phase(dev)
     log("[4f tiny Qwen-Image / HiDream from files, card vs CPU]")
     qh_tiny = qh_tiny_phase(dev)
+    log("[4g tiny Wan 2.1 (with its VAE) / Cosmos from files, card vs CPU]")
+    video_tiny = video_tiny_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -4679,11 +5330,21 @@ def main() -> int:
                                 args.hidream_llama_layers,
                                 min(args.hidream_steps, 4),
                                 args.hidream_budget_blocks)
+    log("[17 Wan 2.1 14B at published width, the UMT5-xxl-shaped encoder, "
+        "the Wan 2.1 VAE, wan_engine]")
+    wan_res = video_full_phase(dev, "wan", args.wan_depth, args.wan_steps,
+                               args.umt5_layers, min(args.wan_steps, 2))
+    log("[18 Cosmos at published width (the 7B geometry), cosmos_engine]")
+    cosmos_res = video_full_phase(dev, "cosmos", args.cosmos_depth,
+                                  args.cosmos_steps, args.cosmos_t5_layers,
+                                  min(args.cosmos_steps, 2))
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
     launches = {k: 0 for k in _build.LAUNCHES}
     for counts in (*(v["launches"] for v in tiny.values()),
+                   *(v["launches"] for v in tiny_dt.values()),
+                   *(v["launches"] for v in video_tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
                    *(v["launches"] for v in sd_tiny.values()),
                    *(v["launches"] for v in dit_tiny.values()),
@@ -4693,7 +5354,8 @@ def main() -> int:
                    sd3_res["launches"], sd3_t2i["launches"],
                    unet_res["launches"], aura_res["launches"],
                    lumina_res["launches"], qwen_res["launches"],
-                   hidream_res["launches"]):
+                   hidream_res["launches"], wan_res["launches"],
+                   cosmos_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

@@ -42,6 +42,9 @@ _PUBLIC = {
     "CFGFlowPipeline": ".pipeline",
     "QwenImagePipeline": ".pipeline",
     "HiDreamPipeline": ".pipeline",
+    "WanPipeline": ".pipeline",
+    "CosmosPipeline": ".pipeline",
+    "VideoFlowPipeline": ".pipeline",
     "qwen_vl_encode_with_image": ".pipeline",
     "QuantConfig": ".nn.layers",
     "quantized_matmul": ".ops.qmatmul",
@@ -60,6 +63,8 @@ _PUBLIC = {
     "lumina2_engine": ".pipeline",
     "qwen_image_engine": ".pipeline",
     "hidream_engine": ".pipeline",
+    "wan_engine": ".pipeline",
+    "cosmos_engine": ".pipeline",
     "make_flow_engine": ".pipeline",
     "ContinuousBatchEngine": ".serving",
     "EngineGroup": ".serving",

@@ -32,10 +32,12 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
-           "qmm_smallm.cu", "i8mm.cu", "i8mm_lora.cu", "flash_attn.cu",
-           "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
-HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "gemm_wgmma.cuh",
-           "tma.cuh")
+           "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
+           "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
+           "qmm_smallm_f32.cu", "qmm_simt.cu", "i8mm.cu", "i8mm_lora.cu",
+           "flash_attn.cu", "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
+HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "qmm_smallm.cuh",
+           "gemm_wgmma.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -54,6 +56,16 @@ _SIGNATURES = {
     # rk, act_from, token sub-tiles, K split, bf16 scales, stream
     "qmm_wgmma_nib4_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
     "qmm_wgmma_int8_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    # the f16 instances (f16 x, h and up; f32 out), arguments as above
+    "qmm_wgmma_nib4_f16_launch": [_VP] * 6 + [_I] * 11 + [_VP],
+    "qmm_wgmma_int8_f16_launch": [_VP] * 6 + [_I] * 11 + [_VP],
+    "qmm_wgmma_nib4_f16_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    "qmm_wgmma_int8_f16_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    # the f32 body (f32 x, h and up; f32 out): x, qs, scales, offsets,
+    # bias, out, [h, up,] M, K, Kp, R, Rp, gs, zp, [rk,] nib4, act_from,
+    # bf16 scales, stream
+    "qmm_simt_launch": [_VP] * 6 + [_I] * 10 + [_VP],
+    "qmm_simt_lora_launch": [_VP] * 8 + [_I] * 11 + [_VP],
     # token sub-tiles, K split -> resident blocks of the wgmma body
     "qmm_wgmma_resident_blocks": [_I, _I],
     # x, qs, scales, offsets, bias, out, M, K, Kp, R, Rp, gs, zp, nib4,
@@ -64,6 +76,12 @@ _SIGNATURES = {
     # x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp, rk,
     # nib4, act_from, K split, bf16 scales, stream
     "qmm_smallm_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    # the f16 and f32 instances (x, h and up of that type; f32 out),
+    # arguments as qmm_smallm_ex_launch / qmm_smallm_lora_launch
+    "qmm_smallm_f16_launch": [_VP] * 6 + [_I] * 11 + [_VP],
+    "qmm_smallm_f16_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    "qmm_smallm_f32_launch": [_VP] * 6 + [_I] * 11 + [_VP],
+    "qmm_smallm_f32_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
     # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, out row stride,
     # act_from, tile width, stream
     "i8mm_launch": [_VP] * 6 + [_I] * 8 + [_VP],
@@ -92,9 +110,11 @@ _SIGNATURES = {
 }
 
 # launches per kernel since the last reset_launch_counts(); a "_lora" entry
-# counts the launches of that kernel's LoRA instance (and only those), a
-# "flash_attn_d<D>" entry those of the flash kernel's head-dim-D instance
-# (each also counts under "flash_attn")
+# counts the launches of that kernel's LoRA instance (and only those), an
+# "_f16" / "_f32" entry those of its f16 / f32 instances (the bf16 ones have
+# no suffix; the f32 body of the fused dequant-matmul at M > 8 is
+# "qmm_*_simt_f32"), a "flash_attn_d<D>" entry those of the flash kernel's
+# head-dim-D instance (each also counts under "flash_attn")
 LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "qmm_int8_smallm": 0, "i8mm": 0, "qmm_nib4_lora": 0,
             "qmm_int8_lora": 0, "qmm_nib4_smallm_lora": 0,
@@ -102,9 +122,18 @@ LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "flash_attn_d40": 0, "flash_attn_d64": 0, "flash_attn_d80": 0,
             "flash_attn_d96": 0, "flash_attn_d128": 0,
             "flash_attn_d160": 0, "flash_attn_d256": 0,
+            "flash_attn_d384": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
             "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
+# the fused dequant-matmul's f16 / f32 instances: body -> its dtypes
+_QMM_DTYPES = {"": ("_f16",), "_smallm": ("_f16", "_f32"),
+               "_simt": ("_f32",)}
+for _lay in ("nib4", "int8"):
+    for _body, _dts in _QMM_DTYPES.items():
+        for _dt in _dts:
+            for _lora in ("", "_lora"):
+                LAUNCHES[f"qmm_{_lay}{_body}{_lora}{_dt}"] = 0
 
 # what the last build in this process did (read by chip_smoke.py)
 BUILD_REPORT: dict = {}

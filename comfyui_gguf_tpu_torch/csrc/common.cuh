@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,6 +29,22 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a(16x16 f16, row) * b(16x8 f16, col), f32 accumulate.
+__device__ __forceinline__ void mma_f16_16816(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -69,6 +86,30 @@ __device__ __forceinline__ void epilogue_store2(
   } else {
     p[0] = __float2bfloat16(v0);
     if (has1) p[1] = __float2bfloat16(v1);
+  }
+}
+
+// epilogue_store2 into a float32 output (the f16 and f32 instances of the
+// fused dequant-matmul: the wrapper rounds once to the caller's dtype).
+__device__ __forceinline__ void epilogue_store2(
+    float* __restrict__ out, const float* __restrict__ bias, int act_from,
+    int M, int R, int m, int n, float v0, float v1) {
+  if (m >= M || n >= R) return;
+  const bool has1 = n + 1 < R;
+  if (bias != nullptr) {
+    v0 = __fadd_rn(v0, bias[n]);
+    if (has1) v1 = __fadd_rn(v1, bias[n + 1]);
+  }
+  if (act_from >= 0) {
+    if (n >= act_from) v0 = gelu_tanh(v0);
+    if (n + 1 >= act_from) v1 = gelu_tanh(v1);
+  }
+  float* p = out + static_cast<size_t>(m) * R + n;
+  if (has1 && (R % 2 == 0)) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (has1) p[1] = v1;
   }
 }
 
@@ -268,45 +309,54 @@ __device__ __forceinline__ void reg_fence(int& r) {
   asm volatile("" : "+r"(r));
 }
 
+#define GGUF_WGMMA_RS128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7," \
+      " %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23," \
+      " %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39," \
+      " %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55," \
+      " %56, %57, %58, %59, %60, %61, %62, %63}," \
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 // d(64 x 128, f32) += a(64 x 16 bf16, registers) * b(16 x 128 bf16, shared,
 // K-major). One warpgroup; warp w holds rows 16w..16w+15 of a and d in the
 // mma.sync m16n8k16 fragment layout: a[0] = (row g, k 2t..2t+1), a[1] =
 // (row g+8, same k), a[2], a[3] = the same rows at k+8; d[4i..4i+1] = (row
 // g, columns 8i+2t..+1), d[4i+2..4i+3] = (row g+8, same columns), with
 // g = lane / 4 and t = lane % 4.
+// F16: the same product over f16 operands (f32.f16.f16).
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (F16) {
+    GGUF_WGMMA_RS128("f16");
+  } else {
+    GGUF_WGMMA_RS128("bf16");
+  }
 }
+#undef GGUF_WGMMA_RS128
 
 // d(64 x 256, s32) += a(64 x 32 s8) * b(32 x 256 s8), both read from shared
 // memory through K-major descriptors; exact integer accumulation. The

@@ -1,6 +1,6 @@
-// What the two bodies of the fused dequant-matmul (qmm.cu, qmm_int8.cu:
-// the wgmma body per layout; qmm_smallm.cu: the split-K body) share: how a
-// code becomes a bf16-rounded weight.
+// What the bodies of the fused dequant-matmul (qmm.cu, qmm_int8.cu: the
+// wgmma body per layout; qmm_smallm.cu: the split-K body; qmm_simt.cu: the
+// f32 body) share: how a code becomes a weight in the operand type.
 #pragma once
 
 #include "common.cuh"
@@ -34,6 +34,17 @@ __device__ __forceinline__ float magic_of_byte(uint32_t word, int b) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Two weights as one operand register of the body's operand type: bf16,
+// or f16 for the f16 instances (dequant_dtype float16).
+template <bool F16>
+__device__ __forceinline__ uint32_t pack_op(float lo, float hi) {
+  if constexpr (F16) {
+    return pack_f16x2(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 }  // namespace gguf_cuda

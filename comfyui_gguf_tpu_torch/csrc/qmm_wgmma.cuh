@@ -4,7 +4,11 @@
 // compile side by side. Each comes with float32 or bfloat16 scale planes
 // (SBF16), persistent (KSPLIT false) or with its K split over a
 // thread-block cluster of `split` blocks (KSPLIT true; the persistent
-// instances carry none of the cluster's code).
+// instances carry none of the cluster's code), and with bf16 operands or,
+// F16 (dequant_dtype float16), f16 operands: the weight is rounded to f16,
+// x arrives as f16, the wgmma is f32.f16.f16, and the output is written in
+// f32 so that the wrapper rounds once to the caller's dtype (the f16
+// instances live in qmm_f16.cu, qmm_int8_f16.cu and their LoRA sources).
 #pragma once
 
 #include <type_traits>
@@ -23,6 +27,10 @@ constexpr int WG_XSUB = WG_BM * 64;      // 128 tokens x 32 bf16, 64-B swizzle
 constexpr int WG_S_BOX = 2 * WG_BR * 4;  // up to 2 f32 scale rows a range
 constexpr int WG_S_TILE = 2 * WG_S_BOX;  // two k ranges
 constexpr int WG_SPLIT_MAX = 8;          // a portable cluster
+
+// the output type: bf16 for the bf16 instances, f32 for the f16 ones
+template <bool F16>
+using WgOut = std::conditional_t<F16, float, __nv_bfloat16>;
 
 template <bool NIB4, int NT>
 struct WgShape {
@@ -81,18 +89,19 @@ __device__ __forceinline__ float2 lds_scale2(uint32_t addr) {
 // the epilogue on that slice. No atomics and no workspace: two launches
 // give the same bits. Without KSPLIT: persistent blocks, no cluster.
 template <bool NIB4, bool HAS_OFF, int NT, bool LORA, bool SBF16,
-          bool KSPLIT>
+          bool KSPLIT, bool F16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K)
                  const __grid_constant__ CUtensorMap tm_q,  // codes, u8
                  const __grid_constant__ CUtensorMap tm_s,  // scales
                  const __grid_constant__ CUtensorMap tm_o,  // offsets
                  const float* __restrict__ bias,            // (R) | null
-                 __nv_bfloat16* __restrict__ out,           // (M, R)
+                 WgOut<F16>* __restrict__ out,              // (M, R)
                  int M, int Kp, int R, int gs, float zp, int act_from,
                  int m_tiles, int n_tiles,
                  const __grid_constant__ CUtensorMap tm_h,  // LORA: (M, rk)
-                 const __nv_bfloat16* __restrict__ lora_up,  // LORA: (Rp, rk)
+                 // LORA: (Rp, rk), bf16 or (F16) f16 bits
+                 const __nv_bfloat16* __restrict__ lora_up,
                  int rk, int split_arg) {
   using S = WgShape<NIB4, NT>;
   constexpr bool FOLD = NIB4 && HAS_OFF;
@@ -252,10 +261,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
                   magic_of_byte(word, b), (b & 1) ? s.y : s.x,
                   (b & 1) ? o.y : o.x, (b & 1) ? c.y : c.x, neg_base);
             };
-            a[0] = pack_bf16(dq(ab, 0), dq(ab, 2));
-            a[1] = pack_bf16(dq(ab, 1), dq(ab, 3));
-            a[2] = pack_bf16(dq(cd, 0), dq(cd, 2));
-            a[3] = pack_bf16(dq(cd, 1), dq(cd, 3));
+            a[0] = pack_op<F16>(dq(ab, 0), dq(ab, 2));
+            a[1] = pack_op<F16>(dq(ab, 1), dq(ab, 3));
+            a[2] = pack_op<F16>(dq(cd, 0), dq(cd, 2));
+            a[3] = pack_op<F16>(dq(cd, 1), dq(cd, 3));
           };
 
           // unpack the step's 32 (nib4) or 64 (int8) code rows
@@ -296,7 +305,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
           for (int f = 0; f < 4; ++f)
 #pragma unroll
             for (int j = 0; j < NT; ++j)
-              wgmma_m64n128k16_rs(
+              wgmma_m64n128k16_rs<F16>(
                   acc[j], frag[par][f],
                   wgmma_desc_k64(((f & 1) ? xb : xa) + j * WG_XSUB) +
                       2 * (f >> 1));
@@ -355,7 +364,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
             for (int kk = 0; kk < decltype(n_slices)::value; ++kk)
 #pragma unroll
               for (int j = 0; j < NT; ++j)
-                wgmma_m64n128k16_rs(
+                wgmma_m64n128k16_rs<F16>(
                     acc[j], a[kk],
                     wgmma_desc_k64(((kk >> 1) ? xb : xa) + j * WG_XSUB) +
                         2 * (kk & 1));
@@ -446,14 +455,15 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,  // (M, K) bf16
 }
 
 template <bool NIB4, bool HAS_OFF, int NT, bool LORA, bool SBF16,
-          bool KSPLIT>
+          bool KSPLIT, bool F16>
 cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
                             const void* offsets, const void* bias, void* out,
                             const void* h, const void* up, int M, int K,
                             int Kp, int R, int Rp, int gs, int zp, int rk,
                             int act_from, int split, cudaStream_t stream) {
   using S = WgShape<NIB4, NT>;
-  auto kernel = qmm_wgmma_kernel<NIB4, HAS_OFF, NT, LORA, SBF16, KSPLIT>;
+  auto kernel =
+      qmm_wgmma_kernel<NIB4, HAS_OFF, NT, LORA, SBF16, KSPLIT, F16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return attr;
@@ -466,7 +476,9 @@ cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
   const auto s_dt = SBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const int es = SBF16 ? 2 : 4;
-  bool ok = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
+  const auto x_dt =
+      F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  bool ok = make_map(&tm_x, x_dt, 2, x, M, K,
                      NT * WG_BM, 32, CU_TENSOR_MAP_SWIZZLE_64B);
   ok = ok && make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qs,
                       NIB4 ? Kp / 2 : Kp, Rp, S::QROWS, WG_BR,
@@ -477,7 +489,7 @@ cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
                       Rp, g_per, WG_BR, CU_TENSOR_MAP_SWIZZLE_NONE);
   // h (M, rk) in the boxes of x: NT x 128 rows x 32 bf16, 64-byte swizzle
   if (LORA)
-    ok = ok && make_map(&tm_h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, M, rk,
+    ok = ok && make_map(&tm_h, x_dt, 2, h, M, rk,
                         NT * WG_BM, 32, CU_TENSOR_MAP_SWIZZLE_64B);
   if (!ok) return cudaErrorInvalidValue;
   const int m_tiles = (M + NT * WG_BM - 1) / (NT * WG_BM);
@@ -499,7 +511,7 @@ cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
   cfg.numAttrs = split > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, tm_x, tm_q, tm_s, tm_o, static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, Kp, R, gs,
+      static_cast<WgOut<F16>*>(out), M, Kp, R, gs,
       static_cast<float>(zp), act_from, m_tiles, n_tiles, tm_h,
       static_cast<const __nv_bfloat16*>(up), rk, split);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -509,14 +521,14 @@ cudaError_t launch_wgmma_nt(const void* x, const void* qs, const void* scales,
 // the scale planes' type (sbf16: bfloat16, else float32), with a K split
 // over a cluster of `split` blocks; LORA instances take the rank operands
 // h, up (and rk), the others ignore them.
-template <bool NIB4, bool LORA>
+template <bool NIB4, bool LORA, bool F16 = false>
 cudaError_t launch_wgmma(const void* x, const void* qs, const void* scales,
                          const void* offsets, const void* bias, void* out,
                          const void* h, const void* up, int M, int K, int Kp,
                          int R, int Rp, int gs, int zp, int rk, int act_from,
                          int nt, int split, int sbf16, cudaStream_t stream) {
 #define GGUF_QMM_NT(OFF, NTV, SB, KS)                                       \
-  launch_wgmma_nt<NIB4, OFF, NTV, LORA, SB, KS>(                            \
+  launch_wgmma_nt<NIB4, OFF, NTV, LORA, SB, KS, F16>(                       \
       x, qs, scales, offsets, bias, out, h, up, M, K, Kp, R, Rp, gs, zp, rk, \
       act_from, split, stream)
 #define GGUF_QMM_KS(OFF, NTV, SB)                  \
@@ -536,8 +548,9 @@ cudaError_t launch_wgmma(const void* x, const void* qs, const void* scales,
 // `split` (split == 1: one a SM), for the wrapper's plan and phase 2.
 template <bool NIB4>
 int wgmma_resident_blocks(int nt, int split) {
-  auto kernel = nt == 2 ? qmm_wgmma_kernel<NIB4, true, 2, false, false, true>
-                        : qmm_wgmma_kernel<NIB4, true, 1, false, false, true>;
+  auto kernel =
+      nt == 2 ? qmm_wgmma_kernel<NIB4, true, 2, false, false, true, false>
+              : qmm_wgmma_kernel<NIB4, true, 1, false, false, true, false>;
   const int smem = nt == 2 ? WgShape<NIB4, 2>::SMEM : WgShape<NIB4, 1>::SMEM;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

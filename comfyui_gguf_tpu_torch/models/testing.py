@@ -1,10 +1,11 @@
 """Synthetic builders for tests, smoke runs and benches (PyTorch port of the
-flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, T5,
-CLIP, llama and VAE parts of comfyui_gguf_tpu/models/testing.py): flux,
-SD3, UNet, AuraFlow, Lumina 2, Qwen-Image and HiDream trees and files, T5 /
-CLIP-L / CLIP-G / llama-family / Qwen-VL vision tower / AutoencoderKL
-parameter trees at tiny and at published widths, an mmproj sidecar writer,
-and synthetic vocabularies for the native tokenizers.
+flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan,
+Cosmos, T5, CLIP, llama and VAE parts of comfyui_gguf_tpu/models/
+testing.py): flux, SD3, UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan
+2.1 and Cosmos trees and files, T5 / UMT5 / CLIP-L / CLIP-G / llama-family
+/ Qwen-VL vision tower / AutoencoderKL / Wan 2.1 video VAE parameter trees
+at tiny and at published widths, an mmproj sidecar writer, and synthetic
+vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
 (``torch.Generator``) at the real planar layout, so a full-width tree is
@@ -373,14 +374,23 @@ def write_flux_gguf(sd: dict, path: str, qtype_of) -> None:
 def write_gguf(sd: dict, path: str, qtype_of, arch: str) -> None:
     """Write ``sd`` as a GGUF of architecture ``arch`` with the
     ``model.diffusion_model.`` prefix; ``qtype_of(key, array)`` picks each
-    tensor's format (None = stored as float)."""
+    tensor's format (None = stored as float). A float tensor of more than
+    four dims (a 3-D conv's kernel) is stored 4-D with its shape in
+    ``comfy.gguf.orig_shape`` metadata, as the reference's
+    ``fix_5d_tensors`` flow stores it."""
+    from ..gguf.constants import GGUFValueType
     from ..gguf.writer import GGUFWriter
 
     w = GGUFWriter(arch)
     pfx = "model.diffusion_model."
     for k, v in sd.items():
         qtype = qtype_of(k, v)
-        if qtype is None:
+        if qtype is None and v.ndim > 4:
+            w.add_tensor(pfx + k, np.ascontiguousarray(
+                v.reshape(-1, *v.shape[-3:]), np.float32))
+            w.add_array(f"comfy.gguf.orig_shape.{pfx}{k}",
+                        [int(d) for d in v.shape], GGUFValueType.INT32)
+        elif qtype is None:
             w.add_tensor(pfx + k, np.ascontiguousarray(v, np.float32))
         else:
             w.add_tensor(pfx + k, codecs.quantize(v, qtype), raw_dtype=qtype,
@@ -1215,6 +1225,132 @@ def hidream_random_stacked_params(d: TinyHiDreamDims, qtype=Q.Q4_K,
     return params
 
 
+@dataclasses.dataclass(frozen=True)
+class WanDims:
+    """Wan 2.1 t2v dims (models/wan.py WanConfig fields)."""
+    dim: int = 128
+    ffn_dim: int = 256
+    n_heads: int = 2
+    n_layers: int = 2
+    in_ch: int = 16
+    text_dim: int = 64
+
+    def config(self):
+        from .wan import WanConfig
+
+        return WanConfig(dim=self.dim, ffn_dim=self.ffn_dim,
+                         n_heads=self.n_heads, n_layers=self.n_layers,
+                         in_channels=self.in_ch, out_channels=self.in_ch,
+                         text_dim=self.text_dim)
+
+
+# Wan2.1-T2V-14B: dim 5120, ffn 13824, 40 heads of 128, 40 blocks, UMT5-xxl
+# text states (4096), 16-channel VAE latents, (1,2,2) patches
+WAN_14B_DIMS = WanDims(dim=5120, ffn_dim=13824, n_heads=40, n_layers=40,
+                       in_ch=16, text_dim=4096)
+
+
+def wan_shape_spec(d: WanDims):
+    """(nonblock, groups) shape spec of models/wan.py's keys (the
+    reference's ``wan_shape_spec``)."""
+    D, T, F, C = d.dim, d.text_dim, d.ffn_dim, d.in_ch
+    nonblock = {
+        "patch_embedding.weight": (D, C, 1, 2, 2),
+        "patch_embedding.bias": (D,),
+        "text_embedding.0.weight": (D, T), "text_embedding.0.bias": (D,),
+        "text_embedding.2.weight": (D, D), "text_embedding.2.bias": (D,),
+        "time_embedding.0.weight": (D, 256), "time_embedding.0.bias": (D,),
+        "time_embedding.2.weight": (D, D), "time_embedding.2.bias": (D,),
+        "time_projection.1.weight": (6 * D, D),
+        "time_projection.1.bias": (6 * D,),
+        "head.modulation": (1, 2, D),
+        "head.head.weight": (C * 4, D), "head.head.bias": (C * 4,),
+    }
+    block = {"modulation": (1, 6, D)}
+    for a in ("self_attn", "cross_attn"):
+        for n in ("q", "k", "v", "o"):
+            block[f"{a}.{n}.weight"] = (D, D)
+            block[f"{a}.{n}.bias"] = (D,)
+        block[f"{a}.norm_q.weight"] = (D,)
+        block[f"{a}.norm_k.weight"] = (D,)
+    block["norm3.weight"] = (D,)
+    block["norm3.bias"] = (D,)
+    block["ffn.0.weight"] = (F, D)
+    block["ffn.0.bias"] = (F,)
+    block["ffn.2.weight"] = (D, F)
+    block["ffn.2.bias"] = (D,)
+    return nonblock, {"blocks": (d.n_layers, block)}
+
+
+def wan_random_stacked_params(d: WanDims, qtype=Q.Q4_K, seed: int = 0,
+                              device="cuda") -> dict:
+    return random_stacked_from_spec(*wan_shape_spec(d), "wan", qtype=qtype,
+                                    seed=seed, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CosmosDims:
+    """Cosmos Predict2 DiT dims (models/cosmos.py CosmosConfig fields)."""
+    dim: int = 128
+    n_heads: int = 2
+    n_layers: int = 2
+    in_ch: int = 16
+    text_dim: int = 64
+
+    def config(self):
+        from .cosmos import CosmosConfig
+
+        return CosmosConfig(dim=self.dim, n_layers=self.n_layers,
+                            n_heads=self.n_heads, in_channels=self.in_ch,
+                            text_dim=self.text_dim)
+
+
+# the reference's Cosmos 7B geometry: dim 4096, 32 heads of 128, 28 blocks,
+# MLP 16384, T5 text states (1024), 16-channel latents, (1,2,2) patches
+COSMOS_7B_DIMS = CosmosDims(dim=4096, n_heads=32, n_layers=28, in_ch=16,
+                            text_dim=1024)
+
+
+def cosmos_shape_spec(d: CosmosDims):
+    """(nonblock, groups) shape spec of models/cosmos.py's keys (the
+    reference's ``cosmos_shape_spec``)."""
+    D, T, C = d.dim, d.text_dim, d.in_ch
+    hd = D // d.n_heads
+    nonblock = {
+        "x_embedder.proj.1.weight": (D, C * 4),
+        "x_embedder.proj.1.bias": (D,),
+        "t_embedder.1.linear_1.weight": (D, 256),
+        "t_embedder.1.linear_1.bias": (D,),
+        "t_embedder.1.linear_2.weight": (D, D),
+        "t_embedder.1.linear_2.bias": (D,),
+        "t_embedding_norm.weight": (D,),
+        "final_layer.linear.weight": (C * 4, D),
+        "final_layer.linear.bias": (C * 4,),
+        "final_layer.adaln_modulation.1.weight": (2 * D, D),
+        "final_layer.adaln_modulation.1.bias": (2 * D,),
+    }
+    block = {}
+    for m in ("self_attn", "cross_attn", "mlp"):
+        block[f"adaln_modulation_{m}.1.weight"] = (3 * D, D)
+        block[f"adaln_modulation_{m}.1.bias"] = (3 * D,)
+    for a, kdim in (("self_attn", D), ("cross_attn", T)):
+        block[f"{a}.q_proj.weight"] = (D, D)
+        block[f"{a}.k_proj.weight"] = (D, kdim)
+        block[f"{a}.v_proj.weight"] = (D, kdim)
+        block[f"{a}.output_proj.weight"] = (D, D)
+        block[f"{a}.q_norm.weight"] = (hd,)
+        block[f"{a}.k_norm.weight"] = (hd,)
+    block["mlp.layer1.weight"] = (4 * D, D)
+    block["mlp.layer2.weight"] = (D, 4 * D)
+    return nonblock, {"blocks": (d.n_layers, block)}
+
+
+def cosmos_random_stacked_params(d: CosmosDims, qtype=Q.Q4_K, seed: int = 0,
+                                 device="cuda") -> dict:
+    return random_stacked_from_spec(*cosmos_shape_spec(d), "cosmos",
+                                    qtype=qtype, seed=seed, device=device)
+
+
 def dit_example_inputs(latent_shape, cond_shape, ts=0.7, seed: int = 1,
                        dtype=torch.bfloat16, device="cuda"):
     """(latent, cond, t) for an AuraFlow or Lumina 2 forward, made from a
@@ -1244,6 +1380,8 @@ class T5Dims:
     n_layers: int = 2
     vocab: int = 16
     rel_buckets: int = 32
+    # UMT5: every layer carries its own relative-bias table
+    per_layer_bias: bool = False
 
 
 # t5-v1_1-xxl encoder (flux / sd3 conditioning)
@@ -1252,6 +1390,14 @@ T5_XXL_DIMS = T5Dims(d_model=4096, d_kv=64, n_heads=64, d_ff=10240,
 # Pile-T5-XL encoder (AuraFlow conditioning)
 PILE_T5_XL_DIMS = T5Dims(d_model=2048, d_kv=64, n_heads=32, d_ff=5120,
                          n_layers=24, vocab=32128, rel_buckets=32)
+# umt5-xxl encoder (Wan 2.1 conditioning): T5-xxl's widths with a
+# relative-bias table in every layer and a 256384-token vocabulary
+UMT5_XXL_DIMS = T5Dims(d_model=4096, d_kv=64, n_heads=64, d_ff=10240,
+                       n_layers=24, vocab=256384, rel_buckets=32,
+                       per_layer_bias=True)
+# t5-v1_1-large encoder: 1024-wide states, as Cosmos's DiT reads them
+T5_V11_LARGE_DIMS = T5Dims(d_model=1024, d_kv=64, n_heads=16, d_ff=2816,
+                           n_layers=24, vocab=32128, rel_buckets=32)
 
 _T5_REL = "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
 
@@ -1280,6 +1426,9 @@ def t5_state_dict(dims: T5Dims, seed: int = 0,
           _T5_REL: t(dims.rel_buckets, dims.n_heads)}
     for i in range(dims.n_layers):
         p = f"encoder.block.{i}."
+        if dims.per_layer_bias and i:
+            sd[_T5_REL.replace("block.0.", f"block.{i}.")] = t(
+                dims.rel_buckets, dims.n_heads)
         for name, shape in _t5_linear_shapes(dims).items():
             sd[f"{p}{name}.weight"] = t(*shape)
         sd[p + "layer.0.layer_norm.weight"] = t(dims.d_model) + 1
@@ -1303,6 +1452,9 @@ def t5_random_params(dims: T5Dims, qtype=Q.Q8_0, seed: int = 0,
                   torch.float32)}
     for i in range(dims.n_layers):
         p = f"encoder.block.{i}."
+        if dims.per_layer_bias and i:
+            params[_T5_REL.replace("block.0.", f"block.{i}.")] = dense(
+                dims.rel_buckets, dims.n_heads).to(torch.float32)
         for name, (r, k) in _t5_linear_shapes(dims).items():
             params[f"{p}{name}.weight"] = random_planar(
                 qtype, (r, k), gen, device=device,
@@ -1821,6 +1973,137 @@ def vae_random_params(dims: VAEDims, seed: int = 0, device="cuda") -> dict:
             out[k] = torch.ones(shape, device=device)
         else:
             out[k] = torch.zeros(shape, device=device)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVAEDims:
+    """Wan 2.1 video VAE geometry (Wan-Video's WanVAE_ arguments): base
+    width, latent channels, width multipliers per level, residual blocks a
+    level, and which of the encoder's level transitions also halve time
+    (the decoder doubles time at the mirrored ones)."""
+    base: int = 16
+    z: int = 4
+    mult: tuple[int, ...] = (1, 2, 4)
+    num_res: int = 1
+    temporal_down: tuple[bool, ...] = (True, False)
+
+
+# the published Wan 2.1 VAE: base 96, z 16, mult (1, 2, 4, 4), 2 residual
+# blocks a level, time halved at the 2nd and 3rd transitions, attention in
+# the middle (its width 384 is K7's D = 384)
+WAN21_VAE_DIMS = WanVAEDims(base=96, z=16, mult=(1, 2, 4, 4), num_res=2,
+                            temporal_down=(False, True, True))
+
+
+def wan_vae_shapes(d: WanVAEDims) -> dict[str, tuple]:
+    """Every tensor of a Wan-Video VAE of this geometry, in the keys
+    models/wan_vae.py walks (``_walk`` / ``_block_kind``) and the shapes a
+    published file has (video RMS gains (C, 1, 1, 1), the attention's
+    (C, 1, 1))."""
+    out = {}
+
+    def conv3(name, o, i, kt=3, kh=3, kw=3):
+        out[f"{name}.weight"] = (o, i, kt, kh, kw)
+        out[f"{name}.bias"] = (o,)
+
+    def conv2(name, o, i, k=3):
+        out[f"{name}.weight"] = (o, i, k, k)
+        out[f"{name}.bias"] = (o,)
+
+    def res(p, cin, cout):
+        out[f"{p}.residual.0.gamma"] = (cin, 1, 1, 1)
+        conv3(f"{p}.residual.2", cout, cin)
+        out[f"{p}.residual.3.gamma"] = (cout, 1, 1, 1)
+        conv3(f"{p}.residual.6", cout, cout)
+        if cin != cout:
+            conv3(f"{p}.shortcut", cout, cin, 1, 1, 1)
+
+    def attn(p, c):
+        out[f"{p}.norm.gamma"] = (c, 1, 1)
+        conv2(f"{p}.to_qkv", 3 * c, c, 1)
+        conv2(f"{p}.proj", c, c, 1)
+
+    def middle(side, c):
+        res(f"{side}.middle.0", c, c)
+        attn(f"{side}.middle.1", c)
+        res(f"{side}.middle.2", c, c)
+
+    z, n = d.z, len(d.mult)
+    # decoder: widths top-down; each upsample halves the channels
+    dims = [d.base * u for u in (d.mult[-1],) + d.mult[::-1]]
+    conv3("conv2", z, z, 1, 1, 1)
+    conv3("decoder.conv1", dims[0], z)
+    middle("decoder", dims[0])
+    idx = 0
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        if i:
+            cin //= 2
+        for _ in range(d.num_res + 1):
+            res(f"decoder.upsamples.{idx}", cin, cout)
+            idx, cin = idx + 1, cout
+        if i != n - 1:
+            p = f"decoder.upsamples.{idx}"
+            conv2(f"{p}.resample.1", cout // 2, cout)
+            if d.temporal_down[::-1][i]:
+                conv3(f"{p}.time_conv", 2 * cout, cout, 3, 1, 1)
+            idx += 1
+    out["decoder.head.0.gamma"] = (dims[-1], 1, 1, 1)
+    conv3("decoder.head.2", 3, dims[-1])
+    # encoder: widths bottom-up
+    dims = [d.base * u for u in (1,) + d.mult]
+    conv3("encoder.conv1", dims[0], 3)
+    idx = 0
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        for _ in range(d.num_res):
+            res(f"encoder.downsamples.{idx}", cin, cout)
+            idx, cin = idx + 1, cout
+        if i != n - 1:
+            p = f"encoder.downsamples.{idx}"
+            conv2(f"{p}.resample.1", cout, cout)
+            if d.temporal_down[i]:
+                conv3(f"{p}.time_conv", cout, cout, 3, 1, 1)
+            idx += 1
+    middle("encoder", dims[-1])
+    out["encoder.head.0.gamma"] = (dims[-1], 1, 1, 1)
+    conv3("encoder.head.2", 2 * z, dims[-1])
+    conv3("conv1", 2 * z, 2 * z, 1, 1, 1)
+    return out
+
+
+def wan_vae_state_dict(dims: WanVAEDims, seed: int = 0) -> dict:
+    """Random Wan VAE state dict (numpy float32): conv weights scaled by
+    their fan-in, unit gains, small biases."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in wan_vae_shapes(dims).items():
+        if k.endswith("gamma"):
+            out[k] = np.ones(shape, np.float32)
+        elif len(shape) == 1:
+            out[k] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            out[k] = (rng.standard_normal(shape)
+                      * fan_in ** -0.5).astype(np.float32)
+    return out
+
+
+def wan_vae_random_params(dims: WanVAEDims, seed: int = 0,
+                          device="cuda") -> dict:
+    """The same kind of Wan VAE params made on ``device`` from a seed (a
+    full-width tree is never built on the host)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, shape in wan_vae_shapes(dims).items():
+        if k.endswith("gamma"):
+            out[k] = torch.ones(shape, device=device)
+        elif len(shape) == 1:
+            out[k] = torch.randn(shape, generator=gen, device=device) * 0.02
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            out[k] = torch.randn(shape, generator=gen,
+                                 device=device) * fan_in ** -0.5
     return out
 
 

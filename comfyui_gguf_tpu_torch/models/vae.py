@@ -333,3 +333,41 @@ def encode_auto(params, cfg: VAEConfig, img: torch.Tensor,
         return encode_tiled(params, cfg, img, tile=t * f,
                             overlap=max(t // 4, 1) * f, qcfg=qcfg)
     return encode(params, cfg, img, qcfg=qcfg, generator=generator)
+
+
+def tiled_apply_video(fn, x: torch.Tensor, tile: int,
+                      overlap: int) -> torch.Tensor:
+    """Spatially tiled application of a video-VAE decode: ``fn`` (B, T, th,
+    tw, C) → (B, T', th·f, tw·f, C'). T and the temporal law stay whole
+    (causal convs make temporal tiling stateful; H·W dominates a video's
+    activations, so spatial tiling is the memory lever). The output
+    geometry (f, T', C') is read from the first tile's result, so any
+    spatial factor works. Tiles are feather-blended in f32 in the
+    reference's order."""
+    B, T, H, W, C = x.shape
+    if H <= tile and W <= tile:
+        return fn(x)
+    overlap = min(overlap, tile // 2)
+    stride = tile - overlap
+    th_in, tw_in = min(tile, H), min(tile, W)
+    pos = [(i, j) for i in _tile_positions(H, tile, stride)
+           for j in _tile_positions(W, tile, stride)]
+    out = wsum = mask = None
+    for i, j in pos:
+        yt = fn(x[:, :, i:i + th_in, j:j + tw_in]).to(torch.float32)
+        if out is None:
+            _, t_out, th, tw, c_out = yt.shape
+            f = th // th_in
+            if th != th_in * f or tw != tw_in * f:
+                raise ValueError(
+                    f"non-integral or asymmetric spatial factor: in "
+                    f"({th_in}, {tw_in}) -> out {tuple(yt.shape)}")
+            mask = _feather_mask(th, tw, overlap * f, x.device)
+            out = torch.zeros((B, t_out, H * f, W * f, c_out),
+                              dtype=torch.float32, device=x.device)
+            wsum = torch.zeros((1, 1, H * f, W * f, 1), dtype=torch.float32,
+                               device=x.device)
+        oi, oj = i * f, j * f
+        out[:, :, oi:oi + th, oj:oj + tw] += yt * mask
+        wsum[:, :, oi:oi + th, oj:oj + tw] += mask
+    return out / wsum.clamp_min(1e-8)

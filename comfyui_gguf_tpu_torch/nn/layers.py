@@ -16,8 +16,7 @@ one (h, upᵀ) pair (``lora.rank_factorize``), GLoRA's weight term rewrites
 the kernel's input, and dense-delta patches (diff, LoHa, LoKr) and dense
 bases take the unfused epilogue (``lora.apply_patch_epilogue``).
 
-Not ported yet: ``conv3d`` and the tensor-parallel branches (the
-parallelism slice).
+Not ported yet: the tensor-parallel branches (the parallelism slice).
 """
 
 from __future__ import annotations
@@ -40,7 +39,9 @@ from ..quant.planar import PlanarQuant, dequantize as planar_dequantize
 class QuantConfig:
     """Runtime dequant policy: the reference loader's ``dequant_dtype`` and
     LoRA ``patch_dtype`` knobs. Kernel or plain path follows the device; on
-    the card the kernels take bfloat16 LoRA operands."""
+    the card the fused kernels compute in ``dequant_dtype`` and round the
+    LoRA rank operands to it (the w8a8 kernel to bfloat16), as the
+    reference's kernels do."""
 
     dequant_dtype: Any = torch.bfloat16
     patch_dtype: Any = None  # None = follow dequant_dtype
@@ -305,6 +306,36 @@ def conv2d(x: torch.Tensor, weight, bias=None, *, stride=1, padding=0,
     out = _each_sample(lambda xs: F.conv2d(xs.to(w.dtype), w, stride=stride,
                                            padding=padding), xc)
     out = out.permute(0, 2, 3, 1).to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def conv3d(x: torch.Tensor, weight, bias=None, *, stride=1, padding=0,
+           cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """3-D conv (the video patch embeds and VAEs), (B, T, H, W, C)
+    activations, weight (O, I, kt, kh, kw) dense or packed. Operands are
+    rounded to ``cfg.compute_dtype`` and accumulated in f32. ``stride`` is
+    an int or a triple; ``padding`` an int or ((front, back), (top,
+    bottom), (left, right)).
+
+    The reference computes this outside any hand-written kernel, and so
+    does the port: ``F.conv3d`` on a channels-last-3d view, each sample
+    alone (``_each_sample``), as ``conv2d``.
+    """
+    cd = cfg.compute_dtype
+    w = materialize(weight, cd)
+    # the CPU has no f32-accumulating bf16 conv: widen the operands there
+    w = (w.contiguous(memory_format=torch.channels_last_3d) if x.is_cuda
+         else w.to(torch.float32))
+    xc = x.to(cd).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC storage
+    if not isinstance(padding, int):
+        (pf, pk), (pt, pb), (pl, pr) = padding
+        xc = F.pad(xc, (pl, pr, pt, pb, pf, pk))
+        padding = 0
+    out = _each_sample(lambda xs: F.conv3d(xs.to(w.dtype), w, stride=stride,
+                                           padding=padding), xc)
+    out = out.permute(0, 2, 3, 4, 1).to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

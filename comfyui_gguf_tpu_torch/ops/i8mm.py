@@ -134,7 +134,10 @@ def i8mm_cuda_q(xq: torch.Tensor, xs: torch.Tensor, ip: I8Planar, *,
         bn = bn or i8mm_plan(m, R)[0]
         stream = ctypes.c_void_p(_build.stream_handle(dev))
         if lora_h is not None or lora_up is not None:
-            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp)
+            # rounded to bf16 whatever their dtype, as the reference's
+            # pallas_i8mm rounds them (its xla_i8mm, like plain_i8mm,
+            # computes in theirs)
+            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp, torch.bfloat16)
             if h.device != dev or up.device != dev:
                 raise ValueError("LoRA operands must be on x's device")
             rc = _build.lib().i8mm_lora_launch(

@@ -3,17 +3,22 @@
 Two implementations of one function, ``epi(x @ W^T)`` with W kept packed:
 
 * ``qmm_cuda`` — wrapper of the hand-written CUDA kernels of ``csrc/qmm.cu``,
-  ``qmm_int8.cu`` and ``qmm_smallm.cu`` (K1 for the nib4 layout, K2 for the
-  int8 layout). The dense weight never
+  ``qmm_int8.cu``, ``qmm_smallm.cu`` and ``qmm_simt.cu`` (K1 for the nib4
+  layout, K2 for the int8 layout). The dense weight never
   reaches device memory; the LoRA rank term (``lora_h @ lora_up``, in the
   LoRA instances of ``qmm_lora.cu``, ``qmm_int8_lora.cu`` and
   ``qmm_smallm.cu``), bias and GELU-tanh run on the f32 accumulator.
-  Two kernel bodies, picked from the shape alone by ``qmm_route``: a
-  weight-streaming split-K body for M <= ``SMALL_M_MAX`` rows of x (bound by
-  the bytes of the packed weight) and a TMA + ``wgmma`` body for every larger
-  M (bound by tensor-core operations), whose K may be split over a cluster
-  of blocks where its output tiles are too few for the card
-  (``wgmma_split_plan``). Both read float32 or bfloat16 scale planes.
+  Three kernel bodies, picked from the shape and ``dequant_dtype`` by
+  ``qmm_route``: a weight-streaming split-K body for M <= ``SMALL_M_MAX``
+  rows of x (bound by the bytes of the packed weight), a TMA + ``wgmma``
+  body for every larger M in bf16 or f16 (bound by tensor-core operations),
+  whose K may be split over a cluster of blocks where its output tiles are
+  too few for the card (``wgmma_split_plan``), and an f32 SIMT body for f32
+  at M > 8 (bound by the card's f32 FMA rate: the reference's f32 product
+  has no tensor-core type). Each computes in the reference's
+  ``dequant_dtype`` (bfloat16, float16 or float32: the weight and x rounded
+  to it, as ``pallas_qmm`` casts them); all read float32 or bfloat16 scale
+  planes.
 * ``plain_quantized_matmul`` — the plain PyTorch version, the counterpart
   of the reference's ``xla_qmm`` + ``_host_epilogue``: dequantize to a
   dense weight, one f32-accumulated matmul, then the unfused epilogue.
@@ -105,7 +110,7 @@ _FIXED_STEPS = 11.6
 _REDUCE_STEPS = 6.4
 
 
-def smallm_plan(m: int, kp: int, r: int, nib4: bool):
+def smallm_plan(m: int, kp: int, r: int, nib4: bool, esize: int = 2):
     """(split, shared-memory bytes) of the split-K launch, or None where
     that body does not take the shape.
 
@@ -113,8 +118,9 @@ def smallm_plan(m: int, kp: int, r: int, nib4: bool):
     (Kp/2 rows for nib4, Kp for int8; slices are whole units of 16 rows);
     the ``split`` blocks of a strip form one cluster (at most 8). The split
     is the smallest that puts 2 blocks on each SM, or else the largest
-    whose x slice (8 rows of bf16, 8 elements of padding a row, one plane
-    per nibble) fits in shared memory beside the 4 KB of partial sums.
+    whose x slice (8 rows of ``esize``-byte elements: 2 for bf16 and f16,
+    4 for f32; 8 elements of padding a row, one plane per nibble) fits in
+    shared memory beside the 4 KB of partial sums.
     """
     if not 1 <= m <= SMALL_M_MAX:
         return None
@@ -125,7 +131,7 @@ def smallm_plan(m: int, kp: int, r: int, nib4: bool):
         if code_rows % (16 * split):
             continue
         x_bytes = ((2 if nib4 else 1) * SMALL_M_MAX
-                   * (code_rows // split + 8) * 2)
+                   * (code_rows // split + 8) * esize)
         red_bytes = 4 * SMALL_M_MAX * _STRIP * 4
         smem = max(x_bytes, red_bytes) + SMALL_M_MAX * _STRIP * 4
         if smem > _SMALLM_SMEM_MAX:
@@ -136,10 +142,17 @@ def smallm_plan(m: int, kp: int, r: int, nib4: bool):
     return best
 
 
-def qmm_route(m: int, kp: int, r: int, nib4: bool) -> str:
-    """Which kernel body takes (M, padded K, R, layout): "smallm" or
-    "wgmma"."""
-    return "smallm" if smallm_plan(m, kp, r, nib4) is not None else "wgmma"
+# the operand types of the kernels: dequant_dtype -> its bytes
+QMM_DTYPES = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
+
+
+def qmm_route(m: int, kp: int, r: int, nib4: bool,
+              dtype=torch.bfloat16) -> str:
+    """Which kernel body takes (M, padded K, R, layout) at ``dtype`` (the
+    dequant dtype): "smallm", "wgmma" (bf16 and f16) or "simt" (f32)."""
+    if smallm_plan(m, kp, r, nib4, QMM_DTYPES[dtype]) is not None:
+        return "smallm"
+    return "simt" if dtype == torch.float32 else "wgmma"
 
 
 def wgmma_plan(m: int, r: int) -> tuple[int, int, int, int]:
@@ -249,26 +262,27 @@ LORA_RANK_STEP = 16  # rank columns of one bf16 wgmma k-step
 
 
 def prep_lora(lora_h: torch.Tensor, lora_up: torch.Tensor, m: int, r: int,
-              rp: int):
+              rp: int, dtype=torch.bfloat16):
     """The kernels' layout of the LoRA rank operands (the counterpart of the
     reference's ``_prep_lora``, whose pad to 128 lanes is a TPU tile rule).
 
     lora_h (..., Σr) is the rank intermediate x @ downᵀ, lora_up (Σr, R) the
     scale-folded upᵀ, as ``lora.rank_factorize`` gives them. Returns (h, up,
-    rk): h (m, rk) and up (rp, rk) bfloat16, contiguous and 16-byte aligned,
-    the rank contiguous; up is the up factor itself (not transposed), rows
-    past R zero; rk is Σr zero-padded to a multiple of ``LORA_RANK_STEP``
-    (padded rank columns add exact zeros). One layout serves the three
-    kernel bodies: the K-major B operand of K4, the K-major A operand of
-    the K1/K2 wgmma body, and rows of the split-K body's FMAs. Any rank is
-    taken. Raises on another dtype or on shapes that do not fit."""
+    rk): h (m, rk) and up (rp, rk) in ``dtype``, the kernel's operand type,
+    to which both are rounded as the reference's ``_prep_lora`` casts them to
+    dequant_dtype (``pallas_i8mm`` to bfloat16); contiguous and 16-byte
+    aligned, the rank contiguous; up is the up factor itself (not
+    transposed), rows past R zero; rk is Σr zero-padded to a multiple of
+    ``LORA_RANK_STEP`` (padded rank columns add exact zeros). One layout
+    serves every kernel body: the K-major B operand of K4, the K-major A
+    operand of the K1/K2 wgmma body, rows of the split-K body's FMAs and the
+    f32 body's rank steps. Any rank is taken. Raises on shapes that do not
+    fit."""
     if lora_h is None or lora_up is None:
         raise ValueError("LoRA operands come in pairs: lora_h and lora_up")
-    if lora_h.dtype != torch.bfloat16 or lora_up.dtype != torch.bfloat16:
-        raise TypeError(
-            f"the CUDA kernels take bfloat16 LoRA operands (the patch dtype, "
-            f"QuantConfig.patch_dtype), got {lora_h.dtype} / "
-            f"{lora_up.dtype}")
+    if dtype not in QMM_DTYPES:
+        raise TypeError(f"the kernels have no {dtype} LoRA operands")
+    lora_h, lora_up = lora_h.to(dtype), lora_up.to(dtype)
     sr = lora_up.shape[0] if lora_up.dim() == 2 else -1
     if sr < 1 or lora_up.shape[1] != r or lora_h.shape[-1] != sr:
         raise ValueError(f"LoRA operands h {tuple(lora_h.shape)}, upᵀ "
@@ -282,30 +296,35 @@ def prep_lora(lora_h: torch.Tensor, lora_up: torch.Tensor, m: int, r: int,
     up = lora_up.t()  # rank_factorize's upᵀ is a view of the up factor
     if not (rk == sr and rp == r and up.is_contiguous()
             and up.data_ptr() % 16 == 0):
-        up = torch.zeros((rp, rk), dtype=torch.bfloat16,
-                         device=lora_up.device)
+        up = torch.zeros((rp, rk), dtype=dtype, device=lora_up.device)
         up[:r, :sr] = lora_up.t()
     return h, up, rk
 
 
 def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
              act_from_col: int | None = None, out_dtype=None, lora_h=None,
-             lora_up=None, tiles: tuple[int, int] | None = None
-             ) -> torch.Tensor:
+             lora_up=None, tiles: tuple[int, int] | None = None,
+             dequant_dtype=torch.bfloat16) -> torch.Tensor:
     """Launch the fused dequant-matmul kernel (K1 nib4 / K2 int8), the
-    body ``qmm_route`` names for the shape; with ``lora_h``/``lora_up``
-    (see ``prep_lora``) that body's LoRA instance.
+    body ``qmm_route`` names for the shape and ``dequant_dtype``; with
+    ``lora_h``/``lora_up`` (see ``prep_lora``) that body's LoRA instance.
 
-    x: (..., K) CUDA tensor (cast to bf16, as the kernel's operands are);
+    x: (..., K) CUDA tensor, cast to ``dequant_dtype`` (bfloat16, float16 or
+    float32: the kernel's operand type, to which it also rounds the weight);
     pq: 2-D planar weight (a depth slice of a stacked one is fine), float32
     or bfloat16 scale planes. ``tiles``: the wgmma body's (token sub-tiles,
     K split) instead of ``wgmma_split_plan``'s, for measurements and tests.
-    Output (..., R) in ``out_dtype`` (default x.dtype), written as bf16.
+    Output (..., R) in ``out_dtype`` (default x.dtype): the bf16 instances
+    write bf16, the f16 and f32 ones f32, rounded once to ``out_dtype``.
     """
     R, K = pq.shape
     dev = x.device
     if not x.is_cuda:
         raise ValueError("qmm_cuda takes CUDA tensors")
+    if dequant_dtype not in QMM_DTYPES:
+        raise NotImplementedError(
+            f"the fused dequant-matmul kernels compute in "
+            f"{', '.join(map(str, QMM_DTYPES))}, not {dequant_dtype}")
     if pq.qs.dim() != 2:
         raise ValueError(f"qmm_cuda takes a 2-D weight, got qs "
                          f"{tuple(pq.qs.shape)} (index a stacked weight)")
@@ -333,9 +352,13 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         raise ValueError(f"scales {tuple(pq.scales.shape)} != "
                          f"{(kp // gs, rp)}")
     lead = x.shape[:-1]
-    x2 = _aligned(x.reshape(-1, K).to(torch.bfloat16))
+    x2 = _aligned(x.reshape(-1, K).to(dequant_dtype))
     m = x2.shape[0]
-    out = torch.empty((m, R), dtype=torch.bfloat16, device=dev)
+    bf16 = dequant_dtype == torch.bfloat16
+    out = torch.empty((m, R), dtype=torch.bfloat16 if bf16 else torch.float32,
+                      device=dev)
+    # the instances' suffix: none for bf16
+    sfx = "" if bf16 else "_f16" if dequant_dtype == torch.float16 else "_f32"
     if m:
         b = None
         if bias is not None:
@@ -347,7 +370,7 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
             raise ValueError("planar tensors must be 16-byte aligned")
         lora = lora_h is not None or lora_up is not None
         if lora:
-            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp)
+            h, up, rk = prep_lora(lora_h, lora_up, m, R, rp, dequant_dtype)
             if h.device != dev or up.device != dev:
                 raise ValueError("LoRA operands must be on x's device")
         lib = _build.lib()
@@ -359,32 +382,44 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         sbf16 = int(sdt == torch.bfloat16)
         stream = ctypes.c_void_p(_build.stream_handle(dev))
         name = "qmm_nib4" if nib4 else "qmm_int8"
-        plan = smallm_plan(m, kp, R, nib4)
+        plan = smallm_plan(m, kp, R, nib4, QMM_DTYPES[dequant_dtype])
         if plan is not None:
             name += "_smallm"
             if lora:
-                rc = lib.qmm_smallm_lora_launch(
-                    *ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
-                    int(nib4), act, plan[0], sbf16, stream)
+                launch = getattr(lib, f"qmm_smallm{sfx}_lora_launch")
+                rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
+                            int(nib4), act, plan[0], sbf16, stream)
             else:
-                rc = lib.qmm_smallm_ex_launch(*ptrs, *dims, int(nib4), act,
-                                              plan[0], sbf16, stream)
+                launch = getattr(lib, "qmm_smallm_ex_launch" if bf16
+                                 else f"qmm_smallm{sfx}_launch")
+                rc = launch(*ptrs, *dims, int(nib4), act, plan[0], sbf16,
+                            stream)
+        elif dequant_dtype == torch.float32:
+            name += "_simt"
+            if lora:
+                rc = lib.qmm_simt_lora_launch(
+                    *ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
+                    int(nib4), act, sbf16, stream)
+            else:
+                rc = lib.qmm_simt_launch(*ptrs, *dims, int(nib4), act, sbf16,
+                                         stream)
         else:
             nt, split = wgmma_split_plan(m, kp, R) if tiles is None else tiles
             if not (nt in (1, 2) and wgmma_split_ok(kp, nt, split)):
                 raise ValueError(f"wgmma tiles nt={nt} split={split} do not "
                                  f"fit Kp={kp}")
+            lay = "nib4" if nib4 else "int8"
             if lora:
-                launch = (lib.qmm_wgmma_nib4_lora_launch if nib4
-                          else lib.qmm_wgmma_int8_lora_launch)
+                launch = getattr(lib, f"qmm_wgmma_{lay}{sfx}_lora_launch")
                 rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
                             act, nt, split, sbf16, stream)
             else:
-                launch = (lib.qmm_wgmma_nib4_split_launch if nib4
-                          else lib.qmm_wgmma_int8_split_launch)
+                launch = getattr(lib, f"qmm_wgmma_{lay}_split_launch" if bf16
+                                 else f"qmm_wgmma_{lay}{sfx}_launch")
                 rc = launch(*ptrs, *dims, act, nt, split, sbf16, stream)
         if lora:
             name += "_lora"
+        name += sfx
         _build.check(rc, name + " launch")
         _build.count(name)
     return out.reshape(*lead, R).to(out_dtype or x.dtype)
@@ -397,15 +432,13 @@ def quantized_matmul(x: torch.Tensor, pq: PlanarQuant, *,
     """x @ W^T with packed planar W (+ the LoRA rank term h @ upᵀ, bias,
     GELU-tanh from a column).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    CUDA tensors launch the kernel in ``dequant_dtype`` (bfloat16, float16
+    or float32; another dtype raises); CPU tensors take the plain version.
     """
     if x.is_cuda:
-        if dequant_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"the CUDA kernel dequantizes to bfloat16, not "
-                f"{dequant_dtype}")
         return qmm_cuda(x, pq, bias=bias, act_from_col=act_from_col,
-                        out_dtype=out_dtype, lora_h=lora_h, lora_up=lora_up)
+                        out_dtype=out_dtype, lora_h=lora_h, lora_up=lora_up,
+                        dequant_dtype=dequant_dtype)
     return plain_quantized_matmul(
         x, pq, dequant_dtype=dequant_dtype, out_dtype=out_dtype, bias=bias,
         act_from_col=act_from_col, lora_h=lora_h, lora_up=lora_up)

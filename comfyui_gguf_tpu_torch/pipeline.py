@@ -36,16 +36,23 @@ comfyui_gguf_tpu/pipeline.py).
   CLIP-G pooled, T5 and llama states, the MoE DiT guidance-distilled (one
   forward a step), latent out. ``DiffusionModel.requantize_i8(max_bytes=,
   host_stage=)`` converts such a model under a byte budget.
+* ``WanPipeline(model, t5, vae_params=...).generate(prompt)`` — Wan 2.1
+  t2v: UMT5 states with the padded positions zeroed, CFG over the
+  rectified flow on (F, H, W, C) latents, then the causal 3-D video VAE
+  (``load_vae`` of a Wan VAE file gives kind "wan"); video out, or the
+  latent without a VAE. ``CosmosPipeline(model, t5).generate(prompt)`` —
+  Cosmos Predict2: T5 states, CFG over the rectified flow, latent out.
 * ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` / ``aura_engine`` /
-  ``lumina2_engine`` / ``qwen_image_engine`` / ``hidream_engine`` —
-  continuous-batching engines (serving.ContinuousBatchEngine) over a
-  loaded model: ``submit`` requests, ``run_until_drained``; each tick
-  advances every pooled request by one Euler or per-lane DPM-Solver++(2M)
-  step (the UNet, AuraFlow and Lumina 2 engines with per-request CFG).
+  ``lumina2_engine`` / ``qwen_image_engine`` / ``hidream_engine`` /
+  ``wan_engine`` / ``cosmos_engine`` — continuous-batching engines
+  (serving.ContinuousBatchEngine) over a loaded model: ``submit``
+  requests, ``run_until_drained``; each tick advances every pooled request
+  by one Euler or per-lane DPM-Solver++(2M) step (the UNet, AuraFlow,
+  Lumina 2, Wan and Cosmos engines with per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-The video VAEs, the other architectures (cosmos, wan, hyvid, ltxv) and the
-parallel engines are not ported yet and raise ``NotImplementedError``.
+The other video architectures (hyvid, ltxv), their VAEs and the parallel
+engines are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ._device import resolve_device
 from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
 from .models import aura as aura_model
 from .models import clip as clip_model
+from .models import cosmos as cosmos_model
 from .models import flux as flux_model
 from .models import hidream as hidream_model
 from .models import llama as llama_model
@@ -74,6 +82,8 @@ from .models import sd3 as sd3_model
 from .models import t5 as t5_model
 from .models import unet as unet_model
 from .models import vae as vae_model
+from .models import wan as wan_model
+from .models import wan_vae as wan_vae_model
 from .nn.layers import QuantConfig, embedding
 from .sampling import (cfg_wrap, euler_sample_inpaint, flux_schedule,
                        linear_schedule, sample_flow, shift_sigmas)
@@ -92,6 +102,8 @@ _ARCH_TABLE = {
     "qwen_image": (qi_model, qi_model.QwenImageConfig, "transformer_blocks"),
     "hidream": (hidream_model, hidream_model.HiDreamConfig,
                 "double_stream_blocks"),
+    "wan": (wan_model, wan_model.WanConfig, "blocks"),
+    "cosmos": (cosmos_model, cosmos_model.CosmosConfig, "blocks"),
 }
 
 
@@ -185,18 +197,20 @@ class DiffusionModel:
     def stack(self) -> "DiffusionModel":
         """Restack per-block params along a depth axis (copies the block
         weights once); forward then runs forward_stacked. Flux, SD3,
-        AuraFlow, Lumina 2, Qwen-Image and HiDream stack (SD3.5-medium's
-        dual-attention blocks as their own prefix group, Lumina 2's
-        refiners stay flat, HiDream's experts leaf-stacked as (depth, E,
-        …)); an SD3 tree whose dual layers are not a contiguous prefix, and
-        the UNets, are returned unchanged."""
+        AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan and Cosmos stack
+        (SD3.5-medium's dual-attention blocks as their own prefix group,
+        Lumina 2's refiners stay flat, HiDream's experts leaf-stacked as
+        (depth, E, …)); an SD3 tree whose dual layers are not a contiguous
+        prefix, and the UNets, are returned unchanged."""
         if self.is_stacked:
             return self
         stackers = {"flux": flux_model.stack_flux_params,
                     "aura": aura_model.stack_aura_params,
                     "lumina2": lumina2_model.stack_lumina2_params,
                     "qwen_image": qi_model.stack_qwen_params,
-                    "hidream": hidream_model.stack_hidream_params}
+                    "hidream": hidream_model.stack_hidream_params,
+                    "wan": wan_model.stack_wan_params,
+                    "cosmos": cosmos_model.stack_cosmos_params}
         if self.arch in stackers:
             return dataclasses.replace(
                 self, params=stackers[self.arch](self.params, self.config))
@@ -238,34 +252,22 @@ def _resolve_qcfg(dequant_dtype="default",
                        patch_dtype=resolve(patch_dtype))
 
 
-def _check_card_dtypes(qcfg: QuantConfig) -> None:
-    """The card's kernels dequantize to bfloat16 and take bfloat16 LoRA
-    operands; refuse any other knob value before a weight moves (the plain
-    path on the CPU honours every dtype)."""
-    for what, dt in (("dequant_dtype", qcfg.dequant_dtype),
-                     ("patch_dtype", qcfg.effective_patch_dtype)):
-        if dt != torch.bfloat16:
-            raise ValueError(
-                f"{what}={dt} is not available on the card: its kernels "
-                f"dequantize to bfloat16 and take bfloat16 LoRA operands "
-                f"(pass device='cpu' for the plain path, which takes any)")
-
-
 def load_diffusion_model(path: str, device="cuda", dequant_dtype="default",
                          patch_dtype="default") -> DiffusionModel:
     """GGUF diffusion model → DiffusionModel on ``device`` (the card unless
     the caller asks for the CPU; raises if CUDA is asked for and absent).
 
     ``dequant_dtype`` / ``patch_dtype``: the reference's Advanced-loader
-    knobs (``_resolve_qcfg``); on the card only bfloat16 (the default).
+    knobs (``_resolve_qcfg``), every value on the card and on the CPU: the
+    fused kernels have bfloat16, float16 and float32 instances, and their
+    LoRA operands are rounded to the dequant dtype as the reference's
+    kernels round them (bfloat16 in the w8a8 kernel).
     ``GGUF_TPU_COMPILE_CACHE`` names a persistent kernel build directory
     (``compile_cache.enable_from_env``)."""
     from .compile_cache import enable_from_env
 
     device = resolve_device(device)
     qcfg = _resolve_qcfg(dequant_dtype, patch_dtype)
-    if device.type == "cuda":
-        _check_card_dtypes(qcfg)
     enable_from_env()
     sd, arch = gguf_sd_loader(path, return_arch=True)
     params = to_torch_params(sd, qcfg, device=device)
@@ -333,10 +335,11 @@ def _to_device(raw: dict, device) -> dict:
 def load_vae(path: str, device="cuda"):
     """Load a VAE and detect its family from the keys.
 
-    → (kind, params, config). Only the "image" family (AutoencoderKL,
-    decoded with models.vae) is ported; the video families raise. Strips a
-    leading ``vae.`` / ``first_stage_model.`` prefix (checkpoint-bundled
-    VAEs use it)."""
+    → (kind, params, config): kind "image" (AutoencoderKL, decoded with
+    models.vae) or "wan" (the causal 3-D video VAE, models.wan_vae); the
+    hyvid and ltxv families and diffusers-format image VAEs raise (not
+    ported yet). Strips a leading ``vae.`` / ``first_stage_model.`` prefix
+    (checkpoint-bundled VAEs use it)."""
     device = resolve_device(device)
     raw = _load_safetensors_sd(path)
     for pfx in ("vae.", "first_stage_model."):
@@ -344,13 +347,16 @@ def load_vae(path: str, device="cuda"):
             raw = {k[len(pfx):]: v for k, v in raw.items()
                    if k.startswith(pfx)}
             break
-    if (any(k.startswith(("decoder.middle.", "decoder.mid_block."))
-            for k in raw)
+    if any(k.startswith("decoder.middle.") for k in raw):
+        params = _to_device(raw, device)
+        return "wan", params, wan_vae_model.WanVAEConfig.from_state_dict(
+            params)
+    if (any(k.startswith("decoder.mid_block.") for k in raw)
             or any(".res_blocks." in k or "per_channel_statistics" in k
                    for k in raw)):
         raise NotImplementedError(
-            "video VAEs (wan, hyvid, ltxv) and diffusers-format image VAEs "
-            "are not ported yet (ROADMAP queue 1, the video VAE item)")
+            "the hyvid and ltxv video VAEs and diffusers-format image VAEs "
+            "are not ported yet (ROADMAP queue 1 item 14)")
     params = _to_device(raw, device)
     return "image", params, vae_model.VAEConfig.from_state_dict(params)
 
@@ -901,14 +907,20 @@ class SD3Pipeline:
         return result
 
 
-def _text_states(enc: TextEncoder, text: str, max_len: int):
+def _text_states(enc: TextEncoder, text: str, max_len: int,
+                 zero_masked: bool = False):
     """A prompt through an encoder's tokenizer (padded to ``max_len``, with
-    its mask) and graph → (1, max_len, width) states."""
+    its mask) and graph → (1, max_len, width) states; ``zero_masked``
+    zeroes the padded positions (Wan's ``zero_out_masked``: the UMT5
+    encoder emits nonzero states there, and the DiT's cross-attention has
+    no mask)."""
     if enc.tokenizer is None:
         raise ValueError(f"the {enc.kind} encoder has no tokenizer")
     ids, mask = enc.tokenizer.encode_batch([text], max_length=max_len)
-    out = enc.encode(_ids(ids, enc.device), _ids(mask, enc.device))
-    return out["last_hidden"] if isinstance(out, dict) else out
+    mask = _ids(mask, enc.device)
+    out = enc.encode(_ids(ids, enc.device), mask)
+    out = out["last_hidden"] if isinstance(out, dict) else out
+    return out * mask[..., None].to(out.dtype) if zero_masked else out
 
 
 @dataclasses.dataclass
@@ -951,16 +963,35 @@ class CFGFlowPipeline:
         x = _noise_or_draw(noise, (1, height // 8, width // 8,
                                    model.config.in_channels),
                            gen, device, torch.bfloat16)
-        velocity = cfg_wrap(
-            lambda xc, sigma, c: model.forward(
-                xc, c, sigma.to(torch.float32).expand(xc.shape[0])),
-            cond, ncond, cfg_scale)
-        latent = sample_flow(velocity, x,
-                             shift_sigmas(linear_schedule(steps), self.shift))
+        latent = self._denoise(x, cond, ncond, steps, cfg_scale)
         self.last_latent = latent
         clock.mark("denoise_s")
         self.last_timings = clock.timings()
         return latent[0].to(torch.float32).cpu().numpy()
+
+    def _denoise(self, x, cond, ncond, steps: int, cfg_scale: float,
+                 window: int | None = None) -> torch.Tensor:
+        """The CFG rectified-flow ODE from noise ``x`` (the reference's
+        ``_jit_cfg_denoise``). ``window``: the card is synchronised after
+        every that many velocity evaluations (a step of Euler), a host sync
+        between windows of queued work that leaves the math as it is;
+        ``None`` or 0 never."""
+        model = self.model
+        guided = cfg_wrap(
+            lambda xc, sigma, c: model.forward(
+                xc, c, sigma.to(torch.float32).expand(xc.shape[0])),
+            cond, ncond, cfg_scale)
+        done = [0]
+
+        def velocity(xc, sigma):
+            v = guided(xc, sigma)
+            done[0] += 1
+            if window and done[0] % window == 0 and v.is_cuda:
+                torch.cuda.synchronize(v.device)
+            return v
+
+        return sample_flow(velocity, x,
+                           shift_sigmas(linear_schedule(steps), self.shift))
 
 
 def AuraPipeline(model: DiffusionModel, t5: TextEncoder,
@@ -976,6 +1007,117 @@ def Lumina2Pipeline(model: DiffusionModel, text: TextEncoder,
     graph at Gemma-2's shapes, not on Gemma-2 itself (ROADMAP queue 3); the
     port matches it."""
     return CFGFlowPipeline(model, text, shift, 4.0)
+
+
+@dataclasses.dataclass
+class VideoFlowPipeline(CFGFlowPipeline):
+    """A ``CFGFlowPipeline`` over (1, F, H, W, C) video latents (Wan,
+    Cosmos): the conditioning optionally zeroed at padded positions, the
+    denoise optionally synchronised every ``dispatch_window`` steps, and an
+    optional Wan VAE decode (with per-channel ``latents_mean`` /
+    ``latents_std`` un-normalizing z first)."""
+
+    zero_masked: bool = False
+    vae_params: dict | None = None
+    latents_mean: np.ndarray | None = None
+    latents_std: np.ndarray | None = None
+
+    @torch.no_grad()
+    def generate_video(self, prompt: str, negative_prompt: str,
+                       latent_frames: int, latent_height: int,
+                       latent_width: int, steps: int, cfg_scale: float,
+                       seed: int, max_len: int, noise=None,
+                       dispatch_window: int | None = None) -> np.ndarray:
+        """→ the (T, H, W, 3) video in [0, 1] through the VAE, or the (F,
+        H, W, C) float32 latent without one. ``noise`` is the (1, F, H, W,
+        C) initial noise; without it the noise is drawn from
+        ``torch.Generator(device).manual_seed(seed)``."""
+        model = self.model
+        device = model.device
+        clock = _StageClock(device)
+        cond = _text_states(self.encoder, prompt, max_len, self.zero_masked)
+        ncond = (_text_states(self.encoder, negative_prompt, max_len,
+                              self.zero_masked)
+                 if cfg_scale != 1.0 else None)
+        clock.mark("encode_s")
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = _noise_or_draw(noise, (1, latent_frames, latent_height,
+                                   latent_width, model.config.in_channels),
+                           gen, device, torch.bfloat16)
+        latent = self._denoise(x, cond, ncond, steps, cfg_scale,
+                               window=dispatch_window)
+        self.last_latent = latent
+        clock.mark("denoise_s")
+        if self.vae_params is None:
+            self.last_timings = clock.timings()
+            return latent[0].to(torch.float32).cpu().numpy()
+        z = latent.to(torch.float32)
+        if self.latents_mean is not None:
+            mean = torch.as_tensor(np.asarray(self.latents_mean, np.float32),
+                                   device=device)
+            std = torch.as_tensor(np.asarray(self.latents_std, np.float32),
+                                  device=device)
+            z = z * std + mean
+        vcfg = wan_vae_model.WanVAEConfig.from_state_dict(self.vae_params)
+        vid = wan_vae_model.decode_auto(self.vae_params, vcfg, z,
+                                        qcfg=model.qcfg)
+        out = ((vid[0].clamp(-1, 1) + 1) / 2).cpu().numpy()
+        clock.mark("vae_s")
+        self.last_timings = clock.timings()
+        return out
+
+
+class WanPipeline(VideoFlowPipeline):
+    """Wan 2.1 t2v: UMT5 conditioning with the padded positions zeroed, CFG
+    5.0 at shift 5.0 over the rectified flow; with ``vae_params`` (a Wan VAE
+    tree, ``load_vae`` kind "wan") ``generate`` returns the decoded video
+    (T, H, W, 3) in [0, 1], else the latent video."""
+
+    def __init__(self, model: DiffusionModel, t5: TextEncoder,
+                 shift: float = 5.0, vae_params: dict | None = None,
+                 latents_mean=None, latents_std=None):
+        super().__init__(model, t5, shift, 5.0, zero_masked=True,
+                         vae_params=vae_params, latents_mean=latents_mean,
+                         latents_std=latents_std)
+
+    @staticmethod
+    def load(unet_path: str, t5_path: str, device="cuda",
+             **kw) -> "WanPipeline":
+        return WanPipeline(load_diffusion_model(unet_path, device=device,
+                                                **kw),
+                           load_text_encoder(t5_path, device=device))
+
+    def generate(self, prompt: str, negative_prompt: str = "",
+                 latent_frames: int = 21, latent_height: int = 60,
+                 latent_width: int = 104, steps: int = 30,
+                 cfg_scale: float = 5.0, seed: int = 0,
+                 max_t5_len: int = 512, dispatch_window: int | None = 4,
+                 noise=None) -> np.ndarray:
+        """``dispatch_window``: steps between host syncs (None: none, the
+        same math)."""
+        return self.generate_video(prompt, negative_prompt, latent_frames,
+                                   latent_height, latent_width, steps,
+                                   cfg_scale, seed, max_t5_len, noise,
+                                   dispatch_window)
+
+
+class CosmosPipeline(VideoFlowPipeline):
+    """Cosmos Predict2 t2i/t2v: T5 conditioning, CFG 4.0 at shift 1.0 over
+    the rectified flow on (F, H, W, C) latents; latent out (no VAE, as in
+    the reference)."""
+
+    def __init__(self, model: DiffusionModel, t5: TextEncoder,
+                 shift: float = 1.0):
+        super().__init__(model, t5, shift, 4.0)
+
+    def generate(self, prompt: str, latent_frames: int = 1,
+                 latent_height: int = 64, latent_width: int = 64,
+                 steps: int = 20, cfg_scale: float = 4.0, seed: int = 0,
+                 negative_prompt: str = "", max_len: int = 256,
+                 noise=None) -> np.ndarray:
+        return self.generate_video(prompt, negative_prompt, latent_frames,
+                                   latent_height, latent_width, steps,
+                                   cfg_scale, seed, max_len, noise)
 
 
 @dataclasses.dataclass
@@ -1530,6 +1672,34 @@ def lumina2_engine(model: DiffusionModel, max_batch: int = 4,
     tree takes ``forward_stacked``; ``dp_mesh`` is not ported yet and
     raises."""
     return _cfg_flow_engine(model, lumina2_model, "cap", "ncap", max_batch,
+                            pipeline_depth, sampler, dp_mesh)
+
+
+def wan_engine(model: DiffusionModel, max_batch: int = 2,
+               pipeline_depth: int = 1, sampler: str = "euler",
+               dp_mesh=None, mesh=None):
+    """Continuous-batching engine for a loaded Wan 2.1 t2v model (video
+    serving): requests carry (F, H, W, C) latent video + cond {"ctx",
+    "nctx", "cfg_scale"}; each tick runs the conditional and the
+    unconditional forward and mixes them at each request's own scale. A
+    depth-stacked tree takes ``forward_stacked``; ``mesh`` and ``dp_mesh``
+    are not ported yet and raise."""
+    if mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    return _cfg_flow_engine(model, wan_model, "ctx", "nctx", max_batch,
+                            pipeline_depth, sampler, dp_mesh)
+
+
+def cosmos_engine(model: DiffusionModel, max_batch: int = 2,
+                  pipeline_depth: int = 1, sampler: str = "euler",
+                  dp_mesh=None):
+    """Continuous-batching engine for a loaded Cosmos Predict2 model:
+    requests carry (F, H, W, C) latents + cond {"ctx", "nctx",
+    "cfg_scale"} (T5 states); each tick runs the conditional and the
+    unconditional forward and mixes them at each request's own scale. A
+    depth-stacked tree takes ``forward_stacked``; ``dp_mesh`` is not ported
+    yet and raises."""
+    return _cfg_flow_engine(model, cosmos_model, "ctx", "nctx", max_batch,
                             pipeline_depth, sampler, dp_mesh)
 
 

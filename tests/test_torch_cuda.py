@@ -18,7 +18,12 @@ the plain versions with the same rank operands, with one-hot rank rows, at
 strength 0 (equal to the unpatched launch) and on stacked views. The
 wgmma body also runs with its K split over a cluster (1, 2 and 8 blocks) at
 both token-tile widths, and both bodies with bfloat16 scale planes, each
-launched twice for equal bits. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+launched twice for equal bits. The f16 and f32 instances of K1/K2 (the
+wgmma body at f16, the f32 SIMT body, the split-K body at both, and their
+LoRA instances) run against the plain version in the same dtype (f16
+2e-3, f32 1e-5), every format, one-hot rows bit for bit; K7's D = 384
+instance (the Wan VAE's mid-block) on contiguous tensors and on column
+slices of one projection. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
 4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
 M = 4) and one continuous-batching engine run on the card against the
 same engine on the CPU (launch counts per tick) run here too. Whether a
@@ -895,8 +900,10 @@ def test_cuda_dispatch_passes_lora_operands(monkeypatch):
 def test_prep_lora_layout_and_limits():
     """The kernels' operand layout: h (M, rk), up (Rp, rk) bf16, the rank
     zero-padded to a multiple of 16 and up not transposed; any rank is
-    taken; another dtype or a shape that does not fit raises, naming the
-    limit."""
+    taken; operands of another dtype are rounded to the kernel's operand
+    type (bf16 by default, as the reference's ``_prep_lora`` rounds them to
+    the dequant dtype); a dtype the kernels have no instance for or a
+    shape that does not fit raises, naming the limit."""
     from comfyui_gguf_tpu_torch.ops.qmatmul import LORA_RANK_STEP, prep_lora
 
     M, R, Rp = 5, 200, 256
@@ -912,8 +919,12 @@ def test_prep_lora_layout_and_limits():
         assert not up[R:].any() and not up[:, rank:].any()
     h = torch.randn((M, 16))
     upt = torch.randn((16, R))
-    with pytest.raises(TypeError, match="bfloat16"):
-        prep_lora(h, upt, M, R, Rp)
+    hp, up, _ = prep_lora(h, upt, M, R, Rp)
+    assert hp.dtype == up.dtype == torch.bfloat16
+    assert torch.equal(hp, h.bfloat16())
+    assert torch.equal(up[:R], upt.bfloat16().t())
+    with pytest.raises(TypeError, match="float64"):
+        prep_lora(h, upt, M, R, Rp, torch.float64)
     with pytest.raises(ValueError):
         prep_lora(h.bfloat16(), upt.bfloat16()[:, :100], M, R, Rp)
     with pytest.raises(ValueError):
@@ -1288,3 +1299,159 @@ def test_qmm_planned_split_at_encoder_shapes(cuda, M, K, R):
     x, b, got = _check_qmm(cuda, pq, M, K, R, True, None, seed=R)
     assert torch.equal(got, qmm_cuda(x, pq, bias=b))
 
+
+
+# -- the f16 and f32 instances of K1/K2 (dequant_dtype float16 / float32) --
+
+QMM_DTYPES = [torch.float16, torch.float32]
+# the limits against the plain version in the same dtype: f16 operands in
+# f32 sums (the order differs), f32 operands on f32 FMAs
+QMM_DT_TOL = {torch.float16: 2e-3, torch.float32: 1e-5}
+_SFX = {torch.float16: "_f16", torch.float32: "_f32"}
+
+
+def _qmm_dt_key(pq, M, dt, lora=False):
+    """The launch counter of the body and instance that take this shape
+    at dequant dtype ``dt``."""
+    route = qmm_route(M, pq.padded_in, pq.shape[0], pq.layout == "nib4", dt)
+    key = "qmm_nib4" if pq.layout == "nib4" else "qmm_int8"
+    key += {"smallm": "_smallm", "simt": "_simt", "wgmma": ""}[route]
+    return key + ("_lora" if lora else "") + _SFX[dt]
+
+
+@pytest.mark.parametrize("dt", QMM_DTYPES, ids=["f16", "f32"])
+@pytest.mark.parametrize("qtype,M,R,K,bias,act", QMM_CASES, ids=str)
+def test_qmm_f16_f32_instances_match_plain(cuda, dt, qtype, M, R, K, bias,
+                                           act):
+    """Both bodies at float16 (wgmma f32.f16.f16, mma.sync f16) and at
+    float32 (the SIMT body, the split-K body's FMAs) against the plain
+    version computing in the same dtype, f32 out; two launches equal."""
+    pq = _planar(qtype, R, K, seed=M + 3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    b = torch.randn((R,), generator=g, device=cuda) if bias else None
+    key = _qmm_dt_key(pq, M, dt)
+    before = _build.LAUNCHES[key]
+    kw = dict(bias=b, act_from_col=act, out_dtype=torch.float32,
+              dequant_dtype=dt)
+    got = qmm_cuda(x, pq, **kw)
+    again = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    want = plain_quantized_matmul(x, pq, **kw)
+    assert got.shape == (M, R) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) < QMM_DT_TOL[dt]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dt", QMM_DTYPES, ids=["f16", "f32"])
+@pytest.mark.parametrize("sdt", SCALE_DTYPES, ids=str)
+@pytest.mark.parametrize("M", [3, 300])
+@pytest.mark.parametrize("qtype", NIB4_TYPES + INT8_TYPES,
+                         ids=lambda q: q.name)
+def test_qmm_f16_f32_every_format(cuda, qtype, M, sdt, dt):
+    """Every format of both layouts, both scale-plane types, both bodies,
+    at float16 and float32."""
+    R, K = 328, 1792
+    pq = _planar(qtype, R, K, seed=int(qtype) + 5, device=cuda,
+                 scale_dtype=sdt)
+    x = torch.randn((M, K), device=cuda)
+    kw = dict(out_dtype=torch.float32, dequant_dtype=dt)
+    got = qmm_cuda(x, pq, bias=None, act_from_col=None, **kw)
+    want = plain_quantized_matmul(x, pq, **kw)
+    assert _rel_l2(got, want) < QMM_DT_TOL[dt]
+
+
+@pytest.mark.parametrize("dt", QMM_DTYPES, ids=["f16", "f32"])
+@pytest.mark.parametrize("M", [1, 130])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q6_K], ids=lambda q: q.name)
+def test_qmm_f16_f32_every_tile_position(cuda, qtype, M, dt):
+    """One-hot x rows: each output is one weight rounded to the dequant
+    dtype, bit for bit, at every k (both nibble planes, every slice)."""
+    R, K = 256, 1024
+    pq = _planar(qtype, R, K, seed=9, device=cuda)
+    w = planar.dequantize_kmajor(pq, dt).float()  # (K, R)
+    for k0 in range(0, K, 128):
+        x = torch.zeros((M, K), device=cuda)
+        ks = torch.arange(M, device=cuda) % 128 + k0
+        x[torch.arange(M, device=cuda), ks] = 1.0
+        got = qmm_cuda(x, pq, out_dtype=torch.float32, dequant_dtype=dt)
+        assert torch.equal(got, w[ks])
+
+
+@pytest.mark.parametrize("dt", QMM_DTYPES, ids=["f16", "f32"])
+@pytest.mark.parametrize("rank", LORA_RANKS)
+@pytest.mark.parametrize("M", [3, 200])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q8_0], ids=lambda q: q.name)
+def test_qmm_lora_f16_f32_match_plain(cuda, qtype, M, rank, dt):
+    """The LoRA instances at float16 and float32: the rank operands in the
+    dequant dtype (the reference's ``_prep_lora``), against the plain
+    version with the same operands."""
+    R, K = 384, 1024
+    pq = _planar(qtype, R, K, seed=2, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(M + rank)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    b = torch.randn((R,), generator=g, device=cuda)
+    h = torch.randn((M, rank), generator=g, device=cuda).to(dt)
+    upt = torch.randn((rank, R), generator=g, device=cuda).to(dt)
+    key = _qmm_dt_key(pq, M, dt, lora=True)
+    before = _build.LAUNCHES[key]
+    kw = dict(bias=b, act_from_col=128, out_dtype=torch.float32,
+              dequant_dtype=dt, lora_h=h, lora_up=upt)
+    got = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1
+    want = plain_quantized_matmul(x, pq, **kw)
+    assert _rel_l2(got, want) < QMM_DT_TOL[dt]
+    kw.update(lora_h=None, lora_up=None)
+    assert _rel_l2(qmm_cuda(x, pq, **kw), want) > 1e-2
+
+
+@pytest.mark.parametrize("dt", QMM_DTYPES, ids=["f16", "f32"])
+def test_qmm_f16_f32_smallm_is_deterministic(cuda, dt):
+    pq = _planar(Q.Q4_K, 1024, 3072, seed=3, device=cuda)
+    x = torch.randn((4, 3072), device=cuda)
+    assert smallm_plan(4, pq.padded_in, 1024, True,
+                       2 if dt == torch.float16 else 4)[0] > 1
+    a = qmm_cuda(x, pq, dequant_dtype=dt)
+    b = qmm_cuda(x, pq, dequant_dtype=dt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_qmm_refuses_a_dtype_without_instances(cuda):
+    pq = _planar(Q.Q4_K, 128, 512, seed=1, device=cuda)
+    x = torch.randn((2, 512), device=cuda)
+    with pytest.raises(NotImplementedError, match="float16"):
+        qmm_cuda(x, pq, dequant_dtype=torch.float64)
+
+
+# -- K7 at head dim 384 (the Wan 2.1 VAE's single-head mid-block) ---------
+
+@pytest.mark.parametrize("B,H,Lq,Lk", [(3, 1, 700, 700), (1, 2, 130, 77),
+                                       (2, 1, 64, 300)], ids=str)
+def test_flash_kernel_d384(cuda, B, H, Lq, Lk):
+    """The column-split instance: three blocks per query tile, each 128
+    output columns of a score computed over all 384, against the plain
+    version; ragged key and query tiles."""
+    D = 384
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    before = _build.LAUNCHES["flash_attn_d384"]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn_d384"] == before + 1
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+def test_flash_kernel_d384_on_qkv_views(cuda):
+    """The Wan VAE's layout: q, k and v are column slices of one (N, 1, HW,
+    3C) projection, read in place."""
+    N, L, C = 2, 900, 384
+    qkv = torch.randn((N, 1, L, 3 * C), device=cuda).bfloat16()
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    got = flash_attn_cuda(q, k, v, C ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, C ** -0.5)) < 1e-2

@@ -50,6 +50,7 @@ def test_the_port_has_its_own_sources():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("tokenizer/unigram.py", "tokenizer/clip_bpe.py",
                 "models/t5.py", "models/clip.py", "models/vae.py",
-                "ops/i8attn.py", "ops/gemm_probe.py", "_safetensors.py"):
+                "ops/i8attn.py", "ops/gemm_probe.py", "_safetensors.py",
+                "models/wan.py", "models/cosmos.py", "models/wan_vae.py"):
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()

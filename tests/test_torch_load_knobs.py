@@ -4,8 +4,11 @@
   reference's Advanced-loader string knobs map onto the same QuantConfig in
   both packages, and a tiny flux loaded with each value gives the same
   forward on the CPU (bf16 compute: 2e-2 relative L2, the flux parity
-  tests' limit). On the card the kernels take bfloat16 only: another value
-  is refused before any weight is read.
+  tests' limit). The card takes every value too (its fused kernels have
+  bfloat16, float16 and float32 instances); an unknown value is refused
+  before any weight is read. The rank operands are rounded as the
+  reference's kernels round them: to the dequant dtype in K1/K2
+  (``_prep_lora``), to bfloat16 in the w8a8 kernel (``pallas_i8mm``).
 * ``GGUF_TPU_SKIP_UNDECODABLE=1``: IQ1/IQ2/IQ3 tensors are skipped with a
   warning naming them; unset, one error names them all (the reference's
   ``tests/test_codecs.py``).
@@ -120,10 +123,11 @@ def test_dtype_knobs_match_reference(gguf_path, dequant, patch):
                                   {"patch_dtype": "float16"}], ids=str)
 def test_card_refuses_other_dtypes_before_loading(gguf_path, monkeypatch,
                                                   knob):
-    """On the card the kernels dequantize to bf16 and take bf16 LoRA
-    operands: any other knob value is refused by the load itself, naming
-    the limit, before the file is read (the loader is replaced by one that
-    fails). With no card, the load refuses CUDA itself."""
+    """The card's kernels now compute in float16 and float32 as well as
+    bfloat16, so the load takes these knob values on the card and goes on
+    to read the file (the loader is replaced by one that fails); what it
+    still refuses before the file is read: CUDA where there is no card, and
+    a knob value the reference does not know."""
     def no_read(*a, **k):
         raise AssertionError("the file was read")
 
@@ -132,11 +136,106 @@ def test_card_refuses_other_dtypes_before_loading(gguf_path, monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpipeline.load_diffusion_model(gguf_path, device="cuda", **knob)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="bfloat16"):
-        tpipeline.load_diffusion_model(gguf_path, device="cuda", **knob)
-    # the default passes the check and goes on to read the file
     with pytest.raises(AssertionError, match="was read"):
-        tpipeline.load_diffusion_model(gguf_path, device="cuda")
+        tpipeline.load_diffusion_model(gguf_path, device="cuda", **knob)
+    bad = {k: "float8" for k in knob}
+    with pytest.raises(ValueError, match="unknown dtype knob"):
+        tpipeline.load_diffusion_model(gguf_path, device="cuda", **bad)
+
+
+@pytest.mark.parametrize("which", ["dequant_dtype", "patch_dtype"])
+@pytest.mark.parametrize("value", sorted(jpipeline._DTYPE_NAMES))
+def test_card_takes_every_reference_knob(gguf_path, monkeypatch, which,
+                                         value):
+    """Every value of the reference's ``_DTYPE_NAMES``, for either knob,
+    passes the card's load and reaches the file, and resolves to the dtype
+    the reference resolves it to."""
+    def no_read(*a, **k):
+        raise AssertionError("the file was read")
+
+    monkeypatch.setattr(tpipeline, "gguf_sd_loader", no_read)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(AssertionError, match="was read"):
+        tpipeline.load_diffusion_model(gguf_path, device="cuda",
+                                       **{which: value})
+    tq = tpipeline._resolve_qcfg(**{which: value})
+    jq = jpipeline._resolve_qcfg(**{which: value})
+    for f in ("dequant_dtype", "patch_dtype"):
+        assert _tname(getattr(tq, f)) == _jname(getattr(jq, f)), f
+
+
+@pytest.mark.parametrize("dt", [torch.float16, torch.float32],
+                         ids=["f16", "f32"])
+def test_i8mm_wrapper_rounds_rank_operands_to_bf16(monkeypatch, dt):
+    """The K4 wrapper hands its kernel bf16 rank operands whatever their
+    dtype, the values the reference's ``pallas_i8mm`` rounds them to
+    (``_prep_lora(..., jnp.bfloat16)``); the launch itself is replaced, so
+    this runs on the CPU."""
+    from comfyui_gguf_tpu.ops import qmatmul as jqmm
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.ops import i8mm as ti8mm
+    from comfyui_gguf_tpu_torch.quant.i8 import I8Planar
+
+    rng = np.random.default_rng(4)
+    M, K, R, r = 5, 256, 256, 12
+    seen = {}
+    real = ti8mm.prep_lora
+
+    def spy(*a, **k):
+        seen["out"] = real(*a, **k)
+        return seen["out"]
+
+    class FakeLib:
+        def i8mm_lora_launch(self, *a):
+            return 0
+
+    monkeypatch.setattr(ti8mm, "prep_lora", spy)
+    monkeypatch.setattr(_build, "lib", lambda: FakeLib())
+    monkeypatch.setattr(_build, "stream_handle", lambda dev: 0)
+    ip = I8Planar(qs=torch.zeros((R, K), dtype=torch.int8),
+                  scales=torch.ones((1, R)), qtype=Q.Q8_0, shape=(R, K))
+    h = rng.standard_normal((M, r)).astype(np.float32) / 3
+    up = rng.standard_normal((r, R)).astype(np.float32) / 3
+    ti8mm.i8mm_cuda_q(torch.zeros((M, K), dtype=torch.int8),
+                      torch.ones((M, 1)), ip,
+                      lora_h=torch.from_numpy(h).to(dt),
+                      lora_up=torch.from_numpy(up).to(dt))
+    th, tup, rk = seen["out"]
+    assert th.dtype == tup.dtype == torch.bfloat16 and rk == 16
+    jh, jup = jqmm._prep_lora(jnp.asarray(np.asarray(torch.from_numpy(h).to(
+        dt).float())), jnp.asarray(np.asarray(torch.from_numpy(up).to(
+            dt).float())), M, R, jnp.bfloat16)
+    np.testing.assert_array_equal(th[:, :r].float().numpy(),
+                                  np.asarray(jh, np.float32)[:, :r])
+    np.testing.assert_array_equal(tup[:, :r].float().numpy(),
+                                  np.asarray(jup, np.float32)[:r].T)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16,
+                                torch.float32], ids=["bf16", "f16", "f32"])
+def test_qmm_rank_operands_take_the_dequant_dtype(dt):
+    """K1/K2's rank operands are rounded to the dequant dtype, the kernel's
+    operand type, as the reference's ``pallas_qmm`` rounds them
+    (``_prep_lora(..., dequant_dtype)``), whatever the patch dtype gave."""
+    from comfyui_gguf_tpu.ops import qmatmul as jqmm
+    from comfyui_gguf_tpu_torch.ops.qmatmul import prep_lora
+
+    rng = np.random.default_rng(5)
+    M, R, r = 7, 384, 20
+    h = rng.standard_normal((M, r)).astype(np.float32)
+    up = rng.standard_normal((r, R)).astype(np.float32)
+    th, tup, rk = prep_lora(torch.from_numpy(h), torch.from_numpy(up), M, R,
+                            R, dt)
+    assert th.dtype == tup.dtype == dt and rk == 32
+    assert th.shape == (M, rk) and tup.shape == (R, rk)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+           torch.float32: jnp.float32}[dt]
+    jh, jup = jqmm._prep_lora(jnp.asarray(h), jnp.asarray(up), M, R, jdt)
+    np.testing.assert_array_equal(th[:, :r].float().numpy(),
+                                  np.asarray(jh, np.float32)[:, :r])
+    np.testing.assert_array_equal(tup[:, :r].float().numpy(),
+                                  np.asarray(jup, np.float32)[:r].T)
+    assert not th[:, r:].any() and not tup[:, r:].any()
 
 
 def test_unknown_dtype_knob_raises(gguf_path):
