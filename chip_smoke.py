@@ -16,14 +16,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--hidream-budget-blocks DOUBLE SINGLE]
                           [--wan-depth N] [--wan-steps N] [--umt5-layers N]
                           [--cosmos-depth N] [--cosmos-steps N]
-                          [--cosmos-t5-layers N]
+                          [--cosmos-t5-layers N] [--hyvid-depth-double N]
+                          [--hyvid-depth-single N] [--hyvid-steps N]
+                          [--hyvid-llama-layers N] [--ltxv-depth N]
+                          [--ltxv-steps N] [--ltxv-t5-layers N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
 CLIP-L encode, denoise, VAE decode), SD3.5-large, the SD1/SDXL UNets,
 AuraFlow v0.3, Lumina Image 2.0, Qwen-Image (with Qwen-Image-Edit and the
-Qwen2.5-VL vision tower), HiDream-I1, Wan 2.1 t2v (with its causal 3-D VAE)
-and Cosmos — on the card through the entry points a user calls, and fails
+Qwen2.5-VL vision tower), HiDream-I1, Wan 2.1 t2v, HunyuanVideo and
+LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the entry points a user calls, and fails
 (non-zero exit, no result line) on any failed phase:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; no CUDA device
@@ -35,7 +38,7 @@ and Cosmos — on the card through the entry points a user calls, and fails
    beside the unpatched ones; for flash attention each head-dim instance's)
    and the dynamic shared memory of the TMA-fed kernels are printed; a
    ``wgmma`` serialization advisory (ptxas C751x) or a spill in any K1/K2
-   instance fails, and the wgmma body's resident blocks per K-split
+   or K7 instance fails, and the wgmma body's resident blocks per K-split
    cluster size are printed beside the plan's;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
@@ -242,7 +245,30 @@ and Cosmos — on the card through the entry points a user calls, and fails
    shift 1.0, CFG 4.0, ``--cosmos-steps`` (20) steps, both trees, phase
    13's gates and records (the adaLN modulations planar: the split-K body
    3 times a block), ``cosmos_engine`` (two steps). Phases 17 and 18 free
-   their trees when they end.
+   their trees when they end;
+19. HunyuanVideo 13B: ``HYVID_13B_DIMS`` (hidden 3072, 24 heads of 128, 2
+   refiner blocks, 20 double + 40 single blocks unless
+   ``--hyvid-depth-double`` / ``--hyvid-depth-single`` cut them), seed-made
+   Q4_K stacked, with the Llama-3.1-8B-shaped llama encoder (Q8_0,
+   ``--hyvid-llama-layers`` (32) layers, 128256 rows through the guard)
+   and the HunyuanVideo VAE at its published widths (128/256/512/512, z
+   16) through ``HyVidPipeline.generate`` at 480×832 with 9 pixel frames (a
+   3 × 60 × 104 latent, 4680 + 256 tokens), guidance 6.0, shift 7.0,
+   ``--hyvid-steps`` (20) steps, one forward a step, decoded to 9 frames
+   (the VAE's mid-block attention on K7's D = 512 instance), both trees
+   (img_mod / txt_mod / modulation planar: the split-K body), phase 13's
+   gates (K7 D = 128 62 times a forward) and records; ``hyvid_engine``
+   (two steps). The reference's default is 9 latent frames (33 pixel
+   frames): the frame count is the cut;
+20. LTX-Video 2B: ``LTXV_2B_DIMS`` (dim 2048, 32 heads of 64, 28 blocks
+   unless ``--ltxv-depth`` cuts them), seed-made Q4_K stacked, with T5-xxl
+   (Q8_0, ``--ltxv-t5-layers`` (24) layers) and the LTX-Video 0.9 VAE
+   (128/256/512/512, 128 latent channels) through ``LTXVPipeline.generate``
+   at the published 768×512 and 121 frames (16 × 16 × 24 = 6144 voxels;
+   256 T5 tokens), CFG 3.0, shift 3.0, ``--ltxv-steps`` (20) steps,
+   decoded to 121 × 512 × 768, both trees, phase 13's gates (K7 D = 64 56
+   times a forward, self and cross) and records; ``ltxv_engine`` (two
+   steps). Phases 19 and 20 free their trees when they end.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -269,14 +295,22 @@ wide): ``WanPipeline.generate`` (CFG, latent statistics, the VAE decode, a
 dispatch window) and ``CosmosPipeline.generate``, then ``wan_engine`` and
 ``cosmos_engine`` on the w8a8 stacked trees, each request within 1e-2 of
 the direct sampler on the card and a snapshot after one tick restored
-into a fresh engine within 1e-3 of the uninterrupted run.
+into a fresh engine within 1e-3 of the uninterrupted run. Phase 4h does it
+for tiny HunyuanVideo (4 heads of 128) and LTX-Video (8 heads of 64)
+GGUFs with phase 4e's 2-layer llama-family encoder, a 2-layer T5 and
+small HunyuanVideo (its middle 64 wide) and LTX-Video VAE safetensors
+files: ``HyVidPipeline.generate`` and ``LTXVPipeline.generate`` with
+their VAEs and without, both VAEs' decode and encode → decode, then
+``hyvid_engine`` and ``ltxv_engine`` on the w8a8 stacked trees, each
+request within 1e-2 of the direct sampler on the card.
 Phase 3 also times K4, K7 and the split-K body at the serving shapes of
 four stacked requests, K7 at SD1's head dims 40, 80 and 160 and the
 sd3.5-large joint length, K4 and the split-K body at the sd3.5-large and
 SD1 shapes, and K7 (96 and 256), K4, K1/K2 and K6 (256) at the AuraFlow,
-Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes, and K4, K1's
+Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes, K4, K1's
 split-K body, K2 and K7 at the Qwen-Image, HiDream and Qwen2.5-VL encoder
-shapes.
+shapes, and K7 at the Wan, Cosmos, HunyuanVideo (joint D = 128, the VAE's
+D = 512) and LTX-Video (self and cross D = 64) shapes.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -379,7 +413,7 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8mm.py:81"),
     **{f"flash_attn_d{d}": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                             "comfyui_gguf_tpu/nn/attention.py:168")
-       for d in (40, 64, 80, 96, 128, 160, 256, 384)},
+       for d in (40, 64, 80, 96, 128, 160, 256, 384, 512)},
     # the f16 and f32 instances (dequant_dtype float16 / float32): the
     # Pallas bodies run with compute_dtype = dequant_dtype
     **{f"qmm_{lay}{body}{lora}{dt}": (
@@ -1232,6 +1266,19 @@ def kernel_phase(dev, sfu_per_s):
     attn_case("flash_attn cosmos self L=4096 D=128", 1, 32, 4096, 4096, 128)
     attn_case("flash_attn wan vae mid B=3 L=6240 D=384", 3, 1, 6240, 6240,
               384)
+    # HunyuanVideo and LTX-Video at phases 19-20's sizes: K7's D = 128
+    # instance at HunyuanVideo's joint length (24 heads over 3 x 30 x 52 =
+    # 4680 image + 256 text tokens), its D = 512 instance at the HunyuanVideo
+    # VAE's mid-block (one head of 512 channels over a 60 x 104 latent
+    # frame, 3 frames), the D = 64 instance at LTX-Video's self-attention
+    # (32 heads over 16 x 16 x 24 = 6144 voxels) and cross-attention (256
+    # T5 tokens)
+    attn_case("flash_attn hyvid joint L=4936 D=128", 1, 24, 4936, 4936, 128)
+    attn_case("flash_attn hyvid vae mid B=3 L=6240 D=512", 3, 1, 6240, 6240,
+              512)
+    attn_case("flash_attn ltxv self L=6144 D=64", 1, 32, 6144, 6144, 64)
+    attn_case("flash_attn ltxv cross Lq=6144 Lk=256 D=64", 1, 32, 6144, 256,
+              64)
     # K8: the probes at the tool's problem size
     probe_cases()
     return rows + sweep_rows
@@ -1861,6 +1908,256 @@ def video_tiny_phase(dev):
         if not vs_whole <= RESTORE_DELTA_MAX:
             raise SystemExit(f"{name}: the restored engine diverged "
                              f"({vs_whole})")
+    tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: tiny HunyuanVideo / LTX-Video from files, card against CPU
+# ---------------------------------------------------------------------------
+
+# HunyuanVideo: four heads of 128 (K7's D = 128), conditioned by phase 4e's
+# tiny llama-family encoder (1024 wide); LTX-Video: eight heads of 64 (D =
+# 64) over 128-channel voxels, conditioned by a 512-wide T5
+TINY_HYVID = dict(hidden=512, n_heads=4, depth_double=2, depth_single=2,
+                  refiner_depth=2, in_ch=16, text_dim=1024)
+TINY_LTXV = dict(dim=512, n_layers=2, in_ch=128, caption_dim=512)
+
+
+def _write_video2_files(tmp):
+    """Tiny HunyuanVideo and LTX-Video GGUFs (Q4_K, quantized as published
+    files are), a 2-layer Q8_0 llama GGUF with gpt2-BPE metadata, a 2-layer
+    Q8_0 T5 GGUF with a unigram tokenizer, and small HunyuanVideo (16
+    latent channels, its middle 64 wide: K7's D = 64) and LTX-Video (128
+    latent channels) VAEs as safetensors, all by the port's writers. →
+    their paths."""
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    out = {}
+    for name, dims, spec in (
+            ("hyvid", testing.HyVidDims(**TINY_HYVID),
+             testing.hyvid_shape_spec),
+            ("ltxv", testing.LTXVDims(**TINY_LTXV), testing.ltxv_shape_spec)):
+        out[name] = os.path.join(tmp, f"{name}.gguf")
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=0),
+            out[name], name, Q.Q4_K)
+    out["llama"] = os.path.join(tmp, "llama.gguf")
+    ld = testing.LlamaDims(**TINY_LLAMA)
+    testing.write_llama_gguf(testing.llama_state_dict(ld, seed=3),
+                             out["llama"], qtype=Q.Q8_0,
+                             tokenizer=testing.bpe_spec(ld.vocab))
+    out["t5"] = os.path.join(tmp, "t5.gguf")
+    testing.write_t5_gguf(
+        testing.t5_state_dict(testing.T5Dims(
+            d_model=TINY_LTXV["caption_dim"], d_kv=64, n_heads=8, d_ff=1024,
+            n_layers=2, vocab=64), seed=2),
+        out["t5"], qtype=Q.Q8_0, tokenizer=testing.unigram_spec(64))
+    out["hyvid_vae"] = os.path.join(tmp, "hyvid_vae.safetensors")
+    _safetensors.save_file(testing.hyvid_vae_state_dict(
+        testing.HyVidVAEDims(), seed=4), out["hyvid_vae"])
+    out["ltxv_vae"] = os.path.join(tmp, "ltxv_vae.safetensors")
+    _safetensors.save_file(testing.ltxv_vae_state_dict(
+        testing.LTXVVAEDims(latent=TINY_LTXV["in_ch"]), seed=5),
+        out["ltxv_vae"])
+    return out
+
+
+def video2_tiny_phase(dev):
+    """Phase 4h: HunyuanVideo and LTX-Video at tiny widths from files, on
+    the card and on the CPU with the same noise, within 3e-2 (relative
+    L2): ``load_diffusion_model``, ``load_text_encoder`` (llama, T5),
+    ``load_vae`` (kinds "hyvid" and "ltxv"); ``HyVidPipeline.generate``
+    (guidance 6.0, one forward a step, a dispatch window of 2) with the
+    HunyuanVideo VAE (its mid-block attention on K7) and without it;
+    ``LTXVPipeline.generate`` (CFG 3.0) through the LTX-Video VAE and
+    without it; both VAEs' ``decode``, and ``encode`` → ``decode`` of a
+    video in [-1, 1] (within 3e-2, or within 1.5 times the CPU's own bf16
+    vs f32 distance of that round trip where that is larger); then
+    ``hyvid_engine`` and ``ltxv_engine`` serving two requests each (guidance
+    6 and 1; CFG 3 and 1) on the w8a8 stacked trees, card vs CPU, each
+    request on the card within 1e-2 of the direct sampler at batch 1."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.models import hyvid_vae, ltxv_vae
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (
+        HyVidPipeline, LTXVPipeline, hyvid_engine, load_diffusion_model,
+        load_text_encoder, load_vae, ltxv_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow)
+
+    devs = (dev, "cpu")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    f = _write_video2_files(tmp.name)
+
+    def check(name, a, b, counts, need, limit=SAMPLER_DELTA_MAX):
+        a = torch.as_tensor(np.asarray(a, np.float32))
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        err = rel_l2(a, b)
+        out[name] = dict(rel_l2_vs_cpu=err, limit=limit, launches=counts)
+        log(f"  {name}: card vs CPU plain rel L2 {err:.3e} (limit "
+            f"{limit:.3e}), launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if not bool(torch.isfinite(a).all()) or not err <= limit:
+            raise SystemExit(f"{name}: card vs CPU rel L2 {err} > {limit}")
+        for k in need:
+            if counts[k] == 0:
+                raise SystemExit(f"{name} launched no {k}")
+
+    def on_card(fn):
+        _build.reset_launch_counts()
+        a = fn(0)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        return a, fn(1), counts
+
+    models = {a: [load_diffusion_model(f[a], device=d) for d in devs]
+              for a in ("hyvid", "ltxv")}
+    llama = [load_text_encoder(f["llama"], device=d) for d in devs]
+    t5 = [load_text_encoder(f["t5"], device=d) for d in devs]
+    vaes = {a: [load_vae(f[f"{a}_vae"], device=d) for d in devs]
+            for a in ("hyvid", "ltxv")}
+    for a, v in vaes.items():
+        if v[0][0] != a:
+            raise SystemExit(f"load_vae read a {a} VAE as {v[0][0]!r}")
+    hy = [HyVidPipeline(models["hyvid"][i], llama[i],
+                        vae_params=vaes["hyvid"][i][1]) for i in range(2)]
+    lt = [LTXVPipeline(models["ltxv"][i], t5[i],
+                       vae_params=vaes["ltxv"][i][1]) for i in range(2)]
+    gen = torch.Generator().manual_seed(17)
+    hy_noise = torch.randn((1, 2, 8, 8, 16), generator=gen)
+    lt_noise = torch.randn((1, 2 * 2 * 3, 128), generator=gen)
+    for vae in (True, False):
+        if not vae:
+            for p in hy + lt:
+                p.vae_params = None
+        a, b, c = on_card(lambda i: hy[i].generate(
+            PROMPTS[0], latent_frames=2, latent_height=8, latent_width=8,
+            steps=3, guidance=6.0, max_len=32, dispatch_window=2,
+            noise=hy_noise))
+        if a.shape != ((5, 32, 32, 3) if vae else (2, 8, 8, 16)):
+            raise SystemExit(f"tiny HyVidPipeline: an output of shape "
+                             f"{a.shape}")
+        check(f"tiny HyVidPipeline (guidance 6, "
+              f"{'VAE decode' if vae else 'latent'})", a, b, c,
+              ("flash_attn_d128", "qmm_nib4", "qmm_nib4_smallm", "qmm_int8")
+              + (("flash_attn_d64",) if vae else ()))
+        a, b, c = on_card(lambda i: lt[i].generate(
+            PROMPTS[0], latent_frames=2, latent_height=2, latent_width=3,
+            steps=3, cfg_scale=3.0, negative_prompt="rain", max_t5_len=32,
+            noise=lt_noise))
+        if a.shape != ((9, 64, 96, 3) if vae else (2, 2, 3, 128)):
+            raise SystemExit(f"tiny LTXVPipeline: an output of shape "
+                             f"{a.shape}")
+        check(f"tiny LTXVPipeline (CFG 3, "
+              f"{'VAE decode' if vae else 'latent'})", a, b, c,
+              ("flash_attn_d64", "qmm_nib4", "qmm_int8"))
+
+    # both VAEs alone: decode of a latent, and encode → decode of a video
+    # in [-1, 1] (the CPU's float32 decode of that latent, clamped): the
+    # round trip is held to 3e-2 or to 1.5 times the distance bfloat16
+    # compute itself puts between the CPU's bf16 and f32 round trips,
+    # whichever is larger (the HunyuanVideo VAE's mid-block attention
+    # carries the encoder's bf16 roundings into the decoder about 3x: 4.1e-2
+    # on the CPU alone, 1.5e-2 without the attention)
+    f32 = QuantConfig(dequant_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    for arch, mod, z_shape in (("hyvid", hyvid_vae, (1, 2, 6, 8, 16)),
+                               ("ltxv", ltxv_vae, (1, 2, 2, 3, 128))):
+        z = torch.randn(z_shape, generator=gen)
+        with torch.no_grad():
+            video = mod.decode(*vaes[arch][1][1:], z, qcfg=f32).clamp(-1, 1)
+
+        def vae_run(i, mod=mod, z=z, video=video, arch=arch,
+                    roundtrip=False, qcfg=QuantConfig()):
+            _, params, cfg = vaes[arch][i]
+            with torch.no_grad():
+                if roundtrip:
+                    out = mod.decode(params, cfg, mod.encode(
+                        params, cfg, video.to(devs[i]), qcfg=qcfg),
+                        qcfg=qcfg)
+                else:
+                    out = mod.decode(params, cfg, z.to(devs[i]), qcfg=qcfg)
+            return out.float().cpu().numpy()
+        need = ("flash_attn_d64",) if arch == "hyvid" else ()
+        a, b, c = on_card(vae_run)
+        check(f"tiny {arch} VAE decode", a, b, c, need)
+        a, b, c = on_card(lambda i, r=vae_run: r(i, roundtrip=True))
+        yard = rel_l2(torch.from_numpy(b), torch.from_numpy(
+            vae_run(1, roundtrip=True, qcfg=f32)))
+        check(f"tiny {arch} VAE encode -> decode", a, b, c, need,
+              limit=max(SAMPLER_DELTA_MAX, 1.5 * yard))
+        out[f"tiny {arch} VAE encode -> decode"]["cpu_bf16_vs_f32"] = yard
+
+    # the engines on the w8a8 stacked trees
+    rng = np.random.default_rng(13)
+    hcfg = models["hyvid"][0].config
+    lcfg = models["ltxv"][0].config
+    L = 2 * 2 * 3
+    pos = np.stack(np.meshgrid(np.arange(2), np.arange(2), np.arange(3),
+                               indexing="ij"), axis=-1).reshape(L, 3)
+    engines = {
+        "hyvid": (hyvid_engine, [
+            (rng.standard_normal((2, 8, 8, hcfg.in_channels)).astype(
+                np.float32),
+             {"txt": rng.standard_normal((24, hcfg.text_dim)).astype(
+                 np.float32), "guidance": np.float32(g)},
+             linear_schedule(2 + i)) for i, g in enumerate((6.0, 1.0))]),
+        "ltxv": (ltxv_engine, [
+            (rng.standard_normal((L, lcfg.in_channels)).astype(np.float32),
+             {"ids": pos.astype(np.int32),
+              "ctx": rng.standard_normal((24, lcfg.caption_dim)).astype(
+                  np.float32),
+              "nctx": rng.standard_normal((24, lcfg.caption_dim)).astype(
+                  np.float32), "cfg_scale": np.float32(s)},
+             linear_schedule(2 + i)) for i, s in enumerate((3.0, 1.0))])}
+    for arch, (mk, reqs) in engines.items():
+        ms = [m.requantize_i8().stack() for m in models[arch]]
+
+        def serve(i, ms=ms, mk=mk, reqs=reqs, arch=arch):
+            eng = mk(ms[i], max_batch=2)
+            hs = [eng.submit(x.copy(), dict(c), s) for x, c, s in reqs]
+            eng.run_until_drained()
+            if any(h.error is not None or not h.finished for h in hs):
+                raise SystemExit(f"tiny {arch} engine: a request failed")
+            return np.stack([h.result for h in hs])
+        a, b, c = on_card(serve)
+        name = f"tiny {mk.__name__} w8a8 stacked (2 requests)"
+        check(name, a, b, c, ("i8mm", "flash_attn_d128" if arch == "hyvid"
+                              else "flash_attn_d64"))
+
+        def direct(x, cond, sig, m=ms[0], arch=arch):
+            def vel(xc, sg):
+                ts = sg.to(torch.float32).expand(1)
+                if arch == "hyvid":
+                    txt = torch.as_tensor(cond["txt"], device=dev)[None]
+                    g = torch.full((1,), float(cond["guidance"]) * 1000.0,
+                                   device=dev)
+                    return m.forward(xc, txt.to(torch.bfloat16), ts, g)
+                ids = torch.as_tensor(cond["ids"], device=dev)[None]
+                v_c, v_u = (m.forward(xc, ids, torch.as_tensor(
+                    cond[k], device=dev)[None].to(torch.bfloat16), ts)
+                    for k in ("ctx", "nctx"))
+                return v_u.float() + float(cond["cfg_scale"]) * (
+                    v_c.float() - v_u.float())
+            x0 = torch.as_tensor(x, device=dev)[None].to(torch.bfloat16)
+            with torch.no_grad():
+                return sample_flow(vel, x0, sig)[0].float().cpu()
+        vs_direct = [rel_l2(torch.from_numpy(np.asarray(r, np.float32)),
+                            direct(*req)) for r, req in zip(a, reqs)]
+        out[name]["rel_l2_vs_direct"] = vs_direct
+        log(f"  {name}: vs the direct sampler rel L2 "
+            f"{', '.join(f'{e:.3e}' for e in vs_direct)}")
+        if not max(vs_direct) <= ENGINE_DELTA_MAX:
+            raise SystemExit(f"{name}: a served request differs from the "
+                             f"direct sampler by {max(vs_direct)}")
     tmp.cleanup()
     return out
 
@@ -3778,12 +4075,13 @@ def _no_activation_rounding():
 @contextlib.contextmanager
 def _block_taps(arch, tap):
     """Every block call of an ``arch`` forward (AuraFlow's double and
-    single layers; Lumina 2's refiner and main blocks; Qwen-Image's, Wan's
-    and Cosmos's blocks; HiDream's double and single blocks) goes through
+    single layers; Lumina 2's refiner and main blocks; Qwen-Image's, Wan's,
+    Cosmos's and LTX-Video's blocks; HiDream's and HunyuanVideo's double
+    and single blocks) goes through
     ``tap(block, args)``;
     the forward carries on with what it returns."""
-    from comfyui_gguf_tpu_torch.models import (aura, cosmos, hidream,
-                                               lumina2, qwen_image, wan)
+    from comfyui_gguf_tpu_torch.models import (aura, cosmos, hidream, hyvid,
+                                               ltxv, lumina2, qwen_image, wan)
 
     mod, names = {"aura": (aura, ("_double_layer", "_single_layer")),
                   "lumina2": (lumina2, ("_block",)),
@@ -3791,7 +4089,9 @@ def _block_taps(arch, tap):
                   "wan": (wan, ("_block",)),
                   "cosmos": (cosmos, ("_block",)),
                   "hidream": (hidream, ("_double_block",
-                                        "_single_block"))}[arch]
+                                        "_single_block")),
+                  "hyvid": (hyvid, ("_double_block", "_single_block")),
+                  "ltxv": (ltxv, ("_block",))}[arch]
     saved = {n: getattr(mod, n) for n in names}
     for n, block in saved.items():
         setattr(mod, n, lambda *a, _block=block: tap(_block, a))
@@ -5091,6 +5391,236 @@ def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: HunyuanVideo 13B and LTX-Video 2B at published width
+# ---------------------------------------------------------------------------
+
+# phase 19's latent: 480x832 with 9 pixel frames, Wan's geometry (the
+# reference's HyVidPipeline default is 9 latent frames, 33 pixel frames:
+# the frame count is the cut); phase 20's: the published 768x512 at 121
+# frames, 16 x 16 x 24 latent voxels
+HYVID_LATENT = (3, 60, 104)
+LTXV_LATENT = (16, 16, 24)
+
+
+def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
+    """Phase 19, HunyuanVideo 13B (``HYVID_13B_DIMS``: hidden 3072, 24 heads
+    of 128, 2 refiner blocks, ``depth`` = (double, single) of 20 + 40
+    blocks) with the Llama-3.1-8B-shaped llama encoder for the
+    llava-llama-3 text tower (Q8_0, ``enc_layers`` of 32, 128256 rows
+    through the big-embed guard) and the HunyuanVideo VAE at its published
+    widths (``HYVID_VAE_DIMS``), through ``HyVidPipeline.generate`` at
+    480×832 with 9 pixel frames (a 3 × 60 × 104 latent, 4680 image + 256
+    text tokens), guidance 6.0, shift 7.0, ``steps`` steps (one forward a
+    step), decoded to 9 frames with the VAE's mid-block attention on K7's
+    D = 512 instance; or phase 20, LTX-Video 2B (``LTXV_2B_DIMS``: dim 2048,
+    32 heads of 64, ``depth`` of 28 blocks) with T5-xxl (Q8_0,
+    ``enc_layers`` of 24) and the LTX-Video VAE at the published 0.9
+    widths (``LTXV_VAE_DIMS``), through ``LTXVPipeline.generate`` at
+    768×512 with 121 frames (16 × 16 × 24 = 6144 voxels; 256 T5 tokens),
+    CFG 3.0, shift 3.0, decoded to 121 × 512 × 768. Both seed-made Q4_K
+    stacked, on the bf16-fused tree and then on the w8a8 tree, with the
+    gates of phases 13-18 (``_run_trees``, ``_tree_check``: K7 62 times a
+    HunyuanVideo forward at D = 128, 56 times an LTX-Video forward at
+    D = 64; each kernel call against its plain version; each w8a8 block
+    within ``W8A8_BLOCK_DELTA_MAX`` of the bf16-fused block). Then the
+    arch's engine serves two requests for ``engine_steps`` steps, each
+    within 1e-2 of the direct sampler at batch 1. The final latents' and
+    videos' distances, s/step, the stage seconds, one profiled w8a8 forward
+    (the busy share) and the peak memory are recorded. The trees are freed
+    at the end."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.lifecycle import free_tree
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import (
+        DiffusionModel, HyVidPipeline, LTXVPipeline, _text_states,
+        hyvid_engine, ltxv_engine)
+    from comfyui_gguf_tpu_torch.sampling import (linear_schedule,
+                                                 sample_flow, shift_sigmas)
+
+    is_hy = arch == "hyvid"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if is_hy:
+        dims = dataclasses.replace(testing.HYVID_13B_DIMS,
+                                   depth_double=depth[0],
+                                   depth_single=depth[1])
+        params = testing.hyvid_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                     seed=0, device=dev)
+        enc = _llama_encoder(dev, testing.LLAMA31_8B_DIMS, enc_layers, 52)
+        vae = testing.hyvid_vae_random_params(testing.HYVID_VAE_DIMS,
+                                              seed=41, device=dev)
+        lat_shape, txt_len, in_ch = HYVID_LATENT, 256, dims.in_ch
+        n_k7, k7, fwd_per_step = (dims.refiner_depth + sum(depth),
+                                  "flash_attn_d128", 1)
+        log(f"  HunyuanVideo 13B width (hidden 3072, 24 heads of 128, mlp "
+            f"12288, 2 refiner blocks), {depth[0]} + {depth[1]} of 20 + 40 "
+            f"blocks; 480x832, 9 frames = a 3 x 60 x 104 latent, 4680 + 256 "
+            f"tokens; the Llama-3.1-8B-shaped encoder ({enc_layers} of 32 "
+            f"layers, Q8_0); the HunyuanVideo VAE (widths 128/256/512/512, "
+            f"z 16, 246M parameters)")
+    else:
+        dims = dataclasses.replace(testing.LTXV_2B_DIMS, n_layers=depth)
+        params = testing.ltxv_random_stacked_params(dims, qtype=Q.Q4_K,
+                                                    seed=0, device=dev)
+        enc = _t5_encoder(dev, testing.T5_XXL_DIMS, enc_layers, 43)
+        vae = testing.ltxv_vae_random_params(testing.LTXV_VAE_DIMS, seed=44,
+                                             device=dev)
+        lat_shape, txt_len, in_ch = LTXV_LATENT, 256, dims.in_ch
+        n_k7, k7, fwd_per_step = 2 * depth, "flash_attn_d64", 2
+        log(f"  LTX-Video 2B width (dim 2048, 32 heads of 64, ffn 8192), "
+            f"{depth} of 28 blocks; 768x512, 121 frames = 16 x 16 x 24 = "
+            f"6144 voxels; T5-xxl ({enc_layers} of 24 layers, Q8_0, 256 "
+            f"tokens); the LTX-Video 0.9 VAE (widths 128/256/512/512, 128 "
+            f"latent channels, 297M parameters)")
+    model = DiffusionModel(arch=arch, params=params, config=dims.config(),
+                           qcfg=QuantConfig(), device=torch.device(dev))
+    torch.cuda.synchronize()
+    pipe = (HyVidPipeline(model, enc, vae_params=vae) if is_hy
+            else LTXVPipeline(model, enc, vae_params=vae))
+    guidance, cfg_scale = 6.0, 3.0
+    res = {"depth": depth, "steps": steps, "shift": pipe.shift,
+           "encoder_layers": enc_layers, "latent": lat_shape,
+           "build_s": time.perf_counter() - t0}
+    res.update({"guidance": guidance} if is_hy else {"cfg_scale": cfg_scale})
+    log(f"  random Q4_K stacked tree, encoder and VAE built on the card in "
+        f"{res['build_s']:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB")
+
+    f, h, w = lat_shape
+    L = f * h * w
+    launches = {k: 0 for k in _build.LAUNCHES}
+    fwds, recorded, fails = {}, [], []
+    gen = torch.Generator(device=dev).manual_seed(33)
+    cond = _text_states(enc, PROMPTS[0], txt_len)
+    t = torch.full((1,), 0.7, device=dev)
+    if is_hy:
+        x0 = torch.randn((1, *lat_shape, in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        g = torch.full((1,), guidance * 1000.0, device=dev)
+        inputs = (x0, cond, t, g)
+    else:
+        pos = torch.stack(torch.meshgrid(
+            *(torch.arange(n, device=dev) for n in lat_shape),
+            indexing="ij"), dim=-1).reshape(1, L, 3).to(torch.int32)
+        x0 = torch.randn((1, L, in_ch), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        inputs = (x0, pos, cond, t)
+
+    def check(tree):
+        fwds[tree] = _tree_check(model, arch, inputs, tree,
+                                 res.setdefault(tree, {}), recorded, fails)
+
+    videos = {}
+    want_shape = ((1 + 4 * (f - 1), 8 * h, 8 * w, 3) if is_hy
+                  else (1 + 8 * (f - 1), 32 * h, 32 * w, 3))
+
+    def generate():
+        if is_hy:
+            vid = pipe.generate(PROMPTS[0], latent_frames=f,
+                                latent_height=h, latent_width=w, steps=steps,
+                                guidance=guidance, seed=0, max_len=txt_len,
+                                dispatch_window=4)
+        else:
+            vid = pipe.generate(PROMPTS[0], latent_frames=f, latent_height=h,
+                                latent_width=w, steps=steps,
+                                cfg_scale=cfg_scale, seed=0,
+                                negative_prompt=PROMPTS[1],
+                                max_t5_len=txt_len)
+        if vid.shape != want_shape or not np.isfinite(vid).all():
+            raise SystemExit(f"{arch}: a video of shape {vid.shape} or "
+                             f"non-finite")
+        videos[len(videos)] = vid
+        return (pipe.last_latent[0].float().cpu().numpy(),
+                dict(pipe.last_timings))
+
+    def want(tree):
+        need = {"i8mm" if tree == "w8a8" else "qmm_nib4": 1}
+        if is_hy:
+            # the llama encoder's 7 linears a layer, once; the VAE's
+            # mid-block attention; img_mod / txt_mod / modulation planar at
+            # M = 1 (the split-K body)
+            need.update(qmm_int8=7 * enc_layers, flash_attn_d512=1,
+                        qmm_nib4_smallm=(2 * depth[0] + depth[1]) * steps)
+        else:
+            need["qmm_int8"] = 2 * 7 * enc_layers  # prompt and negative
+        return need
+
+    finals = _run_trees(arch, model, generate, check, k7, n_k7, steps,
+                        fwd_per_step, res, launches, want)
+    res["forward_rel_delta_w8a8_vs_bf16"] = rel_l2(fwds["w8a8"].float(),
+                                                   fwds["bf16_fused"].float())
+    res["latent_rel_delta_w8a8_vs_bf16"] = rel_l2(finals["w8a8"],
+                                                  finals["bf16_fused"])
+    res["video_rel_delta_w8a8_vs_bf16"] = rel_l2(
+        torch.from_numpy(videos[1]), torch.from_numpy(videos[0]))
+    del videos
+    log(f"  requantize_i8 {res['requantize_s']:.3f}s (peak "
+        f"{res['requantize_peak_gib']:.2f} GiB); w8a8 vs bf16-fused: one "
+        f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
+        f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e}, decoded video "
+        f"{res['video_rel_delta_w8a8_vs_bf16']:.3e}")
+    before = dict(_build.LAUNCHES)
+    res["profile_w8a8_forward"] = profile_forward(
+        model, inputs, res["w8a8"]["s_per_step"] / fwd_per_step,
+        f"{arch} w8a8")
+    _build.LAUNCHES.update(before)
+
+    # the engine: two requests (guidance 6 and 1, or CFG 3 and 1) against
+    # the direct sampler at batch 1
+    sig = shift_sigmas(linear_schedule(engine_steps), pipe.shift)
+    if is_hy:
+        reqs = [(torch.randn((*lat_shape, in_ch), generator=gen,
+                             device=dev).to(torch.bfloat16),
+                 {"txt": cond[0], "guidance": torch.tensor(gd, device=dev)},
+                 sig) for gd in (guidance, 1.0)]
+
+        def direct(x, c, s):
+            def vel(xc, sg):
+                return model.forward(
+                    xc, c["txt"][None].to(torch.bfloat16),
+                    sg.to(torch.float32).expand(1),
+                    (c["guidance"] * 1000.0).reshape(1).float())
+            return sample_flow(vel, x[None], s)[0]
+        mk = hyvid_engine
+    else:
+        nctx = _text_states(enc, PROMPTS[1], txt_len)
+        reqs = [(torch.randn((L, in_ch), generator=gen,
+                             device=dev).to(torch.bfloat16),
+                 {"ids": pos[0], "ctx": cond[0], "nctx": nctx[0],
+                  "cfg_scale": torch.tensor(scale, device=dev)}, sig)
+                for scale in (cfg_scale, 1.0)]
+
+        def direct(x, c, s):
+            def vel(xc, sg):
+                ts = sg.to(torch.float32).expand(1)
+                v_c, v_u = (model.forward(xc, c["ids"][None],
+                                          c[k][None].to(torch.bfloat16), ts)
+                            for k in ("ctx", "nctx"))
+                return v_u.float() + float(c["cfg_scale"]) * (
+                    v_c.float() - v_u.float())
+            return sample_flow(vel, x[None], s)[0]
+        mk = ltxv_engine
+
+    _engine_check(lambda: mk(model, max_batch=2), reqs, direct, res,
+                  launches, fails)
+    if fails:
+        raise SystemExit(f"{arch}: " + "; ".join(fails))
+    res["launches"] = launches
+    for tree in (model.params, enc.params, vae):
+        free_tree(tree)
+    del model, enc, pipe, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -5122,6 +5652,13 @@ def main() -> int:
     ap.add_argument("--cosmos-depth", type=int, default=28)
     ap.add_argument("--cosmos-steps", type=int, default=20)
     ap.add_argument("--cosmos-t5-layers", type=int, default=24)
+    ap.add_argument("--hyvid-depth-double", type=int, default=20)
+    ap.add_argument("--hyvid-depth-single", type=int, default=40)
+    ap.add_argument("--hyvid-steps", type=int, default=20)
+    ap.add_argument("--hyvid-llama-layers", type=int, default=32)
+    ap.add_argument("--ltxv-depth", type=int, default=28)
+    ap.add_argument("--ltxv-steps", type=int, default=20)
+    ap.add_argument("--ltxv-t5-layers", type=int, default=24)
     args = ap.parse_args()
 
     import torch
@@ -5177,21 +5714,22 @@ def main() -> int:
                                        "stores, 0 bytes spill loads")
                      for ln in spills):
                 log(f"  {src}: spills or stack: {spills}")
-    # K1/K2: no wgmma serialization advisory (ptxas C751x) and no spill
-    # in any instance
+    # K1/K2 and K7: no wgmma serialization advisory (ptxas C751x) and no
+    # spill in any instance (K7's D = 512 among them)
     qmm_flags = [f"{src}: {ln.strip()[:160]}"
-                 for src in QMM_SOURCES
+                 for src in QMM_SOURCES + ("flash_attn.cu",)
                  for ln in rep.get("ptxas", {}).get(src, [])
                  if "C751" in ln or ("spill" in ln
                                      and " 0 bytes spill stores, 0 bytes "
                                          "spill loads" not in ln)]
     if qmm_flags:
-        raise SystemExit("K1/K2 ptxas advisories or spills: "
+        raise SystemExit("K1/K2 or K7 ptxas advisories or spills: "
                          + "; ".join(qmm_flags))
     lib = _build.lib()
     from comfyui_gguf_tpu_torch.ops.qmatmul import _RESIDENT
     resident = {s: lib.qmm_wgmma_resident_blocks(2, s) for s in _RESIDENT}
-    log("  K1/K2 wgmma body: no C751x advisory, no spill; blocks resident "
+    log("  K1/K2 and K7: no C751x advisory, no spill; the wgmma body's "
+        "blocks resident "
         "at once by K-split cluster size (cudaOccupancyMaxActiveClusters x "
         "size): " + ", ".join(f"{s}: {n} (plan {_RESIDENT[s]})"
                               for s, n in resident.items()))
@@ -5200,7 +5738,7 @@ def main() -> int:
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
         + "; flash_attn.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
-                    for d in (40, 64, 80, 96, 128, 160, 256, 384))
+                    for d in (40, 64, 80, 96, 128, 160, 256, 384, 512))
         + "; i8attn.cu "
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
                     for d in (128, 256, 512) for m in ("pv", "qk"))
@@ -5263,6 +5801,9 @@ def main() -> int:
     qh_tiny = qh_tiny_phase(dev)
     log("[4g tiny Wan 2.1 (with its VAE) / Cosmos from files, card vs CPU]")
     video_tiny = video_tiny_phase(dev)
+    log("[4h tiny HunyuanVideo / LTX-Video (with their VAEs) from files, "
+        "card vs CPU]")
+    video2_tiny = video2_tiny_phase(dev)
 
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
@@ -5338,6 +5879,16 @@ def main() -> int:
     cosmos_res = video_full_phase(dev, "cosmos", args.cosmos_depth,
                                   args.cosmos_steps, args.cosmos_t5_layers,
                                   min(args.cosmos_steps, 2))
+    log("[19 HunyuanVideo 13B at published width, the Llama-3.1-8B-shaped "
+        "encoder, the HunyuanVideo VAE, hyvid_engine]")
+    hyvid_res = video2_full_phase(
+        dev, "hyvid", (args.hyvid_depth_double, args.hyvid_depth_single),
+        args.hyvid_steps, args.hyvid_llama_layers, min(args.hyvid_steps, 2))
+    log("[20 LTX-Video 2B at published width, T5-xxl, the LTX-Video VAE, "
+        "ltxv_engine]")
+    ltxv_res = video2_full_phase(dev, "ltxv", args.ltxv_depth,
+                                 args.ltxv_steps, args.ltxv_t5_layers,
+                                 min(args.ltxv_steps, 2))
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
@@ -5345,6 +5896,7 @@ def main() -> int:
     for counts in (*(v["launches"] for v in tiny.values()),
                    *(v["launches"] for v in tiny_dt.values()),
                    *(v["launches"] for v in video_tiny.values()),
+                   *(v["launches"] for v in video2_tiny.values()),
                    *(v["launches"] for v in tiny_pipe.values()),
                    *(v["launches"] for v in sd_tiny.values()),
                    *(v["launches"] for v in dit_tiny.values()),
@@ -5355,7 +5907,8 @@ def main() -> int:
                    unet_res["launches"], aura_res["launches"],
                    lumina_res["launches"], qwen_res["launches"],
                    hidream_res["launches"], wan_res["launches"],
-                   cosmos_res["launches"]):
+                   cosmos_res["launches"], hyvid_res["launches"],
+                   ltxv_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

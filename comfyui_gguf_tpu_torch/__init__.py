@@ -10,8 +10,11 @@ SD1/SDXL UNet (``SD1Pipeline``, ``SDXLPipeline``, ``unet_engine``),
 AuraFlow (``AuraPipeline``, ``aura_engine``), Lumina Image 2.0
 (``Lumina2Pipeline``, ``lumina2_engine``, with the llama-family text
 encoder), Qwen-Image (``QwenImagePipeline``, ``qwen_image_engine``, with
-the Qwen2.5-VL encoder and its vision tower) and HiDream-I1
-(``HiDreamPipeline``, ``hidream_engine``, the MoE DiT) run the same way, with
+the Qwen2.5-VL encoder and its vision tower), HiDream-I1
+(``HiDreamPipeline``, ``hidream_engine``, the MoE DiT) and the video DiTs
+Wan 2.1, Cosmos, HunyuanVideo and LTX-Video (``WanPipeline``,
+``CosmosPipeline``, ``HyVidPipeline``, ``LTXVPipeline`` and their engines,
+with the causal 3-D VAEs) run the same way, with
 hand-written CUDA kernels (``csrc/``) for the fused quantized matmuls (with
 the LoRA rank term in their epilogues), flash attention and int8 flash
 attention. Entry points run on the card unless the caller asks for
@@ -44,6 +47,8 @@ _PUBLIC = {
     "HiDreamPipeline": ".pipeline",
     "WanPipeline": ".pipeline",
     "CosmosPipeline": ".pipeline",
+    "HyVidPipeline": ".pipeline",
+    "LTXVPipeline": ".pipeline",
     "VideoFlowPipeline": ".pipeline",
     "qwen_vl_encode_with_image": ".pipeline",
     "QuantConfig": ".nn.layers",
@@ -65,6 +70,8 @@ _PUBLIC = {
     "hidream_engine": ".pipeline",
     "wan_engine": ".pipeline",
     "cosmos_engine": ".pipeline",
+    "hyvid_engine": ".pipeline",
+    "ltxv_engine": ".pipeline",
     "make_flow_engine": ".pipeline",
     "ContinuousBatchEngine": ".serving",
     "EngineGroup": ".serving",

@@ -624,6 +624,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d(64 x 32, f32) (+)= a(64 x 16 bf16) * b(16 x 32 bf16), both read from
+// shared memory through K-major descriptors; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d(64 x 64, f32) (+)= a(64 x 16 bf16) * b(16 x 64 bf16), both read from
 // shared memory through K-major descriptors; scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],

@@ -63,6 +63,19 @@
 // 2-stage ring. The price is the score work done three times: 3 x 2·L²·D
 // for Q·Kᵀ beside 2·L²·D for P·V, twice the operations of one pass, which
 // a first instance that is right accepts (PERF.md has its time).
+//
+// D = 512 (the HunyuanVideo VAE's single-head mid-block attention: one head
+// of the block's 512 channels over a frame's positions) splits the output
+// columns as D = 384 does, 4 blocks of 128 per query tile. With 64-key
+// tiles it would need 1 + 128 (Q) + 2 x 64 (K) + 2 x 16 (V) = 289 KB; of
+// the layouts that fit, this instance takes 32-key tiles: 1 + 128 + 2 x 32
+// + 2 x 8 = 209 KB, the 2-stage ring and the two consumer warpgroups kept,
+// so nothing else of the body changes (S is one m64n32k16 wgmma a 16-wide
+// d step, P two 16-key fragments). A 64-row, one-warpgroup block would fit
+// at 225 KB with little room left, and K streamed in d chunks through a
+// ring would need a second pipeline in the consumers. The price is again
+// the scores: 4 x 2·L²·D for Q·Kᵀ beside 2·L²·D for P·V, 2.5 times the
+// operations of one pass, and twice the tile steps of 64-key tiles.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -78,7 +91,8 @@ template <int D>
 struct FShape {
   static constexpr int NC = (D + CHUNK - 1) / CHUNK;  // d chunks a row
   static constexpr int DP = NC * CHUNK;      // D padded to whole chunks
-  static constexpr int BKV = DP > 128 ? 64 : 128;     // keys a tile
+  // keys a tile: 128, 64 past D = 128, 32 past D = 384
+  static constexpr int BKV = DP > 384 ? 32 : DP > 128 ? 64 : 128;
   // output columns a block owns: all of them up to 256, else 128 (grid z
   // holds NSLICE blocks per (b, query tile), each a slice of V and out)
   static constexpr int DV = DP > 256 ? 128 : DP;
@@ -101,8 +115,10 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[BKV / 2],
                                          int scale_d) {
   if constexpr (BKV == 128) {
     wgmma_m64n128k16_ss(s, desc_q, desc_k, scale_d);
-  } else {
+  } else if constexpr (BKV == 64) {
     wgmma_m64n64k16_ss(s, desc_q, desc_k, scale_d);
+  } else {
+    wgmma_m64n32k16_ss(s, desc_q, desc_k, scale_d);
   }
 }
 
@@ -373,14 +389,15 @@ extern "C" int flash_attn_smem_bytes(int D) {
     case 160: return FShape<160>::SMEM;
     case 256: return FShape<256>::SMEM;
     case 384: return FShape<384>::SMEM;
+    case 512: return FShape<512>::SMEM;
     default: return 0;
   }
 }
 
 // Plain C entry (bound with ctypes). q/k/v/out are (B, H, L, D) views with
 // unit stride along D; strides[12] = (b, h, l) element strides of q, k, v
-// and out. The wrapper checks D in {40, 64, 80, 96, 128, 160, 256, 384},
-// Lk >= 1,
+// and out. The wrapper checks D in {40, 64, 80, 96, 128, 160, 256, 384,
+// 512}, Lk >= 1,
 // and TMA's rule for the base and the strides (multiples of 16 bytes).
 // Returns cudaGetLastError().
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
@@ -401,6 +418,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
       return launch<256>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     case 384:
       return launch<384>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
+    case 512:
+      return launch<512>(q, k, v, out, B, H, Lq, Lk, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,10 +18,11 @@ nothing of the reference package:
 * a nested dict is a stacked group (or any subtree).
 
 So one numpy tree serves both packages, whichever model it belongs to:
-the flux trees (LoRA-patched ones too), the Wan and Cosmos trees (flat or
-stacked; Wan's patch embed a 5-D conv kernel), a T5 tree with Q8_0 planar
-linears, dense CLIP, image-VAE and Wan-VAE state dicts (the video VAE's
-3-D kernels (O, I, kt, kh, kw) in both packages).
+the flux trees (LoRA-patched ones too), the Wan, Cosmos, HunyuanVideo and
+LTX-Video trees (flat or stacked, planar or int8; the Wan and HunyuanVideo
+patch embeds 5-D conv kernels), a T5 tree with Q8_0 planar linears, dense
+CLIP, image-VAE and Wan, HunyuanVideo and LTX-Video VAE state dicts (the
+video VAEs' 3-D kernels (O, I, kt, kh, kw) in both packages).
 
 The planar byte layout is the same in both packages, so the carry is a
 copy; the int8 codes are the same values, stored transposed in the port

@@ -1,10 +1,11 @@
 """Synthetic builders for tests, smoke runs and benches (PyTorch port of the
 flux, SD3, SD1/SDXL UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan,
-Cosmos, T5, CLIP, llama and VAE parts of comfyui_gguf_tpu/models/
-testing.py): flux, SD3, UNet, AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan
-2.1 and Cosmos trees and files, T5 / UMT5 / CLIP-L / CLIP-G / llama-family
-/ Qwen-VL vision tower / AutoencoderKL / Wan 2.1 video VAE parameter trees
-at tiny and at published widths, an mmproj sidecar writer, and synthetic
+Cosmos, HunyuanVideo, LTX-Video, T5, CLIP, llama and VAE parts of
+comfyui_gguf_tpu/models/testing.py): flux, SD3, UNet, AuraFlow, Lumina 2,
+Qwen-Image, HiDream, Wan 2.1, Cosmos, HunyuanVideo and LTX-Video trees and
+files, T5 / UMT5 / CLIP-L / CLIP-G / llama-family / Qwen-VL vision tower /
+AutoencoderKL / Wan 2.1, HunyuanVideo and LTX-Video video VAE parameter
+trees at tiny and at published widths, an mmproj sidecar writer, and synthetic
 vocabularies for the native tokenizers.
 
 Random packed weights are generated directly on the device from a seed
@@ -1351,6 +1352,154 @@ def cosmos_random_stacked_params(d: CosmosDims, qtype=Q.Q4_K, seed: int = 0,
                                     qtype=qtype, seed=seed, device=device)
 
 
+
+@dataclasses.dataclass(frozen=True)
+class HyVidDims:
+    """HunyuanVideo DiT dims (models/hyvid.py HyVidConfig fields, and the
+    token refiner's block count)."""
+    hidden: int = 128
+    n_heads: int = 2
+    depth_double: int = 2
+    depth_single: int = 2
+    refiner_depth: int = 1
+    in_ch: int = 16
+    text_dim: int = 64
+
+    @property
+    def mlp(self) -> int:
+        return 4 * self.hidden
+
+    def config(self):
+        from .hyvid import HyVidConfig
+
+        return HyVidConfig(hidden=self.hidden, n_heads=self.n_heads,
+                           depth_double=self.depth_double,
+                           depth_single=self.depth_single,
+                           in_channels=self.in_ch, text_dim=self.text_dim)
+
+
+# HunyuanVideo 13B: hidden 3072, 24 heads of 128, 20 double + 40 single
+# blocks, mlp ratio 4, 2 token-refiner blocks, llava-llama-3 text states
+# (4096), 16-channel latents, (1,2,2) patches
+HYVID_13B_DIMS = HyVidDims(hidden=3072, n_heads=24, depth_double=20,
+                           depth_single=40, refiner_depth=2, in_ch=16,
+                           text_dim=4096)
+
+
+def hyvid_shape_spec(d: HyVidDims):
+    """(nonblock, groups) shape spec of models/hyvid.py's keys (the
+    reference's ``hyvid_shape_spec``)."""
+    H, T, C, M = d.hidden, d.text_dim, d.in_ch, d.mlp
+    hd = H // d.n_heads
+    nonblock = {"img_in.proj.weight": (H, C, 1, 2, 2),
+                "img_in.proj.bias": (H,)}
+
+    def lin(name, o, i):
+        nonblock[f"{name}.weight"] = (o, i)
+        nonblock[f"{name}.bias"] = (o,)
+
+    for e in ("time_in", "guidance_in"):
+        lin(f"{e}.in_layer", H, 256)
+        lin(f"{e}.out_layer", H, H)
+    lin("txt_in.input_embedder", H, T)
+    lin("txt_in.t_embedder.mlp.0", H, 256)
+    lin("txt_in.t_embedder.mlp.2", H, H)
+    lin("txt_in.c_embedder.linear_1", H, H)
+    lin("txt_in.c_embedder.linear_2", H, H)
+    lin("final_layer.linear", C * 4, H)
+    lin("final_layer.adaLN_modulation.1", 2 * H, H)
+    for i in range(d.refiner_depth):
+        rb = f"txt_in.individual_token_refiner.blocks.{i}"
+        lin(f"{rb}.self_attn_qkv", 3 * H, H)
+        lin(f"{rb}.self_attn_proj", H, H)
+        for n in ("norm1", "norm2"):
+            nonblock[f"{rb}.{n}.weight"] = (H,)
+            nonblock[f"{rb}.{n}.bias"] = (H,)
+        lin(f"{rb}.mlp.fc1", M, H)
+        lin(f"{rb}.mlp.fc2", H, M)
+        lin(f"{rb}.adaLN_modulation.1", 2 * H, H)
+    double = {}
+    for s in ("img", "txt"):
+        for name, o, i in ((f"{s}_mod.linear", 6 * H, H),
+                           (f"{s}_attn_qkv", 3 * H, H),
+                           (f"{s}_attn_proj", H, H),
+                           (f"{s}_mlp.fc1", M, H), (f"{s}_mlp.fc2", H, M)):
+            double[f"{name}.weight"] = (o, i)
+            double[f"{name}.bias"] = (o,)
+        double[f"{s}_attn_q_norm.weight"] = (hd,)
+        double[f"{s}_attn_k_norm.weight"] = (hd,)
+    single = {"linear1.weight": (3 * H + M, H), "linear1.bias": (3 * H + M,),
+              "linear2.weight": (H, H + M), "linear2.bias": (H,),
+              "modulation.linear.weight": (3 * H, H),
+              "modulation.linear.bias": (3 * H,),
+              "q_norm.weight": (hd,), "k_norm.weight": (hd,)}
+    return nonblock, {"double_blocks": (d.depth_double, double),
+                      "single_blocks": (d.depth_single, single)}
+
+
+def hyvid_random_stacked_params(d: HyVidDims, qtype=Q.Q4_K, seed: int = 0,
+                                device="cuda") -> dict:
+    return random_stacked_from_spec(*hyvid_shape_spec(d), "hyvid",
+                                    qtype=qtype, seed=seed, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LTXVDims:
+    """LTX-Video DiT dims (models/ltxv.py LTXVConfig fields; heads of
+    64)."""
+    dim: int = 128
+    n_layers: int = 2
+    in_ch: int = 32
+    caption_dim: int = 64
+
+    def config(self):
+        from .ltxv import LTXVConfig
+
+        return LTXVConfig(dim=self.dim, n_layers=self.n_layers,
+                          n_heads=self.dim // 64, in_channels=self.in_ch,
+                          caption_dim=self.caption_dim)
+
+
+# LTX-Video 2B: dim 2048, 32 heads of 64, 28 blocks, ffn 8192, 128-channel
+# latent voxels (the 32x spatial / 8x temporal VAE, no patching), T5-xxl
+# caption states (4096)
+LTXV_2B_DIMS = LTXVDims(dim=2048, n_layers=28, in_ch=128, caption_dim=4096)
+
+
+def ltxv_shape_spec(d: LTXVDims):
+    """(nonblock, groups) shape spec of models/ltxv.py's keys (the
+    reference's ``ltxv_shape_spec``: per-head qk-norm weights)."""
+    D, I, P = d.dim, d.in_ch, d.caption_dim
+    nonblock = {}
+
+    def lin(out, name, o, i):
+        out[f"{name}.weight"] = (o, i)
+        out[f"{name}.bias"] = (o,)
+
+    lin(nonblock, "patchify_proj", D, I)
+    lin(nonblock, "adaln_single.emb.timestep_embedder.linear_1", D, 256)
+    lin(nonblock, "adaln_single.emb.timestep_embedder.linear_2", D, D)
+    lin(nonblock, "adaln_single.linear", 6 * D, D)
+    lin(nonblock, "caption_projection.linear_1", D, P)
+    lin(nonblock, "caption_projection.linear_2", D, D)
+    nonblock["scale_shift_table"] = (2, D)
+    lin(nonblock, "proj_out", I, D)
+    block = {"scale_shift_table": (6, D)}
+    for a in ("attn1", "attn2"):
+        for n in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(block, f"{a}.{n}", D, D)
+        block[f"{a}.q_norm.weight"] = (64,)
+        block[f"{a}.k_norm.weight"] = (64,)
+    lin(block, "ff.net.0.proj", 4 * D, D)
+    lin(block, "ff.net.2", D, 4 * D)
+    return nonblock, {"transformer_blocks": (d.n_layers, block)}
+
+
+def ltxv_random_stacked_params(d: LTXVDims, qtype=Q.Q4_K, seed: int = 0,
+                               device="cuda") -> dict:
+    return random_stacked_from_spec(*ltxv_shape_spec(d), "ltxv", qtype=qtype,
+                                    seed=seed, device=device)
+
 def dit_example_inputs(latent_shape, cond_shape, ts=0.7, seed: int = 1,
                        dtype=torch.bfloat16, device="cuda"):
     """(latent, cond, t) for an AuraFlow or Lumina 2 forward, made from a
@@ -2072,12 +2221,27 @@ def wan_vae_shapes(d: WanVAEDims) -> dict[str, tuple]:
 
 
 def wan_vae_state_dict(dims: WanVAEDims, seed: int = 0) -> dict:
-    """Random Wan VAE state dict (numpy float32): conv weights scaled by
-    their fan-in, unit gains, small biases."""
+    return _vae_state_dict(wan_vae_shapes(dims), seed)
+
+
+def wan_vae_random_params(dims: WanVAEDims, seed: int = 0,
+                          device="cuda") -> dict:
+    return _vae_random_params(wan_vae_shapes(dims), seed, device)
+
+def _is_gain(key: str, shape) -> bool:
+    """A norm's gain: Wan's ``gamma`` planes, a 1-D ``norm`` weight."""
+    return key.endswith("gamma") or (len(shape) == 1 and "norm" in key
+                                     and key.endswith("weight"))
+
+
+def _vae_state_dict(shapes: dict, seed: int) -> dict:
+    """Random video-VAE state dict (numpy float32) over ``shapes``: conv
+    and linear weights scaled by their fan-in, unit norm gains, small
+    biases."""
     rng = np.random.default_rng(seed)
     out = {}
-    for k, shape in wan_vae_shapes(dims).items():
-        if k.endswith("gamma"):
+    for k, shape in shapes.items():
+        if _is_gain(k, shape):
             out[k] = np.ones(shape, np.float32)
         elif len(shape) == 1:
             out[k] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
@@ -2088,15 +2252,14 @@ def wan_vae_state_dict(dims: WanVAEDims, seed: int = 0) -> dict:
     return out
 
 
-def wan_vae_random_params(dims: WanVAEDims, seed: int = 0,
-                          device="cuda") -> dict:
-    """The same kind of Wan VAE params made on ``device`` from a seed (a
-    full-width tree is never built on the host)."""
+def _vae_random_params(shapes: dict, seed: int, device) -> dict:
+    """The same kind of params as ``_vae_state_dict`` made on ``device``
+    from a seed (a full-width tree is never built on the host)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
-    for k, shape in wan_vae_shapes(dims).items():
-        if k.endswith("gamma"):
+    for k, shape in shapes.items():
+        if _is_gain(k, shape):
             out[k] = torch.ones(shape, device=device)
         elif len(shape) == 1:
             out[k] = torch.randn(shape, generator=gen, device=device) * 0.02
@@ -2106,6 +2269,181 @@ def wan_vae_random_params(dims: WanVAEDims, seed: int = 0,
                                  device=device) * fan_in ** -0.5
     return out
 
+
+@dataclasses.dataclass(frozen=True)
+class HyVidVAEDims:
+    """HunyuanVideo VAE geometry (diffusers ``AutoencoderKLHunyuanVideo``
+    arguments): block widths (shallow → deep), latent channels, resnets a
+    level in the encoder (the decoder has one more), GroupNorm groups of
+    32 (every width a multiple of 32)."""
+    widths: tuple[int, ...] = (32, 64, 64)
+    z: int = 16
+    layers: int = 1
+
+
+# the published HunyuanVideo VAE (diffusers AutoencoderKLHunyuanVideo's
+# config): block_out_channels (128, 256, 512, 512), latent_channels 16,
+# layers_per_block 2 (3 resnets a decoder level), norm_num_groups 32, a
+# single-head mid-block attention over the 512-wide mid block (K7's
+# D = 512), 8x spatial and 4x temporal compression
+HYVID_VAE_DIMS = HyVidVAEDims(widths=(128, 256, 512, 512), z=16, layers=2)
+
+
+def hyvid_vae_shapes(d: HyVidVAEDims) -> dict[str, tuple]:
+    """Every tensor of a HunyuanVideo VAE of this geometry, in the keys
+    models/hyvid_vae.py walks (the diffusers names: causal convs as
+    ``*.conv.conv.weight``, 1x1x1 ``quant_conv`` / ``post_quant_conv``)."""
+    out = {}
+
+    def conv(name, o, i, k=3):
+        out[f"{name}.weight"] = (o, i, k, k, k)
+        out[f"{name}.bias"] = (o,)
+
+    def norm(name, c):
+        out[f"{name}.weight"] = (c,)
+        out[f"{name}.bias"] = (c,)
+
+    def resnet(p, cin, cout):
+        norm(f"{p}.norm1", cin)
+        conv(f"{p}.conv1.conv", cout, cin)
+        norm(f"{p}.norm2", cout)
+        conv(f"{p}.conv2.conv", cout, cout)
+        if cin != cout:
+            conv(f"{p}.conv_shortcut.conv", cout, cin, 1)
+
+    def mid(side, c):
+        resnet(f"{side}.mid_block.resnets.0", c, c)
+        a = f"{side}.mid_block.attentions.0"
+        norm(f"{a}.group_norm", c)
+        for n in ("to_q", "to_k", "to_v", "to_out.0"):
+            out[f"{a}.{n}.weight"] = (c, c)
+            out[f"{a}.{n}.bias"] = (c,)
+        resnet(f"{side}.mid_block.resnets.1", c, c)
+
+    w, n = d.widths, len(d.widths)
+    conv("encoder.conv_in.conv", w[0], 3)
+    cin = w[0]
+    for i, c in enumerate(w):
+        for j in range(d.layers):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", cin, c)
+            cin = c
+        if i < n - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv.conv", c, c)
+    mid("encoder", w[-1])
+    norm("encoder.conv_norm_out", w[-1])
+    conv("encoder.conv_out.conv", 2 * d.z, w[-1])
+    conv("quant_conv", 2 * d.z, 2 * d.z, 1)
+    conv("post_quant_conv", d.z, d.z, 1)
+    conv("decoder.conv_in.conv", w[-1], d.z)
+    mid("decoder", w[-1])
+    cin = w[-1]
+    for i, c in enumerate(w[::-1]):
+        for j in range(d.layers + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", cin, c)
+            cin = c
+        if i < n - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv.conv", c, c)
+    norm("decoder.conv_norm_out", w[0])
+    conv("decoder.conv_out.conv", 3, w[0])
+    return out
+
+
+def hyvid_vae_state_dict(dims: HyVidVAEDims, seed: int = 0) -> dict:
+    return _vae_state_dict(hyvid_vae_shapes(dims), seed)
+
+
+def hyvid_vae_random_params(dims: HyVidVAEDims, seed: int = 0,
+                            device="cuda") -> dict:
+    return _vae_random_params(hyvid_vae_shapes(dims), seed, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LTXVVAEDims:
+    """LTX-Video VAE geometry as models/ltxv_vae.py reads it: block widths
+    a level (shallow → deep), latent channels, the pixel-shuffle patch,
+    residual blocks a level (one count for every level), and per level
+    whether it strides time too (the last level strides nothing)."""
+    widths: tuple[int, ...] = (8, 12, 12, 16)
+    latent: int = 6
+    patch: int = 4
+    res_blocks: int = 2
+
+
+# the published LTX-Video 0.9 VAE (diffusers AutoencoderKLLTXVideo): block
+# widths (128, 256, 512, 512), 128 latent channels, patch 4,
+# spatio_temporal_scaling (True, True, True, False): 32x spatial and 8x
+# temporal compression. The reference module reads one residual-block
+# count for every level (``res_blocks_per_level``, 2 by default), which is
+# what this builds; the published decoder's (4, 3, 3, 3, 4) blocks a level
+# are a layout the reference does not read
+LTXV_VAE_DIMS = LTXVVAEDims(widths=(128, 256, 512, 512), latent=128, patch=4,
+                            res_blocks=2)
+
+
+def ltxv_vae_shapes(d: LTXVVAEDims) -> dict[str, tuple]:
+    """Every tensor of an LTX-Video VAE of this geometry, in the keys
+    models/ltxv_vae.py reads (the reference's tests' layout: the
+    downsampler of level i widens to level i + 1's width, the upsampler of
+    decoder block i emits level lvl = n − 1 − i's width times 8 for the
+    depth-to-spacetime shuffle)."""
+    out = {}
+    w, n, p = d.widths, len(d.widths), d.patch
+
+    def conv(name, o, i, k=3):
+        out[f"{name}.conv.weight"] = (o, i, k, k, k)
+        out[f"{name}.conv.bias"] = (o,)
+
+    def res(prefix, c):
+        conv(f"{prefix}.conv1", c, c)
+        conv(f"{prefix}.conv2", c, c)
+
+    conv("encoder.conv_in", w[0], 3 * p * p)
+    for i in range(n):
+        for j in range(d.res_blocks):
+            res(f"encoder.down_blocks.{i}.res_blocks.{j}", w[i])
+        if i < n - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0", w[i + 1], w[i])
+    for j in range(d.res_blocks):
+        res(f"encoder.mid_block.res_blocks.{j}", w[-1])
+    conv("encoder.conv_out", 2 * d.latent, w[-1])
+    conv("decoder.conv_in", w[-1], d.latent)
+    for j in range(d.res_blocks):
+        res(f"decoder.mid_block.res_blocks.{j}", w[-1])
+    for i in range(n):
+        lvl = n - 1 - i
+        if lvl < n - 1:  # time strides at every level but the last
+            conv(f"decoder.up_blocks.{i}.upsamplers.0", w[lvl] * 8,
+                 w[lvl + 1])
+        for j in range(d.res_blocks):
+            res(f"decoder.up_blocks.{i}.res_blocks.{j}", w[lvl])
+    conv("decoder.conv_out", 3 * p * p, w[0])
+    out["per_channel_statistics.mean-of-means"] = (d.latent,)
+    out["per_channel_statistics.std-of-means"] = (d.latent,)
+    return out
+
+
+def _ltxv_statistics(sd: dict, latent: int, rng) -> None:
+    """Per-channel latent statistics near (0, 1), in place."""
+    sd["per_channel_statistics.mean-of-means"] = (
+        rng.standard_normal(latent) * 0.1).astype(np.float32)
+    sd["per_channel_statistics.std-of-means"] = (
+        1.0 + rng.random(latent) * 0.1).astype(np.float32)
+
+
+def ltxv_vae_state_dict(dims: LTXVVAEDims, seed: int = 0) -> dict:
+    sd = _vae_state_dict(ltxv_vae_shapes(dims), seed)
+    _ltxv_statistics(sd, dims.latent, np.random.default_rng(seed + 1))
+    return sd
+
+
+def ltxv_vae_random_params(dims: LTXVVAEDims, seed: int = 0,
+                           device="cuda") -> dict:
+    params = _vae_random_params(ltxv_vae_shapes(dims), seed, device)
+    stats = {}
+    _ltxv_statistics(stats, dims.latent, np.random.default_rng(seed + 1))
+    params.update({k: torch.from_numpy(v).to(resolve_device(device))
+                   for k, v in stats.items()})
+    return params
 
 # ---------------------------------------------------------------------------
 # synthetic vocabularies

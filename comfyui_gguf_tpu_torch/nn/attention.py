@@ -9,9 +9,9 @@ cast to q's dtype, and cross-attention with Lq != Lk.
   ``FLASH_HEAD_DIMS`` (40, 80, 96 and 160 run the 64-, 128-, 128- and
   192-wide instances on zero-filled pad columns; 256 has a 256-wide
   instance on 64-key tiles; 384, the Wan VAE's single-head mid-block, an
-  instance whose blocks own 128 output columns each). Any other head dim
-  or dtype on the
-  card raises ``NotImplementedError`` (no route exists for it yet), and so
+  instance whose blocks own 128 output columns each; 512, the HunyuanVideo
+  VAE's, the same split on 32-key tiles). Any other head dim or dtype on
+  the card raises ``NotImplementedError`` (no route exists for it yet), and so
   does a view TMA cannot read; the same call on CPU tensors takes the plain
   version.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
@@ -82,7 +82,7 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 # head dims the flash kernel has instances for
-FLASH_HEAD_DIMS = (40, 64, 80, 96, 128, 160, 256, 384)
+FLASH_HEAD_DIMS = (40, 64, 80, 96, 128, 160, 256, 384, 512)
 
 
 def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:

@@ -8,7 +8,8 @@ comfyui_gguf_tpu/pipeline.py).
   ``stack()`` restacks the blocks along a depth axis, in that order.
 * ``load_text_encoders(paths)`` — text-encoder files, GGUF (T5) or
   safetensors (CLIP), each with its graph and tokenizer.
-* ``load_vae(path)`` — the image AutoencoderKL from a safetensors file.
+* ``load_vae(path)`` — the image AutoencoderKL or a video VAE (Wan,
+  HunyuanVideo, LTX-Video) from a safetensors file.
 * ``FluxPipeline.load(...).generate(prompt)`` — full text-to-image:
   tokenize → T5 + CLIP-L encode → denoise → VAE decode, with img2img,
   inpainting and Kontext references. ``TextEncoder.apply_lora`` attaches a
@@ -42,17 +43,24 @@ comfyui_gguf_tpu/pipeline.py).
   (``load_vae`` of a Wan VAE file gives kind "wan"); video out, or the
   latent without a VAE. ``CosmosPipeline(model, t5).generate(prompt)`` —
   Cosmos Predict2: T5 states, CFG over the rectified flow, latent out.
+* ``HyVidPipeline(model, text, vae_params=...).generate(prompt)`` —
+  HunyuanVideo t2v: llama-family states, guidance-distilled (one forward a
+  step), then its causal VAE (``load_vae`` kind "hyvid").
+  ``LTXVPipeline(model, t5, vae_params=...).generate(prompt)`` —
+  LTX-Video: T5 states over flattened voxels with (t, h, w) positions,
+  CFG, then its pixel-shuffle causal VAE (kind "ltxv").
 * ``flux_engine`` / ``sd3_engine`` / ``unet_engine`` / ``aura_engine`` /
   ``lumina2_engine`` / ``qwen_image_engine`` / ``hidream_engine`` /
-  ``wan_engine`` / ``cosmos_engine`` — continuous-batching engines
+  ``wan_engine`` / ``cosmos_engine`` / ``hyvid_engine`` / ``ltxv_engine``
+  — continuous-batching engines
   (serving.ContinuousBatchEngine) over a loaded model: ``submit``
   requests, ``run_until_drained``; each tick advances every pooled request
   by one Euler or per-lane DPM-Solver++(2M) step (the UNet, AuraFlow,
-  Lumina 2, Wan and Cosmos engines with per-request CFG).
+  Lumina 2, Wan, Cosmos and LTX-Video engines with per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-The other video architectures (hyvid, ltxv), their VAEs and the parallel
-engines are not ported yet and raise ``NotImplementedError``.
+The parallel engines are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,7 +82,11 @@ from .models import clip as clip_model
 from .models import cosmos as cosmos_model
 from .models import flux as flux_model
 from .models import hidream as hidream_model
+from .models import hyvid as hyvid_model
+from .models import hyvid_vae as hyvid_vae_model
 from .models import llama as llama_model
+from .models import ltxv as ltxv_model
+from .models import ltxv_vae as ltxv_vae_model
 from .models import lumina2 as lumina2_model
 from .models import qwen_image as qi_model
 from .models import qwen_vl_vision as vision_model
@@ -104,6 +116,8 @@ _ARCH_TABLE = {
                 "double_stream_blocks"),
     "wan": (wan_model, wan_model.WanConfig, "blocks"),
     "cosmos": (cosmos_model, cosmos_model.CosmosConfig, "blocks"),
+    "hyvid": (hyvid_model, hyvid_model.HyVidConfig, "double_blocks"),
+    "ltxv": (ltxv_model, ltxv_model.LTXVConfig, "transformer_blocks"),
 }
 
 
@@ -197,7 +211,8 @@ class DiffusionModel:
     def stack(self) -> "DiffusionModel":
         """Restack per-block params along a depth axis (copies the block
         weights once); forward then runs forward_stacked. Flux, SD3,
-        AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan and Cosmos stack
+        AuraFlow, Lumina 2, Qwen-Image, HiDream, Wan, Cosmos, HunyuanVideo
+        (double and single blocks, as flux) and LTX-Video stack
         (SD3.5-medium's dual-attention blocks as their own prefix group,
         Lumina 2's refiners stay flat, HiDream's experts leaf-stacked as
         (depth, E, …)); an SD3 tree whose dual layers are not a contiguous
@@ -210,7 +225,9 @@ class DiffusionModel:
                     "qwen_image": qi_model.stack_qwen_params,
                     "hidream": hidream_model.stack_hidream_params,
                     "wan": wan_model.stack_wan_params,
-                    "cosmos": cosmos_model.stack_cosmos_params}
+                    "cosmos": cosmos_model.stack_cosmos_params,
+                    "hyvid": hyvid_model.stack_hyvid_params,
+                    "ltxv": ltxv_model.stack_ltxv_params}
         if self.arch in stackers:
             return dataclasses.replace(
                 self, params=stackers[self.arch](self.params, self.config))
@@ -336,10 +353,12 @@ def load_vae(path: str, device="cuda"):
     """Load a VAE and detect its family from the keys.
 
     → (kind, params, config): kind "image" (AutoencoderKL, decoded with
-    models.vae) or "wan" (the causal 3-D video VAE, models.wan_vae); the
-    hyvid and ltxv families and diffusers-format image VAEs raise (not
-    ported yet). Strips a leading ``vae.`` / ``first_stage_model.`` prefix
-    (checkpoint-bundled VAEs use it)."""
+    models.vae), "wan" (models.wan_vae), "ltxv" (models.ltxv_vae) or
+    "hyvid" (models.hyvid_vae), the causal 3-D video VAEs. A
+    diffusers-format image VAE (``decoder.mid_block.*`` keys with 4-D
+    convs) raises ``ValueError``, as in the reference. Strips a leading
+    ``vae.`` / ``first_stage_model.`` prefix (checkpoint-bundled VAEs use
+    it)."""
     device = resolve_device(device)
     raw = _load_safetensors_sd(path)
     for pfx in ("vae.", "first_stage_model."):
@@ -351,12 +370,27 @@ def load_vae(path: str, device="cuda"):
         params = _to_device(raw, device)
         return "wan", params, wan_vae_model.WanVAEConfig.from_state_dict(
             params)
-    if (any(k.startswith("decoder.mid_block.") for k in raw)
-            or any(".res_blocks." in k or "per_channel_statistics" in k
-                   for k in raw)):
-        raise NotImplementedError(
-            "the hyvid and ltxv video VAEs and diffusers-format image VAEs "
-            "are not ported yet (ROADMAP queue 1 item 14)")
+    if ltxv_vae_model.detect_ltxv_vae(raw):
+        params = _to_device(raw, device)
+        return ("ltxv", params,
+                ltxv_vae_model.LTXVVAEConfig.from_state_dict(params))
+    if any(k.startswith("decoder.mid_block.") for k in raw):
+        # the generic diffusers prefix: diffusers-format IMAGE VAEs carry it
+        # too. HunyuanVideo's causal convs are 5-D (O, I, kt, kh, kw); a 4-D
+        # conv means an image VAE in diffusers naming, which the sgm-format
+        # decoder cannot read
+        w = next((v for k, v in raw.items()
+                  if k.startswith("decoder.mid_block.")
+                  and k.endswith("conv.weight")
+                  or k.startswith("decoder.conv_in")), None)
+        if w is not None and np.ndim(w) == 5:
+            params = _to_device(raw, device)
+            return ("hyvid", params,
+                    hyvid_vae_model.HyVidVAEConfig.from_state_dict(params))
+        raise ValueError(
+            "diffusers-format image VAE (4-D convs under "
+            "decoder.mid_block.*) — convert to the sgm key format "
+            "(first_stage_model decoder.mid.*) or load the sgm export")
     params = _to_device(raw, device)
     return "image", params, vae_model.VAEConfig.from_state_dict(params)
 
@@ -970,16 +1004,19 @@ class CFGFlowPipeline:
         return latent[0].to(torch.float32).cpu().numpy()
 
     def _denoise(self, x, cond, ncond, steps: int, cfg_scale: float,
-                 window: int | None = None) -> torch.Tensor:
+                 window: int | None = None, fwd=None) -> torch.Tensor:
         """The CFG rectified-flow ODE from noise ``x`` (the reference's
         ``_jit_cfg_denoise``). ``window``: the card is synchronised after
         every that many velocity evaluations (a step of Euler), a host sync
         between windows of queued work that leaves the math as it is;
-        ``None`` or 0 never."""
+        ``None`` or 0 never. ``fwd(x, timesteps, cond)``: the model's
+        forward over one conditioning (default ``model.forward(x, cond,
+        timesteps)``)."""
         model = self.model
+        fwd = fwd or (lambda xc, ts, c: model.forward(xc, c, ts))
         guided = cfg_wrap(
-            lambda xc, sigma, c: model.forward(
-                xc, c, sigma.to(torch.float32).expand(xc.shape[0])),
+            lambda xc, sigma, c: fwd(
+                xc, sigma.to(torch.float32).expand(xc.shape[0]), c),
             cond, ncond, cfg_scale)
         done = [0]
 
@@ -1012,10 +1049,11 @@ def Lumina2Pipeline(model: DiffusionModel, text: TextEncoder,
 @dataclasses.dataclass
 class VideoFlowPipeline(CFGFlowPipeline):
     """A ``CFGFlowPipeline`` over (1, F, H, W, C) video latents (Wan,
-    Cosmos): the conditioning optionally zeroed at padded positions, the
-    denoise optionally synchronised every ``dispatch_window`` steps, and an
-    optional Wan VAE decode (with per-channel ``latents_mean`` /
-    ``latents_std`` un-normalizing z first)."""
+    Cosmos, HunyuanVideo, LTX-Video): the conditioning optionally zeroed at
+    padded positions, the denoise optionally synchronised every
+    ``dispatch_window`` steps, and an optional VAE decode (``_decode``:
+    here the Wan VAE, with per-channel ``latents_mean`` / ``latents_std``
+    un-normalizing z first; the subclasses decode through their own)."""
 
     zero_masked: bool = False
     vae_params: dict | None = None
@@ -1027,11 +1065,13 @@ class VideoFlowPipeline(CFGFlowPipeline):
                        latent_frames: int, latent_height: int,
                        latent_width: int, steps: int, cfg_scale: float,
                        seed: int, max_len: int, noise=None,
-                       dispatch_window: int | None = None) -> np.ndarray:
+                       dispatch_window: int | None = None,
+                       fwd=None) -> np.ndarray:
         """→ the (T, H, W, 3) video in [0, 1] through the VAE, or the (F,
         H, W, C) float32 latent without one. ``noise`` is the (1, F, H, W,
         C) initial noise; without it the noise is drawn from
-        ``torch.Generator(device).manual_seed(seed)``."""
+        ``torch.Generator(device).manual_seed(seed)``. ``fwd`` as
+        ``_denoise`` takes it."""
         model = self.model
         device = model.device
         clock = _StageClock(device)
@@ -1045,26 +1085,30 @@ class VideoFlowPipeline(CFGFlowPipeline):
                                    latent_width, model.config.in_channels),
                            gen, device, torch.bfloat16)
         latent = self._denoise(x, cond, ncond, steps, cfg_scale,
-                               window=dispatch_window)
+                               window=dispatch_window, fwd=fwd)
         self.last_latent = latent
         clock.mark("denoise_s")
         if self.vae_params is None:
             self.last_timings = clock.timings()
             return latent[0].to(torch.float32).cpu().numpy()
-        z = latent.to(torch.float32)
-        if self.latents_mean is not None:
-            mean = torch.as_tensor(np.asarray(self.latents_mean, np.float32),
-                                   device=device)
-            std = torch.as_tensor(np.asarray(self.latents_std, np.float32),
-                                  device=device)
-            z = z * std + mean
-        vcfg = wan_vae_model.WanVAEConfig.from_state_dict(self.vae_params)
-        vid = wan_vae_model.decode_auto(self.vae_params, vcfg, z,
-                                        qcfg=model.qcfg)
+        vid = self._decode(latent.to(torch.float32))
         out = ((vid[0].clamp(-1, 1) + 1) / 2).cpu().numpy()
         clock.mark("vae_s")
         self.last_timings = clock.timings()
         return out
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """(1, F, H, W, C) float32 latent → (1, T, H', W', 3) video in
+        [-1, 1] through the Wan VAE."""
+        if self.latents_mean is not None:
+            mean = torch.as_tensor(np.asarray(self.latents_mean, np.float32),
+                                   device=z.device)
+            std = torch.as_tensor(np.asarray(self.latents_std, np.float32),
+                                  device=z.device)
+            z = z * std + mean
+        vcfg = wan_vae_model.WanVAEConfig.from_state_dict(self.vae_params)
+        return wan_vae_model.decode_auto(self.vae_params, vcfg, z,
+                                         qcfg=self.model.qcfg)
 
 
 class WanPipeline(VideoFlowPipeline):
@@ -1118,6 +1162,92 @@ class CosmosPipeline(VideoFlowPipeline):
         return self.generate_video(prompt, negative_prompt, latent_frames,
                                    latent_height, latent_width, steps,
                                    cfg_scale, seed, max_len, noise)
+
+
+class HyVidPipeline(VideoFlowPipeline):
+    """HunyuanVideo t2v: the llama-family encoder's final states (the
+    llava-llama-3 text tower) as the conditioning, guidance-distilled (CFG
+    1, one forward a step, the guidance ×1000 embedded in it) over the
+    rectified flow at shift 7.0; with ``vae_params`` (a HunyuanVideo VAE
+    tree, ``load_vae`` kind "hyvid") ``generate`` returns the decoded video
+    (T, H, W, 3) in [0, 1], else the latent video."""
+
+    def __init__(self, model: DiffusionModel, text: TextEncoder,
+                 shift: float = 7.0, vae_params: dict | None = None):
+        super().__init__(model, text, shift, 1.0, vae_params=vae_params)
+
+    def generate(self, prompt: str, latent_frames: int = 9,
+                 latent_height: int = 60, latent_width: int = 104,
+                 steps: int = 20, guidance: float = 6.0, seed: int = 0,
+                 max_len: int = 256, dispatch_window: int | None = 4,
+                 noise=None) -> np.ndarray:
+        """``dispatch_window``: steps between host syncs (None: none, the
+        same math). ``noise``: the (1, F, H, W, C) initial noise."""
+        model = self.model
+        g = torch.full((1,), guidance * 1000.0, dtype=torch.float32,
+                       device=model.device)
+
+        def fwd(xc, ts, c):
+            return model.forward(xc, c, ts, g.expand(xc.shape[0]))
+
+        return self.generate_video(prompt, "", latent_frames, latent_height,
+                                   latent_width, steps, 1.0, seed, max_len,
+                                   noise, dispatch_window, fwd=fwd)
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        vcfg = hyvid_vae_model.HyVidVAEConfig.from_state_dict(self.vae_params)
+        return hyvid_vae_model.decode_auto(self.vae_params, vcfg, z,
+                                           qcfg=self.model.qcfg)
+
+
+class LTXVPipeline(VideoFlowPipeline):
+    """LTX-Video t2v: T5 conditioning over the flattened latent voxels
+    with (t, h, w) position ids, CFG 3.0 at shift 3.0 over the rectified
+    flow; with ``vae_params`` (an LTX-Video VAE tree, ``load_vae`` kind
+    "ltxv") ``generate`` returns the decoded video (T, H, W, 3) in [0, 1],
+    else the (F, H, W, C) latent."""
+
+    def __init__(self, model: DiffusionModel, t5: TextEncoder,
+                 shift: float = 3.0, vae_params: dict | None = None,
+                 vae_config=None):
+        super().__init__(model, t5, shift, 3.0, vae_params=vae_params)
+        self.vae_config = vae_config  # read from the keys once, then kept
+
+    def generate(self, prompt: str, latent_frames: int = 9,
+                 latent_height: int = 32, latent_width: int = 32,
+                 steps: int = 20, cfg_scale: float = 3.0, seed: int = 0,
+                 negative_prompt: str = "", max_t5_len: int = 256,
+                 noise=None) -> np.ndarray:
+        """``noise``: the (1, L, C) initial voxel noise (or the same numbers
+        as (1, F, H, W, C)); the forward sees the voxels flattened in (t, h,
+        w) order, each with its position."""
+        model = self.model
+        F_, H_, W_ = latent_frames, latent_height, latent_width
+        C = model.config.in_channels
+        L = F_ * H_ * W_
+        tt, hh, ww = torch.meshgrid(torch.arange(F_), torch.arange(H_),
+                                    torch.arange(W_), indexing="ij")
+        pos = torch.stack([tt, hh, ww], dim=-1).reshape(1, L, 3).to(
+            device=model.device, dtype=torch.int32)
+        if noise is not None:
+            noise = np.asarray(noise, np.float32).reshape(1, F_, H_, W_, C)
+
+        def fwd(xc, ts, c):
+            B = xc.shape[0]
+            v = model.forward(xc.reshape(B, L, C), pos.expand(B, L, 3), c,
+                              ts)
+            return v.reshape(xc.shape)
+
+        return self.generate_video(prompt, negative_prompt, F_, H_, W_,
+                                   steps, cfg_scale, seed, max_t5_len, noise,
+                                   fwd=fwd)
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        if self.vae_config is None:
+            self.vae_config = ltxv_vae_model.LTXVVAEConfig.from_state_dict(
+                self.vae_params)
+        return ltxv_vae_model.decode_auto(self.vae_params, self.vae_config,
+                                          z, qcfg=self.model.qcfg)
 
 
 @dataclasses.dataclass
@@ -1488,13 +1618,17 @@ def _sig_expand(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
 
 
-def _cfg_mix_velocity(fwd, model, ckey: str = "ctx", nkey: str = "nctx"):
+def _cfg_mix_velocity(fwd, model, ckey: str = "ctx", nkey: str = "nctx",
+                      lead=()):
     """Velocity closure for CFG-mixing engines: conditional +
-    unconditional forwards, per-request scale mixed in f32."""
+    unconditional forwards, per-request scale mixed in f32. ``lead``: cond
+    keys passed to the forward before the conditioning (LTX-Video's
+    position ids)."""
     def velocity(params, x, s_cur, cond):
-        v_c = fwd(params, model.config, x, cond[ckey], s_cur,
+        pre = [cond[k] for k in lead]
+        v_c = fwd(params, model.config, x, *pre, cond[ckey], s_cur,
                   qcfg=model.qcfg)
-        v_u = fwd(params, model.config, x, cond[nkey], s_cur,
+        v_u = fwd(params, model.config, x, *pre, cond[nkey], s_cur,
                   qcfg=model.qcfg)
         return v_u.to(torch.float32) + _sig_expand(
             cond["cfg_scale"], x) * (v_c.to(torch.float32)
@@ -1760,6 +1894,51 @@ def hidream_engine(model: DiffusionModel, max_batch: int = 2,
     return make_flow_engine(
         model, velocity, {"t5": torch.bfloat16, "llama": torch.bfloat16,
                           "pooled": torch.bfloat16},
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
+
+
+def hyvid_engine(model: DiffusionModel, max_batch: int = 2,
+                 pipeline_depth: int = 1, sampler: str = "euler",
+                 dp_mesh=None, mesh=None):
+    """Continuous-batching engine for a loaded HunyuanVideo model
+    (guidance-distilled video serving): requests carry (F, H, W, C) latent
+    video and cond {"txt", "guidance"}; one conditional forward a tick, at
+    each request's own embedded guidance (in units of 1.0, embedded ×1000
+    as in ``HyVidPipeline``). A depth-stacked tree takes
+    ``forward_stacked``; ``mesh`` and ``dp_mesh`` are not ported yet and
+    raise."""
+    if mesh is not None or dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    fwd = hyvid_model.forward_stacked if model.is_stacked \
+        else hyvid_model.forward
+
+    def velocity(params, x, s_cur, cond):
+        return fwd(params, model.config, x, cond["txt"], s_cur,
+                   cond["guidance"] * 1000.0, qcfg=model.qcfg)
+
+    return make_flow_engine(
+        model, velocity, {"txt": torch.bfloat16, "guidance": torch.float32},
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
+
+
+def ltxv_engine(model: DiffusionModel, max_batch: int = 2,
+                pipeline_depth: int = 1, sampler: str = "euler",
+                dp_mesh=None):
+    """Continuous-batching engine for a loaded LTX-Video model (token
+    video serving): requests carry (L, in_channels) latent voxels and cond
+    {"ids" (L, 3) voxel positions, "ctx", "nctx", "cfg_scale"}; each tick
+    runs the conditional and the unconditional forward and mixes them at
+    each request's own scale (1.0 gives the conditional velocity). A
+    depth-stacked tree takes ``forward_stacked``; ``dp_mesh`` is not ported
+    yet and raises."""
+    if dp_mesh is not None:
+        raise NotImplementedError(_PARALLEL_TODO)
+    fwd = ltxv_model.forward_stacked if model.is_stacked \
+        else ltxv_model.forward
+    return make_flow_engine(
+        model, _cfg_mix_velocity(fwd, model, lead=("ids",)),
+        {"ids": torch.int32, "ctx": torch.bfloat16, "nctx": torch.bfloat16,
+         "cfg_scale": torch.float32},
         max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
 
 

@@ -23,7 +23,10 @@ wgmma body at f16, the f32 SIMT body, the split-K body at both, and their
 LoRA instances) run against the plain version in the same dtype (f16
 2e-3, f32 1e-5), every format, one-hot rows bit for bit; K7's D = 384
 instance (the Wan VAE's mid-block) on contiguous tensors and on column
-slices of one projection. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+slices of one projection, and its D = 512 instance (the HunyuanVideo VAE's)
+at an odd length, Lq != Lk, B > 1 and on single-head views. Tiny
+HunyuanVideo and LTX-Video forwards (planar and w8a8, flat and stacked)
+and their VAEs' decodes run on the card against the CPU. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
 4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
 M = 4) and one continuous-batching engine run on the card against the
 same engine on the CPU (launch counts per tick) run here too. Whether a
@@ -1455,3 +1458,128 @@ def test_flash_kernel_d384_on_qkv_views(cuda):
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     got = flash_attn_cuda(q, k, v, C ** -0.5)
     assert _rel_l2(got, plain_attention(q, k, v, C ** -0.5)) < 1e-2
+
+
+# -- K7 at head dim 512 (the HunyuanVideo VAE's single-head mid-block) -----
+
+@pytest.mark.parametrize("B,H,Lq,Lk", [(3, 1, 701, 701), (1, 2, 130, 77),
+                                       (2, 1, 64, 333), (1, 1, 1, 31)],
+                         ids=str)
+def test_flash_kernel_d512(cuda, B, H, Lq, Lk):
+    """The column-split instance on 32-key tiles: four blocks per query
+    tile, each 128 output columns of a score computed over all 512, against
+    the plain version; an odd length, Lq != Lk both ways, B > 1 and a key
+    length below one tile."""
+    D = 512
+    g = torch.Generator(device=cuda).manual_seed(Lq * 3 + Lk)
+    q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, H, Lk, D), generator=g, device=cuda).bfloat16()
+    before = dict(_build.LAUNCHES)
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn_d512"] == before["flash_attn_d512"] + 1
+    assert _build.LAUNCHES["flash_attn"] == before["flash_attn"] + 1
+    assert got.shape == (B, H, Lq, D) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+def test_flash_kernel_d512_on_head_views(cuda):
+    """The HyVid VAE's layout: q, k and v are (N, HW, C) projections seen
+    as one head, ``x[:, None]``, read in place."""
+    N, L, C = 2, 900, 512
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((N, L, C), generator=g, device=cuda).bfloat16()
+               [:, None] for _ in range(3))
+    got = flash_attn_cuda(q, k, v, C ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, C ** -0.5)) < 1e-2
+
+
+# -- HunyuanVideo and LTX-Video on the card against the CPU ----------------
+
+def _video_model(tmp_path, device, arch):
+    """A tiny HunyuanVideo (four heads of 128) or LTX-Video (eight heads of
+    64) written as a Q4_K GGUF, loaded on ``device``."""
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    path = tmp_path / f"{arch}.gguf"
+    if not path.exists():
+        if arch == "hyvid":
+            spec = testing.hyvid_shape_spec(testing.HyVidDims(
+                hidden=512, n_heads=4, refiner_depth=2, text_dim=512))
+        else:
+            spec = testing.ltxv_shape_spec(testing.LTXVDims(
+                dim=512, in_ch=128, caption_dim=512))
+        testing.write_spec_gguf(testing.random_flat_sd_from_spec(*spec,
+                                                                 seed=0),
+                                str(path), arch, Q.Q4_K)
+    return load_diffusion_model(str(path), device=device)
+
+
+def _video_inputs(arch, device, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=torch.bfloat16)
+
+    ts = torch.full((1,), 0.6, device=device)
+    if arch == "hyvid":
+        return (t(1, 3, 8, 8, 16), t(1, 40, 512), ts,
+                torch.full((1,), 6000.0, device=device))
+    ids = torch.as_tensor(rng.integers(0, 8, (1, 300, 3)).astype(np.int32),
+                          device=device)
+    return t(1, 300, 128), ids, t(1, 77, 512), ts
+
+
+@pytest.mark.parametrize("tree", ["planar", "w8a8"])
+@pytest.mark.parametrize("arch,k7", [("hyvid", "flash_attn_d128"),
+                                     ("ltxv", "flash_attn_d64")])
+def test_video_dit_forward_on_the_card_matches_cpu(cuda, tmp_path, arch, k7,
+                                                   tree):
+    """One forward of the tiny HunyuanVideo / LTX-Video on the card (K1/K2
+    or K4, and K7 at the arch's head dim) against the same forward on the
+    CPU (the plain versions) within 3e-2, flat and stacked equal."""
+    models = [_video_model(tmp_path, d, arch) for d in (cuda, "cpu")]
+    if tree == "w8a8":
+        models = [m.requantize_i8() for m in models]
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = models[0].forward(*_video_inputs(arch, cuda))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        want = models[1].forward(*_video_inputs(arch, "cpu"))
+        stacked = models[0].stack().forward(*_video_inputs(arch, cuda))
+    assert launched[k7] > 0
+    assert launched["i8mm" if tree == "w8a8" else "qmm_nib4"] > 0
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got.cpu(), want) < 3e-2
+    assert torch.equal(stacked, got)
+
+
+@pytest.mark.parametrize("arch", ["hyvid", "ltxv"])
+def test_video_vae_decode_on_the_card_matches_cpu(cuda, arch):
+    """The small HunyuanVideo VAE (its mid-block attention on K7 at D = 64)
+    and the small LTX-Video VAE decode on the card as on the CPU, within
+    3e-2."""
+    from comfyui_gguf_tpu_torch.models import hyvid_vae, ltxv_vae, testing
+
+    if arch == "hyvid":
+        sd = testing.hyvid_vae_state_dict(testing.HyVidVAEDims(), seed=1)
+        mod, z_shape = hyvid_vae, (1, 2, 6, 8, 16)
+        cfg = mod.HyVidVAEConfig.from_state_dict(sd)
+    else:
+        sd = testing.ltxv_vae_state_dict(testing.LTXVVAEDims(latent=128),
+                                         seed=1)
+        mod, z_shape = ltxv_vae, (1, 2, 2, 3, 128)
+        cfg = mod.LTXVVAEConfig.from_state_dict(sd)
+    z = np.random.default_rng(2).standard_normal(z_shape).astype(np.float32)
+    before = _build.LAUNCHES["flash_attn_d64"]
+    outs = [mod.decode({k: torch.from_numpy(v).to(d) for k, v in sd.items()},
+                       cfg, torch.from_numpy(z).to(d)) for d in (cuda, "cpu")]
+    torch.cuda.synchronize()
+    if arch == "hyvid":
+        assert _build.LAUNCHES["flash_attn_d64"] > before
+    assert bool(torch.isfinite(outs[0]).all())
+    assert _rel_l2(outs[0].cpu(), outs[1]) < 3e-2

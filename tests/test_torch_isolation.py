@@ -51,6 +51,8 @@ def test_the_port_has_its_own_sources():
     for mod in ("tokenizer/unigram.py", "tokenizer/clip_bpe.py",
                 "models/t5.py", "models/clip.py", "models/vae.py",
                 "ops/i8attn.py", "ops/gemm_probe.py", "_safetensors.py",
-                "models/wan.py", "models/cosmos.py", "models/wan_vae.py"):
+                "models/wan.py", "models/cosmos.py", "models/wan_vae.py",
+                "models/hyvid.py", "models/hyvid_vae.py", "models/ltxv.py",
+                "models/ltxv_vae.py"):
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()

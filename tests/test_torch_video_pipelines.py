@@ -1,23 +1,32 @@
-"""The port's ``WanPipeline`` (UMT5, CFG, the Wan VAE), ``CosmosPipeline``
-and ``load_vae``'s wan branch against the reference, on the CPU; mirrors
-the wan and cosmos cases of ``tests/test_pipelines_video.py`` with real
-tiny encoders in place of its stubs.
+"""The port's ``WanPipeline`` (UMT5, CFG, the Wan VAE), ``CosmosPipeline``,
+``HyVidPipeline`` (a llama-family encoder, guidance-distilled, the
+HunyuanVideo VAE), ``LTXVPipeline`` (T5, CFG, the LTX-Video VAE) and
+``load_vae``'s family detection against the reference, on the CPU; mirrors
+the wan, cosmos, hyvid and ltxv cases of ``tests/test_pipelines_video.py``
+with real tiny encoders in place of its stubs.
 
-Files: the tiny Wan and Cosmos DiTs of ``test_torch_wan.py`` and
-``test_torch_cosmos.py`` (Q4_K), a 2-layer Q8_0 UMT5 (a relative-bias
+Files: the tiny Wan, Cosmos, HunyuanVideo and LTX-Video DiTs of
+``test_torch_wan.py``, ``test_torch_cosmos.py``, ``test_torch_hyvid.py``
+and ``test_torch_ltxv.py`` (Q4_K), a 2-layer Q8_0 UMT5 (a relative-bias
 table in each layer) and a 2-layer Q8_0 T5, each with a unigram tokenizer,
-and a small Wan VAE (``testing.WanVAEDims`` with 16 latent channels) as a
-safetensors file. Both packages load the same files; the reference's
-noise is handed to the port. Checked: the VAE family detection; the Wan
-video (with ``latents_mean`` / ``latents_std``) and latent, at CFG 5.0 and
-1.0, the padded positions of the conditioning zeroed; ``dispatch_window``
-leaving the result as it is, with every flow sampler; the Cosmos latent.
+a 2-layer Q8_0 llama-graph encoder with gpt2-BPE metadata, and small Wan,
+HunyuanVideo and LTX-Video VAEs (``models/testing.py``) as safetensors
+files. Both packages load the same files; the reference's noise is handed
+to the port. Checked: the VAE family detection (wan, hyvid, ltxv, image,
+and the diffusers-format image VAE refused); the Wan video (with
+``latents_mean`` / ``latents_std``) and latent, at CFG 5.0 and 1.0, the
+padded positions of the conditioning zeroed; ``dispatch_window`` leaving
+the result as it is, with every flow sampler; the Cosmos latent; the
+HunyuanVideo video and latent at guidance 6.0; the LTX-Video video and
+latent at CFG 3.0 and 1.0.
 
 Tolerances (relative L2): 1.5e-2 · max(1, cfg) for CFG results against the
 reference (bf16 latents between steps, the rounding difference scaled by
 the CFG mix, as the SD and AuraFlow pipelines' limit; the VAE decode of
 the Wan video adds its own bf16 roundings under the same limit).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +49,11 @@ COSMOS = testing.CosmosDims(dim=512, n_heads=4, n_layers=2, in_ch=16,
                             text_dim=512)
 VAE = testing.WanVAEDims(base=16, z=16, mult=(1, 2, 4), num_res=1,
                          temporal_down=(True, False))
+HYVID = testing.HyVidDims(hidden=512, n_heads=4, depth_double=2,
+                          depth_single=2, refiner_depth=2, in_ch=16,
+                          text_dim=512)
+LTXV = testing.LTXVDims(dim=512, n_layers=2, in_ch=128, caption_dim=512)
+LTXV_VAE = testing.LTXVVAEDims(latent=128)
 PROMPT, NEG = "a photo of a cat on the moon", "rain at night"
 
 
@@ -72,33 +86,74 @@ def files(tmp_path_factory):
     out["vae"] = str(d / "wan_vae.safetensors")
     _safetensors.save_file(testing.wan_vae_state_dict(VAE, seed=3),
                            out["vae"])
+    for name, dims, spec in (("hyvid", HYVID, testing.hyvid_shape_spec),
+                             ("ltxv", LTXV, testing.ltxv_shape_spec)):
+        out[name] = str(d / f"{name}.gguf")
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=0),
+            out[name], name, Q.Q4_K)
+    out["llama"] = str(d / "llama.gguf")
+    testing.write_llama_gguf(
+        testing.llama_state_dict(testing.LlamaDims(
+            hidden=512, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=4,
+            intermediate=256, vocab=300), seed=4),
+        out["llama"], qtype=Q.Q8_0, tokenizer=testing.bpe_spec(300))
+    out["hyvid_vae"] = str(d / "hyvid_vae.safetensors")
+    _safetensors.save_file(testing.hyvid_vae_state_dict(
+        testing.HyVidVAEDims(), seed=5), out["hyvid_vae"])
+    out["ltxv_vae"] = str(d / "ltxv_vae.safetensors")
+    _safetensors.save_file(testing.ltxv_vae_state_dict(LTXV_VAE, seed=6),
+                           out["ltxv_vae"])
     return out
 
 
 def test_load_vae_detects_families(files, tmp_path):
-    """A Wan VAE file is kind "wan" in both packages, with the same config
-    and tensors (a "vae." prefix stripped); the families not ported yet
-    still raise."""
-    kind, params, cfg = tpipeline.load_vae(files["vae"], device="cpu")
-    jkind, jparams, jcfg = jpipeline.load_vae(files["vae"])
-    assert kind == jkind == "wan" and cfg.z_channels == jcfg.z_channels == 16
-    assert set(params) == set(jparams)
-    for k in ("decoder.middle.1.to_qkv.weight", "decoder.conv1.weight"):
-        np.testing.assert_array_equal(params[k].numpy(),
-                                      np.asarray(jparams[k]))
+    """A Wan, an LTX-Video and a HunyuanVideo VAE file are the same kind in
+    both packages, with the same config and tensors (a "vae." prefix
+    stripped); a diffusers-format image VAE (``decoder.mid_block.*`` with
+    4-D convs) raises ``ValueError`` in both."""
+    def both(path):
+        kind, params, cfg = tpipeline.load_vae(path, device="cpu")
+        jkind, jparams, jcfg = jpipeline.load_vae(path)
+        assert kind == jkind
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert set(params) == set(jparams)
+        for k in params:
+            np.testing.assert_array_equal(params[k].numpy(),
+                                          np.asarray(jparams[k]))
+        return kind, params, cfg
+
+    kind, params, cfg = both(files["vae"])
+    assert kind == "wan" and cfg.z_channels == 16
+    kind, params, cfg = both(files["ltxv_vae"])
+    assert kind == "ltxv" and cfg.latent_channels == 128
+    kind, params, cfg = both(files["hyvid_vae"])
+    assert kind == "hyvid" and cfg.z_channels == 16
     f = str(tmp_path / "bundled.safetensors")
     _safetensors.save_file({"vae.decoder.middle.0.residual.0.gamma":
                             np.zeros(4, np.float32),
                             "vae.decoder.conv1.weight":
                             np.zeros((8, 4, 3, 3, 3), np.float32)}, f)
-    kind, params, cfg = tpipeline.load_vae(f, device="cpu")
+    kind, params, cfg = both(f)
     assert kind == "wan" and cfg.z_channels == 4
     assert "decoder.conv1.weight" in params
     hy = str(tmp_path / "hy.safetensors")
+    _safetensors.save_file({"vae.decoder.mid_block.resnets.0.norm1.weight":
+                            np.zeros(4, np.float32),
+                            "vae.decoder.conv_in.conv.weight":
+                            np.zeros((8, 5, 3, 3, 3), np.float32)}, hy)
+    kind, params, cfg = both(hy)
+    assert kind == "hyvid" and cfg.z_channels == 5
+    assert "decoder.conv_in.conv.weight" in params
+    img = str(tmp_path / "img_diffusers.safetensors")
     _safetensors.save_file({"decoder.mid_block.resnets.0.norm1.weight":
-                            np.zeros(4, np.float32)}, hy)
-    with pytest.raises(NotImplementedError, match="hyvid"):
-        tpipeline.load_vae(hy, device="cpu")
+                            np.zeros(4, np.float32),
+                            "decoder.conv_in.weight":
+                            np.zeros((8, 4, 3, 3), np.float32)}, img)
+    for load in (lambda: tpipeline.load_vae(img, device="cpu"),
+                 lambda: jpipeline.load_vae(img)):
+        with pytest.raises(ValueError, match="diffusers-format"):
+            load()
 
 
 @pytest.fixture(scope="module")
@@ -206,4 +261,95 @@ def test_cosmos_pipeline_matches_reference(files, cfg_scale):
     got = tp.generate(PROMPT, noise=_noise(5, (1, 2, 8, 8, 16)), **kw)
     assert got.shape == want.shape == (2, 8, 8, 16)
     assert np.isfinite(got).all()
+    assert _rel(got, want) < _cfg_tol(cfg_scale)
+
+
+@pytest.fixture(scope="module")
+def hyvid_pipes(files):
+    """(reference, port) HyVidPipeline over the tiny HunyuanVideo, the
+    llama-graph encoder and the small HunyuanVideo VAE."""
+    _, jvae, _ = jpipeline.load_vae(files["hyvid_vae"])
+    _, tvae, _ = tpipeline.load_vae(files["hyvid_vae"], device="cpu")
+    jp = jpipeline.HyVidPipeline(
+        jpipeline.load_diffusion_model(files["hyvid"]),
+        jpipeline.load_text_encoder(files["llama"]), vae_params=jvae)
+    tp = tpipeline.HyVidPipeline(
+        tpipeline.load_diffusion_model(files["hyvid"], device="cpu"),
+        tpipeline.load_text_encoder(files["llama"], device="cpu"),
+        vae_params=tvae)
+    return jp, tp
+
+
+def test_hyvid_pipeline_matches_reference(hyvid_pipes):
+    """generate() at guidance 6.0 (one forward a step) with the reference's
+    noise: the same video (1 + 4(F − 1) frames through the small VAE's two
+    time doublings, 4× spatial) and, without a VAE, the same latent; a
+    dispatch window of 2 leaves the result as it is."""
+    jp, tp = hyvid_pipes
+    assert tp.shift == jp.shift == 7.0 and tp.encoder.kind == "llama"
+    kw = dict(latent_frames=2, latent_height=4, latent_width=6, steps=3,
+              guidance=6.0, seed=7, max_len=16)
+    want = np.asarray(jp.generate(PROMPT, **kw), np.float32)
+    noise = _noise(7, (1, 2, 4, 6, 16))
+    got = tp.generate(PROMPT, noise=noise, dispatch_window=None, **kw)
+    assert got.shape == want.shape == (5, 16, 24, 3)
+    assert np.isfinite(got).all() and 0 <= got.min() and got.max() <= 1
+    assert _rel(got, want) < _cfg_tol(1.0)
+    assert set(tp.last_timings) >= {"encode_s", "denoise_s", "vae_s"}
+    jv, tv = jp.vae_params, tp.vae_params
+    jp.vae_params = tp.vae_params = None
+    try:
+        want = np.asarray(jp.generate(PROMPT, **kw), np.float32)
+        got = tp.generate(PROMPT, noise=noise, dispatch_window=None, **kw)
+        windowed = tp.generate(PROMPT, noise=noise, dispatch_window=2, **kw)
+    finally:
+        jp.vae_params, tp.vae_params = jv, tv
+    assert got.shape == want.shape == (2, 4, 6, 16)
+    assert _rel(got, want) < _cfg_tol(1.0)
+    assert np.array_equal(windowed, got)
+
+
+@pytest.fixture(scope="module")
+def ltxv_pipes(files):
+    """(reference, port) LTXVPipeline over the tiny LTX-Video, the T5 and
+    the small LTX-Video VAE (128 latent channels)."""
+    _, jvae, _ = jpipeline.load_vae(files["ltxv_vae"])
+    _, tvae, _ = tpipeline.load_vae(files["ltxv_vae"], device="cpu")
+    jp = jpipeline.LTXVPipeline(
+        jpipeline.load_diffusion_model(files["ltxv"]),
+        jpipeline.load_text_encoder(files["t5"]), vae_params=jvae)
+    tp = tpipeline.LTXVPipeline(
+        tpipeline.load_diffusion_model(files["ltxv"], device="cpu"),
+        tpipeline.load_text_encoder(files["t5"], device="cpu"),
+        vae_params=tvae)
+    return jp, tp
+
+
+@pytest.mark.parametrize("cfg_scale", [3.0, 1.0])
+def test_ltxv_pipeline_matches_reference(ltxv_pipes, cfg_scale):
+    """generate() with the reference's (1, L, C) voxel noise: the same
+    video (1 + 8(F − 1) frames, 32× spatial) through the VAE and, without
+    one, the same (F, H, W, C) latent, within the CFG-scaled limit."""
+    jp, tp = ltxv_pipes
+    assert tp.shift == jp.shift == 3.0 and tp.encoder.kind == "t5"
+    kw = dict(latent_frames=2, latent_height=2, latent_width=3, steps=3,
+              cfg_scale=cfg_scale, seed=8, negative_prompt=NEG,
+              max_t5_len=16)
+    noise = _noise(8, (1, 12, 128))
+    want = np.asarray(jp.generate(PROMPT, **kw), np.float32)
+    got = tp.generate(PROMPT, noise=noise, **kw)
+    assert got.shape == want.shape == (9, 64, 96, 3)
+    assert np.isfinite(got).all() and 0 <= got.min() and got.max() <= 1
+    assert _rel(got, want) < _cfg_tol(cfg_scale)
+    # the config read from the VAE's keys once, and kept, in both
+    assert dataclasses.asdict(tp.vae_config) == dataclasses.asdict(
+        jp.vae_config)
+    jv, tv = jp.vae_params, tp.vae_params
+    jp.vae_params = tp.vae_params = None
+    try:
+        want = np.asarray(jp.generate(PROMPT, **kw), np.float32)
+        got = tp.generate(PROMPT, noise=noise, **kw)
+    finally:
+        jp.vae_params, tp.vae_params = jv, tv
+    assert got.shape == want.shape == (2, 2, 3, 128)
     assert _rel(got, want) < _cfg_tol(cfg_scale)
