@@ -20,6 +20,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--hyvid-depth-single N] [--hyvid-steps N]
                           [--hyvid-llama-layers N] [--ltxv-depth N]
                           [--ltxv-steps N] [--ltxv-t5-layers N]
+                          [--tools-depth-double N] [--tools-depth-single N]
+                          [--tools-steps N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
@@ -268,7 +270,32 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    256 T5 tokens), CFG 3.0, shift 3.0, ``--ltxv-steps`` (20) steps,
    decoded to 121 × 512 × 768, both trees, phase 13's gates (K7 D = 64 56
    times a forward, self and cross) and records; ``ltxv_engine`` (two
-   steps). Phases 19 and 20 free their trees when they end.
+   steps). Phases 19 and 20 free their trees when they end;
+21. the offline tools as a user runs them: a flux-dev-width checkpoint
+   (3072, 24 heads of 128, context 4096, vec 768, guidance embed; depth
+   ``--tools-depth-double`` 2 + ``--tools-depth-single`` 4) with the
+   published BFL key names in bf16, written by the port's safetensors
+   writer under a ComfyUI-style root and found through ``ModelRegistry``;
+   ``tools.convert`` (BF16 GGUF) and ``tools.quantize`` Q4_K_M (seconds,
+   GB/s, M parameters a second on the host), ``read_tensors``' census held
+   to the recipe over the names (Q4_K, Q5_K qkv, the no-quant list float),
+   ``validate_checkpoint`` clean (exit 0, no unexpected key), then
+   ``load_diffusion_model(..., "cuda")`` (seconds; one leaf of each qtype
+   dequantized on the card equal to ``codecs.dequantize`` of the file's
+   payload). On the bf16-fused tree and then the w8a8 one: one 1024²
+   forward under phase 13's kernel-call gates (and the block gate for
+   w8a8), one under ``observability.trace`` read back by
+   ``tools.read_trace`` (its launches by family equal to what the census
+   and the depth imply and to the launch counters, its family sums within
+   1% of ``profile_forward``'s), and a ``--tools-steps`` (4) Euler
+   denoise (ms a step, peak memory). Between the trees, ``ops.autotune``
+   over the tree's planar shapes at m = 4608, 4096 and 512: every legal
+   candidate timed (one that fails to launch fails the phase), each
+   within 2e-3 of the plain version and equal on two launches, the table
+   saved, cleared and loaded back equal, the forward under the gates with
+   it, and its device time beside the plan's in turns (plan, tuned,
+   tuned, plan) of 16 forwards each, with the difference's two standard
+   errors.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -323,7 +350,9 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1060,6 +1089,13 @@ def kernel_phase(dev, sfu_per_s):
     # K2: Q8_0 at M=4608, 3072->3072
     qmm_case("qmm_int8 M=4608 3072->3072 Q8_0", "qmm_int8", Q.Q8_0,
              4608, 3072, 3072, None, 1, 5e-3)
+    # K2 at the Q4_K_M recipe's fused qkv (Q5_K; phase 21): the image
+    # stream's 4096 tokens and the text stream's 512, over 4 copies of the
+    # weight (past the L2, as a forward's layers are)
+    qmm_case("qmm_int8 qkv M=4096 3072->9216 Q5_K", "qmm_int8", Q.Q5_K,
+             4096, 3072, 9216, None, 4, 5e-3)
+    qmm_case("qmm_int8 txt qkv M=512 3072->9216 Q5_K", "qmm_int8", Q.Q5_K,
+             512, 3072, 9216, None, 4, 5e-3)
     # K4: the w8a8 block linears
     i8_case("i8mm linear1 M=4608 3072->21504 gelu@9216", 4608, 3072, 21504,
             9216)
@@ -2262,6 +2298,33 @@ def main_path_phase(dev, depth_double, depth_single, steps):
     return res, model, requests[0]
 
 
+def family_ms(prof):
+    """(device ms by kernel family, device ms of each kernel outside the
+    port's kernels and the dense GEMMs) from a finished torch.profiler
+    run; families are ``tools/read_trace._label``'s, the non-kernel ones
+    merged into one "other" family. Annotated regions are left out."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.tools.read_trace import (NON_KERNEL_FAMILIES,
+                                                         _label)
+
+    by_fam, others = {}, {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        # an annotated region's span on the card is no kernel of its own
+        if (us <= 0 or getattr(e, "is_user_annotation", False)
+                or getattr(e, "device_type", None) not in (
+                    None, torch.autograd.DeviceType.CUDA)):
+            continue
+        fam = _label(e.key)
+        if fam in NON_KERNEL_FAMILIES:
+            fam = "other (elementwise, norms, rope, quantize, copies)"
+            others[e.key[:90]] = others.get(e.key[:90], 0.0) + us / 1e3
+        by_fam[fam] = by_fam.get(fam, 0.0) + us / 1e3
+    return by_fam, others
+
+
 def profile_forward(model, inputs, step_s, tree):
     """Device time of one forward of ``tree`` by kernel family, from
     torch.profiler; busy share = kernel time / the timed step."""
@@ -2272,31 +2335,7 @@ def profile_forward(model, inputs, step_s, tree):
                              ProfilerActivity.CUDA]) as prof:
         model.forward(*inputs)
         torch.cuda.synchronize()
-    fams = {"qmm_wgmma_kernel": "K1/K2 qmm (wgmma)",
-            "qmm_smallm_kernel": "K1/K2 qmm (split-K)",
-            "qmm_simt_kernel": "K1/K2 qmm (f32 SIMT)",
-            "gemm_wgmma_kernel": "K4 i8mm",
-            "flash_fwd_kernel": "K7 flash_attn",
-            "i8attn_kernel": "K6 i8attn",
-            "prep_reduce_kernel": "K6 prep",
-            "prep_quant_kernel": "K6 prep",
-            "prep_fold_kernel": "K6 prep",
-            "prep_quant_wide_kernel": "K6 prep"}
-    by_fam, others = {}, {}
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0) or 0)
-        if us <= 0 or getattr(e, "device_type", None) not in (
-                None, torch.autograd.DeviceType.CUDA):
-            continue
-        fam = next((v for k, v in fams.items() if k in e.key), None)
-        if fam is None:
-            low = e.key.lower()
-            fam = ("dense GEMM (cuBLAS)" if any(
-                t in low for t in ("gemm", "gemv", "cutlass", "xmma"))
-                else "other (elementwise, norms, rope, quantize, copies)")
-            others[e.key[:90]] = others.get(e.key[:90], 0.0) + us / 1e3
-        by_fam[fam] = by_fam.get(fam, 0.0) + us / 1e3
+    by_fam, others = family_ms(prof)
     total = sum(by_fam.values())
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
     log(f"  profiled {tree} forward: device {total:.1f} ms of a "
@@ -4074,16 +4113,18 @@ def _no_activation_rounding():
 
 @contextlib.contextmanager
 def _block_taps(arch, tap):
-    """Every block call of an ``arch`` forward (AuraFlow's double and
-    single layers; Lumina 2's refiner and main blocks; Qwen-Image's, Wan's,
+    """Every block call of an ``arch`` forward (flux's double and single
+    blocks; AuraFlow's double and single layers; Lumina 2's refiner and main blocks; Qwen-Image's, Wan's,
     Cosmos's and LTX-Video's blocks; HiDream's and HunyuanVideo's double
     and single blocks) goes through
     ``tap(block, args)``;
     the forward carries on with what it returns."""
-    from comfyui_gguf_tpu_torch.models import (aura, cosmos, hidream, hyvid,
-                                               ltxv, lumina2, qwen_image, wan)
+    from comfyui_gguf_tpu_torch.models import (aura, cosmos, flux, hidream,
+                                               hyvid, ltxv, lumina2,
+                                               qwen_image, wan)
 
-    mod, names = {"aura": (aura, ("_double_layer", "_single_layer")),
+    mod, names = {"flux": (flux, ("_double_block", "_single_block")),
+                  "aura": (aura, ("_double_layer", "_single_layer")),
                   "lumina2": (lumina2, ("_block",)),
                   "qwen_image": (qwen_image, ("_block",)),
                   "wan": (wan, ("_block",)),
@@ -5621,6 +5662,491 @@ def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the offline tools as a user runs them
+# ---------------------------------------------------------------------------
+
+# the tools' checkpoint: flux-dev width, depth cut (``--tools-depth-*``)
+TOOLS_GUIDANCE = 3.5
+TOOLS_FTYPE = "Q4_K_M"
+# most relative difference between read_trace's and profile_forward's
+# device time of a kernel family over one traced forward
+TRACE_FAMILY_DELTA_MAX = 1e-2
+# the tuner's m values: the single stream's 4608 rows (bucket 8192), the
+# image stream's 4096 and the text stream's 512
+TUNE_MS = (4608, 4096, 512)
+TUNE_FWD_REPS = 16  # forwards a turn, table against plan
+
+
+def _write_flux_checkpoint(path, dims, seed, dev):
+    """A flux checkpoint with the published BFL key names (``flux_shape_
+    spec``'s) in bf16, made on ``dev`` from a seed (standard deviation 0.02,
+    norm scales centred at 1), written by the port's safetensors writer.
+    → parameters."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.models import testing
+
+    nonblock, groups = testing.flux_shape_spec(dims)
+    shapes = dict(nonblock)
+    for group, (depth, suffixes) in groups.items():
+        for i in range(depth):
+            shapes.update({f"{group}.{i}.{s}": sh
+                           for s, sh in suffixes.items()})
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        sd[k] = (w + 1 if k.endswith(".scale") else w).to(
+            torch.bfloat16).cpu()
+    _safetensors.save_file(sd, path)
+    return sum(v.numel() for v in sd.values())
+
+
+def _flux_rows(key, img, txt):
+    """Rows of x that flux's linear ``key`` takes for one 1024² request."""
+    if ".lin." in key:  # img_mod / txt_mod / the single blocks' modulation
+        return 1
+    if key.startswith("double_blocks."):
+        return txt if ".txt_" in key else img
+    if key.startswith("single_blocks."):
+        return img + txt
+    return None
+
+
+def _flux_expected_launches(params, depth, img, txt):
+    """Kernel launches one forward of a flat flux tree implies: each packed
+    leaf once, at its rows, on the body ``qmm_route`` picks (K1 nib4 / K2
+    int8) or on K4; K7 once a block. → ({read_trace family: launches},
+    {launch counter: launches})."""
+    from comfyui_gguf_tpu_torch.ops.qmatmul import qmm_route
+    from comfyui_gguf_tpu_torch.quant.i8 import I8Planar
+    from comfyui_gguf_tpu_torch.quant.planar import PlanarQuant
+
+    fams = {"K7 flash_attn": depth}
+    counts = {"flash_attn": depth, "flash_attn_d128": depth}
+
+    def add(fam, counter):
+        fams[fam] = fams.get(fam, 0) + 1
+        counts[counter] = counts.get(counter, 0) + 1
+
+    for k, leaf in params.items():
+        m = _flux_rows(k, img, txt)
+        if isinstance(leaf, I8Planar):
+            add("K4 i8mm", "i8mm")
+        elif isinstance(leaf, PlanarQuant):
+            nib4 = leaf.layout == "nib4"
+            small = qmm_route(m, leaf.padded_in, leaf.out_features,
+                              nib4) == "smallm"
+            add(f"{'K1' if nib4 else 'K2'} qmm "
+                f"({'split-K' if small else 'wgmma'})",
+                f"qmm_{leaf.layout}{'_smallm' if small else ''}")
+    return fams, counts
+
+
+def _trace_forward(model, inputs, tree, tmp, fails):
+    """One forward under ``observability.trace``: read_trace's summary of
+    its trace.json by family (K1/K2 by layout) and per annotated region,
+    held against profile_forward's sums over the same profiler run. → (the
+    families' rows, the launch counters of that forward)."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, observability
+    from comfyui_gguf_tpu_torch.tools import read_trace
+
+    d = os.path.join(tmp, f"trace_{tree}")
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad(), observability.trace(d) as prof:
+        with observability.annotate(f"flux forward ({tree})"):
+            model.forward(*inputs)
+        torch.cuda.synchronize()
+    counts = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+              if n != before[k]}
+    path = os.path.join(d, "trace.json")
+    rows = read_trace.summarize(path, top_n=100, layouts=True)
+    log(f"  read_trace of the {tree} forward ({path}):")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        read_trace.main([path, "12"])
+    for ln in buf.getvalue().splitlines():
+        log(f"    {ln}")
+    mods = read_trace.module_ms(path)
+    log(f"    annotated regions on the card: "
+        + (", ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in mods.items())
+           or "none in the trace"))
+    by_fam, _ = family_ms(prof)
+    merged = {}
+    for r in read_trace.summarize(path, top_n=100):
+        fam = r["op"]
+        if fam in read_trace.NON_KERNEL_FAMILIES:
+            fam = "other (elementwise, norms, rope, quantize, copies)"
+        merged[fam] = merged.get(fam, 0.0) + r["ms"]
+    for fam in sorted(set(by_fam) | set(merged)):
+        a, b = merged.get(fam, 0.0), by_fam.get(fam, 0.0)
+        rel = abs(a - b) / max(a, b, 1e-9)
+        log(f"    {fam}: read_trace {a:.3f} ms, profile_forward {b:.3f} ms "
+            f"(rel diff {rel:.2e})")
+        if not rel <= TRACE_FAMILY_DELTA_MAX:
+            fails.append(f"{tree}: read_trace's {fam} {a} ms differs from "
+                         f"profile_forward's {b} ms by {rel:.2e}")
+    return {r["op"]: r for r in rows}, counts
+
+
+def tools_phase(dev, dims, steps, tmp):
+    """Phase 21: safetensors → BF16 GGUF → Q4_K_M GGUF → validate → load →
+    forwards and denoises on the hand-written kernels, then the tile
+    autotuner, as a user runs the port's tools (see the module docstring).
+    ``dims``: the flux dims of the checkpoint; ``tmp``: a directory for
+    the files. On the CPU (the rehearsal at small dims) the forwards run
+    the plain versions, the launch checks are skipped and the tuner must
+    raise."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, registry
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.gguf.reader import GGUFReader
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+    from comfyui_gguf_tpu_torch.quant import codecs, planar
+    from comfyui_gguf_tpu_torch.quant.planar import PlanarQuant
+    from comfyui_gguf_tpu_torch.sampling import euler_sample, flux_schedule
+    from comfyui_gguf_tpu_torch.tools import (convert, quantize,
+                                              read_tensors,
+                                              validate_checkpoint)
+
+    cuda = torch.device(dev).type == "cuda"
+    fails = []
+    res = {}
+    h_lat = 128 if cuda else 16
+    txt_len = 512 if cuda else 16
+    img_tok, depth = (h_lat // 2) ** 2, dims.depth_double + dims.depth_single
+
+    # 1. the checkpoint under a ComfyUI-style root
+    root = os.path.join(tmp, "models")
+    os.makedirs(os.path.join(root, "diffusion_models"))
+    src = os.path.join(root, "diffusion_models", "flux-tools.safetensors")
+    t = time.perf_counter()
+    n_params = _write_flux_checkpoint(src, dims, 21, dev)
+    res["checkpoint"] = dict(params=n_params, bytes=os.path.getsize(src),
+                             write_s=time.perf_counter() - t)
+    log(f"  checkpoint: {n_params / 1e9:.3f} B parameters, "
+        f"{res['checkpoint']['bytes'] / 1e9:.3f} GB bf16 safetensors, made "
+        f"and written in {res['checkpoint']['write_s']:.2f}s")
+
+    # 2. the registry resolves it
+    reg = registry.ModelRegistry([root])
+    if reg.get_full_path("unet", "flux-tools.safetensors") != src:
+        fails.append("the registry did not resolve the checkpoint")
+
+    # 3. convert to a BF16 GGUF
+    t = time.perf_counter()
+    bf16 = convert.convert_file(src, None, use_bf16_base=True)
+    s = time.perf_counter() - t
+    res["convert"] = dict(s=s, gb_per_s=res["checkpoint"]["bytes"] / s / 1e9,
+                          bytes=os.path.getsize(bf16))
+    log(f"  convert -> {os.path.basename(bf16)}: {s:.2f}s "
+        f"({res['convert']['gb_per_s']:.3f} GB/s of source), "
+        f"{res['convert']['bytes'] / 1e9:.3f} GB")
+
+    # 4. quantize to Q4_K_M; its census must be the recipe's
+    t = time.perf_counter()
+    q4 = quantize.quantize_file(bf16, None, TOOLS_FTYPE)
+    s = time.perf_counter() - t
+    reader = GGUFReader(q4)
+    n_quant = sum(t_.n_elements for t_ in reader.tensors
+                  if t_.qtype not in (Q.F32, Q.F16, Q.BF16))
+    res["quantize"] = dict(s=s, mparams_per_s=n_quant / s / 1e6,
+                           quantized_params=n_quant,
+                           bytes=os.path.getsize(q4))
+    log(f"  quantize {TOOLS_FTYPE} -> {os.path.basename(q4)}: {s:.2f}s, "
+        f"{n_quant / 1e6:.1f} M parameters quantized at "
+        f"{res['quantize']['mparams_per_s']:.1f} M/s on the host, "
+        f"{res['quantize']['bytes'] / 1e9:.3f} GB")
+    want = {}
+    qs = quantize.QuantState()
+    ftype = quantize._FTYPE_BY_NAME[TOOLS_FTYPE]
+    for t_ in GGUFReader(bf16).tensors:
+        qt = (quantize.tensor_qtype(t_.name, t_.shape, ftype, qs)
+              if quantize.should_quantize(t_.name, t_.shape, "flux")
+              else t_.qtype)
+        want[Q(qt).name] = want.get(Q(qt).name, 0) + 1
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        read_tensors.main([q4])
+    census_line = buf.getvalue().splitlines()[-1]
+    census = {part.split(" (")[0]: int(part.split(" (")[1].rstrip(")"))
+              for part in census_line[len("census: "):].split(", ")}
+    res["census"] = census
+    log(f"  read_tensors {census_line}; the recipe over the names: {want}")
+    if census != want:
+        fails.append(f"census {census} != the recipe's {want}")
+    by_name = {t_.name: t_ for t_ in reader.tensors}
+    if not {"Q4_K", "Q5_K"} <= set(census):
+        fails.append(f"no Q4_K and Q5_K in the census {census}")
+    for k, t_ in by_name.items():
+        if k.startswith(("img_in", "txt_in", "time_in", "vector_in",
+                         "guidance_in", "final_layer")) and Q(t_.qtype) \
+                not in (Q.F32, Q.BF16):
+            fails.append(f"{k} is {Q(t_.qtype).name}, not float")
+        if k.endswith("_attn.qkv.weight") and Q(t_.qtype) != Q.Q5_K:
+            fails.append(f"{k} is {Q(t_.qtype).name}, not Q5_K")
+    names = reg.list_names("unet", gguf_only=True)
+    log(f"  registry: unet GGUFs {names}")
+    if sorted(names) != sorted(os.path.basename(p) for p in (bf16, q4)):
+        fails.append(f"the registry lists {names}")
+
+    # 5. validate
+    rep = validate_checkpoint.validate(q4)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = validate_checkpoint.main([q4])
+    res["validate"] = dict(rc=rc, **{k: len(v) for k, v in rep.to_json()
+                                     .items() if isinstance(v, list)})
+    log(f"  validate_checkpoint: exit {rc}, spec {rep.spec}, {res['validate']}")
+    if rc != 0 or not rep.ok or rep.unexpected or rep.spec != "full":
+        fails.append(f"validate_checkpoint: exit {rc}, {rep.to_json()}")
+
+    # 6. load onto the device; one leaf of each qtype equals the codec
+    _build.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = load_diffusion_model(q4, dev)
+    if cuda:
+        torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t
+    checked = {}
+    for k, leaf in model.params.items():
+        t_ = by_name[k]
+        qn = Q(t_.qtype).name
+        if qn in checked:
+            continue
+        want_w = codecs.dequantize(t_.data, t_.qtype, t_.shape)
+        got_w = (planar.dequantize(leaf) if isinstance(leaf, PlanarQuant)
+                 else leaf.float())
+        checked[qn] = (k, bool(np.array_equal(got_w.cpu().numpy(),
+                                              want_w)))
+    log(f"  load_diffusion_model(..., {dev!r}): {res['load_s']:.2f}s; "
+        f"dequantized on the device vs codecs.dequantize of the payload: "
+        + ", ".join(f"{q} ({k}) {'equal' if ok else 'DIFFERENT'}"
+                    for q, (k, ok) in checked.items()))
+    for q, (k, ok) in checked.items():
+        if not ok:
+            fails.append(f"{q} leaf {k} differs from the file's payload")
+
+    # 7-8. forwards, traces and denoises on each tree; 9. the tuner
+    inputs = testing.flux_example_inputs(dims, batch=1, h_lat=h_lat,
+                                         w_lat=h_lat, txt_len=txt_len,
+                                         seed=2, device=dev)
+    inputs = (*inputs[:6], torch.full_like(inputs[6], TOOLS_GUIDANCE))
+    sigmas = flux_schedule(steps, img_tok)
+
+    def denoise():
+        img, ids, txt, tids, _, y, g = inputs
+
+        def vel(x, s):
+            return model.forward(x, ids, txt, tids, s.expand(x.shape[0]), y,
+                                 g)
+        with torch.no_grad():
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = euler_sample(vel, img, sigmas)
+            if cuda:
+                torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    recorded = []
+    for tree in ("bf16_fused", "w8a8"):
+        if tree == "w8a8":
+            t = time.perf_counter()
+            model.requantize_i8()
+            if cuda:
+                torch.cuda.synchronize()
+            res["requantize_s"] = time.perf_counter() - t
+        errs = _block_check(model, "flux", inputs, recorded,
+                            replay=tree == "w8a8")
+        _call_gate(errs["calls"], f"{tree} forward", fails)
+        if tree == "w8a8":
+            worst = _worst(errs["vs_bf16"])
+            log(f"  w8a8 blocks vs the bf16-fused blocks on the same "
+                f"inputs: worst rel L2 {worst:.3e} ({len(errs['vs_bf16'])} "
+                f"blocks)")
+            if not worst <= W8A8_BLOCK_DELTA_MAX:
+                fails.append(f"a w8a8 block differs from its bf16-fused "
+                             f"block by rel L2 {worst}")
+        fams, counts = _flux_expected_launches(model.params, depth, img_tok,
+                                               txt_len)
+        if cuda:
+            rows, got = _trace_forward(model, inputs, tree, tmp, fails)
+            seen = {f: r["count"] for f, r in rows.items()
+                    if f.startswith("K")}
+            log(f"  {tree} forward: launches by family in the trace {seen}, "
+                f"by the counters {got}; the census and depth imply {fams}")
+            if seen != fams:
+                fails.append(f"{tree}: trace families {seen} != {fams}")
+            if {k: v for k, v in got.items() if v} != counts:
+                fails.append(f"{tree}: launch counters {got} != {counts}")
+        out, secs = denoise()
+        if out.shape != inputs[0].shape or not bool(torch.isfinite(out)
+                                                    .all()):
+            fails.append(f"{tree}: non-finite or misshapen latent")
+        res[tree] = dict(ms_per_step=secs / steps * 1e3,
+                         peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                   if cuda else None))
+        log(f"  {tree}: {steps}-step Euler denoise {secs:.3f}s -> "
+            f"{res[tree]['ms_per_step']:.1f} ms/step; peak memory "
+            + (f"{res[tree]['peak_gib']:.2f} GiB" if cuda else "n/a"))
+        if tree == "bf16_fused":
+            res["autotune"] = _autotune_step(model, inputs, tmp, cuda, fails)
+    res["launches"] = dict(_build.LAUNCHES)
+    del model
+    if fails:
+        raise SystemExit("phase 21: " + "; ".join(fails))
+    return res
+
+
+def _autotune_step(model, inputs, tmp, cuda, fails):
+    """Step 9: the tuner over the bf16-fused tree's distinct planar shapes
+    at each of ``TUNE_MS``; every candidate checked against the plain
+    version; the table saved, cleared and loaded; the forward's gates and
+    its time with the table beside the plan's. The tuner's launches are
+    measurements, not the path's: the counters are restored after."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.ops import autotune, qmatmul
+    from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
+                                                    qmm_cuda,
+                                                    wgmma_split_plan)
+    from comfyui_gguf_tpu_torch.quant.planar import PlanarQuant
+
+    qmatmul.SHAPE_TILES.clear()
+    if not cuda:
+        try:
+            autotune.tune_for_params(model.params, TUNE_MS[0])
+        except RuntimeError as e:
+            log(f"  autotune without a card raises: {e}")
+            return {}
+        fails.append("autotune ran without a card")
+        return {}
+    before = dict(_build.LAUNCHES)
+    leaves = {}
+    for leaf in model.params.values():
+        if isinstance(leaf, PlanarQuant):
+            for m in TUNE_MS:
+                leaves.setdefault(qmatmul.shape_key(
+                    m, leaf.padded_in, leaf.padded_out, leaf.layout),
+                    (m, leaf))
+    out = {"shapes": {}}
+    t = time.perf_counter()
+    for m in TUNE_MS:
+        times = {}
+        winners = autotune.tune_for_params(model.params, m, times=times)
+        for key, best in winners.items():
+            m_, leaf = leaves[key]
+            pick = wgmma_split_plan(m_, leaf.padded_in, leaf.out_features)
+            gen = torch.Generator(device=leaf.qs.device).manual_seed(7)
+            x = torch.randn((m_, leaf.in_features), generator=gen,
+                            device=leaf.qs.device).to(torch.bfloat16)
+            want = plain_quantized_matmul(x, leaf)
+            legal = {t for t in autotune.CANDIDATES
+                     if autotune._legal(leaf, m_, t)}
+            if set(times[key]) != legal:
+                fails.append(f"autotune {key}: timed {sorted(times[key])}, "
+                             f"legal {sorted(legal)} (a candidate failed "
+                             f"to launch)")
+            checks = {}
+            for tiles in times[key]:
+                a = qmm_cuda(x, leaf, tiles=tiles)
+                b = qmm_cuda(x, leaf, tiles=tiles)
+                err = rel_l2(a, want)
+                checks[tiles] = err
+                if not (torch.equal(a, b) and err <= 2e-3):
+                    fails.append(f"autotune {key} {tiles}: rel L2 {err}, "
+                                 f"two launches equal {torch.equal(a, b)}")
+            label = (f"m={m_} Kp={key[1]} Rp={key[2]} {key[3]} "
+                     f"(R={leaf.out_features})")
+            out["shapes"][json.dumps(list(key))] = dict(
+                m=m_, r=leaf.out_features, times={
+                    f"{nt},{s}": ms for (nt, s), ms in times[key].items()},
+                pick=list(pick), winner=None if best is None else list(best),
+                worst_rel_l2=max(checks.values()) if checks else None)
+            log(f"  autotune {label}: "
+                + (", ".join(f"({nt},{s}) {ms:.4f} ms"
+                             for (nt, s), ms in times[key].items())
+                   or "no wgmma candidate (the split-K body takes m)")
+                + (f"; heuristic {pick}, winner {best}" if best else ""))
+    out["tune_s"] = time.perf_counter() - t
+    table = dict(qmatmul.SHAPE_TILES)
+    path = os.path.join(tmp, "tiles.json")
+    autotune.save(path)
+    qmatmul.SHAPE_TILES.clear()
+    n = autotune.load(path)
+    if qmatmul.SHAPE_TILES != table or n != len(table):
+        fails.append("the tile table did not load back equal")
+    log(f"  autotune: {len(table)} entries tuned in {out['tune_s']:.1f}s, "
+        f"saved, cleared and loaded back equal: "
+        f"{qmatmul.SHAPE_TILES == table}")
+    _build.LAUNCHES.update(before)
+    # the forward with the table, under the kernel-call gates
+    errs = _call_errs()
+    with torch.no_grad(), _kernel_calls(errs):
+        model.forward(*inputs)
+    _call_gate(errs, "bf16-fused forward with the tuned table", fails)
+    # the forward's device time with and without the table, in turns of
+    # TUNE_FWD_REPS forwards each, every forward timed by its own events
+    before = dict(_build.LAUNCHES)
+    turns = []
+    for tuned in (False, True, True, False):
+        qmatmul.SHAPE_TILES.clear()
+        if tuned:
+            qmatmul.SHAPE_TILES.update(table)
+        turns.append(_forward_times(model, inputs, TUNE_FWD_REPS))
+    _build.LAUNCHES.update(before)
+    qmatmul.SHAPE_TILES.clear()
+    names = ("heuristic", "tuned", "tuned2", "heuristic2")
+    out["forward_ms_turns"] = {
+        n: dict(mean=statistics.fmean(t), stdev=statistics.stdev(t),
+                n=len(t)) for n, t in zip(names, turns)}
+    plan = turns[0] + turns[3]
+    tuned = turns[1] + turns[2]
+    diff = statistics.fmean(tuned) - statistics.fmean(plan)
+    # two standard errors of the difference of the two means
+    resolution = 2 * math.sqrt(statistics.variance(plan) / len(plan)
+                               + statistics.variance(tuned) / len(tuned))
+    out["forward_ms_tuned_minus_plan"] = dict(diff=diff,
+                                              two_stderr=resolution)
+    log("  bf16-fused forward, mean ± stdev of "
+        f"{TUNE_FWD_REPS} forwards a turn (heuristic, tuned, tuned, "
+        "heuristic): " + ", ".join(
+            f"{statistics.fmean(t):.3f} ± {statistics.stdev(t):.3f}"
+            for t in turns)
+        + f" ms; tuned - plan {diff:+.4f} ms (two standard errors "
+        f"{resolution:.4f} ms: "
+        + ("resolved" if abs(diff) > resolution else "not resolved") + ")")
+    return out
+
+
+def _forward_times(model, inputs, n):
+    """Device ms of each of ``n`` forwards after one warm-up, each between
+    its own pair of CUDA events."""
+    import torch
+
+    with torch.no_grad():
+        model.forward(*inputs)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        for t0, t1 in events:
+            t0.record()
+            model.forward(*inputs)
+            t1.record()
+        torch.cuda.synchronize()
+    return [t0.elapsed_time(t1) for t0, t1 in events]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -5659,6 +6185,9 @@ def main() -> int:
     ap.add_argument("--ltxv-depth", type=int, default=28)
     ap.add_argument("--ltxv-steps", type=int, default=20)
     ap.add_argument("--ltxv-t5-layers", type=int, default=24)
+    ap.add_argument("--tools-depth-double", type=int, default=2)
+    ap.add_argument("--tools-depth-single", type=int, default=4)
+    ap.add_argument("--tools-steps", type=int, default=4)
     args = ap.parse_args()
 
     import torch
@@ -5889,6 +6418,16 @@ def main() -> int:
     ltxv_res = video2_full_phase(dev, "ltxv", args.ltxv_depth,
                                  args.ltxv_steps, args.ltxv_t5_layers,
                                  min(args.ltxv_steps, 2))
+    log("[21 the offline tools as a user runs them: safetensors -> BF16 "
+        "GGUF -> Q4_K_M -> validate -> load -> denoise, the tile "
+        "autotuner]")
+    from comfyui_gguf_tpu_torch.models import testing
+    tools_dims = dataclasses.replace(
+        testing.FLUX_DEV_DIMS, depth_double=args.tools_depth_double,
+        depth_single=args.tools_depth_single)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tools_res = tools_phase(dev, tools_dims, args.tools_steps, tmp)
+    torch.cuda.empty_cache()
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
@@ -5908,7 +6447,7 @@ def main() -> int:
                    lumina_res["launches"], qwen_res["launches"],
                    hidream_res["launches"], wan_res["launches"],
                    cosmos_res["launches"], hyvid_res["launches"],
-                   ltxv_res["launches"]):
+                   ltxv_res["launches"], tools_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

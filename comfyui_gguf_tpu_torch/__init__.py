@@ -87,6 +87,7 @@ _PUBLIC = {
     "memory_report": ".observability",
     "qmm_roofline": ".observability",
     "enable_compile_cache": ".compile_cache",
+    "ModelRegistry": ".registry",
     "sample_flow": ".sampling",
     "run_sampler": ".sampling.kdiffusion",
     "make_schedule": ".sampling.kdiffusion",

@@ -357,6 +357,67 @@ def flux_state_dict(dims: TinyFluxDims, seed: int = 0,
     return sd
 
 
+def flux_shape_spec(dims: TinyFluxDims, guidance: bool = True):
+    """(nonblock, groups) shape spec of ``flux_state_dict``'s keys — the
+    expected-key source of the checkpoint validator
+    (tools/validate_checkpoint.py). ``guidance=False`` drops the
+    guidance_in embedder (flux-schnell)."""
+    HID, CTX, VEC, INCH, MLP = (dims.hidden, dims.ctx, dims.vec,
+                                dims.in_ch, dims.mlp)
+    hd = HID // dims.heads
+    nonblock = {
+        "img_in.weight": (HID, INCH), "img_in.bias": (HID,),
+        "txt_in.weight": (HID, CTX), "txt_in.bias": (HID,),
+        "time_in.in_layer.weight": (HID, 256),
+        "time_in.in_layer.bias": (HID,),
+        "time_in.out_layer.weight": (HID, HID),
+        "time_in.out_layer.bias": (HID,),
+        "vector_in.in_layer.weight": (HID, VEC),
+        "vector_in.in_layer.bias": (HID,),
+        "vector_in.out_layer.weight": (HID, HID),
+        "vector_in.out_layer.bias": (HID,),
+        "final_layer.linear.weight": (INCH, HID),
+        "final_layer.linear.bias": (INCH,),
+        "final_layer.adaLN_modulation.1.weight": (2 * HID, HID),
+        "final_layer.adaLN_modulation.1.bias": (2 * HID,),
+    }
+    if guidance:
+        nonblock.update({
+            "guidance_in.in_layer.weight": (HID, 256),
+            "guidance_in.in_layer.bias": (HID,),
+            "guidance_in.out_layer.weight": (HID, HID),
+            "guidance_in.out_layer.bias": (HID,),
+        })
+    double = {}
+    for s in ("img", "txt"):
+        double.update({
+            f"{s}_mod.lin.weight": (6 * HID, HID),
+            f"{s}_mod.lin.bias": (6 * HID,),
+            f"{s}_attn.qkv.weight": (3 * HID, HID),
+            f"{s}_attn.qkv.bias": (3 * HID,),
+            f"{s}_attn.norm.query_norm.scale": (hd,),
+            f"{s}_attn.norm.key_norm.scale": (hd,),
+            f"{s}_attn.proj.weight": (HID, HID),
+            f"{s}_attn.proj.bias": (HID,),
+            f"{s}_mlp.0.weight": (MLP, HID),
+            f"{s}_mlp.0.bias": (MLP,),
+            f"{s}_mlp.2.weight": (HID, MLP),
+            f"{s}_mlp.2.bias": (HID,),
+        })
+    single = {
+        "linear1.weight": (3 * HID + MLP, HID),
+        "linear1.bias": (3 * HID + MLP,),
+        "linear2.weight": (HID, HID + MLP),
+        "linear2.bias": (HID,),
+        "modulation.lin.weight": (3 * HID, HID),
+        "modulation.lin.bias": (3 * HID,),
+        "norm.query_norm.scale": (hd,),
+        "norm.key_norm.scale": (hd,),
+    }
+    return nonblock, {"double_blocks": (dims.depth_double, double),
+                      "single_blocks": (dims.depth_single, single)}
+
+
 def flux_block_qtype(key: str, arr: np.ndarray, qtype):
     """The quantization policy of a converted flux file: block weights
     quantize, the embedders, norms and final layer stay float (None)."""
@@ -517,6 +578,23 @@ def sd3_flat_state_dict(dims: TinySD3Dims, seed: int = 0) -> dict:
                                 dual=(i < dims.dual_prefix))
         sd.update({f"joint_blocks.{i}.{k}": v for k, v in blk.items()})
     return sd
+
+
+def sd3_shape_spec(dims: TinySD3Dims) -> dict:
+    """Flat expected {key: shape} for sd3 (the final block is pre-only, so
+    the per-block key sets differ — a flat dict instead of the homogeneous
+    (nonblock, groups) format). Single-attention blocks only: the
+    validator checks an sd3.5-medium (dual-attention) file structurally."""
+
+    def shape_of(*s):
+        return tuple(s)
+
+    out = dict(_sd3_nonblock(dims, shape_of))
+    for i in range(dims.depth):
+        blk = _sd3_block_leaves(dims, packed=shape_of, dense=shape_of,
+                                pre_only=(i == dims.depth - 1))
+        out.update({f"joint_blocks.{i}.{k}": v for k, v in blk.items()})
+    return out
 
 
 def sd3_block_qtype(key: str, arr: np.ndarray, qtype):

@@ -220,6 +220,47 @@ def wgmma_split_plan(m: int, kp: int, r: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
+# tuned (token sub-tiles, K split) of the wgmma body by shape:
+# {(m bucket, Kp, Rp, layout): (nt, split)}. Filled by ops.autotune (timed
+# on the card) or loaded from the JSON named by $GGUF_TPU_TILE_CACHE;
+# consulted before ``wgmma_split_plan``. Empty unless one of those fills it.
+# m is bucketed to the next power of two so batch jitter reuses entries.
+# The key has no dequant dtype and no LoRA: an entry drives every wgmma
+# instance of its shape (bf16 or f16, with or without a LoRA epilogue),
+# whichever one it was timed on.
+SHAPE_TILES: dict = {}
+
+
+def _m_bucket(m: int) -> int:
+    return 1 << max(0, (m - 1)).bit_length() if m > 0 else 1
+
+
+def shape_key(m: int, kp: int, rp: int, layout: str) -> tuple:
+    """The ``SHAPE_TILES`` key of a launch: (m rounded up to a power of
+    two, padded K, padded R, "nib4" | "int8")."""
+    return (_m_bucket(m), kp, rp, layout)
+
+
+def wgmma_tiles(m: int, kp: int, r: int, rp: int, layout: str,
+                tiles=None) -> tuple[int, int]:
+    """(token sub-tiles, K split) of a wgmma launch: ``tiles`` if given,
+    else the ``SHAPE_TILES`` entry of its shape, else ``wgmma_split_plan``'s
+    pick. A given or tabled pair the body cannot take raises
+    ``ValueError``."""
+    source = "tiles="
+    if tiles is None:
+        source = "SHAPE_TILES entry"
+        tiles = SHAPE_TILES.get(shape_key(m, kp, rp, layout))
+        if tiles is None:
+            return wgmma_split_plan(m, kp, r)
+    nt, split = tiles
+    if not (nt in (1, 2) and wgmma_split_ok(kp, nt, split)):
+        raise ValueError(f"{source} nt={nt} split={split} for "
+                         f"{shape_key(m, kp, rp, layout)} does not fit "
+                         f"Kp={kp}")
+    return nt, split
+
+
 I8MM_TILE_M = 128  # tokens per K4 tile (2 consumer warpgroups x 64)
 I8MM_WIDTHS = (256, 128)  # out-features per K4 tile
 # time of a 128-wide K4 tile relative to half a 256-wide one: 1.09-1.13 at
@@ -313,7 +354,8 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
     float32: the kernel's operand type, to which it also rounds the weight);
     pq: 2-D planar weight (a depth slice of a stacked one is fine), float32
     or bfloat16 scale planes. ``tiles``: the wgmma body's (token sub-tiles,
-    K split) instead of ``wgmma_split_plan``'s, for measurements and tests.
+    K split) instead of ``wgmma_tiles``' (the ``SHAPE_TILES`` entry, else
+    ``wgmma_split_plan``'s pick), for measurements and tests.
     Output (..., R) in ``out_dtype`` (default x.dtype): the bf16 instances
     write bf16, the f16 and f32 ones f32, rounded once to ``out_dtype``.
     """
@@ -404,11 +446,8 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
                 rc = lib.qmm_simt_launch(*ptrs, *dims, int(nib4), act, sbf16,
                                          stream)
         else:
-            nt, split = wgmma_split_plan(m, kp, R) if tiles is None else tiles
-            if not (nt in (1, 2) and wgmma_split_ok(kp, nt, split)):
-                raise ValueError(f"wgmma tiles nt={nt} split={split} do not "
-                                 f"fit Kp={kp}")
             lay = "nib4" if nib4 else "int8"
+            nt, split = wgmma_tiles(m, kp, R, rp, lay, tiles)
             if lora:
                 launch = getattr(lib, f"qmm_wgmma_{lay}{sfx}_lora_launch")
                 rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,

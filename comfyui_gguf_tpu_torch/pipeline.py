@@ -280,12 +280,19 @@ def load_diffusion_model(path: str, device="cuda", dequant_dtype="default",
     LoRA operands are rounded to the dequant dtype as the reference's
     kernels round them (bfloat16 in the w8a8 kernel).
     ``GGUF_TPU_COMPILE_CACHE`` names a persistent kernel build directory
-    (``compile_cache.enable_from_env``)."""
+    (``compile_cache.enable_from_env``); ``GGUF_TPU_TILE_CACHE`` a JSON
+    table of tuned wgmma tiles (``ops.autotune``), loaded into
+    ``ops.qmatmul.SHAPE_TILES`` here, each entry checked (a bad one raises
+    now, not at its first launch)."""
     from .compile_cache import enable_from_env
 
     device = resolve_device(device)
     qcfg = _resolve_qcfg(dequant_dtype, patch_dtype)
     enable_from_env()
+    if os.environ.get("GGUF_TPU_TILE_CACHE"):
+        from .ops import autotune
+
+        autotune.load_from_env()
     sd, arch = gguf_sd_loader(path, return_arch=True)
     params = to_torch_params(sd, qcfg, device=device)
     config = None

@@ -26,7 +26,8 @@ instance (the Wan VAE's mid-block) on contiguous tensors and on column
 slices of one projection, and its D = 512 instance (the HunyuanVideo VAE's)
 at an odd length, Lq != Lk, B > 1 and on single-head views. Tiny
 HunyuanVideo and LTX-Video forwards (planar and w8a8, flat and stacked)
-and their VAEs' decodes run on the card against the CPU. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+and their VAEs' decodes run on the card against the CPU, and the tile
+autotuner leaves a legal entry that the dispatch then takes. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
 4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
 M = 4) and one continuous-batching engine run on the card against the
 same engine on the CPU (launch counts per tick) run here too. Whether a
@@ -1583,3 +1584,35 @@ def test_video_vae_decode_on_the_card_matches_cpu(cuda, arch):
         assert _build.LAUNCHES["flash_attn_d64"] > before
     assert bool(torch.isfinite(outs[0]).all())
     assert _rel_l2(outs[0].cpu(), outs[1]) < 3e-2
+
+
+@pytest.mark.parametrize("qtype,M", [(Q.Q4_K, 512), (Q.Q5_K, 300)])
+def test_autotune_leaves_a_legal_entry(cuda, qtype, M):
+    """The tuner on one small planar weight: every legal candidate timed,
+    a winner among them recorded under the weight's key, and ``qmm_cuda``
+    through the table equal to the forced tiles and within 2e-3 of the plain
+    version."""
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+    from comfyui_gguf_tpu_torch.ops import autotune, qmatmul
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    pq = random_planar(qtype, (1024, 1536), gen, device=cuda)
+    qmatmul.SHAPE_TILES.clear()
+    try:
+        times = {}
+        best = autotune.tune_shape(pq, M, times=times)
+        assert best is not None and best in times
+        # every legal candidate was timed: one that failed to launch is
+        # missing from ``times``
+        assert set(times) == {t for t in autotune.CANDIDATES
+                              if autotune._legal(pq, M, t)}
+        assert autotune._legal(pq, M, best)
+        key = qmatmul.shape_key(M, pq.padded_in, pq.padded_out, pq.layout)
+        assert qmatmul.SHAPE_TILES == {key: best}
+        x = torch.randn(M, 1536, generator=gen, device=cuda).to(
+            torch.bfloat16)
+        got = qmm_cuda(x, pq)
+        assert torch.equal(got, qmm_cuda(x, pq, tiles=best))
+        assert _rel_l2(got, plain_quantized_matmul(x, pq)) <= 2e-3
+    finally:
+        qmatmul.SHAPE_TILES.clear()

@@ -20,7 +20,8 @@ FILES = sorted(p for p in (ROOT / "comfyui_gguf_tpu_torch").rglob("*.py")
                if "_build" not in p.relative_to(ROOT).parts) + [
     ROOT / "chip_smoke.py", ROOT / "tools_i8_microbench_cuda.py",
     ROOT / "tools_qmm_cuda.py", ROOT / "tools_i8mm_flash_cuda.py",
-    ROOT / "tools_kernel_ab_cuda.py"]
+    ROOT / "tools_kernel_ab_cuda.py",
+    ROOT / "tools_batch_invariance_cuda.py"]
 
 
 def _imported_roots(tree):
@@ -53,6 +54,10 @@ def test_the_port_has_its_own_sources():
                 "ops/i8attn.py", "ops/gemm_probe.py", "_safetensors.py",
                 "models/wan.py", "models/cosmos.py", "models/wan_vae.py",
                 "models/hyvid.py", "models/hyvid_vae.py", "models/ltxv.py",
-                "models/ltxv_vae.py"):
+                "models/ltxv_vae.py", "registry.py", "ops/autotune.py",
+                "tools/convert.py", "tools/quantize.py",
+                "tools/fix_5d_tensors.py", "tools/fix_lines_ending.py",
+                "tools/read_tensors.py", "tools/validate_checkpoint.py",
+                "tools/read_trace.py"):
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()
