@@ -194,8 +194,8 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    instance) must be 30 a forward; then ``lumina2_engine`` as phase 13's
    engine. Phases 13
    and 14 free their trees (``lifecycle.free_tree``) when they end;
-15. Qwen-Image: ``QWEN_IMAGE_20B_DIMS`` (hidden 3072, 24 heads of 128, 60
-   blocks unless ``--qwen-depth`` cuts them), seed-made Q4_K stacked, with
+15. Qwen-Image: ``QWEN_IMAGE_20B_DIMS`` (hidden 3072, 24 heads of 128, 30
+   of its 60 blocks by default, ``--qwen-depth``), seed-made Q4_K stacked, with
    the llama graph at Qwen2.5-VL-7B's shapes (Q8_0, 28 layers, 28 heads /
    4 kv heads of 128, q/k/v biases, its 152064-row embedding through the
    big-embed guard; the config built as the reference's own test builds
@@ -203,19 +203,20 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    ``QwenImagePipeline.generate`` at 1024² with the reference's defaults
    (20 steps, CFG 4.0, shift 2.2, 256 tokens, negative " "), on the
    bf16-fused tree and then on the w8a8 tree (img_mod / txt_mod planar): K7
-   60 times a forward, two forwards a step, and phase 13's gates and
+   once a block a forward, two forwards a step, and phase 13's gates and
    records; the Qwen2.5-VL vision tower (1280 wide, 32 blocks of 16 heads ×
    80, windowed, full blocks 7/15/23/31, merged to 3584) on a 448² image
    spliced through ``qwen_vl_encode_with_image``, then ``generate_edit``
    with one 128 × 128 × 16 reference latent for 4 steps on it (about 8480
    tokens); ``qwen_image_engine`` as phase 13's engine;
-16. HiDream-I1: ``HIDREAM_I1_DIMS`` (hidden 2560, 20 heads of 128, 16 + 32
-   blocks, FFN 6912, 4 routed experts top-2 plus the shared one), seed-made
+16. HiDream-I1: ``HIDREAM_I1_DIMS`` (hidden 2560, 20 heads of 128, 8 + 16
+   of its 16 + 32 blocks by default, ``--hidream-depth-double`` /
+   ``--hidream-depth-single``, FFN 6912, 4 routed experts top-2 plus the shared one), seed-made
    Q4_K stacked, with CLIP-L, CLIP-G, T5-xxl (Q8_0) and the llama graph at
    Llama-3.1-8B's shapes (Q8_0, 32 layers, 128256 rows through the guard)
    through ``HiDreamPipeline.generate_from_ids`` at 1024², 20 steps (one
-   forward a step), 128 T5 + 128 llama tokens, both trees: K7 48 times a
-   forward, phase 13's gates (each block's top-2 routing recorded on both
+   forward a step), 128 T5 + 128 llama tokens, both trees: K7 once a block
+   a forward, phase 13's gates (each block's top-2 routing recorded on both
    trees: the tokens whose sets differ), w8a8 forwards in "capacity"
    dispatch with each block also run in "dense" dispatch on the same
    inputs, at the default capacity factor 1.5 (overflows recorded) and at
@@ -227,7 +228,7 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    the card's peak during each conversion are printed. Phases 15 and 16
    free their trees when they end;
 17. Wan 2.1 14B: ``WAN_14B_DIMS`` (dim 5120, 40 heads of 128, ffn 13824,
-   40 blocks unless ``--wan-depth`` cuts them), seed-made Q4_K stacked,
+   20 of its 40 blocks by default, ``--wan-depth``), seed-made Q4_K stacked,
    with the UMT5-xxl-shaped encoder (Q8_0, ``--umt5-layers`` (24) layers, a
    relative-bias table in each, 256384 rows) and the Wan 2.1 VAE at its
    published widths (base 96, z 16, mult 1/2/4/4) through
@@ -236,7 +237,8 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    zeroed), shift 5.0, CFG 5.0, ``--wan-steps`` (20) steps and a dispatch
    window of 4, decoded to 9 frames (the VAE's mid-block attention on K7's
    D = 384 instance), on the bf16-fused tree and then on the w8a8 tree,
-   with phase 13's gates (K7 D = 128 80 times a forward) and records;
+   with phase 13's gates (K7 D = 128 twice a block a forward) and
+   records;
    ``wan_engine`` as phase 13's engine (two steps). Published Wan 480p is
    81 frames (32760 tokens): the frame count is the cut;
 18. Cosmos: ``COSMOS_7B_DIMS`` (dim 4096, 32 heads of 128, 28 blocks unless
@@ -273,7 +275,7 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    steps). Phases 19 and 20 free their trees when they end;
 21. the offline tools as a user runs them: a flux-dev-width checkpoint
    (3072, 24 heads of 128, context 4096, vec 768, guidance embed; depth
-   ``--tools-depth-double`` 2 + ``--tools-depth-single`` 4) with the
+   ``--tools-depth-double`` 1 + ``--tools-depth-single`` 2) with the
    published BFL key names in bf16, written by the port's safetensors
    writer under a ComfyUI-style root and found through ``ModelRegistry``;
    ``tools.convert`` (BF16 GGUF) and ``tools.quantize`` Q4_K_M (seconds,
@@ -295,7 +297,28 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    saved, cleared and loaded back equal, the forward under the gates with
    it, and its device time beside the plan's in turns (plan, tuned,
    tuned, plan) of 16 forwards each, with the difference's two standard
-   errors.
+   errors;
+22. parallelism: two ranks share the card over gloo (``parallel.launch``;
+   the parent has built the kernel library, the ranks load it and return
+   their launch counts): flux-dev at published width and depth, seed-made
+   Q4_K, sharded on the card at tp = 2 (``shard_packed_params``, both
+   layouts), a 1024² forward of ``tp_spec.tp_flux_forward`` and of
+   ``tp_flux.tp_forward_stacked`` on the bf16-fused and on the w8a8 tree
+   (every kernel call of a spec forward against its plain version; both TP
+   forwards within 3e-2 of the unsharded forward of the same codes; a w8a8
+   TP single block within 1e-1 of the unsharded w8a8 block), then
+   ``flux_engine`` with the tp mesh (2 requests × ``--parallel-steps`` (4)
+   Euler steps, within 1e-2 of the TP direct sampler) and with a dp mesh
+   (within 1e-2 of each request alone at batch 1; bit-equality recorded),
+   the 38 single blocks over two pipeline stages (batch 2 in 2
+   microbatches, within 1e-2 of the sequential walk), a HiDream-I1 MoE FFN
+   over ep = 2 against dense dispatch, ring attention at Wan 2.1 14B's
+   self-attention shape against K7 on the whole sequence and one Wan block
+   under ``sequence_parallel`` against the unsharded block (each within
+   1e-2), and every ``tp_spec`` wrapper (nine archs) at a tiny size on the
+   card against the same ranks on the CPU (within 3e-2). Each rank logs ms
+   a forward, ms in collectives, bytes staged through the host, launches a
+   forward and its peak memory.
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -349,6 +372,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -470,7 +494,12 @@ SOURCES = {
 }
 
 
+_T0 = [None]  # main()'s start: phase headers carry the wall so far
+
+
 def log(msg: str) -> None:
+    if _T0[0] is not None and msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _T0[0]:.1f}s)"
     print(msg, flush=True)
 
 
@@ -1096,6 +1125,17 @@ def kernel_phase(dev, sfu_per_s):
              4096, 3072, 9216, None, 4, 5e-3)
     qmm_case("qmm_int8 txt qkv M=512 3072->9216 Q5_K", "qmm_int8", Q.Q5_K,
              512, 3072, 9216, None, 4, 5e-3)
+    # phase 22's per-shard shapes at tp = 2 (flux-dev over two ranks): the
+    # w8a8 single-block linear1 column shard (heads and mlp halved, GELU
+    # from the local mlp tail), the bf16-fused linear2 row shard (K halved)
+    # and a double block's modulation gather shard (18432 / 2) on the
+    # split-K body
+    i8_case("i8mm tp2 linear1 col shard M=4608 3072->10752 gelu@4608", 4608,
+            3072, 10752, 4608)
+    qmm_case("qmm_nib4 tp2 linear2 row shard M=4608 7680->3072 Q4_K",
+             "qmm_nib4", Q.Q4_K, 4608, 7680, 3072, None, 1, 5e-3)
+    qmm_case("qmm_nib4 tp2 img_mod gather shard M=1 3072->9216 Q4_K",
+             "qmm_nib4_smallm", Q.Q4_K, 1, 3072, 9216, None, 4, 5e-3)
     # K4: the w8a8 block linears
     i8_case("i8mm linear1 M=4608 3072->21504 gelu@9216", 4608, 3072, 21504,
             9216)
@@ -1138,6 +1178,9 @@ def kernel_phase(dev, sfu_per_s):
               128)
     # K7: flux joint attention, an odd length at D=64, and Lq != Lk
     attn_case("flash_attn flux L=4608 D=128", 1, 24, 4608, 4608, 128)
+    # phase 22: a rank's local heads at tp = 2 (12 of flux's 24)
+    attn_case("flash_attn tp2 local heads H=12 L=4608 D=128", 1, 12, 4608,
+              4608, 128)
     attn_case("flash_attn odd L=4250 D=64", 1, 24, 4250, 4250, 64)
     attn_case("flash_attn cross Lq=4096 Lk=512 D=128", 1, 24, 4096, 512,
               128)
@@ -6147,6 +6190,615 @@ def _forward_times(model, inputs, n):
     return [t0.elapsed_time(t1) for t0, t1 in events]
 
 
+# ---------------------------------------------------------------------------
+# phase 22: parallelism on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+P22_TP_DELTA_MAX = 3e-2  # a bf16-fused TP forward vs the unsharded forward
+P22_DELTA_MAX = 1e-2  # engines vs direct, PP vs sequential, EP, SP
+P22_BLOCK_DELTA_MAX = 1e-1  # a w8a8 TP block vs the unsharded w8a8 block
+P22_CPU_DELTA_MAX = 3e-2  # a tiny TP forward on the card vs on the CPU
+
+
+def _p22_sync(reset=False, peak=False):
+    """Wait for the card (a no-op in a CPU rehearsal); ``reset`` / ``peak``:
+    its peak-memory counter (GiB)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    elif peak:
+        return torch.cuda.max_memory_allocated() / 2**30
+    else:
+        torch.cuda.synchronize()
+    return 0.0
+
+
+def _p22_log(rank, msg):
+    log(f"  [rank {rank}] {msg}")
+
+
+def _p22_digest(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().float().cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _p22_timed(fn, n=1):
+    """``fn`` run ``n`` times on this rank: (its last output, {ms a call,
+    ms in collectives a call, bytes staged through the host a call,
+    collective calls a call, kernel launches a call})."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.parallel import collectives
+
+    _p22_sync()
+    s0, l0 = dict(collectives.STATS), dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(n):
+            out = fn()
+    _p22_sync()
+    dt = time.perf_counter() - t0
+    st = {k: (collectives.STATS[k] - s0[k]) / n for k in s0}
+    return out, dict(ms=dt * 1e3 / n, coll_ms=st["seconds"] * 1e3,
+                     staged=st["staged_bytes"], calls=st["calls"],
+                     launches={k: (v - l0[k]) / n
+                               for k, v in _build.LAUNCHES.items()
+                               if v != l0[k]})
+
+
+def _p22_fmt(t):
+    return (f"{t['ms']:.1f} ms a forward, {t['coll_ms']:.1f} ms in "
+            f"{t['calls']:.0f} collectives, {t['staged'] / 1e6:.1f} MB "
+            f"staged through the host; launches a forward {t['launches']}")
+
+
+def p22_flux_job(dims, h_lat, txt_len, steps, dev):
+    """Phase 22a-c on one rank: flux-dev at published width, tp = 2 (the
+    hand layout and the spec table, bf16-fused and w8a8), flux_engine with
+    a tp mesh and with a dp mesh, and the single-block trunk over two
+    pipeline stages."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, pipeline
+    from comfyui_gguf_tpu_torch.models import flux, testing
+    from comfyui_gguf_tpu_torch.models.flux import block_view
+    from comfyui_gguf_tpu_torch.nn.layers import DEFAULT_CONFIG as QC
+    from comfyui_gguf_tpu_torch.parallel import collectives
+    from comfyui_gguf_tpu_torch.parallel import mesh as pmesh
+    from comfyui_gguf_tpu_torch.parallel import pp, tp_flux, tp_spec
+    from comfyui_gguf_tpu_torch.quant.i8 import (convert_tree_i8,
+                                                 is_modulation_key,
+                                                 requantize_i8)
+    from comfyui_gguf_tpu_torch.quant.planar import PlanarQuant
+    from comfyui_gguf_tpu_torch.sampling import flux_schedule, sample_flow
+
+    _build.reset_launch_counts()
+    _p22_sync(reset=True)
+    res, fails = {}, []
+    mesh = pmesh.make_mesh(tp=2)
+    r = collectives.axis_index("tp", mesh)
+    res["backend"] = collectives.backend("tp", mesh)
+    cfg = dims.config()
+    n_img = (h_lat // 2) ** 2
+    t0 = time.perf_counter()
+    full = testing.flux_random_stacked_params(dims, seed=22, device=dev)
+    keys = tp_flux.BLOCK_KEYS
+    spec = tp_spec.shard_packed_params(
+        full, block_keys=keys, rules=tp_spec.flux_rules(cfg.hidden), tp=2,
+        index=r)
+    hand = tp_flux.shard_packed_flux(full, cfg, 2, r)
+    _p22_sync()
+    _p22_log(r, f"seed-made Q4_K flux ({cfg.depth_double} + "
+                f"{cfg.depth_single} blocks, hidden {cfg.hidden}) "
+                f"and this rank's shards (spec table and hand "
+                f"layout) in {time.perf_counter() - t0:.2f}s; backend "
+                f"{res['backend']}")
+    inputs = testing.flux_example_inputs(dims, batch=1, h_lat=h_lat,
+                                         w_lat=h_lat, txt_len=txt_len,
+                                         device=dev)
+
+    def spec_fwd(p):
+        return tp_spec.tp_flux_forward(p, cfg, *inputs, mesh=mesh, qcfg=QC)
+
+    def hand_fwd(p):
+        return tp_flux.tp_forward_stacked(p, cfg, *inputs, mesh=mesh,
+                                          qcfg=QC)
+
+    # 22a: bf16-fused, every kernel call of one forward against its plain
+    # version, then timed forwards of both layouts
+    errs = _call_errs()
+    with torch.no_grad(), _kernel_calls(errs):
+        spec_fwd(spec)
+    _call_gate(errs, f"[rank {r}] 22a spec bf16-fused TP forward", fails)
+    out_spec, t = _p22_timed(lambda: spec_fwd(spec))
+    res["spec_bf16"] = t
+    _p22_log(r, "22a tp_spec bf16-fused: " + _p22_fmt(t))
+    with torch.no_grad():
+        hand_fwd(hand)
+    out_hand, t = _p22_timed(lambda: hand_fwd(hand))
+    res["hand_bf16"] = t
+    _p22_log(r, "22a tp_flux bf16-fused: " + _p22_fmt(t))
+    with torch.no_grad():
+        want = flux.forward_stacked(full, cfg, *inputs, qcfg=QC)
+    res["spec_vs_unsharded"] = rel_l2(out_spec, want)
+    res["hand_vs_unsharded"] = rel_l2(out_hand, want)
+    res["digests"] = [_p22_digest(out_spec), _p22_digest(out_hand)]
+    _p22_log(r, f"22a bf16-fused TP vs the unsharded forward of the same "
+                f"codes: spec {res['spec_vs_unsharded']:.3e}, hand "
+                f"{res['hand_vs_unsharded']:.3e} (<= {P22_TP_DELTA_MAX})")
+    for k in ("spec_vs_unsharded", "hand_vs_unsharded"):
+        if not res[k] <= P22_TP_DELTA_MAX:
+            fails.append(f"rank {r} 22a {k} {res[k]}")
+
+    # 22a: w8a8 (every token-facing shard converted on its own; the
+    # modulation gather shards stay planar)
+    def pred(k, v):
+        return not is_modulation_key(k)
+
+    t0 = time.perf_counter()
+    spec8 = convert_tree_i8(spec, pred=pred)
+    _p22_sync()
+    res["convert_s"] = time.perf_counter() - t0
+    errs = _call_errs()
+    with torch.no_grad(), _kernel_calls(errs, control=True):
+        spec_fwd(spec8)
+    _call_gate(errs, f"[rank {r}] 22a spec w8a8 TP forward", fails)
+    out8, t = _p22_timed(lambda: spec_fwd(spec8))
+    res["spec_w8a8"] = t
+    res["w8a8_vs_unsharded_bf16"] = rel_l2(out8, want)
+    _p22_log(r, f"22a tp_spec w8a8 (conversion {res['convert_s']:.2f}s): "
+                + _p22_fmt(t) + f"; vs the unsharded bf16-fused forward "
+                f"{res['w8a8_vs_unsharded_bf16']:.3e} (recorded)")
+    with torch.no_grad():
+        img, txt, vec, pe = flux._prelude(full, cfg, *inputs, QC)
+        x = torch.cat([txt, img], dim=1)
+        local = dataclasses.replace(cfg, n_heads=cfg.n_heads // 2)
+        with collectives.active(mesh):
+            y_tp = flux._single_block(block_view(spec8["single_blocks"], 0),
+                                      x, vec, pe, local, QC)
+        blk = {k: (requantize_i8(v[0]) if isinstance(v, PlanarQuant)
+                   and pred(f"single_blocks.{k}", v) else v[0])
+               for k, v in full["single_blocks"].items()}
+        y_one = flux._single_block(blk, x, vec, pe, cfg, QC)
+    res["w8a8_block_vs_unsharded"] = rel_l2(y_tp, y_one)
+    _p22_log(r, f"22a a w8a8 TP single block vs the same unsharded w8a8 "
+                f"block: {res['w8a8_block_vs_unsharded']:.3e} "
+                f"(<= {P22_BLOCK_DELTA_MAX})")
+    if not res["w8a8_block_vs_unsharded"] <= P22_BLOCK_DELTA_MAX:
+        fails.append(f"rank {r} 22a w8a8 block "
+                     f"{res['w8a8_block_vs_unsharded']}")
+    del spec8, blk, y_tp, y_one
+    hand8 = convert_tree_i8(hand, pred=pred)
+    with torch.no_grad():
+        hand_fwd(hand8)
+    out8h, t = _p22_timed(lambda: hand_fwd(hand8))
+    res["hand_w8a8"] = t
+    res["digests"] += [_p22_digest(out8), _p22_digest(out8h)]
+    _p22_log(r, "22a tp_flux w8a8: " + _p22_fmt(t))
+    del hand8, spec
+    torch.cuda.empty_cache()
+
+    # 22b: flux_engine with the tp mesh against the TP direct sampler, and
+    # with a dp mesh against each request alone at batch 1
+    sig = flux_schedule(steps, n_img)
+    rng = np.random.default_rng(220)
+    reqs = [(rng.standard_normal((n_img, cfg.in_channels)).astype(
+                np.float32),
+             {"txt": rng.standard_normal((txt_len, cfg.context_dim)).astype(
+                 np.float32),
+              "y": rng.standard_normal((cfg.vec_dim,)).astype(np.float32),
+              "guidance": np.float32(3.5)}, sig) for _ in range(2)]
+    img_ids = torch.as_tensor(np.array(flux.make_img_ids(
+        h_lat // 2, h_lat // 2, 1)), device=dev)
+    txt_ids = torch.zeros((1, txt_len, 3), dtype=torch.int32, device=dev)
+
+    def direct(fwd, params, x, cond):
+        txt_c = torch.as_tensor(cond["txt"], device=dev)[None].to(
+            torch.bfloat16)
+        y = torch.as_tensor(cond["y"], device=dev)[None].to(torch.bfloat16)
+        g = torch.full((1,), float(cond["guidance"]), device=dev)
+
+        def vel(xc, sg):
+            return fwd(params, cfg, xc, img_ids, txt_c, txt_ids,
+                       sg.to(torch.float32).expand(1), y, g, qcfg=QC)
+
+        x0 = torch.as_tensor(x, device=dev)[None].to(torch.bfloat16)
+        with torch.no_grad():
+            return sample_flow(vel, x0, sig)[0].float().cpu()
+
+    def serve(model, **kw):
+        eng = pipeline.flux_engine(model, h_lat, h_lat, txt_len,
+                                   max_batch=2, **kw)
+        hs = [eng.submit(x.copy(), dict(c), s) for x, c, s in reqs]
+        _p22_sync()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        if any(h.error is not None or not h.finished for h in hs):
+            raise RuntimeError(f"flux_engine {kw}: a request failed: "
+                               f"{[h.error for h in hs]}")
+        return [torch.from_numpy(np.asarray(h.result, np.float32))
+                for h in hs], dt
+
+    tp_model = pipeline.DiffusionModel(arch="flux", params=hand, config=cfg,
+                                       qcfg=QC, device=torch.device(dev))
+    s0 = dict(collectives.STATS)
+    served, dt = serve(tp_model, mesh=mesh)
+    coll = collectives.STATS["seconds"] - s0["seconds"]
+    tp_fwd = functools.partial(tp_flux.tp_forward_stacked, mesh=mesh)
+    res["tp_engine_vs_direct"] = [
+        rel_l2(a, direct(tp_fwd, hand, x, c)) for a, (x, c, _) in
+        zip(served, reqs)]
+    res["tp_engine_s"] = dt
+    _p22_log(r, f"22b flux_engine(mesh=tp2), 2 requests x {steps} steps at "
+                f"{h_lat * 8}²: {dt:.2f}s ({coll:.2f}s in collectives); vs the TP "
+                f"direct sampler "
+                + ", ".join(f"{e:.3e}" for e in res["tp_engine_vs_direct"])
+                + f" (<= {P22_DELTA_MAX})")
+    del tp_model, hand
+    torch.cuda.empty_cache()
+    dp_mesh = pmesh.make_mesh(tp=1)
+    dp_model = pipeline.DiffusionModel(arch="flux", params=full, config=cfg,
+                                       qcfg=QC, device=torch.device(dev))
+    served, dt = serve(dp_model, dp_mesh=dp_mesh)
+    alone = [direct(flux.forward_stacked, full, x, c) for x, c, _ in reqs]
+    res["dp_engine_vs_alone"] = [rel_l2(a, b) for a, b in zip(served, alone)]
+    res["dp_bit_equal"] = all(torch.equal(a, b)
+                              for a, b in zip(served, alone))
+    res["dp_engine_s"] = dt
+    _p22_log(r, f"22b flux_engine(dp_mesh=dp2, max_batch=2): {dt:.2f}s; vs "
+                f"each request alone at batch 1 "
+                + ", ".join(f"{e:.3e}" for e in res["dp_engine_vs_alone"])
+                + f" (<= {P22_DELTA_MAX}), bit-equal: "
+                f"{res['dp_bit_equal']}")
+    for k in ("tp_engine_vs_direct", "dp_engine_vs_alone"):
+        if not max(res[k]) <= P22_DELTA_MAX:
+            fails.append(f"rank {r} 22b {k} {res[k]}")
+
+    # 22c: the 38 single blocks over two pipeline stages, batch 2 in two
+    # microbatches, against the sequential walk
+    pp_mesh = pmesh.make_axis_mesh("pp")
+    gen = torch.Generator(device=dev).manual_seed(221)
+    xb = torch.randn((2, n_img + txt_len, cfg.hidden), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vecb = torch.randn((2, cfg.hidden), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ids = torch.cat([txt_ids, img_ids], dim=1).expand(2, -1, -1)
+    peb = flux.rope_freqs(ids, cfg.axes_dim, cfg.theta)
+    out_pp, t = _p22_timed(lambda: pp.pp_flux_single_trunk(
+        full["single_blocks"], xb, vecb, peb, cfg, QC, pp_mesh, n_micro=2))
+    res["pp"] = t
+
+    def sequential():
+        x = xb
+        for i in range(cfg.depth_single):
+            x = flux._single_block(block_view(full["single_blocks"], i), x,
+                                   vecb, peb, cfg, QC)
+        return x
+
+    seq, t_seq = _p22_timed(sequential)
+    res["pp_vs_sequential"] = rel_l2(out_pp, seq)
+    res["pp_bit_equal"] = bool(torch.equal(out_pp, seq))
+    _p22_log(r, f"22c pp_flux_single_trunk, 2 stages x "
+                f"{cfg.depth_single // 2} blocks, batch 2 in 2 "
+                f"microbatches: " + _p22_fmt(t) + f"; sequential "
+                f"{t_seq['ms']:.1f} ms; vs sequential "
+                f"{res['pp_vs_sequential']:.3e} (<= {P22_DELTA_MAX}), "
+                f"bit-equal: {res['pp_bit_equal']}")
+    if not res["pp_vs_sequential"] <= P22_DELTA_MAX:
+        fails.append(f"rank {r} 22c pp {res['pp_vs_sequential']}")
+    res.update(fails=fails, launches=dict(_build.LAUNCHES),
+               peak_gib=_p22_sync(peak=True))
+    del full, dp_model
+    torch.cuda.empty_cache()
+    return res
+
+
+def p22_ep_sp_job(d, wd, wan_latent, n_tokens, dev):
+    """Phase 22d-e on one rank: a HiDream-I1 MoE FFN at published width over
+    ep = 2 against dense dispatch, ring attention at the Wan 2.1 14B
+    self-attention shape against K7 on the whole sequence, and one Wan
+    block under ``sequence_parallel`` against the unsharded block."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import hidream, testing, wan
+    from comfyui_gguf_tpu_torch.models.flux import block_view
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+    from comfyui_gguf_tpu_torch.nn.attention import (dot_product_attention,
+                                                     sequence_parallel)
+    from comfyui_gguf_tpu_torch.nn.layers import DEFAULT_CONFIG as QC
+    from comfyui_gguf_tpu_torch.parallel import collectives
+    from comfyui_gguf_tpu_torch.parallel import mesh as pmesh
+    from comfyui_gguf_tpu_torch.parallel.ring import ring_attention
+
+    _build.reset_launch_counts()
+    _p22_sync(reset=True)
+    res, fails = {}, []
+    gen = torch.Generator(device=dev).manual_seed(223)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    # 22d
+    ep_mesh = pmesh.make_axis_mesh("ep")
+    r = collectives.axis_index("ep", ep_mesh)
+    E, H, Fd = d.n_experts, d.hidden, d.ffn
+
+    def pq(R, K, stack=None):
+        return random_planar(Q.Q4_K, (R, K), gen, device=dev, stack=stack)
+
+    p = "block.ff_i"
+    params = {f"{p}.shared_experts.w1.weight": pq(Fd, H),
+              f"{p}.shared_experts.w3.weight": pq(Fd, H),
+              f"{p}.shared_experts.w2.weight": pq(H, Fd),
+              f"{p}.gate.weight": torch.randn((E, H), generator=gen,
+                                              device=dev) * 0.02,
+              f"{p}.experts_stacked": {"w1": pq(Fd, H, E),
+                                       "w3": pq(Fd, H, E),
+                                       "w2": pq(H, Fd, E)}}
+    x = randn(1, n_tokens, H)
+    old = hidream.MOE_DISPATCH, hidream.EP_MESH
+    try:
+        hidream.MOE_DISPATCH = "dense"
+        dense, t_dense = _p22_timed(lambda: hidream.moe_ffn(
+            params, p, x, E, d.top_k, QC))
+        hidream.MOE_DISPATCH, hidream.EP_MESH = "ep", ep_mesh
+        got, t = _p22_timed(lambda: hidream.moe_ffn(params, p, x, E,
+                                                    d.top_k, QC))
+    finally:
+        hidream.MOE_DISPATCH, hidream.EP_MESH = old
+    res["ep"] = t
+    res["ep_vs_dense"] = rel_l2(got, dense)
+    _p22_log(r, f"22d HiDream-I1 MoE FFN ({E} experts, top-{d.top_k}, "
+                f"{H} -> {Fd}) over ep=2, {n_tokens} tokens: "
+                + _p22_fmt(t)
+                + f"; dense dispatch {t_dense['ms']:.1f} ms; vs dense "
+                f"{res['ep_vs_dense']:.3e} (<= {P22_DELTA_MAX})")
+    if not res["ep_vs_dense"] <= P22_DELTA_MAX:
+        fails.append(f"rank {r} 22d ep {res['ep_vs_dense']}")
+    del params, dense, got
+
+    # 22e: the ring at B1 H40 L4680 D128 (phase 17's geometry)
+    sp_mesh = pmesh.make_axis_mesh("sp")
+    f_, h_, w_ = wan_latent[0], wan_latent[1] // 2, wan_latent[2] // 2
+    L = f_ * h_ * w_
+    cfg = wd.config()
+    nh, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = (randn(1, L, nh, hd) for _ in range(3))
+    out, t = _p22_timed(lambda: ring_attention(q, k, v, sp_mesh))
+    res["ring"] = t
+    with torch.no_grad():
+        want = dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2)).transpose(1, 2)
+    res["ring_vs_k7"] = rel_l2(out, want)
+    _p22_log(r, f"22e ring_attention B=1 H={nh} L={L} D={hd} over sp=2: "
+                + _p22_fmt(t) + f"; vs K7 on the whole sequence "
+                f"{res['ring_vs_k7']:.3e} (<= {P22_DELTA_MAX})")
+    del q, k, v, out, want
+    wp = testing.wan_random_stacked_params(wd, seed=224, device=dev)
+    blk = block_view(wp["blocks"], 0)
+    xw = randn(1, L, cfg.dim)
+    e0 = randn(1, 6 * cfg.dim, scale=0.1)
+    ctx = randn(1, 512, cfg.dim)
+    pe = wan.rope_3d(f_, h_, w_, cfg.axes_dim, device=dev)
+    c = L // 2
+
+    def sp_block():
+        with collectives.active(sp_mesh), sequence_parallel("sp"):
+            y = wan._block(blk, xw[:, r * c:(r + 1) * c], e0, ctx,
+                           pe[r * c:(r + 1) * c], cfg, QC)
+        return collectives.all_gather(y, "sp", dim=1, mesh=sp_mesh)
+
+    got, t = _p22_timed(sp_block)
+    with torch.no_grad():
+        one = wan._block(blk, xw, e0, ctx, pe, cfg, QC)
+    res["sp"] = t
+    res["sp_block_vs_unsharded"] = rel_l2(got, one)
+    _p22_log(r, f"22e a Wan 2.1 block (dim {cfg.dim}) under "
+                f"sequence_parallel (L={L} "
+                f"over sp=2, cross-attention to 512 replicated text states "
+                f"on K7): " + _p22_fmt(t) + f"; vs the unsharded block "
+                f"{res['sp_block_vs_unsharded']:.3e} (<= {P22_DELTA_MAX})")
+    for k_ in ("ring_vs_k7", "sp_block_vs_unsharded"):
+        if not res[k_] <= P22_DELTA_MAX:
+            fails.append(f"rank {r} 22e {k_} {res[k_]}")
+    res.update(fails=fails, launches=dict(_build.LAUNCHES),
+               peak_gib=_p22_sync(peak=True))
+    del wp, blk
+    torch.cuda.empty_cache()
+    return res
+
+
+P22_TINY = {
+    "qwen_image": dict(hidden=512, n_heads=4, n_layers=2, in_ch=32,
+                       context_dim=96),
+    "wan": dict(dim=512, ffn_dim=1024, n_heads=4, n_layers=2, in_ch=16,
+                text_dim=64),
+    "aura": dict(hidden=512, depth_double=1, depth_single=1, mlp=1024,
+                 in_ch=4, cond_dim=64, n_register_tokens=3, max_tokens=64),
+    "cosmos": dict(dim=512, n_heads=4, n_layers=2, in_ch=16, text_dim=64),
+    "hyvid": dict(hidden=512, n_heads=4, depth_double=1, depth_single=1,
+                  refiner_depth=1, in_ch=16, text_dim=64),
+    "lumina2": dict(dim=512, n_heads=4, n_layers=2, n_refiner=1,
+                    n_context_refiner=1, ffn=1024, in_ch=4, cap_dim=64),
+    "sd3": dict(hidden=512, heads=4, depth=3, ctx_dim=64, pooled=32,
+                in_ch=16, pos_max=8, qk_norm=True),
+    "flux": dict(hidden=512, heads=4, ctx=256, vec=64, in_ch=16,
+                 depth_double=1, depth_single=1, axes_dim=(32, 48, 48)),
+    "hidream": dict(hidden=512, heads=4, depth_double=1, depth_single=1,
+                    ffn=1024, n_experts=2, top_k=2, t5_dim=64,
+                    llama_dim=96, pooled=48),
+}
+
+
+def _p22_tiny_case(arch):
+    """(state dict, config, numpy inputs, block keys) of a tiny ``arch``
+    made from a seed."""
+    import numpy as np
+
+    from comfyui_gguf_tpu_torch.models import flux, testing
+
+    rng = np.random.default_rng(22)
+
+    def a(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    t = np.full((1,), 0.5, np.float32)
+    kw = P22_TINY[arch]
+    if arch == "sd3":
+        d = testing.TinySD3Dims(**kw)
+        return (testing.sd3_flat_state_dict(d, seed=7), d.config(),
+                (a(1, 8, 8, d.in_ch), a(1, 8, d.ctx_dim), a(1, d.pooled), t),
+                ("joint_blocks", "joint_blocks_last"))
+    if arch == "flux":
+        d = testing.TinyFluxDims(**kw)
+        return (testing.flux_state_dict(d, seed=19), d.config(),
+                (a(1, 16, d.in_ch), np.array(flux.make_img_ids(4, 4, 1)),
+                 a(1, 8, d.ctx), np.zeros((1, 8, 3), np.int32), t,
+                 a(1, d.vec), np.full((1,), 4.0, np.float32)),
+                ("double_blocks", "single_blocks"))
+    dims_cls = {"qwen_image": testing.QwenImageDims,
+                "wan": testing.WanDims, "aura": testing.AuraDims,
+                "cosmos": testing.CosmosDims, "hyvid": testing.HyVidDims,
+                "lumina2": testing.Lumina2Dims,
+                "hidream": testing.TinyHiDreamDims}[arch]
+    d = dims_cls(**kw)
+    sd = testing.random_flat_sd_from_spec(
+        *getattr(testing, f"{arch}_shape_spec")(d), seed=5)
+    x = {"qwen_image": lambda: (a(1, 16, d.in_ch),
+                                np.array(flux.make_img_ids(4, 4, 1)),
+                                a(1, 8, d.context_dim),
+                                np.zeros((1, 8, 3), np.int32), t),
+         "wan": lambda: (a(1, 2, 8, 8, d.in_ch), a(1, 6, d.text_dim), t),
+         "aura": lambda: (a(1, 8, 8, d.in_ch), a(1, 6, d.cond_dim), t),
+         "cosmos": lambda: (a(1, 2, 8, 8, d.in_ch), a(1, 6, d.text_dim), t),
+         "hyvid": lambda: (a(1, 2, 4, 4, d.in_ch), a(1, 6, d.text_dim), t,
+                           np.full((1,), 6000.0, np.float32)),
+         "lumina2": lambda: (a(1, 8, 8, d.in_ch), a(1, 6, d.cap_dim), t),
+         "hidream": lambda: (a(1, 8, 8, d.in_ch), a(1, 6, d.t5_dim),
+                             a(1, 5, d.llama_dim), a(1, d.pooled), t),
+         }[arch]()
+    keys = {"qwen_image": ("transformer_blocks",), "wan": ("blocks",),
+            "aura": ("double_layers", "single_layers"),
+            "cosmos": ("blocks",), "lumina2": None,
+            "hyvid": ("double_blocks", "single_blocks"),
+            "hidream": ("double_stream_blocks",
+                        "single_stream_blocks")}[arch]
+    return sd, d.config(), x, keys
+
+
+def p22_tiny_job(dev):
+    """Phase 22f on one rank: every ``tp_spec`` wrapper (nine archs) at a
+    tiny size, tp = 2, bf16-fused on the card and on the CPU."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.nn.layers import DEFAULT_CONFIG as QC
+    from comfyui_gguf_tpu_torch.parallel import collectives, tp_spec
+    from comfyui_gguf_tpu_torch.parallel import mesh as pmesh
+
+    _build.reset_launch_counts()
+    mesh = pmesh.make_mesh(tp=2)
+    r = collectives.axis_index("tp", mesh)
+    res, fails = {}, []
+    for arch in P22_TINY:
+        sd, cfg, x, keys = _p22_tiny_case(arch)
+        sharded = getattr(tp_spec, f"shard_{arch}_params")(sd, cfg, 2,
+                                                           Q.Q4_K)
+        if keys is None:
+            keys = tp_spec.lumina2_tp_block_keys(sharded)
+        fwd = getattr(tp_spec, f"tp_{arch}_forward")
+        outs = {}
+        for where in (dev, "cpu"):
+            local = tp_spec.place_tp_params(sharded, mesh, keys,
+                                            device=where)
+            # activations in bf16 (what a pipeline hands the forward),
+            # timesteps and guidance in f32, ids as they are
+            xs = tuple(torch.as_tensor(a, device=where).to(
+                torch.bfloat16 if a.dtype.kind == "f" and a.ndim > 1
+                else torch.as_tensor(a).dtype) for a in x)
+            with torch.no_grad():
+                outs[where] = fwd(local, cfg, *xs, mesh=mesh,
+                                  qcfg=QC).float().cpu()
+        res[arch] = rel_l2(outs[dev], outs["cpu"])
+        if not (torch.isfinite(outs[dev]).all()
+                and res[arch] <= P22_CPU_DELTA_MAX):
+            fails.append(f"rank {r} 22f {arch} card vs CPU {res[arch]}")
+    _p22_log(r, "22f every tp_spec wrapper, tiny, tp=2, card vs CPU: "
+                + ", ".join(f"{a} {e:.3e}" for a, e in res.items())
+                + f" (<= {P22_CPU_DELTA_MAX})")
+    res_out = dict(tiny=res, fails=fails, launches=dict(_build.LAUNCHES))
+    return res_out
+
+
+def _p22_dims(args):
+    """Phase 22's published dims: flux-dev (depth from the flags),
+    HiDream-I1, one Wan 2.1 14B block."""
+    from comfyui_gguf_tpu_torch.models import testing
+
+    return (dataclasses.replace(testing.FLUX_DEV_DIMS,
+                                depth_double=args.parallel_depth_double,
+                                depth_single=args.parallel_depth_single),
+            testing.HIDREAM_I1_DIMS,
+            dataclasses.replace(testing.WAN_14B_DIMS, n_layers=1))
+
+
+def parallel_phase(dev, flux_dims, hd_dims, wan_dims, steps, h_lat=128,
+                   txt_len=512, wan_latent=WAN_LATENT, n_tokens=4096):
+    """Phase 22: two ranks on the one card over gloo (``parallel.launch``):
+    22a-c (``p22_flux_job``), 22d-e (``p22_ep_sp_job``) and 22f
+    (``p22_tiny_job``). The parent built the kernel library already; the
+    ranks load it. → the launches summed over ranks and the ranks'
+    results; a failed gate fails the run."""
+    import torch
+
+    from comfyui_gguf_tpu_torch.parallel import launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with launch.Ranks(2, device=dev, backend="gloo") as ranks:
+        log(f"  2 ranks on {dev} over "
+            f"{ranks.backend} (ranks share the card; CUDA tensors go through "
+            f"pinned host buffers, counted)")
+        a = ranks.run(p22_flux_job, flux_dims, h_lat, txt_len, steps, dev)
+        b = ranks.run(p22_ep_sp_job, hd_dims, wan_dims, wan_latent, n_tokens,
+                      dev)
+        c = ranks.run(p22_tiny_job, dev)
+    wall = time.perf_counter() - t0
+    fails = [f for res in (*a, *b, *c) for f in res["fails"]]
+    digests = [res["digests"] for res in a]
+    if digests[0] != digests[1]:
+        fails.append(f"22a the ranks' replicated outputs differ: {digests}")
+    launches = {}
+    for res in (*a, *b, *c):
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    log(f"  phase 22: {wall:.1f}s; peak memory a rank (22a-c / 22d-e): "
+        + ", ".join(f"{x['peak_gib']:.2f} / {y['peak_gib']:.2f} GiB"
+                    for x, y in zip(a, b))
+        + f"; bytes staged through the host a forward (22a tp_spec "
+          f"bf16-fused) {a[0]['spec_bf16']['staged'] / 1e6:.1f} MB; "
+          f"launches over the phase, both ranks "
+        + str({k: n for k, n in launches.items() if n}))
+    if fails:
+        raise SystemExit("phase 22 failed: " + "; ".join(fails))
+    return dict(launches=launches, ranks=a, ep_sp=b, tiny=c, wall=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -6161,18 +6813,21 @@ def main() -> int:
     ap.add_argument("--lumina-depth", type=int, default=26)
     ap.add_argument("--lumina-steps", type=int, default=20)
     ap.add_argument("--llama-layers", type=int, default=26)
-    ap.add_argument("--qwen-depth", type=int, default=60)
+    # phases 15, 16, 17 and 21 run at half depth so that the whole, phase 22
+    # included, keeps a margin under a 1200 s limit (1087.2 s at full depth
+    # on an H100 80GB HBM3 at 700 W); the flags restore it
+    ap.add_argument("--qwen-depth", type=int, default=30)
     ap.add_argument("--qwen-steps", type=int, default=20)
     ap.add_argument("--qwen-encoder-layers", type=int, default=28)
     ap.add_argument("--qwen-vision-layers", type=int, default=32)
-    ap.add_argument("--hidream-depth-double", type=int, default=16)
-    ap.add_argument("--hidream-depth-single", type=int, default=32)
+    ap.add_argument("--hidream-depth-double", type=int, default=8)
+    ap.add_argument("--hidream-depth-single", type=int, default=16)
     ap.add_argument("--hidream-steps", type=int, default=20)
     ap.add_argument("--hidream-t5-layers", type=int, default=24)
     ap.add_argument("--hidream-llama-layers", type=int, default=32)
     ap.add_argument("--hidream-budget-blocks", type=int, nargs=2,
                     default=(2, 4), metavar=("DOUBLE", "SINGLE"))
-    ap.add_argument("--wan-depth", type=int, default=40)
+    ap.add_argument("--wan-depth", type=int, default=20)
     ap.add_argument("--wan-steps", type=int, default=20)
     ap.add_argument("--umt5-layers", type=int, default=24)
     ap.add_argument("--cosmos-depth", type=int, default=28)
@@ -6185,9 +6840,14 @@ def main() -> int:
     ap.add_argument("--ltxv-depth", type=int, default=28)
     ap.add_argument("--ltxv-steps", type=int, default=20)
     ap.add_argument("--ltxv-t5-layers", type=int, default=24)
-    ap.add_argument("--tools-depth-double", type=int, default=2)
-    ap.add_argument("--tools-depth-single", type=int, default=4)
+    ap.add_argument("--tools-depth-double", type=int, default=1)
+    ap.add_argument("--tools-depth-single", type=int, default=2)
     ap.add_argument("--tools-steps", type=int, default=4)
+    ap.add_argument("--parallel-depth-double", type=int, default=19)
+    ap.add_argument("--parallel-depth-single", type=int, default=38)
+    ap.add_argument("--parallel-steps", type=int, default=4)
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, then phase 22 alone (no result lines)")
     args = ap.parse_args()
 
     import torch
@@ -6198,6 +6858,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    _T0[0] = t_start
     dev = "cuda"
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -6276,6 +6937,12 @@ def main() -> int:
           "layouts (i8mm_lora.cu as i8mm.cu, qmm_lora.cu / "
           "qmm_int8_lora.cu as qmm.cu / qmm_int8.cu, qmm_smallm.cu's as "
           "its own): the rank chunks stream through the same ring")
+
+    if args.parallel_only:
+        log("[22 parallelism: two ranks sharing the card, gloo]")
+        parallel_phase(dev, *_p22_dims(args), args.parallel_steps)
+        log(f"wall {time.perf_counter() - t_start:.1f}s")
+        return 0
 
     log("[3 kernels vs plain at the main paths' shapes]")
     rows = kernel_phase(dev, sfu_per_s)
@@ -6386,14 +7053,16 @@ def main() -> int:
     lumina_res = dit_full_phase(dev, "lumina2", args.lumina_depth,
                                 args.lumina_steps, args.llama_layers,
                                 min(args.lumina_steps, 4))
-    log("[15 Qwen-Image at published width and depth, the Qwen2.5-VL "
-        "vision tower, Qwen-Image-Edit, qwen_image_engine]")
+    log(f"[15 Qwen-Image at published width, {args.qwen_depth} of 60 "
+        f"blocks, the Qwen2.5-VL vision tower, Qwen-Image-Edit, "
+        f"qwen_image_engine]")
     qwen_res = qwen_image_phase(dev, args.qwen_depth, args.qwen_steps,
                                 args.qwen_encoder_layers,
                                 args.qwen_vision_layers,
                                 min(args.qwen_steps, 4))
-    log("[16 HiDream-I1 at published width and depth, hidream_engine, the "
-        "budgeted conversion]")
+    log(f"[16 HiDream-I1 at published width, {args.hidream_depth_double} + "
+        f"{args.hidream_depth_single} of 16 + 32 blocks, hidream_engine, the "
+        f"budgeted conversion]")
     hidream_res = hidream_phase(dev, args.hidream_depth_double,
                                 args.hidream_depth_single,
                                 args.hidream_steps, args.hidream_t5_layers,
@@ -6428,6 +7097,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
         tools_res = tools_phase(dev, tools_dims, args.tools_steps, tmp)
     torch.cuda.empty_cache()
+    log("[22 parallelism: flux-dev over tp=2 (hand layout and spec table, "
+        "bf16-fused and w8a8), flux_engine over tp and dp, pipeline stages, "
+        "HiDream experts over ep, Wan 2.1 ring attention over sp, every "
+        "tp_spec wrapper; two ranks sharing the card, gloo]")
+    par_res = parallel_phase(dev, *_p22_dims(args), args.parallel_steps)
 
     # launches of each kernel over the driven paths (every path had its
     # counts set to 0 just before it and read just after)
@@ -6447,7 +7121,8 @@ def main() -> int:
                    lumina_res["launches"], qwen_res["launches"],
                    hidream_res["launches"], wan_res["launches"],
                    cosmos_res["launches"], hyvid_res["launches"],
-                   ltxv_res["launches"], tools_res["launches"]):
+                   ltxv_res["launches"], tools_res["launches"],
+                   par_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

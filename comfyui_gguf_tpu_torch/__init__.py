@@ -88,6 +88,8 @@ _PUBLIC = {
     "qmm_roofline": ".observability",
     "enable_compile_cache": ".compile_cache",
     "ModelRegistry": ".registry",
+    "ring_attention": ".parallel.ring",
+    "make_mesh": ".parallel.mesh",
     "sample_flow": ".sampling",
     "run_sampler": ".sampling.kdiffusion",
     "make_schedule": ".sampling.kdiffusion",

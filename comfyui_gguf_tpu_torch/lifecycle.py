@@ -29,14 +29,15 @@ import torch
 from ._device import resolve_device
 from .lora import LoRAPatch, PatchedWeight
 from .quant.i8 import I8Planar
-from .quant.planar import PlanarQuant
+from .quant.planar import PlanarQuant, TPNormShard, TPShard
 
 log = logging.getLogger(__name__)
 
 # the tensor fields of each packed leaf type (the others are metadata)
 _TENSOR_FIELDS = {PlanarQuant: ("qs", "scales", "offsets"),
                   I8Planar: ("qs", "scales"),
-                  LoRAPatch: ("up", "down", "mid", "diff", "a1", "a2")}
+                  LoRAPatch: ("up", "down", "mid", "diff", "a1", "a2"),
+                  TPShard: ("inner",), TPNormShard: ("weight",)}
 
 
 def tree_map(fn, tree):

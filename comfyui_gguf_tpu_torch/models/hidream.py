@@ -13,7 +13,8 @@ high-precision key), top-k kept and not renormalized.
 ``moe_ffn`` dispatches by ``MOE_DISPATCH``: "dense" runs every expert on
 every token, mask-weighted (exact); "capacity" gathers each expert's routed
 tokens up to a capacity and scatter-adds their outputs (equal to dense
-where no expert overflows). The expert-parallel "ep" mode is not ported.
+where no expert overflows); "ep" splits the experts over ``EP_AXIS`` of
+``EP_MESH`` (``parallel/ep.py``).
 
 ``forward_stacked`` runs both block kinds as Python loops over views of the
 stacked weights (``flux.block_view``), the experts leaf-stacked as
@@ -83,8 +84,11 @@ MOE_CAPACITY_FACTOR = 1.5
 # a 4-expert top-2 routing sum to < 1. Flip for models that renormalize.
 MOE_RENORM_PROBS = False
 
-_EP_TODO = ("the expert-parallel MoE dispatch is not ported yet (ROADMAP "
-            "queue 1 item 15, parallelism)")
+# "ep": expert-parallel dispatch over EP_AXIS of EP_MESH (each rank runs
+# its E/n experts of the stacked tree, one all-reduce combines them;
+# parallel/ep.py). Without a mesh or a stacked expert tree "ep" runs dense.
+EP_MESH = None
+EP_AXIS = "ep"
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -158,10 +162,16 @@ def moe_ffn(params, p, x, n_experts, top_k, qcfg):
     out = _swiglu(params, f"{p}.shared_experts", x, qcfg)
     if n_experts == 0:
         return out
-    if MOE_DISPATCH == "ep":
-        raise NotImplementedError(_EP_TODO)
     probs, k = _routing_probs(params, p, x, n_experts, top_k, qcfg)
     stacked = params.get(f"{p}.experts_stacked")
+    if (stacked is not None and MOE_DISPATCH == "ep"
+            and EP_MESH is not None):
+        # the rank's experts and one all-reduce: exact against dense (the
+        # masked probabilities are zero off the top k)
+        from ..parallel.ep import ep_moe_inline
+
+        return out + ep_moe_inline(lambda w, xx: _swiglu_w(w, xx, qcfg),
+                                   stacked, x, probs, EP_MESH, EP_AXIS)
 
     def expert(e, xx):
         if stacked is not None:

@@ -40,9 +40,15 @@ class WanConfig:
     out_channels: int = 16
     text_dim: int = 4096
     patch: tuple[int, int, int] = (1, 2, 2)
+    # tensor parallelism divides n_heads on each rank; the true head dim
+    # (and the RoPE axes made from it) is pinned here
+    # (parallel/tp_spec.py's wrappers)
+    head_dim_override: int | None = None
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.dim // self.n_heads
 
     @property

@@ -17,6 +17,11 @@ cast to q's dtype, and cross-attention with Lq != Lk.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
   ``jax.nn.dot_product_attention``: f32 logits, f32 softmax, probabilities
   in the value dtype, f32-accumulated probs·v.
+* ``sequence_parallel(axis)`` — a scope in which self-attention calls
+  (Lq == Lk) run ring attention over that mesh axis (parallel/ring.py;
+  the sequence is split over the axis) and cross-attention calls (Lq !=
+  Lk, replicated text k/v) keep the normal dispatch. The video forwards
+  then run sequence-parallel unmodified.
 * ``attention_i8(mode)`` — a scope that routes eligible self-attention calls
   through the int8 flash-attention kernel (ops/i8attn.py, K6): "pv" both
   products in int8, "qk" the QK product only, "" off. The default comes
@@ -56,6 +61,25 @@ def _i8_env_default() -> str:
 
 _I8_MODE: contextvars.ContextVar[str] = contextvars.ContextVar(
     "gguf_attn_i8", default=_i8_env_default())
+
+# the mesh axis of the enclosing sequence_parallel scope
+_SP_AXIS: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "gguf_sp_axis", default=None)
+
+
+@contextlib.contextmanager
+def sequence_parallel(axis_name: str):
+    """Route attention through ``parallel.ring`` in the enclosed calls.
+
+    Calls with Lq == Lk are sequence-split self-attention (the ring over
+    ``axis_name`` of the active mesh, ``parallel.collectives.active``);
+    calls with Lq != Lk are cross-attention to replicated k/v (text
+    states), exact locally, and take the normal dispatch."""
+    tok = _SP_AXIS.set(axis_name)
+    try:
+        yield
+    finally:
+        _SP_AXIS.reset(tok)
 
 
 @contextlib.contextmanager
@@ -134,7 +158,9 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
 def dot_product_attention(q, k, v, scale: float | None = None):
     """q/k/v: (B, H, L, D) heads-major -> (B, H, Lq, D).
 
-    Softmax scale defaults to D^-0.5. CUDA tensors launch the flash kernel;
+    Softmax scale defaults to D^-0.5. Inside ``sequence_parallel``, a
+    self-attention call runs the ring instead. CUDA tensors launch the
+    flash kernel;
     CPU tensors take the plain version. Under ``attention_i8`` a call inside
     the int8 gate (ops/i8attn.py ``i8_attention_ok``) takes the int8 path
     instead — its kernel on the card, its plain version on the CPU; a call
@@ -147,6 +173,13 @@ def dot_product_attention(q, k, v, scale: float | None = None):
     # bf16 latents); harmonize on the query dtype
     k = k.to(q.dtype)
     v = v.to(q.dtype)
+    sp = _SP_AXIS.get()
+    if sp is not None and q.shape[2] == k.shape[2]:
+        from ..parallel.ring import ring_attention_local
+
+        out = ring_attention_local(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), sp, float(scale))
+        return out.transpose(1, 2)
     i8_mode = _I8_MODE.get()
     if i8_mode not in ("", "0"):
         from ..ops.i8attn import i8_attention_ok, i8_dot_product_attention

@@ -16,7 +16,10 @@ one (h, upᵀ) pair (``lora.rank_factorize``), GLoRA's weight term rewrites
 the kernel's input, and dense-delta patches (diff, LoHa, LoKr) and dense
 bases take the unfused epilogue (``lora.apply_patch_epilogue``).
 
-Not ported yet: the tensor-parallel branches (the parallelism slice).
+A ``quant.planar.TPShard`` leaf is a tensor-parallel shard: ``linear``
+runs the local matmul and the collective its mode names (``_tp_linear``)
+over the mesh of the enclosing ``parallel.collectives.active`` scope, and
+a ``TPNormShard`` norm scale reduces its statistics over that mesh.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from ..lora import (PatchedWeight, apply_patch_epilogue,
 from ..ops.i8mm import i8_matmul
 from ..ops.qmatmul import _host_epilogue, quantized_matmul
 from ..quant.i8 import I8Planar, dequantize_i8
-from ..quant.planar import PlanarQuant, dequantize as planar_dequantize
+from ..parallel import collectives
+from ..quant.planar import (PlanarQuant, TPNormShard, TPShard,
+                            dequantize as planar_dequantize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +66,12 @@ def is_quantized(leaf) -> bool:
 
 def out_features(weight) -> int:
     """Logical out-features (R) of a dense, packed or LoRA-patched linear
-    weight."""
+    weight; of a ``TPShard``, what ``linear`` returns on a rank: the
+    shard's columns, or all of them for a "gather" weight."""
+    if isinstance(weight, TPShard):
+        n = (collectives.axis_size(weight.axis) if weight.mode == "gather"
+             else 1)
+        return n * out_features(weight.inner)
     if isinstance(weight, PatchedWeight):
         return out_features(weight.base)
     if is_quantized(weight):
@@ -71,7 +81,9 @@ def out_features(weight) -> int:
 
 def in_features(weight) -> int:
     """Logical in-features (K) of a dense, packed or LoRA-patched linear
-    weight."""
+    weight (a ``TPShard``'s own, as ``out_features``)."""
+    if isinstance(weight, TPShard):
+        return in_features(weight.inner)
     if isinstance(weight, PatchedWeight):
         return in_features(weight.base)
     if is_quantized(weight):
@@ -129,11 +141,34 @@ def _packed_matmul(x, weight, cfg: QuantConfig, **kw):
                             out_dtype=x.dtype, **kw)
 
 
+def _tp_linear(x, weight: TPShard, bias, cfg, inner_fn, **inner_kw):
+    """The collective of a ``TPShard`` weight around its local matmul:
+    "row" all-reduces in the output's dtype and adds the bias once after
+    it; "gather" adds the local bias, then all-gathers the columns; "col"
+    is local."""
+    if weight.mode == "row":
+        out = collectives.psum(
+            inner_fn(x, weight.inner, None, cfg=cfg, **inner_kw),
+            weight.axis)
+        if bias is not None:
+            out = out + bias.to(out.dtype)
+        return out
+    if weight.mode not in ("col", "gather"):
+        raise ValueError(f"unknown TPShard mode {weight.mode!r}")
+    out = inner_fn(x, weight.inner, bias, cfg=cfg, **inner_kw)
+    if weight.mode == "gather":
+        return collectives.all_gather(out, weight.axis, dim=-1)
+    return out
+
+
 def linear(x: torch.Tensor, weight, bias=None, *,
            cfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """x: (..., K) -> (..., R). weight: PlanarQuant, I8Planar, dense (R, K)
     or ``lora.PatchedWeight`` over one of them: rank patches on a packed
-    base ride the kernel's epilogue, the others take the unfused one."""
+    base ride the kernel's epilogue, the others take the unfused one. A
+    ``TPShard`` runs its shard and its collective (``_tp_linear``)."""
+    if isinstance(weight, TPShard):
+        return _tp_linear(x, weight, bias, cfg, linear)
     patches = None
     fac = None  # (h, upᵀ) rank factorization for the kernel epilogue
     x_in = x  # the epilogue's b-branches see the unrewritten input
@@ -164,7 +199,27 @@ def linear_gelu(x: torch.Tensor, weight, bias=None, *, tail_from: int = 0,
     whole output). For packed weights bias and activation run in the
     kernel epilogue on the f32 accumulator, after the LoRA rank term (so the
     patch equals patching W); only dense-delta patches and dense weights
-    take the unfused composition."""
+    take the unfused composition.
+
+    A ``TPShard``: "col" fuses bias and GELU into its shard's kernel
+    (``tail_from`` is then the shard-local column), and so does "gather"
+    over its whole output; "row" applies GELU to the full output after the
+    all-reduce (GELU of a sum is not the sum of GELUs) and refuses
+    ``tail_from`` > 0. A gather weight with ``tail_from`` > 0 activates the
+    global columns after the gather (the reference would take the offset
+    as shard-local; no table of either package does this)."""
+    if isinstance(weight, TPShard):
+        if weight.mode == "col" or (weight.mode == "gather"
+                                    and not tail_from):
+            return _tp_linear(x, weight, bias, cfg, linear_gelu,
+                              tail_from=tail_from)
+        if weight.mode == "row" and tail_from:
+            raise ValueError(
+                "linear_gelu(tail_from>0) is unsupported for row-parallel "
+                "TPShard weights (a local offset against a full-width "
+                "output)")
+        return _host_epilogue(_tp_linear(x, weight, bias, cfg, linear),
+                              None, tail_from)
     base, patches = weight, None
     if isinstance(weight, PatchedWeight):
         base, patches = weight.base, weight.patches
@@ -186,7 +241,21 @@ def linear_gelu(x: torch.Tensor, weight, bias=None, *, tail_from: int = 0,
 
 def layer_norm(x: torch.Tensor, weight=None, bias=None, *,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with optional affine, f32 statistics."""
+    """LayerNorm with optional affine, f32 statistics. A ``TPNormShard``
+    weight marks x's feature axis as sharded: the statistics reduce over
+    its mesh axis against the full width."""
+    if isinstance(weight, TPNormShard):
+        xf = x.to(torch.float32)
+        n = float(weight.full_dim)
+        mu = collectives.psum(xf.sum(dim=-1, keepdim=True), weight.axis) / n
+        ss = collectives.psum((xf - mu).square().sum(dim=-1, keepdim=True),
+                              weight.axis)
+        y = (xf - mu) * torch.rsqrt(ss / n + eps)
+        y = y * weight.weight.to(torch.float32)
+        if bias is not None:
+            b = bias.weight if isinstance(bias, TPNormShard) else bias
+            y = y + materialize(b, torch.float32)
+        return y.to(x.dtype)
     if weight is None and bias is None:
         # one fused op: statistics and normalization in f32, one rounding
         # to x's dtype at the end, as below
@@ -205,8 +274,15 @@ def layer_norm(x: torch.Tensor, weight=None, bias=None, *,
 def rms_norm(x: torch.Tensor, weight=None, *, eps: float = 1e-6,
              offset: float = 0.0) -> torch.Tensor:
     """RMSNorm (T5/Llama style), f32 statistics; ``offset=1.0`` for (1+w)
-    parameterizations."""
+    parameterizations. A ``TPNormShard`` weight reduces the sum of squares
+    over its mesh axis against the full width (full-width norms over
+    column-sharded activations, Wan's q/k norms)."""
     xf = x.to(torch.float32)
+    if isinstance(weight, TPNormShard):
+        ss = collectives.psum(xf.square().sum(dim=-1, keepdim=True),
+                              weight.axis)
+        y = xf * torch.rsqrt(ss / float(weight.full_dim) + eps)
+        return (y * (weight.weight.to(torch.float32) + offset)).to(x.dtype)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     if weight is not None:

@@ -59,13 +59,16 @@ comfyui_gguf_tpu/pipeline.py).
   Lumina 2, Wan, Cosmos and LTX-Video engines with per-request CFG).
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
-The parallel engines are not ported yet and raise
-``NotImplementedError``.
+The engines take a ``dp_mesh`` (data-parallel ticks) and, for flux,
+Qwen-Image, Wan, HunyuanVideo and HiDream, a tensor-parallel ``mesh``
+(``parallel/``); every rank runs the same engine on the same
+submissions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -1616,8 +1619,49 @@ class SDXLPipeline:
 # continuous-batching engines
 # ---------------------------------------------------------------------------
 
-_PARALLEL_TODO = ("the data- and tensor-parallel engines are not ported "
-                  "yet (ROADMAP queue 1 item 15, parallelism)")
+def _mesh_axis_size(mesh, axis: str, what: str) -> int:
+    """The size of ``axis`` of an engine's mesh; a mesh without it is
+    refused."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis not in names:
+        raise ValueError(f"{what} needs a mesh with a {axis!r} axis, got "
+                         f"axes {names}")
+    from .parallel import collectives
+
+    return collectives.axis_size(axis, mesh)
+
+
+def _dp_step(step, dp_mesh, dp: int):
+    """A step over this rank's dp slice of the lanes, then one all-gather
+    per output leaf, so every rank's pool stays identical."""
+    from .parallel import collectives
+
+    def lanes(t, r, b):
+        return t[r * b:(r + 1) * b] if t.ndim else t
+
+    def gather(t):
+        if t.dtype == torch.bool:  # not every backend gathers bool
+            return gather(t.to(torch.uint8)).to(torch.bool)
+        return collectives.all_gather(t, "dp", dim=0, mesh=dp_mesh)
+
+    def fn(*args):
+        B = args[0].shape[0]
+        r, b = collectives.axis_index("dp", dp_mesh), B // dp
+
+        def cut(a):
+            if isinstance(a, dict):
+                return {k: cut(v) for k, v in a.items()}
+            if isinstance(a, tuple):
+                return tuple(cut(v) for v in a)
+            return lanes(a, r, b)
+
+        out = step(*(cut(a) for a in args))
+        if isinstance(out, tuple):
+            x, aux = out
+            return gather(x), tuple(gather(a) if a.ndim else a for a in aux)
+        return gather(out)
+
+    return fn
 
 
 def _sig_expand(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -1667,16 +1711,39 @@ def make_flow_engine(model: DiffusionModel, velocity, cond_spec: dict, *,
     (serving.ResidentModelServer): an evict/re-place cycle swaps the
     tensors under the same engine.
 
-    ``dp_mesh`` (data-parallel ticks) is not ported yet and raises.
+    ``dp_mesh``: a mesh with a ``"dp"`` axis runs every tick
+    data-parallel. Every rank runs the same engine and takes the same
+    submissions; each rank steps its dp slice of the pooled lanes and one
+    all-gather per tick (latents, and the multistep state) keeps every
+    rank's pool identical. Batch buckets are multiples of the dp size and
+    ``max_batch`` must divide by it. Exclusive with ``params_provider``.
     """
     from .serving import (ContinuousBatchEngine, flow_multistep_aux_init,
                           lane_dpmpp_2m_update)
 
-    if dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
     if sampler not in ("euler", "dpmpp_2m"):
         raise ValueError(f"sampler must be euler|dpmpp_2m, got {sampler!r}")
+    batch_sizes = None
+    if dp_mesh is not None:
+        if params_provider is not None:
+            raise ValueError("params_provider and dp_mesh are mutually "
+                             "exclusive")
+        dp = _mesh_axis_size(dp_mesh, "dp", "dp_mesh")
+        if max_batch % dp:
+            raise ValueError(f"max_batch {max_batch} not divisible by "
+                             f"dp={dp}")
+        batch_sizes = tuple(sorted(
+            {dp * m for m in (1, 2, 4, 8, 16) if dp * m <= max_batch}
+            | {max_batch}))
     get_params = params_provider or (lambda: model.params)
+
+    def engine(step, **kw):
+        if dp_mesh is not None:
+            step = _dp_step(step, dp_mesh, dp)
+        return ContinuousBatchEngine(step, max_batch=max_batch,
+                                     batch_sizes=batch_sizes,
+                                     pipeline_depth=pipeline_depth,
+                                     device=model.device, **kw)
 
     def _cast(cond):
         return {k: cond[k].to(dt) for k, dt in cond_spec.items()}
@@ -1689,9 +1756,7 @@ def make_flow_engine(model: DiffusionModel, velocity, cond_spec: dict, *,
             step = _sig_expand(s_next - s_cur, x) * v.to(torch.float32)
             return (x.to(torch.float32) + step).to(x.dtype)
 
-        return ContinuousBatchEngine(step_fn, max_batch=max_batch,
-                                     pipeline_depth=pipeline_depth,
-                                     device=model.device)
+        return engine(step_fn)
 
     @torch.no_grad()
     def step_fn2m(x, s_cur, s_next, cond, aux):
@@ -1701,10 +1766,7 @@ def make_flow_engine(model: DiffusionModel, velocity, cond_spec: dict, *,
                     - _sig_expand(s_cur, x) * v.to(torch.float32))
         return lane_dpmpp_2m_update(x, denoised, s_cur, s_next, aux)
 
-    return ContinuousBatchEngine(step_fn2m, max_batch=max_batch,
-                                 pipeline_depth=pipeline_depth,
-                                 aux_init=flow_multistep_aux_init,
-                                 device=model.device)
+    return engine(step_fn2m, aux_init=flow_multistep_aux_init)
 
 
 def flux_engine(model: DiffusionModel, h_lat: int, w_lat: int,
@@ -1723,17 +1785,25 @@ def flux_engine(model: DiffusionModel, h_lat: int, w_lat: int,
     > 1 lets that many ticks be queued on the card before the engine waits.
 
     A depth-stacked tree (``DiffusionModel.stack()``) takes
-    ``forward_stacked``. ``mesh`` (tensor-parallel ticks) and ``dp_mesh``
-    are not ported yet and raise.
+    ``forward_stacked``. ``mesh``: a mesh with a ``"tp"`` axis runs every
+    tick tensor-parallel (``parallel.tp_flux``, the per-shard kernels);
+    ``model.params`` is then this rank's tree from
+    ``tp_flux.place_tp_params``, and every rank runs the engine on the
+    same submissions. ``dp_mesh``: data-parallel ticks
+    (``make_flow_engine``).
     """
-    if mesh is not None or dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
     device = model.device
     img_ids = torch.as_tensor(np.array(flux_model.make_img_ids(
         h_lat // 2, w_lat // 2, 1))[0], device=device)
     txt_ids = torch.zeros((txt_len, 3), dtype=torch.int32, device=device)
-    fwd = (flux_model.forward_stacked if model.is_stacked
-           else flux_model.forward)
+    if mesh is not None:
+        from .parallel import tp_flux
+
+        _mesh_axis_size(mesh, "tp", "mesh")
+        fwd = functools.partial(tp_flux.tp_forward_stacked, mesh=mesh)
+    else:
+        fwd = (flux_model.forward_stacked if model.is_stacked
+               else flux_model.forward)
 
     def velocity(params, x, s_cur, cond):
         B = x.shape[0]
@@ -1747,7 +1817,18 @@ def flux_engine(model: DiffusionModel, h_lat: int, w_lat: int,
         {"txt": torch.bfloat16, "y": torch.bfloat16,
          "guidance": torch.float32},
         max_batch=max_batch, pipeline_depth=pipeline_depth,
-        sampler=sampler, params_provider=params_provider)
+        sampler=sampler, dp_mesh=dp_mesh, params_provider=params_provider)
+
+
+def _tp_fwd(mesh, plain, tp_name: str):
+    """The forward of a tensor-parallel engine (``mesh`` with a "tp" axis:
+    ``parallel.tp_spec``'s wrapper on this rank's tree) or ``plain``."""
+    if mesh is None:
+        return plain
+    from .parallel import tp_spec
+
+    _mesh_axis_size(mesh, "tp", "mesh")
+    return functools.partial(getattr(tp_spec, tp_name), mesh=mesh)
 
 
 def sd3_engine(model: DiffusionModel, max_batch: int = 4,
@@ -1760,8 +1841,8 @@ def sd3_engine(model: DiffusionModel, max_batch: int = 4,
     one step (no CFG: one conditional forward a tick, as in the
     reference). A depth-stacked tree (``DiffusionModel.stack()``) takes
     ``forward_stacked``; ``sampler="dpmpp_2m"`` runs per-lane 2nd-order
-    multistep (see ``flux_engine``). ``dp_mesh`` is not ported yet and
-    raises."""
+    multistep (see ``flux_engine``); ``dp_mesh``: data-parallel ticks
+    (``make_flow_engine``)."""
     fwd = (sd3_model.forward_stacked if model.is_stacked
            else sd3_model.forward)
 
@@ -1797,7 +1878,7 @@ def aura_engine(model: DiffusionModel, max_batch: int = 4,
     (Pile-T5 states, padded to one length per engine); each tick runs the
     conditional and the unconditional forward and mixes them at each
     request's own scale. A depth-stacked tree takes ``forward_stacked``;
-    ``dp_mesh`` is not ported yet and raises."""
+    ``dp_mesh``: data-parallel ticks (``make_flow_engine``)."""
     return _cfg_flow_engine(model, aura_model, "ctx", "nctx", max_batch,
                             pipeline_depth, sampler, dp_mesh)
 
@@ -1810,8 +1891,8 @@ def lumina2_engine(model: DiffusionModel, max_batch: int = 4,
     "cfg_scale"} (the llama-graph encoder's states, padded to one length
     per engine); each tick runs the conditional and the unconditional
     forward and mixes them at each request's own scale. A depth-stacked
-    tree takes ``forward_stacked``; ``dp_mesh`` is not ported yet and
-    raises."""
+    tree takes ``forward_stacked``; ``dp_mesh``: data-parallel ticks
+    (``make_flow_engine``)."""
     return _cfg_flow_engine(model, lumina2_model, "cap", "ncap", max_batch,
                             pipeline_depth, sampler, dp_mesh)
 
@@ -1823,12 +1904,17 @@ def wan_engine(model: DiffusionModel, max_batch: int = 2,
     serving): requests carry (F, H, W, C) latent video + cond {"ctx",
     "nctx", "cfg_scale"}; each tick runs the conditional and the
     unconditional forward and mixes them at each request's own scale. A
-    depth-stacked tree takes ``forward_stacked``; ``mesh`` and ``dp_mesh``
-    are not ported yet and raise."""
-    if mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
-    return _cfg_flow_engine(model, wan_model, "ctx", "nctx", max_batch,
-                            pipeline_depth, sampler, dp_mesh)
+    depth-stacked tree takes ``forward_stacked``. ``mesh`` (a "tp" axis):
+    tensor-parallel ticks on this rank's ``tp_spec`` tree; ``dp_mesh``:
+    data-parallel ticks (``make_flow_engine``)."""
+    fwd = _tp_fwd(mesh, wan_model.forward_stacked if model.is_stacked
+                  else wan_model.forward, "tp_wan_forward")
+    return make_flow_engine(
+        model, _cfg_mix_velocity(fwd, model),
+        {"ctx": torch.bfloat16, "nctx": torch.bfloat16,
+         "cfg_scale": torch.float32},
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler,
+        dp_mesh=dp_mesh)
 
 
 def cosmos_engine(model: DiffusionModel, max_batch: int = 2,
@@ -1838,8 +1924,8 @@ def cosmos_engine(model: DiffusionModel, max_batch: int = 2,
     requests carry (F, H, W, C) latents + cond {"ctx", "nctx",
     "cfg_scale"} (T5 states); each tick runs the conditional and the
     unconditional forward and mixes them at each request's own scale. A
-    depth-stacked tree takes ``forward_stacked``; ``dp_mesh`` is not ported
-    yet and raises."""
+    depth-stacked tree takes ``forward_stacked``; ``dp_mesh``:
+    data-parallel ticks (``make_flow_engine``)."""
     return _cfg_flow_engine(model, cosmos_model, "ctx", "nctx", max_batch,
                             pipeline_depth, sampler, dp_mesh)
 
@@ -1854,16 +1940,15 @@ def qwen_image_engine(model: DiffusionModel, h_tok: int, w_tok: int,
     cond {"txt": (txt_len, context_dim)}; the flux-style RoPE ids are fixed
     per engine (one resolution bucket). One conditional forward a tick, as
     in the reference. A depth-stacked tree takes ``forward_stacked``;
-    ``sampler="dpmpp_2m"`` runs per-lane 2nd-order multistep. ``mesh``
-    (tensor-parallel ticks) and ``dp_mesh`` are not ported yet and
-    raise."""
-    if mesh is not None or dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
+    ``sampler="dpmpp_2m"`` runs per-lane 2nd-order multistep. ``mesh`` (a
+    "tp" axis): tensor-parallel ticks on this rank's ``tp_spec`` tree;
+    ``dp_mesh``: data-parallel ticks (``make_flow_engine``)."""
     device = model.device
     img_ids = torch.as_tensor(np.array(flux_model.make_img_ids(
         h_tok, w_tok, 1))[0], device=device)
     txt_ids = torch.zeros((txt_len, 3), dtype=torch.int32, device=device)
-    fwd = qi_model.forward_stacked if model.is_stacked else qi_model.forward
+    fwd = _tp_fwd(mesh, qi_model.forward_stacked if model.is_stacked
+                  else qi_model.forward, "tp_qwen_image_forward")
 
     def velocity(params, x, s_cur, cond):
         B = x.shape[0]
@@ -1874,7 +1959,8 @@ def qwen_image_engine(model: DiffusionModel, h_tok: int, w_tok: int,
 
     return make_flow_engine(model, velocity, {"txt": torch.bfloat16},
                             max_batch=max_batch,
-                            pipeline_depth=pipeline_depth, sampler=sampler)
+                            pipeline_depth=pipeline_depth, sampler=sampler,
+                            dp_mesh=dp_mesh)
 
 
 def hidream_engine(model: DiffusionModel, max_batch: int = 2,
@@ -1884,15 +1970,14 @@ def hidream_engine(model: DiffusionModel, max_batch: int = 2,
     carry (H, W, C) spatial latents and cond {"t5", "llama", "pooled"}
     (guidance-distilled: one forward a tick); the MoE FFNs run in the
     process's ``hidream.MOE_DISPATCH`` mode. A depth-stacked tree takes
-    ``forward_stacked``. Passing both ``dp_mesh`` and ``mesh`` raises
-    ``ValueError`` (the reference takes both and fails when it traces);
-    either alone is not ported yet and raises ``NotImplementedError``."""
+    ``forward_stacked``. ``mesh`` (a "tp" axis): tensor-parallel ticks on
+    this rank's ``tp_spec`` tree; ``dp_mesh``: data-parallel ticks
+    (``make_flow_engine``). Passing both raises ``ValueError`` (the
+    reference takes both and fails when it traces)."""
     if dp_mesh is not None and mesh is not None:
         raise ValueError("hidream_engine takes dp_mesh or mesh, not both")
-    if mesh is not None or dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
-    fwd = (hidream_model.forward_stacked if model.is_stacked
-           else hidream_model.forward)
+    fwd = _tp_fwd(mesh, hidream_model.forward_stacked if model.is_stacked
+                  else hidream_model.forward, "tp_hidream_forward")
 
     def velocity(params, x, s_cur, cond):
         return fwd(params, model.config, x, cond["t5"], cond["llama"],
@@ -1901,7 +1986,8 @@ def hidream_engine(model: DiffusionModel, max_batch: int = 2,
     return make_flow_engine(
         model, velocity, {"t5": torch.bfloat16, "llama": torch.bfloat16,
                           "pooled": torch.bfloat16},
-        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler,
+        dp_mesh=dp_mesh)
 
 
 def hyvid_engine(model: DiffusionModel, max_batch: int = 2,
@@ -1912,12 +1998,11 @@ def hyvid_engine(model: DiffusionModel, max_batch: int = 2,
     video and cond {"txt", "guidance"}; one conditional forward a tick, at
     each request's own embedded guidance (in units of 1.0, embedded ×1000
     as in ``HyVidPipeline``). A depth-stacked tree takes
-    ``forward_stacked``; ``mesh`` and ``dp_mesh`` are not ported yet and
-    raise."""
-    if mesh is not None or dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
-    fwd = hyvid_model.forward_stacked if model.is_stacked \
-        else hyvid_model.forward
+    ``forward_stacked``. ``mesh`` (a "tp" axis): tensor-parallel ticks on
+    this rank's ``tp_spec`` tree; ``dp_mesh``: data-parallel ticks
+    (``make_flow_engine``)."""
+    fwd = _tp_fwd(mesh, hyvid_model.forward_stacked if model.is_stacked
+                  else hyvid_model.forward, "tp_hyvid_forward")
 
     def velocity(params, x, s_cur, cond):
         return fwd(params, model.config, x, cond["txt"], s_cur,
@@ -1925,7 +2010,8 @@ def hyvid_engine(model: DiffusionModel, max_batch: int = 2,
 
     return make_flow_engine(
         model, velocity, {"txt": torch.bfloat16, "guidance": torch.float32},
-        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler,
+        dp_mesh=dp_mesh)
 
 
 def ltxv_engine(model: DiffusionModel, max_batch: int = 2,
@@ -1936,17 +2022,16 @@ def ltxv_engine(model: DiffusionModel, max_batch: int = 2,
     {"ids" (L, 3) voxel positions, "ctx", "nctx", "cfg_scale"}; each tick
     runs the conditional and the unconditional forward and mixes them at
     each request's own scale (1.0 gives the conditional velocity). A
-    depth-stacked tree takes ``forward_stacked``; ``dp_mesh`` is not ported
-    yet and raises."""
-    if dp_mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO)
+    depth-stacked tree takes ``forward_stacked``; ``dp_mesh``:
+    data-parallel ticks (``make_flow_engine``)."""
     fwd = ltxv_model.forward_stacked if model.is_stacked \
         else ltxv_model.forward
     return make_flow_engine(
         model, _cfg_mix_velocity(fwd, model, lead=("ids",)),
         {"ids": torch.int32, "ctx": torch.bfloat16, "nctx": torch.bfloat16,
          "cfg_scale": torch.float32},
-        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler)
+        max_batch=max_batch, pipeline_depth=pipeline_depth, sampler=sampler,
+        dp_mesh=dp_mesh)
 
 
 def unet_engine(model: DiffusionModel, max_batch: int = 4,

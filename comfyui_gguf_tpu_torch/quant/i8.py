@@ -28,7 +28,7 @@ import logging
 import numpy as np
 import torch
 
-from .planar import PlanarQuant, dequantize_padded
+from .planar import PlanarQuant, TPShard, dequantize_padded
 
 log = logging.getLogger(__name__)
 
@@ -212,6 +212,8 @@ def plan_i8_budget(params: dict, *, max_bytes: int, pred=None) -> set:
                 scan(v, f"{path}.{k}" if path else str(k))
             return
         b = node.base if isinstance(node, PatchedWeight) else node
+        if isinstance(b, TPShard):
+            b = b.inner
         if isinstance(b, PlanarQuant):
             pb, ib = _leaf_bytes(b)
             total += pb
@@ -257,7 +259,10 @@ def convert_tree_i8(params: dict, *, free_source: bool = False,
     ``free_source``).
 
     A LoRA-patched leaf (``lora.PatchedWeight``) converts its packed base
-    and keeps its patches, which then ride the w8a8 kernel's epilogue.
+    and keeps its patches, which then ride the w8a8 kernel's epilogue. A
+    tensor-parallel leaf (``TPShard``) converts its packed shards, each on
+    its own: a shard's column scales are its own columns' (the (tp,
+    depth) lead axes of a sharded tree, or a rank's depth axis).
     """
     if max_bytes is not None:
         chosen = plan_i8_budget(params, max_bytes=max_bytes, pred=pred)
@@ -274,12 +279,17 @@ def _walk(node: dict, path: str, free_source: bool, pred,
         v = node[k]
         kp = f"{path}.{k}" if path else str(k)
         b = v.base if isinstance(v, PatchedWeight) else v
+        if isinstance(b, TPShard):
+            b = b.inner
         if isinstance(v, dict):
             out[k] = _walk(v, kp, free_source, pred, host_stage)
         elif isinstance(b, PlanarQuant) and (pred is None or pred(kp, b)):
             ip = (requantize_i8_host(b, free_source=free_source)
                   if host_stage else requantize_i8(b))
-            out[k] = ip if b is v else PatchedWeight(ip, v.patches)
+            if isinstance(v, TPShard):
+                out[k] = dataclasses.replace(v, inner=ip)
+            else:
+                out[k] = ip if b is v else PatchedWeight(ip, v.patches)
             if free_source:
                 node[k] = None
         else:

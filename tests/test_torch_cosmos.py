@@ -256,7 +256,7 @@ def test_engine_matches_reference_and_direct(path, stacked):
 
 def test_engine_refuses_dp_mesh(path):
     _, model = _trees(path)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="axis"):
         tpipeline.cosmos_engine(model, dp_mesh=object())
 
 

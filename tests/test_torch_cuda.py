@@ -27,7 +27,11 @@ slices of one projection, and its D = 512 instance (the HunyuanVideo VAE's)
 at an odd length, Lq != Lk, B > 1 and on single-head views. Tiny
 HunyuanVideo and LTX-Video forwards (planar and w8a8, flat and stacked)
 and their VAEs' decodes run on the card against the CPU, and the tile
-autotuner leaves a legal entry that the dispatch then takes. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
+autotuner leaves a legal entry that the dispatch then takes. The
+tensor-parallel shards of flux-dev (``shard_planar``, each re-padded on its
+own: linear1 and qkv column shards, linear2 and proj row shards at tp = 2
+and 4, a modulation gather shard at M = 1) run K1 / K4 against their plain
+versions, and K7 runs a rank's 12 local heads on views of its qkv. The serving path's batch shapes (four requests stacked: K4 at M = 4·4608,
 4·4096 and 4·512, K7 at B = 4 and the flux length, the split-K body at
 M = 4) and one continuous-batching engine run on the card against the
 same engine on the CPU (launch counts per tick) run here too. Whether a
@@ -1616,3 +1620,56 @@ def test_autotune_leaves_a_legal_entry(cuda, qtype, M):
         assert _rel_l2(got, plain_quantized_matmul(x, pq)) <= 2e-3
     finally:
         qmatmul.SHAPE_TILES.clear()
+
+
+# tensor-parallel shards of flux-dev (``quant.planar.shard_planar``, each
+# re-padded on its own) at the shapes a rank's forward gives the kernels:
+# (name, layout of the full weight R x K, split axis, groups, tp, M, GELU
+# column of the shard, w8a8)
+TP_SHARD_CASES = [
+    ("linear1 col tp2", (21504, 3072), "r", (3072, 3072, 3072, 12288), 2,
+     4608, 4608, True),
+    ("linear1 col tp2 bf16-fused", (21504, 3072), "r",
+     (3072, 3072, 3072, 12288), 2, 4608, 4608, False),
+    ("linear2 row tp2", (3072, 15360), "k", (3072, 12288), 2, 4608, None,
+     False),
+    ("linear2 row tp4", (3072, 15360), "k", (3072, 12288), 4, 4608, None,
+     False),
+    ("proj row tp4 (K 768 pads to 1024)", (3072, 3072), "k", None, 4, 4096,
+     None, True),
+    ("img_mod gather tp2 split-K", (18432, 3072), "r", None, 2, 1, None,
+     False),
+    ("qkv col tp2", (9216, 3072), "r", (3072, 3072, 3072), 2, 4096, None,
+     True),
+]
+
+
+@pytest.mark.parametrize("name,shape,axis,groups,tp,M,act,w8a8",
+                         TP_SHARD_CASES, ids=[c[0] for c in TP_SHARD_CASES])
+def test_tp_shard_shapes(cuda, name, shape, axis, groups, tp, M, act, w8a8):
+    from comfyui_gguf_tpu_torch.models.testing import random_planar
+
+    g = torch.Generator(device=cuda).manual_seed(tp * 1000 + M)
+    full = random_planar(Q.Q4_K, shape, g, device=cuda)
+    for r in (0, tp - 1):
+        pq = planar.shard_planar(full, tp, axis, groups, index=r)
+        R, K = pq.shape
+        assert pq.padded_in % 512 == 0 and pq.padded_out % 128 == 0
+        if w8a8:
+            _check_i8(cuda, requantize_i8(pq), M, True, act, seed=r)
+        else:
+            _check_qmm(cuda, pq, M, K, R, True, act, seed=r)
+
+
+def test_flash_kernel_tp_local_heads(cuda):
+    """A rank's 12 of flux's 24 heads at the joint length, on column views
+    of its local qkv projection."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, H, L, D = 1, 12, 4608, 128
+    qkv = torch.randn((B, L, 3, H, D), generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = _build.LAUNCHES["flash_attn_d128"]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn_d128"] == before + 1
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2

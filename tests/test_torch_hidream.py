@@ -14,9 +14,10 @@ leaf-stacked as (depth, E, …)) against unrolled, in both dispatch modes;
 the w8a8 tree with the adaLN projections kept planar; the engine against
 the reference's engine and the direct Euler sampler; ``generate_from_ids``
 (CLIP-L ⊕ CLIP-G pooled, T5 and llama states) with the reference's noise;
-the refusals (``dp_mesh`` with ``mesh`` a ``ValueError``, either alone and
-the "ep" dispatch ``NotImplementedError``). These mirror
-``tests/test_hidream.py`` except its expert-parallel test.
+the refusals (``dp_mesh`` with ``mesh`` a ``ValueError``, and either
+without its axis); the "ep" dispatch without a mesh equal to dense. These
+mirror ``tests/test_hidream.py``; its expert-parallel test is mirrored in
+``tests/test_torch_ep.py``.
 
 Tolerances (relative L2): 3e-4 for the planar trees in float32, 2e-2 in
 bfloat16, 1e-5 for capacity against dense dispatch with no overflow (an
@@ -238,11 +239,16 @@ def test_stacked_matches_unrolled(files, mode, dispatch):
 
 
 def test_ep_dispatch_not_ported(files, dispatch):
+    """"ep" without an expert mesh (``hidream.EP_MESH`` None) runs the
+    dense dispatch, as the reference's does; over a mesh it runs on ranks
+    (``tests/test_torch_ep.py``)."""
     _, model = _trees(files[Q.Q8_0])
     _, tx = _inputs(np.float32, batch=1)
+    dense = hidream.forward(model.params, model.config, *tx, qcfg=F32[0])
     dispatch("ep")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        hidream.forward(model.params, model.config, *tx, qcfg=F32[0])
+    assert hidream.EP_MESH is None
+    assert torch.equal(hidream.forward(model.params, model.config, *tx,
+                                       qcfg=F32[0]), dense)
 
 
 def _w8a8_reference(files):
@@ -350,12 +356,14 @@ def test_engine_matches_reference_and_direct(files, stacked):
 
 def test_engine_refuses_meshes(files):
     """Both meshes: the ValueError the reference's engine only reaches when
-    it traces (ROADMAP queue 3); either alone: not ported (item 15)."""
+    it traces (ROADMAP queue 3); either alone without its axis ("dp" /
+    "tp"): ValueError before any tick (the parallel engines themselves run
+    on ranks in ``tests/test_torch_tp_spec.py``)."""
     _, model = _trees(files[Q.Q8_0])
     with pytest.raises(ValueError, match="not both"):
         tpipeline.hidream_engine(model, dp_mesh=object(), mesh=object())
     for kw in ({"dp_mesh": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="axis"):
             tpipeline.hidream_engine(model, **kw)
 
 

@@ -293,7 +293,7 @@ def test_engine_matches_reference_and_direct(path, stacked):
 def test_engine_refuses_meshes(path):
     _, model = _trees(path)
     for kw in ({"mesh": object()}, {"dp_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="axis"):
             tpipeline.hyvid_engine(model, **kw)
 
 

@@ -21,7 +21,9 @@ FILES = sorted(p for p in (ROOT / "comfyui_gguf_tpu_torch").rglob("*.py")
     ROOT / "chip_smoke.py", ROOT / "tools_i8_microbench_cuda.py",
     ROOT / "tools_qmm_cuda.py", ROOT / "tools_i8mm_flash_cuda.py",
     ROOT / "tools_kernel_ab_cuda.py",
-    ROOT / "tools_batch_invariance_cuda.py"]
+    ROOT / "tools_batch_invariance_cuda.py",
+    # the jobs the parallel tests' ranks import under spawn
+    ROOT / "tests" / "torch_parallel_jobs.py"]
 
 
 def _imported_roots(tree):
@@ -58,6 +60,10 @@ def test_the_port_has_its_own_sources():
                 "tools/convert.py", "tools/quantize.py",
                 "tools/fix_5d_tensors.py", "tools/fix_lines_ending.py",
                 "tools/read_tensors.py", "tools/validate_checkpoint.py",
-                "tools/read_trace.py"):
+                "tools/read_trace.py", "tools/tp_plan.py",
+                "parallel/mesh.py", "parallel/tp.py", "parallel/tp_flux.py",
+                "parallel/tp_spec.py", "parallel/ring.py", "parallel/pp.py",
+                "parallel/ep.py", "parallel/collectives.py",
+                "parallel/launch.py"):
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()

@@ -298,7 +298,7 @@ def test_engine_matches_reference_and_direct(files, sampler, stacked):
 
 def test_engine_refuses_dp_mesh(files):
     _, model = _trees(files[Q.Q8_0])
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="axis"):
         tpipeline.lumina2_engine(model, dp_mesh=object())
 
 

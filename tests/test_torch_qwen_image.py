@@ -368,7 +368,7 @@ def test_engine_matches_reference_and_direct(files, stacked):
                          ids=["dp_mesh", "mesh"])
 def test_engine_refuses_meshes(files, kw):
     _, model = _trees(files[Q.Q8_0])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="axis"):
         tpipeline.qwen_image_engine(model, H_TOK, H_TOK, TXT_LEN, **kw)
 
 

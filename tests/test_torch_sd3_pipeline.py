@@ -493,7 +493,7 @@ def test_sd3_engine_matches_reference_engine(engine_models, sampler,
 
 def test_sd3_engine_dp_mesh_raises_until_ported(engine_models):
     mdl, _ = engine_models
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="axis"):
         tpipeline.sd3_engine(mdl, dp_mesh=object())
 
 
