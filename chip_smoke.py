@@ -21,7 +21,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--hyvid-llama-layers N] [--ltxv-depth N]
                           [--ltxv-steps N] [--ltxv-t5-layers N]
                           [--tools-depth-double N] [--tools-depth-single N]
-                          [--tools-steps N]
+                          [--tools-steps N] [--scripts-steps N]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
@@ -40,8 +40,9 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    beside the unpatched ones; for flash attention each head-dim instance's)
    and the dynamic shared memory of the TMA-fed kernels are printed; a
    ``wgmma`` serialization advisory (ptxas C751x) or a spill in any K1/K2
-   or K7 instance fails, and the wgmma body's resident blocks per K-split
-   cluster size are printed beside the plan's;
+   or bf16 / f16 K7 instance fails (the f32 SIMT body's lines are
+   printed), and the wgmma body's resident blocks per K-split cluster size
+   are printed beside the plan's;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
@@ -72,7 +73,12 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    (f16 ≤ 2e-3, f32 ≤ 1e-5), their library call one ``torch.matmul`` in
    that dtype; K7 at D = 128 at Wan 2.1's self- and cross-attention and
    Cosmos's, and at D = 384 at the Wan VAE's mid-block (3 frames of 60 x
-   104);
+   104). K7's f16 and f32 instances run at flux's joint attention (f16
+   within bf16's 1e-2, f32 within 1e-5 of the plain version in the same
+   dtype, their library call SDPA in that dtype), and the f32 one at the
+   Wan and HunyuanVideo VAEs' mid-blocks (D = 384 and 512, 3 frames of 60
+   x 104); K6 "pv" and "qk" and its prep on f16 and f32 q/k/v at flux's
+   shape, the output in q's dtype;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; then with a LoRA of every
@@ -236,7 +242,7 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    latent, 4680 tokens; 512 UMT5 tokens with the padded positions
    zeroed), shift 5.0, CFG 5.0, ``--wan-steps`` (20) steps and a dispatch
    window of 4, decoded to 9 frames (the VAE's mid-block attention on K7's
-   D = 384 instance), on the bf16-fused tree and then on the w8a8 tree,
+   f32 instance at D = 384), on the bf16-fused tree and then on the w8a8 tree,
    with phase 13's gates (K7 D = 128 twice a block a forward) and
    records;
    ``wan_engine`` as phase 13's engine (two steps). Published Wan 480p is
@@ -259,7 +265,8 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    16) through ``HyVidPipeline.generate`` at 480×832 with 9 pixel frames (a
    3 × 60 × 104 latent, 4680 + 256 tokens), guidance 6.0, shift 7.0,
    ``--hyvid-steps`` (20) steps, one forward a step, decoded to 9 frames
-   (the VAE's mid-block attention on K7's D = 512 instance), both trees
+   (the VAE's mid-block attention on K7's f32 instance at D = 512), both
+   trees
    (img_mod / txt_mod / modulation planar: the split-K body), phase 13's
    gates (K7 D = 128 62 times a forward) and records; ``hyvid_engine``
    (two steps). The reference's default is 9 latent frames (33 pixel
@@ -316,9 +323,33 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    self-attention shape against K7 on the whole sequence and one Wan block
    under ``sequence_parallel`` against the unsharded block (each within
    1e-2), and every ``tp_spec`` wrapper (nine archs) at a tiny size on the
-   card against the same ranks on the CPU (within 3e-2). Each rank logs ms
-   a forward, ms in collectives, bytes staged through the host, launches a
-   forward and its peak memory.
+   card against the same ranks on the CPU (within 3e-2), with bf16 and
+   again with f32 activations (each arch's f32 pass must launch K7's f32
+   instance). Each rank logs ms a forward, ms in collectives, bytes staged
+   through the host, launches a forward and its peak memory;
+23. the six entry scripts of ``examples/`` (run inside phase 21's
+   directory, on its Q4_K_M flux-dev file and its BF16 GGUF, beside a
+   T5-xxl-width Q8_0 GGUF with a tokenizer, CLIP-L, CLIP-G, the flux VAE,
+   an sd3.5-large-width file of 2 blocks, Qwen-Image of 1 block and
+   HiDream-I1 of 1 + 1, all seed-made at published widths), at 1024² and
+   ``--scripts-steps`` (4) steps: ``torch_generate_flux``,
+   ``torch_serve_flux --i8 --preview-every 2 --max-batch 2``,
+   ``torch_serve_multi`` and ``torch_serve_sd3`` in this process
+   (``runpy``; their launches counted), ``torch_serve_qwen_tp`` and
+   ``torch_serve_hidream_tp --i8`` at tp = 2 with ``--smoke`` as
+   subprocesses; each must exit 0 and write finite files, the txt2img
+   image must equal ``FluxPipeline.generate`` of the same seed bit for
+   bit, and K1/K2/K4/K7 must have launched. Each script's wall is logged.
+
+Phase 4i runs attention in q's dtype through the models, card against
+CPU within 3e-2: a tiny flux forward (four heads of 128) at f16 and at f32
+activations, plain and under ``attention_i8("pv")`` / ``("qk")`` at 512
+joint tokens, each launching its dtype's K7 instance (or K6 and its prep)
+once a block and no bf16 attention instance; a small Wan VAE decode at
+f32 compute (K7 f32); and the Wan 2.1 and HunyuanVideo VAEs at published
+widths decoding one 8 x 8 latent frame in f32 (K7's f32 instance, as the
+pipelines hand their f32 latents) and in bf16 (the bf16 D = 384 / 512
+instances).
 
 Phase 4c runs every ``FLOW_SAMPLERS`` and ``FLOW_STOCHASTIC_SAMPLERS`` name
 through phase 4a's tiny flux GGUF (Q4_K) on the card and on the CPU with the
@@ -341,14 +372,14 @@ dense and capacity dispatch, then both engines on the w8a8 stacked trees,
 each request also within 1e-2 of the direct sampler on the card. Phase 4g
 does it for tiny Wan 2.1 and Cosmos GGUFs (4 heads of 128) with 2-layer
 UMT5 and T5 GGUFs and a small Wan VAE safetensors file (its middle 64
-wide): ``WanPipeline.generate`` (CFG, latent statistics, the VAE decode, a
+wide, its attention on K7's f32 instance): ``WanPipeline.generate`` (CFG, latent statistics, the VAE decode, a
 dispatch window) and ``CosmosPipeline.generate``, then ``wan_engine`` and
 ``cosmos_engine`` on the w8a8 stacked trees, each request within 1e-2 of
 the direct sampler on the card and a snapshot after one tick restored
 into a fresh engine within 1e-3 of the uninterrupted run. Phase 4h does it
 for tiny HunyuanVideo (4 heads of 128) and LTX-Video (8 heads of 64)
 GGUFs with phase 4e's 2-layer llama-family encoder, a 2-layer T5 and
-small HunyuanVideo (its middle 64 wide) and LTX-Video VAE safetensors
+small HunyuanVideo (its middle 64 wide, K7 f32) and LTX-Video VAE safetensors
 files: ``HyVidPipeline.generate`` and ``LTXVPipeline.generate`` with
 their VAEs and without, both VAEs' decode and encode → decode, then
 ``hyvid_engine`` and ``ltxv_engine`` on the w8a8 stacked trees, each
@@ -361,6 +392,11 @@ Lumina 2, Pile-T5-XL and Gemma-shaped encoder shapes, K4, K1's
 split-K body, K2 and K7 at the Qwen-Image, HiDream and Qwen2.5-VL encoder
 shapes, and K7 at the Wan, Cosmos, HunyuanVideo (joint D = 128, the VAE's
 D = 512) and LTX-Video (self and cross D = 64) shapes.
+
+Phases 13, 14, 18, 19 and 20 default to half depth (AuraFlow 16 single
+layers, Lumina 2 13, Cosmos 14, HunyuanVideo 10 + 20, LTX-Video 14) and
+15, 16, 17 and 21 too (Qwen-Image 30, HiDream 8 + 16, Wan 20, the tools'
+file 1 + 2), for the time limit; the flags restore the published depths.
 
 Launch counts are set to 0 just before each driven path and read just
 after. The last lines are the card's ``nvidia-smi`` name and power limit,
@@ -485,6 +521,18 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8attn.py:113"),
     "i8attn_prep": ("comfyui_gguf_tpu_torch/csrc/i8attn_prep.cu",
                     "comfyui_gguf_tpu/ops/i8attn.py:76"),
+    # K7's and K6's f16 / f32 instances (the reference computes attention
+    # in q's dtype)
+    "flash_attn_f16": ("comfyui_gguf_tpu_torch/csrc/flash_attn_f16.cu",
+                       "comfyui_gguf_tpu/nn/attention.py:168"),
+    "flash_attn_f32": ("comfyui_gguf_tpu_torch/csrc/flash_attn_f32.cu",
+                       "comfyui_gguf_tpu/nn/attention.py:168"),
+    **{f"i8attn_{m}_{dt}": ("comfyui_gguf_tpu_torch/csrc/i8attn.cu",
+                            "comfyui_gguf_tpu/ops/i8attn.py:113")
+       for m in ("pv", "qk") for dt in ("f16", "f32")},
+    **{f"i8attn_prep_{dt}": ("comfyui_gguf_tpu_torch/csrc/i8attn_prep.cu",
+                             "comfyui_gguf_tpu/ops/i8attn.py:76")
+       for dt in ("f16", "f32")},
     "gemm_probe_bf16": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
                         "tools_i8_microbench.py:37"),
     "gemm_probe_s8": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
@@ -512,8 +560,11 @@ QMM_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
                "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
                "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
                "qmm_smallm_f32.cu", "qmm_simt.cu")
-NAMED_SOURCES = QMM_SOURCES + ("i8mm.cu", "i8mm_lora.cu", "gemm_probe.cu",
-                               "flash_attn.cu")
+# K7's sources; a C751x advisory or a spill in any instance of the wgmma
+# body (bf16 and f16) fails too, the f32 SIMT body's lines are printed
+FLASH_SOURCES = ("flash_attn.cu", "flash_attn_f16.cu", "flash_attn_f32.cu")
+NAMED_SOURCES = QMM_SOURCES + ("i8mm.cu", "i8mm_lora.cu",
+                               "gemm_probe.cu") + FLASH_SOURCES
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -890,50 +941,67 @@ def kernel_phase(dev, sfu_per_s):
                  want, base, torch.equal(zero, base), "ulp", ms, base_ms,
                  plain, lib, nbytes, t_ops, act=act)
 
-    def attn_case(name, B, H, Lq, Lk, D):
-        q, k, v = randn(B, H, Lq, D), randn(B, H, Lk, D), randn(B, H, Lk, D)
+    # K7's instances by q/k/v dtype: launch counter, rel-L2 limit against
+    # the plain version in that dtype, the peak of its products (f16 on the
+    # tensor cores at the bf16 rate, f32 on the FMA units)
+    attn_dtypes = {
+        torch.bfloat16: (None, 1e-2, PEAK_BF16),
+        torch.float16: ("flash_attn_f16", 1e-2, PEAK_BF16),
+        torch.float32: ("flash_attn_f32", 1e-5, PEAK_F32)}
+
+    def attn_case(name, B, H, Lq, Lk, D, dtype=torch.bfloat16):
+        q, k, v = (randn(B, H, L, D).to(dtype) for L in (Lq, Lk, Lk))
         scale = D ** -0.5
+        kernel, tol, peak = attn_dtypes[dtype]
         got = flash_attn_cuda(q, k, v, scale)
         want = plain_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err = rel_l2(got, want)
-        ok = bool(torch.isfinite(got).all()) and err <= 1e-2
+        ok = (bool(torch.isfinite(got).all()) and got.dtype == dtype
+              and err <= tol)
         ms = graph_ms([lambda: flash_attn_cuda(q, k, v, scale)])
         plain = event_ms(lambda: plain_attention(q, k, v, scale), reps=2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
-        nbytes = 2 * B * H * D * (2 * Lq + 2 * Lk)
-        b_ms, b_by = bound(nbytes, 4.0 * B * H * Lq * Lk * D, PEAK_BF16)
-        rows.append(dict(name=name, kernel=f"flash_attn_d{D}",
-                         shape=f"B={B} H={H} Lq={Lq} Lk={Lk} D={D}",
+        nbytes = q.element_size() * B * H * D * (2 * Lq + 2 * Lk)
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * Lq * Lk * D, peak)
+        rows.append(dict(name=name, kernel=kernel or f"flash_attn_d{D}",
+                         shape=f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
+                               f"{str(dtype).replace('torch.', '')}",
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
-                         rel_l2=err, tol="rel L2 <= 1e-2", ok=ok, ms=ms,
+                         rel_l2=err, tol=f"rel L2 <= {tol:g}", ok=ok, ms=ms,
                          plain_ms=plain, library_ms=lib,
-                         library="scaled_dot_product_attention",
+                         library="scaled_dot_product_attention in the same "
+                                 "dtype",
                          bound_ms=b_ms, bound_by=b_by))
 
-    def i8attn_case(name, mode, B, H, L, D=128):
+    def i8attn_case(name, mode, B, H, L, D=128, dtype=torch.bfloat16):
         """K6 on the operands of its prep kernel, against the plain version
-        at the kernel's own key tile; the prep kernel and the plain prep
-        (``quantize_attn_inputs``) are timed beside it."""
+        at the kernel's own key tile, its result in q's dtype; the prep
+        kernel and the plain prep (``quantize_attn_inputs``) are timed
+        beside it."""
         pv, bkv = mode == "pv", kernel_block_kv(D)
-        q, v = randn(B, H, L, D), randn(B, H, L, D)
-        k = randn(B, H, L, D) + 1.0  # a token mean for the prep to remove
+        q, v = randn(B, H, L, D).to(dtype), randn(B, H, L, D).to(dtype)
+        # a token mean for the prep to remove
+        k = (randn(B, H, L, D) + 1.0).to(dtype)
         scale = D ** -0.5
+        sfx = {torch.bfloat16: "", torch.float16: "_f16",
+               torch.float32: "_f32"}[dtype]
         ops = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
-        got = i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv)
+        got = i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv,
+                                  out_dtype=dtype)
         pops = plain_operands(*ops, pv_int8=pv)
         want = plain_i8_attention_q(
-            *pops, pv_int8=pv, block_kv=bkv).to(
-                torch.bfloat16).reshape(B, H, L, D)
+            *pops, pv_int8=pv, block_kv=bkv).to(dtype).reshape(B, H, L, D)
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         exact = rel_l2(got, plain_attention(q, k, v, scale))
-        ok = (bool(torch.isfinite(got).all()) and err <= 2e-3
-              and exact <= 3.5e-2)
+        ok = (bool(torch.isfinite(got).all()) and got.dtype == dtype
+              and err <= 2e-3 and exact <= 3.5e-2)
         ms = graph_ms([lambda: i8_attention_cuda_q(*ops, B=B, H=H,
-                                                   pv_int8=pv)])
+                                                   pv_int8=pv,
+                                                   out_dtype=dtype)])
         prep = graph_ms([lambda: prep_cuda(q, k, v, scale=scale,
                                            pv_int8=pv)])
         prep_plain = graph_ms([lambda: quantize_attn_inputs(
@@ -943,14 +1011,15 @@ def kernel_phase(dev, sfu_per_s):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
         BH = B * H
-        # s8 q and k, s8 or bf16 v, the f32 scales, the bf16 output
+        # s8 q and k, s8 or bf16 v, the f32 scales, the output in q's dtype
         nbytes = (BH * L * D * (2 + (1 if pv else 2)) + 4 * BH * (2 * L + D)
-                  + 2 * BH * L * D)
+                  + q.element_size() * BH * L * D)
         half = 2.0 * BH * L * L * D
         t_ops = half / PEAK_INT8 + half / (PEAK_INT8 if pv else PEAK_BF16)
         b_ms, b_by = bound_t(nbytes, t_ops)
-        rows.append(dict(name=name, kernel=f"i8attn_{mode}",
-                         shape=f"B={B} H={H} L={L} D={D}",
+        rows.append(dict(name=name, kernel=f"i8attn_{mode}{sfx}",
+                         shape=f"B={B} H={H} L={L} D={D} "
+                               f"{str(dtype).replace('torch.', '')}",
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
                          rel_l2=err, rel_l2_vs_exact=exact,
@@ -959,20 +1028,22 @@ def kernel_phase(dev, sfu_per_s):
                          ok=ok, ms=ms, prep_ms=prep,
                          prep_plain_ms=prep_plain, plain_ms=plain,
                          library_ms=lib,
-                         library="scaled_dot_product_attention on the bf16 "
-                                 "q/k/v",
+                         library="scaled_dot_product_attention on the "
+                                 "same q/k/v",
                          bound_ms=b_ms, bound_by=b_by,
                          exp_floor_ms=BH * L * L / sfu_per_s * 1e3))
 
-    def prep_case(name, mode, B, H, L, D=128):
+    def prep_case(name, mode, B, H, L, D=128, dtype=torch.bfloat16):
         """The prep kernel against the plain prep: q and v codes and their
         scales equal, k codes within one step (torch sums k's mean in
         another order; the share that differs is recorded), two launches
         equal."""
         pv = mode == "pv"
-        q, v = randn(B, H, L, D), randn(B, H, L, D)
-        k = randn(B, H, L, D) + 1.0
+        q, v = randn(B, H, L, D).to(dtype), randn(B, H, L, D).to(dtype)
+        k = (randn(B, H, L, D) + 1.0).to(dtype)
         scale = D ** -0.5
+        sfx = {torch.bfloat16: "", torch.float16: "_f16",
+               torch.float32: "_f32"}[dtype]
         got = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
         again = prep_cuda(q, k, v, scale=scale, pv_int8=pv)
         want = kernel_operands(*quantize_attn_inputs(q, k, v, scale,
@@ -995,13 +1066,14 @@ def kernel_phase(dev, sfu_per_s):
         plain = graph_ms([lambda: quantize_attn_inputs(q, k, v, scale,
                                                        pv_int8=pv)])
         BH = B * H
-        # q, k and ("pv") v read once (bf16); the s8 codes, the scales
-        # written once
-        nbytes = (2 * BH * L * D * (3 if pv else 2)
+        # q, k and ("pv") v read once (in their dtype); the s8 codes, the
+        # scales written once
+        nbytes = (q.element_size() * BH * L * D * (3 if pv else 2)
                   + BH * L * D * (3 if pv else 2) + 4 * BH * (2 * L + D))
         b_ms, b_by = bound_t(nbytes, 0.0)
-        rows.append(dict(name=name, kernel="i8attn_prep",
-                         shape=f"B={B} H={H} L={L} D={D}",
+        rows.append(dict(name=name, kernel=f"i8attn_prep{sfx}",
+                         shape=f"B={B} H={H} L={L} D={D} "
+                               f"{str(dtype).replace('torch.', '')}",
                          max_abs_err=float(dk.max()), rel_l2=0.0,
                          k_codes_off_by_one=k_share, ks_max_rel=ks_rel,
                          tol="q, v codes and qs, vs equal; k codes within 1 "
@@ -1355,6 +1427,22 @@ def kernel_phase(dev, sfu_per_s):
     attn_case("flash_attn hyvid joint L=4936 D=128", 1, 24, 4936, 4936, 128)
     attn_case("flash_attn hyvid vae mid B=3 L=6240 D=512", 3, 1, 6240, 6240,
               512)
+    # K7's and K6's f16 and f32 instances: at flux's joint
+    # attention, and K7 f32 at the two VAEs' mid-blocks, whose q/k/v keep
+    # the f32 of the latents the pipelines decode
+    for dt, tag in ((torch.float16, "f16"), (torch.float32, "f32")):
+        attn_case(f"flash_attn_{tag} flux L=4608 D=128", 1, 24, 4608, 4608,
+                  128, dt)
+    attn_case("flash_attn_f32 wan vae mid B=3 L=6240 D=384", 3, 1, 6240,
+              6240, 384, torch.float32)
+    attn_case("flash_attn_f32 hyvid vae mid B=3 L=6240 D=512", 3, 1, 6240,
+              6240, 512, torch.float32)
+    for dt, tag in ((torch.float16, "f16"), (torch.float32, "f32")):
+        for mode in ("pv", "qk"):
+            i8attn_case(f"i8attn_{mode}_{tag} flux L=4608 D=128", mode, 1,
+                        24, 4608, 128, dt)
+        prep_case(f"i8attn_prep_{tag} pv flux L=4608 D=128", "pv", 1, 24,
+                  4608, 128, dt)
     attn_case("flash_attn ltxv self L=6144 D=64", 1, 32, 6144, 6144, 64)
     attn_case("flash_attn ltxv cross Lq=6144 Lk=256 D=64", 1, 32, 6144, 256,
               64)
@@ -1918,8 +2006,9 @@ def video_tiny_phase(dev):
         noise=noise))
     if a.shape != (5, 32, 32, 3):
         raise SystemExit(f"tiny WanPipeline: a video of shape {a.shape}")
+    # the VAE's mid-block attention takes the f32 q/k/v of the f32 latent
     check("tiny WanPipeline (CFG 5, VAE decode)", a, b, c,
-          ("flash_attn_d128", "flash_attn_d64", "qmm_nib4", "qmm_int8"))
+          ("flash_attn_d128", "flash_attn_f32", "qmm_nib4", "qmm_int8"))
     a, b, c = on_card(lambda i: cos[i].generate(
         PROMPTS[0], latent_frames=2, latent_height=8, latent_width=8,
         steps=3, negative_prompt="rain", max_len=32, noise=noise[:, :2]))
@@ -2127,7 +2216,7 @@ def video2_tiny_phase(dev):
         check(f"tiny HyVidPipeline (guidance 6, "
               f"{'VAE decode' if vae else 'latent'})", a, b, c,
               ("flash_attn_d128", "qmm_nib4", "qmm_nib4_smallm", "qmm_int8")
-              + (("flash_attn_d64",) if vae else ()))
+              + (("flash_attn_f32",) if vae else ()))
         a, b, c = on_card(lambda i: lt[i].generate(
             PROMPTS[0], latent_frames=2, latent_height=2, latent_width=3,
             steps=3, cfg_scale=3.0, negative_prompt="rain", max_t5_len=32,
@@ -2143,9 +2232,11 @@ def video2_tiny_phase(dev):
     # in [-1, 1] (the CPU's float32 decode of that latent, clamped): the
     # round trip is held to 3e-2 or to 1.5 times the distance bfloat16
     # compute itself puts between the CPU's bf16 and f32 round trips,
-    # whichever is larger (the HunyuanVideo VAE's mid-block attention
-    # carries the encoder's bf16 roundings into the decoder about 3x: 4.1e-2
-    # on the CPU alone, 1.5e-2 without the attention)
+    # whichever is larger. The convolutions' bf16 roundings compound
+    # through encoder and decoder: with the HunyuanVideo VAE's mid-block
+    # attention in f32 the CPU's own distance still reads 2.7e-2 and the
+    # card's round trip 3.7e-2 (H100 80GB HBM3, 700 W; PERF.md); the
+    # LTX-Video VAE, without attention, 4.1e-2 and 3.5e-2
     f32 = QuantConfig(dequant_dtype=torch.float32,
                       compute_dtype=torch.float32)
     for arch, mod, z_shape in (("hyvid", hyvid_vae, (1, 2, 6, 8, 16)),
@@ -2165,7 +2256,7 @@ def video2_tiny_phase(dev):
                 else:
                     out = mod.decode(params, cfg, z.to(devs[i]), qcfg=qcfg)
             return out.float().cpu().numpy()
-        need = ("flash_attn_d64",) if arch == "hyvid" else ()
+        need = ("flash_attn_f32",) if arch == "hyvid" else ()
         a, b, c = on_card(vae_run)
         check(f"tiny {arch} VAE decode", a, b, c, need)
         a, b, c = on_card(lambda i, r=vae_run: r(i, roundtrip=True))
@@ -2238,6 +2329,130 @@ def video2_tiny_phase(dev):
             raise SystemExit(f"{name}: a served request differs from the "
                              f"direct sampler by {max(vs_direct)}")
     tmp.cleanup()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: f16 and f32 attention end to end, card against CPU
+# ---------------------------------------------------------------------------
+
+def dtype_attention_phase(dev):
+    """Phase 4i: attention in q's dtype through the models, card vs CPU.
+
+    (a) One forward of a tiny flux (four heads of 128, 1 + 1 blocks) from a
+    Q4_K GGUF, given f16 and then f32 activations, at 512 joint tokens
+    (256 image + 256 text: inside the int8 gate), plain and under
+    ``attention_i8("pv")`` / ``("qk")``: within 3e-2 of the CPU, each
+    launching its dtype's K7 instance (or K6 and its prep) once a block and
+    no bf16 attention instance. (b) A small Wan VAE decode at f32 compute:
+    K7's f32 instance, no bf16 one. (c) The Wan 2.1 and HunyuanVideo VAEs
+    at published widths (mid-blocks 384 and 512 wide) decoding one small
+    latent frame in f32, as the pipelines hand it (K7 f32), and in bf16
+    (K7's bf16 D = 384 / 512 instances). → {case: {rel_l2_vs_cpu,
+    launches}}"""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import hyvid_vae, testing, wan_vae
+    from comfyui_gguf_tpu_torch.nn.attention import attention_i8
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    out = {}
+    attn_keys = ("flash_attn", "flash_attn_f16", "flash_attn_f32",
+                 "i8attn_pv", "i8attn_qk", "i8attn_prep", "i8attn_pv_f16",
+                 "i8attn_qk_f16", "i8attn_prep_f16", "i8attn_pv_f32",
+                 "i8attn_qk_f32", "i8attn_prep_f32")
+
+    def check(name, run, want):
+        """run(device) on the card, then on the CPU; ``want``: the exact
+        launches of every attention counter (others must stay 0)."""
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            a = run(dev)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            b = run("cpu")
+        err = rel_l2(a.float().cpu(), b.float())
+        out[name] = dict(rel_l2_vs_cpu=err, launches=counts)
+        attn = {k: counts[k] for k in attn_keys if counts[k]}
+        log(f"  {name}: card vs CPU rel L2 {err:.3e}, attention launches "
+            f"{attn}")
+        if not bool(torch.isfinite(a).all()) or not err <= SAMPLER_DELTA_MAX:
+            raise SystemExit(f"4i {name}: card vs CPU rel L2 {err}")
+        bad = {k: counts[k] for k in attn_keys
+               if counts[k] != want.get(k, 0)}
+        if bad or any(counts[k] != n for k, n in want.items()):
+            raise SystemExit(f"4i {name}: attention launches {attn}, "
+                             f"expected {want}")
+
+    dims = testing.TinyFluxDims(hidden=512, heads=4, depth_double=1,
+                                depth_single=1, axes_dim=(16, 56, 56))
+    n_attn = dims.depth_double + dims.depth_single
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flux_d128.gguf")
+        testing.write_flux_gguf(
+            testing.flux_state_dict(dims, seed=0), path,
+            lambda k, v: testing.flux_block_qtype(k, v, Q.Q4_K))
+        models = {d: load_diffusion_model(path, device=d)
+                  for d in (dev, "cpu")}
+    for dt, tag in ((torch.float16, "f16"), (torch.float32, "f32")):
+        for mode in ("", "pv", "qk"):
+            def run(d, dt=dt, mode=mode):
+                x = testing.flux_example_inputs(dims, h_lat=32, w_lat=32,
+                                                txt_len=256, seed=5,
+                                                dtype=dt, device=d)
+                with attention_i8(mode):
+                    got = models[d].forward(*x)
+                if got.dtype != dt:
+                    raise SystemExit(f"4i: a {dt} forward gave {got.dtype}")
+                return got
+            want = ({f"i8attn_{mode}_{tag}": n_attn,
+                     f"i8attn_prep_{tag}": n_attn} if mode
+                    else {f"flash_attn_{tag}": n_attn})
+            check(f"tiny flux forward {tag}"
+                  + (f" attention_i8({mode!r})" if mode else ""), run, want)
+    del models
+
+    # (b) a small Wan VAE (mid-block 64 wide) at f32 compute
+    f32 = QuantConfig(dequant_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    sd = testing.wan_vae_state_dict(testing.WanVAEDims(), seed=1)
+    small = {d: {k: torch.from_numpy(v).to(d) for k, v in sd.items()}
+             for d in (dev, "cpu")}
+    cfg = wan_vae.WanVAEConfig.from_state_dict(small["cpu"])
+    z = torch.randn((1, 2, 6, 8, cfg.z_channels),
+                    generator=torch.Generator().manual_seed(3))
+    check("tiny Wan VAE decode, f32 compute",
+          lambda d: wan_vae.decode(small[d], cfg, z.to(d), qcfg=f32),
+          {"flash_attn_f32": 1})  # the mid-block, its frames batched
+    del small
+
+    # (c) the published VAEs' mid-blocks: an f32 latent (the pipelines')
+    # and a bf16 one, one frame of 8 x 8
+    for arch, mod, params_of, vdims, cfg_cls in (
+            ("Wan 2.1", wan_vae, testing.wan_vae_random_params,
+             testing.WAN21_VAE_DIMS, wan_vae.WanVAEConfig),
+            ("HunyuanVideo", hyvid_vae, testing.hyvid_vae_random_params,
+             testing.HYVID_VAE_DIMS, hyvid_vae.HyVidVAEConfig)):
+        cpu_p = params_of(vdims, seed=2, device="cpu")
+        ps = {"cpu": cpu_p, dev: {k: v.to(dev) for k, v in cpu_p.items()}}
+        vcfg = cfg_cls.from_state_dict(cpu_p)
+        D = 384 if arch == "Wan 2.1" else 512
+        z = torch.randn((1, 1, 8, 8, vdims.z),
+                        generator=torch.Generator().manual_seed(4))
+        for zdt, want in ((torch.float32, {"flash_attn_f32": 1}),
+                          (torch.bfloat16, {"flash_attn": 1,
+                                            f"flash_attn_d{D}": 1})):
+            check(f"{arch} VAE (published widths) decode of a "
+                  f"{str(zdt).replace('torch.', '')} latent",
+                  lambda d, ps=ps, z=z, zdt=zdt, mod=mod, vcfg=vcfg:
+                  mod.decode(ps[d], vcfg, z.to(device=d, dtype=zdt)),
+                  want)
+        del ps, cpu_p
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5313,8 +5528,8 @@ def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     ``_tree_check``: K7 D = 128 twice a block and forward, each kernel call
     against its plain version, each w8a8 block within
     ``W8A8_BLOCK_DELTA_MAX`` of the bf16-fused block); the Wan VAE decode
-    must launch K7's D = 384 instance. Then the arch's engine serves two
-    requests for ``engine_steps`` steps, each within 1e-2 of the direct
+    must launch K7's f32 instance (D = 384). Then the arch's engine serves
+    two requests for ``engine_steps`` steps, each within 1e-2 of the direct
     sampler at batch 1. The final latents' distance, s/step, the stage
     seconds, one profiled w8a8 forward (the busy share) and the peak memory
     are recorded. The trees are freed at the end."""
@@ -5417,7 +5632,8 @@ def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
         need = {"i8mm" if tree == "w8a8" else "qmm_nib4": 1,
                 "qmm_int8": 2 * 7 * enc_layers}
         if is_wan:
-            need["flash_attn_d384"] = 1  # the VAE's mid-block attention
+            # the VAE's mid-block attention, on the f32 latent
+            need["flash_attn_f32"] = 1
         else:
             need["qmm_nib4_smallm"] = 3 * depth  # the adaLN, planar
         return need
@@ -5497,7 +5713,7 @@ def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     480×832 with 9 pixel frames (a 3 × 60 × 104 latent, 4680 image + 256
     text tokens), guidance 6.0, shift 7.0, ``steps`` steps (one forward a
     step), decoded to 9 frames with the VAE's mid-block attention on K7's
-    D = 512 instance; or phase 20, LTX-Video 2B (``LTXV_2B_DIMS``: dim 2048,
+    f32 instance at D = 512; or phase 20, LTX-Video 2B (``LTXV_2B_DIMS``: dim 2048,
     32 heads of 64, ``depth`` of 28 blocks) with T5-xxl (Q8_0,
     ``enc_layers`` of 24) and the LTX-Video VAE at the published 0.9
     widths (``LTXV_VAE_DIMS``), through ``LTXVPipeline.generate`` at
@@ -5630,7 +5846,7 @@ def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
             # the llama encoder's 7 linears a layer, once; the VAE's
             # mid-block attention; img_mod / txt_mod / modulation planar at
             # M = 1 (the split-K body)
-            need.update(qmm_int8=7 * enc_layers, flash_attn_d512=1,
+            need.update(qmm_int8=7 * enc_layers, flash_attn_f32=1,
                         qmm_nib4_smallm=(2 * depth[0] + depth[1]) * steps)
         else:
             need["qmm_int8"] = 2 * 7 * enc_layers  # prompt and negative
@@ -6045,6 +6261,7 @@ def tools_phase(dev, dims, steps, tmp):
         if tree == "bf16_fused":
             res["autotune"] = _autotune_step(model, inputs, tmp, cuda, fails)
     res["launches"] = dict(_build.LAUNCHES)
+    res["files"] = dict(bf16=bf16, q4=q4)  # phase 23 serves from them
     del model
     if fails:
         raise SystemExit("phase 21: " + "; ".join(fails))
@@ -6188,6 +6405,258 @@ def _forward_times(model, inputs, n):
             t1.record()
         torch.cuda.synchronize()
     return [t0.elapsed_time(t1) for t0, t1 in events]
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the six entry scripts of examples/, as a user runs them
+# ---------------------------------------------------------------------------
+
+def _write_script_file(kind, path, dims):
+    """One of phase 23's files (``kind``) at ``path`` from ``dims``, by the
+    port's writers (run in a process of its own: the files are written in
+    parallel)."""
+    from comfyui_gguf_tpu_torch import _safetensors
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+
+    if kind == "t5":
+        testing.write_t5_gguf(testing.t5_state_dict(dims, seed=31), path,
+                              qtype=Q.Q8_0,
+                              tokenizer=testing.unigram_spec(dims.vocab))
+    elif kind in ("clip_l", "clip_g"):
+        _safetensors.save_file(testing.clip_state_dict(
+            dims, seed=32 if kind == "clip_l" else 33), path)
+        testing.write_clip_vocab(os.path.dirname(path),
+                                 *testing.clip_vocab(dims.vocab))
+    elif kind == "vae":
+        _safetensors.save_file(testing.vae_state_dict(dims, seed=34), path)
+    elif kind == "sd3":
+        testing.write_gguf(
+            testing.sd3_flat_state_dict(dims, seed=35), path,
+            lambda k, v: testing.sd3_block_qtype(k, v, Q.Q4_K), "sd3")
+    else:  # qwen_image, hidream
+        spec = getattr(testing, f"{kind}_shape_spec")
+        testing.write_spec_gguf(
+            testing.random_flat_sd_from_spec(*spec(dims), seed=36), path,
+            kind, Q.Q4_K)
+    return kind
+
+
+def _write_script_files(tmp):
+    """The files phase 23's scripts read beside phase 21's flux-dev GGUFs,
+    at published widths with the depth cut, written by the port's writers
+    in parallel processes: a T5-xxl-width Q8_0 GGUF (2 layers, a 512-token
+    unigram vocabulary), CLIP-L and CLIP-G safetensors (2 layers each) with
+    a vocabulary beside them, the 16-channel flux VAE, an sd3.5-large-width
+    GGUF (2 blocks), Qwen-Image (1 block) and HiDream-I1 (1 + 1 blocks)
+    GGUFs, all block weights Q4_K, and a file of two prompts. → {name:
+    path}"""
+    import concurrent.futures
+    import multiprocessing
+
+    from comfyui_gguf_tpu_torch.models import testing
+
+    clip_dir = os.path.join(tmp, "clip")
+    os.makedirs(clip_dir, exist_ok=True)
+    jobs = {
+        "t5": ("t5xxl-2l-Q8_0.gguf", dataclasses.replace(
+            testing.T5_XXL_DIMS, n_layers=2, vocab=512)),
+        "clip_l": (os.path.join("clip", "clip_l.safetensors"),
+                   dataclasses.replace(testing.CLIP_L_DIMS, n_layers=2,
+                                       vocab=600)),
+        "clip_g": (os.path.join("clip", "clip_g.safetensors"),
+                   dataclasses.replace(testing.CLIP_G_DIMS, n_layers=2,
+                                       vocab=600)),
+        "vae": ("ae.safetensors", testing.FLUX_VAE_DIMS),
+        "sd3": ("sd3.5-large-2b-Q4_K.gguf", dataclasses.replace(
+            testing.SD35_LARGE_DIMS, depth=2)),
+        "qwen_image": ("qwen_image-cut-Q4_K.gguf", dataclasses.replace(
+            testing.QWEN_IMAGE_20B_DIMS, n_layers=1)),
+        "hidream": ("hidream-cut-Q4_K.gguf", dataclasses.replace(
+            testing.HIDREAM_I1_DIMS, depth_double=1, depth_single=1)),
+    }
+    f = {k: os.path.join(tmp, name) for k, (name, _) in jobs.items()}
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for fut in [pool.submit(_write_script_file, k, f[k], d)
+                    for k, (_, d) in jobs.items()]:
+            fut.result()
+    f["prompts"] = os.path.join(tmp, "prompts.txt")
+    with open(f["prompts"], "w") as fh:
+        fh.write("\n".join(PROMPTS) + "\n")
+    log(f"  files written in {time.perf_counter() - t0:.1f}s "
+        f"({min(len(jobs), os.cpu_count() or 1)} processes): "
+        + ", ".join(f"{os.path.basename(p)} "
+                    f"{os.path.getsize(p) / 1e9:.3f} GB"
+                    for k, p in f.items() if k != "prompts"))
+    return f
+
+
+def _run_script(name, argv, cwd, subprocess_=False, timeout=600):
+    """examples/torch_{name}.py with ``argv`` in directory ``cwd``: in this
+    process (``runpy``, ``sys.argv`` set; its launches count here; PIL
+    hidden, as on the card's machine, so an image goes to ``.npy``) or as
+    a subprocess, as a user starts it. → (exit code, wall seconds,
+    stdout)."""
+    import runpy
+
+    path = os.path.join(HERE, "examples", f"torch_{name}.py")
+    os.makedirs(cwd, exist_ok=True)
+    t0 = time.perf_counter()
+    if subprocess_:
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        p = subprocess.run([sys.executable, path, *argv], cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        if p.returncode:
+            log(f"    {name} stderr: {p.stderr[-2000:]}")
+        return p.returncode, time.perf_counter() - t0, p.stdout
+    old_argv, old_cwd = sys.argv, os.getcwd()
+    old_pil = sys.modules.get("PIL", False)
+    buf = io.StringIO()
+    sys.argv = [path, *argv]
+    sys.modules["PIL"] = None
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = 0 if e.code is None else e.code
+    finally:
+        sys.argv = old_argv
+        os.chdir(old_cwd)
+        if old_pil is False:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = old_pil
+    return code, time.perf_counter() - t0, buf.getvalue()
+
+
+def scripts_phase(dev, tmp, files21, steps, size=1024):
+    """Phase 23: ``examples/torch_*.py`` as a user runs them on the card,
+    at published widths with the depth cut, 1024², ``steps`` steps:
+    ``generate_flux`` (phase 21's Q4_K_M flux-dev, T5-xxl width, CLIP-L,
+    the flux VAE; PIL is absent, so it writes ``out.png.npy``),
+    ``serve_flux --i8 --preview-every 2 --max-batch 2`` over two prompts,
+    ``serve_multi`` (the Q4_K_M file and its BF16 GGUF as the two models),
+    ``serve_sd3`` (an sd3.5-large-width file, CLIP-L, CLIP-G, T5) in this
+    process, their launches counted; ``serve_qwen_tp`` and
+    ``serve_hidream_tp --i8`` at tp = 2 with ``--smoke`` as subprocesses
+    (two ranks on the card over gloo). Gates: exit code 0, the files
+    written and finite; generate's image bit-equal to an in-process
+    ``FluxPipeline.generate`` of the same seed; K1/K2/K4/K7 launched.
+    → {script: {wall_s, code}, "launches": ...}"""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.pipeline import FluxPipeline
+
+    f = _write_script_files(tmp)
+    out_root = os.path.join(tmp, "scripts")
+    res, fails = {}, []
+    size, seed = str(size), 7
+    runs = [
+        ("generate_flux", ["--unet", files21["q4"], "--t5", f["t5"],
+                           "--clip-l", f["clip_l"], "--vae", f["vae"],
+                           "--prompt", PROMPTS[0], "--width", size,
+                           "--height", size, "--steps", str(steps),
+                           "--seed", str(seed), "--out", "img.png"],
+         ["img.png.npy"], False),
+        ("serve_flux", ["--unet", files21["q4"], "--t5", f["t5"],
+                        "--clip-l", f["clip_l"], "--prompts", f["prompts"],
+                        "--width", size, "--height", size, "--steps",
+                        str(steps), "--max-batch", "2", "--i8", "--vae",
+                        f["vae"], "--preview-every", "2"],
+         ["out_000.latent.npy", "out_001.latent.npy"], False),
+        ("serve_multi", ["--model-a", files21["q4"], "--model-b",
+                         files21["bf16"], "--t5", f["t5"], "--clip-l",
+                         f["clip_l"], "--size", size, "--steps",
+                         str(steps)], [], False),
+        ("serve_sd3", ["--unet", f["sd3"], "--clip-l", f["clip_l"],
+                       "--clip-g", f["clip_g"], "--t5", f["t5"],
+                       "--prompts", f["prompts"], "--width", size,
+                       "--height", size, "--steps", str(steps),
+                       "--max-batch", "2"],
+         ["out_000.latent.npy", "out_001.latent.npy"], False),
+        ("serve_qwen_tp", ["--unet", f["qwen_image"], "--tp", "2",
+                           "--smoke", "--size", size, "--steps",
+                           str(steps)], ["qwen_latent.npy"], True),
+        ("serve_hidream_tp", ["--unet", f["hidream"], "--tp", "2", "--i8",
+                              "--smoke", "--size", size, "--steps",
+                              str(steps)], ["hidream_latent.npy"], True),
+    ]
+    _build.reset_launch_counts()
+    for name, argv, outs, sub in runs:
+        cwd = os.path.join(out_root, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dev == "cpu":  # a rehearsal: the scripts' plain versions
+            argv = argv + ["--device", "cpu"]
+        code, wall, stdout = _run_script(name, argv, cwd, sub)
+        torch.cuda.synchronize()
+        res[name] = dict(code=code, wall_s=wall)
+        lines = [ln for ln in stdout.splitlines() if ln.strip()]
+        log(f"  {name}: exit {code}, {wall:.1f}s"
+            + (f"; last line: {lines[-1][:160]}" if lines else ""))
+        if code != 0:
+            fails.append(f"{name} exited {code}")
+            continue
+        for n in outs:
+            p = os.path.join(cwd, n)
+            if not os.path.exists(p):
+                fails.append(f"{name} wrote no {n}")
+                continue
+            try:
+                a = np.load(p)
+            except ValueError:  # no array: a failed request's None
+                fails.append(f"{name}: {n} holds no array")
+                continue
+            if not np.isfinite(a).all():
+                fails.append(f"{name}: {n} is not finite")
+        if name == "serve_multi" and sum(ln.startswith("model ")
+                                         for ln in lines) != 2:
+            fails.append("serve_multi did not report both models")
+        if name == "serve_flux":
+            n_prev = len([n for n in os.listdir(cwd)
+                          if n.startswith("preview_")])
+            res[name]["previews"] = n_prev
+            if n_prev < 2:  # two requests, a preview every two steps
+                fails.append(f"serve_flux wrote {n_prev} previews")
+    launches = dict(_build.LAUNCHES)
+    # generate's image against the same call in this process
+    if res["generate_flux"]["code"] == 0:
+        pipe = FluxPipeline.load(files21["q4"], f["t5"], f["clip_l"],
+                                 vae_path=f["vae"], device=dev)
+        img = pipe.generate(PROMPTS[0], width=int(size), height=int(size),
+                            steps=steps, seed=seed)
+        got = np.load(os.path.join(out_root, "generate_flux",
+                                   "img.png.npy"))
+        res["generate_flux"]["bit_equal"] = eq = bool(
+            np.array_equal(got, img))
+        log(f"  generate_flux: the image equals FluxPipeline.generate of "
+            f"the same seed in this process bit for bit: {eq}")
+        if not eq:
+            fails.append("generate_flux's image differs from "
+                          "FluxPipeline.generate's")
+        del pipe
+    need = ("qmm_nib4", "qmm_int8", "i8mm", "flash_attn")
+    idle = [k for k in need if launches[k] == 0]
+    if idle:
+        fails.append(f"the in-process scripts launched no {idle}")
+    res["launches"] = launches
+    res["wall_s"] = sum(r["wall_s"] for r in res.values()
+                        if isinstance(r, dict) and "wall_s" in r)
+    log(f"  phase 23 scripts: {res['wall_s']:.1f}s of script wall; "
+        f"launches of the in-process scripts "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if fails:
+        raise SystemExit("phase 23: " + "; ".join(fails))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -6700,7 +7169,9 @@ def _p22_tiny_case(arch):
 
 def p22_tiny_job(dev):
     """Phase 22f on one rank: every ``tp_spec`` wrapper (nine archs) at a
-    tiny size, tp = 2, bf16-fused on the card and on the CPU."""
+    tiny size, tp = 2, bf16-fused on the card and on the CPU, with bf16
+    activations and again with f32 ones (K7's f32 instance: every arch's
+    attention must launch it)."""
     import torch
 
     from comfyui_gguf_tpu_torch import _build
@@ -6721,23 +7192,30 @@ def p22_tiny_job(dev):
         if keys is None:
             keys = tp_spec.lumina2_tp_block_keys(sharded)
         fwd = getattr(tp_spec, f"tp_{arch}_forward")
-        outs = {}
-        for where in (dev, "cpu"):
-            local = tp_spec.place_tp_params(sharded, mesh, keys,
-                                            device=where)
-            # activations in bf16 (what a pipeline hands the forward),
-            # timesteps and guidance in f32, ids as they are
-            xs = tuple(torch.as_tensor(a, device=where).to(
-                torch.bfloat16 if a.dtype.kind == "f" and a.ndim > 1
-                else torch.as_tensor(a).dtype) for a in x)
-            with torch.no_grad():
-                outs[where] = fwd(local, cfg, *xs, mesh=mesh,
-                                  qcfg=QC).float().cpu()
-        res[arch] = rel_l2(outs[dev], outs["cpu"])
-        if not (torch.isfinite(outs[dev]).all()
-                and res[arch] <= P22_CPU_DELTA_MAX):
-            fails.append(f"rank {r} 22f {arch} card vs CPU {res[arch]}")
-    _p22_log(r, "22f every tp_spec wrapper, tiny, tp=2, card vs CPU: "
+        locals_ = {where: tp_spec.place_tp_params(sharded, mesh, keys,
+                                                  device=where)
+                   for where in (dev, "cpu")}
+        # activations in bf16 (what a pipeline hands the forward), then in
+        # f32; timesteps and guidance in f32, ids as they are
+        for adt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
+            outs = {}
+            f32_before = _build.LAUNCHES["flash_attn_f32"]
+            for where in (dev, "cpu"):
+                xs = tuple(torch.as_tensor(a, device=where).to(
+                    adt if a.dtype.kind == "f" and a.ndim > 1
+                    else torch.as_tensor(a).dtype) for a in x)
+                with torch.no_grad():
+                    outs[where] = fwd(locals_[where], cfg, *xs, mesh=mesh,
+                                      qcfg=QC).float().cpu()
+            res[arch + tag] = e = rel_l2(outs[dev], outs["cpu"])
+            if not (torch.isfinite(outs[dev]).all()
+                    and e <= P22_CPU_DELTA_MAX):
+                fails.append(f"rank {r} 22f {arch}{tag} card vs CPU {e}")
+            if tag and _build.LAUNCHES["flash_attn_f32"] == f32_before:
+                fails.append(f"rank {r} 22f {arch}{tag} launched no "
+                             f"flash_attn_f32")
+    _p22_log(r, "22f every tp_spec wrapper, tiny, tp=2, bf16 and f32 "
+                "activations, card vs CPU: "
                 + ", ".join(f"{a} {e:.3e}" for a, e in res.items())
                 + f" (<= {P22_CPU_DELTA_MAX})")
     res_out = dict(tiny=res, fails=fails, launches=dict(_build.LAUNCHES))
@@ -6808,14 +7286,15 @@ def main() -> int:
     ap.add_argument("--sd3-depth", type=int, default=38)
     ap.add_argument("--sd3-steps", type=int, default=28)
     ap.add_argument("--unet-steps", type=int, default=20)
-    ap.add_argument("--aura-depth-single", type=int, default=32)
+    # phases 13, 14, 15, 16, 17, 18, 19, 20 and 21 run at half depth, so
+    # that the whole, phases 4i, 22 and 23 included, keeps a margin under a
+    # 1200 s limit (1083.7 s with 13, 14 and 18-20 at full depth on an H100
+    # 80GB HBM3 at 700 W); the flags restore it
+    ap.add_argument("--aura-depth-single", type=int, default=16)
     ap.add_argument("--aura-steps", type=int, default=20)
-    ap.add_argument("--lumina-depth", type=int, default=26)
+    ap.add_argument("--lumina-depth", type=int, default=13)
     ap.add_argument("--lumina-steps", type=int, default=20)
     ap.add_argument("--llama-layers", type=int, default=26)
-    # phases 15, 16, 17 and 21 run at half depth so that the whole, phase 22
-    # included, keeps a margin under a 1200 s limit (1087.2 s at full depth
-    # on an H100 80GB HBM3 at 700 W); the flags restore it
     ap.add_argument("--qwen-depth", type=int, default=30)
     ap.add_argument("--qwen-steps", type=int, default=20)
     ap.add_argument("--qwen-encoder-layers", type=int, default=28)
@@ -6830,19 +7309,20 @@ def main() -> int:
     ap.add_argument("--wan-depth", type=int, default=20)
     ap.add_argument("--wan-steps", type=int, default=20)
     ap.add_argument("--umt5-layers", type=int, default=24)
-    ap.add_argument("--cosmos-depth", type=int, default=28)
+    ap.add_argument("--cosmos-depth", type=int, default=14)
     ap.add_argument("--cosmos-steps", type=int, default=20)
     ap.add_argument("--cosmos-t5-layers", type=int, default=24)
-    ap.add_argument("--hyvid-depth-double", type=int, default=20)
-    ap.add_argument("--hyvid-depth-single", type=int, default=40)
+    ap.add_argument("--hyvid-depth-double", type=int, default=10)
+    ap.add_argument("--hyvid-depth-single", type=int, default=20)
     ap.add_argument("--hyvid-steps", type=int, default=20)
     ap.add_argument("--hyvid-llama-layers", type=int, default=32)
-    ap.add_argument("--ltxv-depth", type=int, default=28)
+    ap.add_argument("--ltxv-depth", type=int, default=14)
     ap.add_argument("--ltxv-steps", type=int, default=20)
     ap.add_argument("--ltxv-t5-layers", type=int, default=24)
     ap.add_argument("--tools-depth-double", type=int, default=1)
     ap.add_argument("--tools-depth-single", type=int, default=2)
     ap.add_argument("--tools-steps", type=int, default=4)
+    ap.add_argument("--scripts-steps", type=int, default=4)
     ap.add_argument("--parallel-depth-double", type=int, default=19)
     ap.add_argument("--parallel-depth-single", type=int, default=38)
     ap.add_argument("--parallel-steps", type=int, default=4)
@@ -6907,7 +7387,7 @@ def main() -> int:
     # K1/K2 and K7: no wgmma serialization advisory (ptxas C751x) and no
     # spill in any instance (K7's D = 512 among them)
     qmm_flags = [f"{src}: {ln.strip()[:160]}"
-                 for src in QMM_SOURCES + ("flash_attn.cu",)
+                 for src in QMM_SOURCES + FLASH_SOURCES[:2]
                  for ln in rep.get("ptxas", {}).get(src, [])
                  if "C751" in ln or ("spill" in ln
                                      and " 0 bytes spill stores, 0 bytes "
@@ -6926,8 +7406,11 @@ def main() -> int:
     log("  dynamic shared memory a block: i8mm.cu and gemm_probe.cu (one "
         "body, gemm_wgmma.cuh) "
         + ", ".join(f"bn={bn} {lib.i8mm_smem_bytes(bn)} B" for bn in (256, 128))
-        + "; flash_attn.cu "
+        + "; flash_attn.cu and flash_attn_f16.cu "
         + ", ".join(f"D={d} {lib.flash_attn_smem_bytes(d)} B"
+                    for d in (40, 64, 80, 96, 128, 160, 256, 384, 512))
+        + "; flash_attn_f32.cu "
+        + ", ".join(f"D={d} {lib.flash_attn_f32_smem_bytes(d)} B"
                     for d in (40, 64, 80, 96, 128, 160, 256, 384, 512))
         + "; i8attn.cu "
         + ", ".join(f"D={d} {m} {lib.i8attn_smem_bytes(d, m == 'pv')} B"
@@ -7001,6 +7484,9 @@ def main() -> int:
         "card vs CPU]")
     video2_tiny = video2_tiny_phase(dev)
 
+    log("[4i f16 and f32 attention through the models, card vs CPU]")
+    dtype_attn = dtype_attention_phase(dev)
+
     log("[5 denoise path at flux-dev width]")
     main_res, model, request = main_path_phase(dev, args.depth_double,
                                                args.depth_single, args.steps)
@@ -7045,11 +7531,12 @@ def main() -> int:
                           min(args.steps, 4))
     del clip_l, clip_g
     torch.cuda.empty_cache()
-    log("[13 AuraFlow v0.3 at published width and depth, aura_engine]")
+    log(f"[13 AuraFlow v0.3 at published width, 4 + "
+        f"{args.aura_depth_single} of 4 + 32 layers, aura_engine]")
     aura_res = dit_full_phase(dev, "aura", args.aura_depth_single,
                               args.aura_steps, 24, min(args.aura_steps, 4))
-    log("[14 Lumina Image 2.0 at published width and depth, "
-        "lumina2_engine]")
+    log(f"[14 Lumina Image 2.0 at published width, {args.lumina_depth} of 26 "
+        f"layers, lumina2_engine]")
     lumina_res = dit_full_phase(dev, "lumina2", args.lumina_depth,
                                 args.lumina_steps, args.llama_layers,
                                 min(args.lumina_steps, 4))
@@ -7096,6 +7583,12 @@ def main() -> int:
         depth_single=args.tools_depth_single)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
         tools_res = tools_phase(dev, tools_dims, args.tools_steps, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("[23 the six entry scripts of examples/ as a user runs them, "
+            "at published widths with the depth cut, 1024²]")
+        scripts_res = scripts_phase(dev, tmp, tools_res["files"],
+                                    args.scripts_steps)
     torch.cuda.empty_cache()
     log("[22 parallelism: flux-dev over tp=2 (hand layout and spec table, "
         "bf16-fused and w8a8), flux_engine over tp and dp, pipeline stages, "
@@ -7114,6 +7607,7 @@ def main() -> int:
                    *(v["launches"] for v in sd_tiny.values()),
                    *(v["launches"] for v in dit_tiny.values()),
                    *(v["launches"] for v in qh_tiny.values()),
+                   *(v["launches"] for v in dtype_attn.values()),
                    menu["launches"], main_res["launches"], t2i["launches"],
                    serve_res["launches"], lora_res["launches"], tool_counts,
                    sd3_res["launches"], sd3_t2i["launches"],
@@ -7122,7 +7616,7 @@ def main() -> int:
                    hidream_res["launches"], wan_res["launches"],
                    cosmos_res["launches"], hyvid_res["launches"],
                    ltxv_res["launches"], tools_res["launches"],
-                   par_res["launches"]):
+                   scripts_res["launches"], par_res["launches"]):
         for k, n in counts.items():
             launches[k] += n
     idle = [k for k, n in launches.items() if n == 0]

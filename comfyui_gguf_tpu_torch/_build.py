@@ -35,9 +35,10 @@ SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
            "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
            "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
            "qmm_smallm_f32.cu", "qmm_simt.cu", "i8mm.cu", "i8mm_lora.cu",
-           "flash_attn.cu", "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
+           "flash_attn.cu", "flash_attn_f16.cu", "flash_attn_f32.cu",
+           "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
 HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "qmm_smallm.cuh",
-           "gemm_wgmma.cuh", "tma.cuh")
+           "gemm_wgmma.cuh", "flash_attn.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -88,20 +89,27 @@ _SIGNATURES = {
     # xq, xs, wq, ws, bias, out, h, up, M, K, Kp, R, Rp, out row stride,
     # rk, act_from, tile width, stream
     "i8mm_lora_launch": [_VP] * 8 + [_I] * 9 + [_VP],
-    # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream
+    # q, k, v, out, B, H, Lq, Lk, D, strides[12], scale, stream (the bf16,
+    # f16 and f32 instances)
     "flash_attn_launch": [_VP] * 4 + [_I] * 5
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
+    "flash_attn_f16_launch": [_VP] * 4 + [_I] * 5
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
+    "flash_attn_f32_launch": [_VP] * 4 + [_I] * 5
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _VP],
     # qq, qs, kq, ks, v, vs, out, B, H, Lq, Lk, Lkp, D, pv_int8,
-    # strides[6], stream
+    # strides[6], the output's type (0 bf16, 1 f16, 2 f32), stream
     "i8attn_launch": [_VP] * 7 + [_I] * 7
-    + [ctypes.POINTER(ctypes.c_longlong), _VP],
+    + [ctypes.POINTER(ctypes.c_longlong), _I, _VP],
     # q, k, v, strides[9], B, H, Lq, Lk, Lkp, D, pv_int8, qscale, qq, qs,
-    # kq, ks, vt, vs, scratch, n_chunks, stream
+    # kq, ks, vt, vs, scratch, n_chunks, q/k/v's type (0 bf16, 1 f16,
+    # 2 f32), stream
     "i8attn_prep_launch": [_VP] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-    + [_I] * 7 + [ctypes.c_float] + [_VP] * 7 + [_I, _VP],
+    + [_I] * 7 + [ctypes.c_float] + [_VP] * 7 + [_I, _I, _VP],
     # dynamic shared memory of a launch: tile width / head dim (and mode)
     "i8mm_smem_bytes": [_I],
     "flash_attn_smem_bytes": [_I],
+    "flash_attn_f32_smem_bytes": [_I],
     "i8attn_smem_bytes": [_I, _I],
     # x, w, out, M, K, R, bn, stream
     "gemm_probe_bf16_launch": [_VP] * 3 + [_I] * 4 + [_VP],
@@ -114,7 +122,10 @@ _SIGNATURES = {
 # "_f16" / "_f32" entry those of its f16 / f32 instances (the bf16 ones have
 # no suffix; the f32 body of the fused dequant-matmul at M > 8 is
 # "qmm_*_simt_f32"), a "flash_attn_d<D>" entry those of the flash kernel's
-# head-dim-D instance (each also counts under "flash_attn")
+# head-dim-D instance (each also counts under "flash_attn"; both count the
+# bf16 instances only), "flash_attn_f16" / "flash_attn_f32" those of its
+# f16 / f32 instances at any head dim, and "i8attn_{pv,qk,prep}_f16" /
+# "_f32" those of the int8 attention and its prep on f16 / f32 q/k/v
 LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "qmm_int8_smallm": 0, "i8mm": 0, "qmm_nib4_lora": 0,
             "qmm_int8_lora": 0, "qmm_nib4_smallm_lora": 0,
@@ -123,7 +134,10 @@ LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "flash_attn_d96": 0, "flash_attn_d128": 0,
             "flash_attn_d160": 0, "flash_attn_d256": 0,
             "flash_attn_d384": 0, "flash_attn_d512": 0,
+            "flash_attn_f16": 0, "flash_attn_f32": 0,
             "i8attn_pv": 0, "i8attn_qk": 0, "i8attn_prep": 0,
+            "i8attn_pv_f16": 0, "i8attn_pv_f32": 0, "i8attn_qk_f16": 0,
+            "i8attn_qk_f32": 0, "i8attn_prep_f16": 0, "i8attn_prep_f32": 0,
             "gemm_probe_bf16": 0,
             "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
 # the fused dequant-matmul's f16 / f32 instances: body -> its dtypes
@@ -269,11 +283,13 @@ def stream_handle(device) -> int:
 
 
 def is_row_aligned(t) -> bool:
-    """Whether a 2-byte tensor's rows start on 16 bytes (unit stride along
-    the last dim, base and other strides multiples of 16 bytes) and its
-    other strides are non-zero: what the kernels' tensor maps step by."""
+    """Whether a tensor's rows start on 16 bytes (unit stride along the
+    last dim, base and other strides multiples of 16 bytes) and its other
+    strides are non-zero: what the kernels' tensor maps and 16-byte loads
+    step by."""
+    per = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 8 == 0 and (s > 0 or n == 1)
+            and all(s % per == 0 and (s > 0 or n == 1)
                     for s, n in zip(t.stride()[:-1], t.shape[:-1])))
 
 

@@ -73,7 +73,16 @@
 //
 // Keys past Lk are zero-filled by TMA and masked to -1e30; the output
 // leaves through a swizzled shared tile and a TMA store into the (B, Lq, H,
-// D) storage of the result, clipped at Lq.
+// D) storage of the result, clipped at Lq. The result takes q's dtype, as
+// pallas_i8_attention's out_shape does: bf16 or f16 through that tile
+// (round to nearest even, the plain version's .to(q.dtype)), f32 stored
+// from the registers with no rounding (a 64-row f32 tile would double
+// the shared tile of the output). The operands are the same integers and
+// f32 scales for every dtype (the prep reads bf16, f16 and f32 q/k/v).
+// In mode "qk" V is bf16 whatever q's dtype: the reference rounds it to
+// bf16 there (ops/i8attn.py quantize_attn_inputs).
+#include <string.h>
+
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -169,7 +178,9 @@ i8attn_kernel(const __grid_constant__ CUtensorMap tm_q,   // (Dh, Lq, BH) s8
               const __grid_constant__ CUtensorMap tm_o,   // (Dh, Lq, H, B)
               const float* __restrict__ qs,               // (BH, Lq)
               const float* __restrict__ vs,               // (BH, Dh)
-              int H, int Lq, int Lk, int Dh) {
+              int H, int Lq, int Lk, int Dh,
+              float* __restrict__ out32,  // out_kind 2: (B, H, Lq, Dh)
+              long long ob, long long oh, long long ol, int out_kind) {
   using S = AShape<D, PV8, SPLIT>;
   constexpr int BKV = S::BKV;
   constexpr int ST = S::STAGES;
@@ -616,10 +627,35 @@ i8attn_kernel(const __grid_constant__ CUtensorMap tm_q,   // (Dh, Lq, BH) s8
     const float inv0 = __fdiv_rn(1.0f, l_run[0]);
     const float inv1 = __fdiv_rn(1.0f, l_run[1]);
     const float* vsp = vs + static_cast<size_t>(bh) * Dh + c0;
-    // (acc * inv) * vs[d], rounded at each step as the plain version does;
-    // rows r and r + 8 of the warpgroup's tile, as D / 64 column blocks of
-    // (64 rows, 128 bytes) with the 128-byte swizzle
+    // (acc * inv) * vs[d], rounded at each step as the plain version does
+    if (out_kind == 2) {
+      // f32 out: rows r and r + 8 straight from the registers, rows < Lq
+      float* op = out32 + b * ob + h * oh + c0;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        const float* a = &o[i >> 4][4 * (i & 15)];
+        float v0 = 1.0f, v1 = 1.0f;
+        if constexpr (PV8) {
+          v0 = vsp[col];
+          v1 = vsp[col + 1];
+        }
+        if (row0 < Lq)
+          *reinterpret_cast<float2*>(op + row0 * ol + col) =
+              make_float2(__fmul_rn(__fmul_rn(a[0], inv0), v0),
+                          __fmul_rn(__fmul_rn(a[1], inv0), v1));
+        if (row0 + 8 < Lq)
+          *reinterpret_cast<float2*>(op + (row0 + 8) * ol + col) =
+              make_float2(__fmul_rn(__fmul_rn(a[2], inv1), v0),
+                          __fmul_rn(__fmul_rn(a[3], inv1), v1));
+      }
+      return;
+    }
+    // bf16 or f16 out (out_kind 0 or 1, rounded to nearest even): rows r
+    // and r + 8 of the warpgroup's tile, as D / 64 column blocks of (64
+    // rows, 128 bytes) with the 128-byte swizzle, then a TMA store
     uint8_t* ot = o_s + wg * S::O_WG;
+    const bool f16 = out_kind == 1;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       const int col = 8 * i + 2 * t;
@@ -631,12 +667,14 @@ i8attn_kernel(const __grid_constant__ CUtensorMap tm_q,   // (Dh, Lq, BH) s8
       }
       uint8_t* dst = ot + (i >> 3) * (64 * 128) + r * 128 +
                      (((i & 7) ^ (r & 7)) << 4) + 4 * t;
+      const float x0 = __fmul_rn(__fmul_rn(a[0], inv0), c0);
+      const float x1 = __fmul_rn(__fmul_rn(a[1], inv0), c1);
+      const float x2 = __fmul_rn(__fmul_rn(a[2], inv1), c0);
+      const float x3 = __fmul_rn(__fmul_rn(a[3], inv1), c1);
       *reinterpret_cast<uint32_t*>(dst) =
-          pack_bf16x2(__fmul_rn(__fmul_rn(a[0], inv0), c0),
-                      __fmul_rn(__fmul_rn(a[1], inv0), c1));
+          f16 ? pack_f16x2(x0, x1) : pack_bf16x2(x0, x1);
       *reinterpret_cast<uint32_t*>(dst + 8 * 128) =
-          pack_bf16x2(__fmul_rn(__fmul_rn(a[2], inv1), c0),
-                      __fmul_rn(__fmul_rn(a[3], inv1), c1));
+          f16 ? pack_f16x2(x2, x3) : pack_bf16x2(x2, x3);
     }
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
@@ -651,12 +689,12 @@ i8attn_kernel(const __grid_constant__ CUtensorMap tm_q,   // (Dh, Lq, BH) s8
   }
 }
 
-// 4-D tensor map of a (B, H, L, D) bf16 view with element strides st = (b,
-// h, l) and unit stride along D; box: 64 columns of `rows` rows, 128-byte
-// swizzle. A dimension of extent 1 is never stepped, so it takes the
-// stride D.
+// 4-D tensor map of a (B, H, L, D) view of 2-byte elements (bf16, or f16
+// with f16 set) with element strides st = (b, h, l) and unit stride along
+// D; box: 64 columns of `rows` rows, 128-byte swizzle. A dimension of
+// extent 1 is never stepped, so it takes the stride D.
 bool make_bhld_map(CUtensorMap* map, const void* base, int B, int H, int L,
-                   int D, const long long* st, int rows) {
+                   int D, const long long* st, int rows, bool f16 = false) {
   const long long sb = B > 1 ? st[0] : D;
   const long long sh = H > 1 ? st[1] : D;
   const long long sl = L > 1 ? st[2] : D;
@@ -668,8 +706,10 @@ bool make_bhld_map(CUtensorMap* map, const void* base, int B, int H, int L,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return make_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
-                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return make_map_nd(map,
+                     f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // 3-D tensor map of a contiguous s8 (n3, n2, n1) array, box (b1 bytes, b2
@@ -693,7 +733,7 @@ template <int D, bool PV8, bool SPLIT>
 cudaError_t launch(const void* qq, const void* qs, const void* kq,
                    const void* ks, const void* v, const void* vs, void* out,
                    int B, int H, int Lq, int Lk, int Lkp, int Dh,
-                   const long long* st, cudaStream_t stream) {
+                   const long long* st, int out_kind, cudaStream_t stream) {
   using S = AShape<D, PV8, SPLIT>;
   constexpr int BKV = S::BKV;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -718,12 +758,18 @@ cudaError_t launch(const void* qq, const void* qs, const void* kq,
   } else {
     ok = ok && make_bhld_map(&tm_v, v, B, H, Lk, Dh, st, BKV);
   }
-  ok = ok && make_bhld_map(&tm_o, out, B, H, Lq, Dh, st + 3, 64);
+  if (out_kind == 2) {
+    memset(&tm_o, 0, sizeof(tm_o));  // f32 out: stored from the registers
+  } else {
+    ok = ok && make_bhld_map(&tm_o, out, B, H, Lq, Dh, st + 3, 64,
+                             out_kind == 1);
+  }
   if (!ok) return cudaErrorInvalidValue;
   dim3 grid((Lq + BQ - 1) / BQ, BH, Dh / D);
   i8attn_kernel<D, PV8, SPLIT><<<grid, THREADS, S::SMEM, stream>>>(
       tm_q, tm_k, tm_ks, tm_v, tm_o, static_cast<const float*>(qs),
-      static_cast<const float*>(vs), H, Lq, Lk, Dh);
+      static_cast<const float*>(vs), H, Lq, Lk, Dh, static_cast<float*>(out),
+      st[3], st[4], st[5], out_kind);
   return cudaGetLastError();
 }
 
@@ -748,33 +794,42 @@ extern "C" int i8attn_smem_bytes(int D, int pv_int8) {
 // multiple of the key tile. pv_int8 != 0: v is Vᵀ (BH, D, Lkp) s8 in the
 // permuted key order and vs (BH, D) f32; else v is a bf16 (B, H, Lk, D)
 // view with unit stride along D and vs is unused. out is a (B, H, Lq, D)
-// bf16 view with unit stride along D; strides[6] = (b, h, l) element
-// strides of v (mode "qk") and of out. The wrapper checks that D is a
-// multiple of 128, Lk >= 1 and 16-byte aligned rows. Returns
-// cudaGetLastError().
+// view with unit stride along D, bf16 (out_kind 0), f16 (1) or f32 (2);
+// strides[6] = (b, h, l) element strides of v (mode "qk") and of out. The
+// wrapper checks that D is a multiple of 128, Lk >= 1 and 16-byte aligned
+// rows. Returns cudaGetLastError().
 extern "C" int i8attn_launch(const void* qq, const void* qs, const void* kq,
                              const void* ks, const void* v, const void* vs,
                              void* out, int B, int H, int Lq, int Lk, int Lkp,
                              int D, int pv_int8, const long long* strides,
-                             void* stream) {
+                             int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_kind < 0 || out_kind > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128) {
     return pv_int8 ? launch<128, true, false>(qq, qs, kq, ks, v, vs, out, B,
-                                              H, Lq, Lk, Lkp, D, strides, s)
+                                              H, Lq, Lk, Lkp, D, strides,
+                                              out_kind, s)
                    : launch<128, false, false>(qq, qs, kq, ks, v, vs, out, B,
-                                               H, Lq, Lk, Lkp, D, strides, s);
+                                               H, Lq, Lk, Lkp, D, strides,
+                                               out_kind, s);
   }
   if (D == 256) {
     return pv_int8 ? launch<256, true, false>(qq, qs, kq, ks, v, vs, out, B,
-                                              H, Lq, Lk, Lkp, D, strides, s)
+                                              H, Lq, Lk, Lkp, D, strides,
+                                              out_kind, s)
                    : launch<256, false, false>(qq, qs, kq, ks, v, vs, out, B,
-                                               H, Lq, Lk, Lkp, D, strides, s);
+                                               H, Lq, Lk, Lkp, D, strides,
+                                               out_kind, s);
   }
   if (D > 0 && D % 128 == 0) {
     return pv_int8 ? launch<128, true, true>(qq, qs, kq, ks, v, vs, out, B, H,
-                                             Lq, Lk, Lkp, D, strides, s)
+                                             Lq, Lk, Lkp, D, strides,
+                                             out_kind, s)
                    : launch<128, false, true>(qq, qs, kq, ks, v, vs, out, B,
-                                              H, Lq, Lk, Lkp, D, strides, s);
+                                              H, Lq, Lk, Lkp, D, strides,
+                                              out_kind, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+

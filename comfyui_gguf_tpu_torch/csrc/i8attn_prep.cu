@@ -30,6 +30,10 @@
 // permuted Vᵀ rows leave as coalesced stores. Rows past Lk up to Lkp (the
 // key tile of i8attn.cu) get zero codes and zero scales.
 //
+// q, k and v may be bf16, f16 or f32 (the kernels' ET): each value goes to
+// f32 exactly on its load, and everything after the load is the same
+// arithmetic for the three.
+//
 // Head dims past 256 take a third launch and a wide pass 2 whose shared
 // memory does not grow with D: pass 1 runs over 128-column chunks (grid z),
 // a fold launch reduces the key chunks in the same fixed order once, and
@@ -47,9 +51,9 @@ constexpr float INV127 = 1.0f / 127.0f;   // f32(1/127), as the reference
 constexpr float FLOOR = 1e-20f;
 
 struct PrepArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const void* q;  // bf16, f16 or f32 (the kernels' ET)
+  const void* k;
+  const void* v;
   long long sq[3], sk[3], sv[3];  // (b, h, l) element strides
   int H, Lq, Lk, Lkp, D, n_chunks, chunk_rows;
   float qscale;  // f32(f32(1/127) · scale)
@@ -80,12 +84,60 @@ __device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* f) {
   f[3] = __uint_as_float(u.y & 0xFFFF0000u);
 }
 
-template <int E>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* f) {
-  if constexpr (E == 8) {
-    bf16x8(p, f);
+__device__ __forceinline__ void f16x4(const __half* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+__device__ __forceinline__ void f32x4(const float* p, float* f) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x;
+  f[1] = u.y;
+  f[2] = u.z;
+  f[3] = u.w;
+}
+
+// The element types the prep reads (ET): 0 bf16, 1 f16, 2 f32. Every value
+// goes to f32 exactly; the quantization arithmetic is the same for all.
+template <int ET>
+struct PrepElem;
+template <>
+struct PrepElem<0> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct PrepElem<1> {
+  using T = __half;
+};
+template <>
+struct PrepElem<2> {
+  using T = float;
+};
+
+// E consecutive values (4 or 8; 8-, 16- or 32-byte aligned) to f32
+template <int ET, int E>
+__device__ __forceinline__ void load_row(const typename PrepElem<ET>::T* p,
+                                         float* f) {
+  if constexpr (ET == 0) {
+    if constexpr (E == 8) {
+      bf16x8(p, f);
+    } else {
+      bf16x4(p, f);
+    }
   } else {
-    bf16x4(p, f);
+#pragma unroll
+    for (int i = 0; i < E; i += 4) {
+      if constexpr (ET == 1) {
+        f16x4(p + i, f + i);
+      } else {
+        f32x4(p + i, f + i);
+      }
+    }
   }
 }
 
@@ -115,9 +167,10 @@ __device__ __forceinline__ float warp_max(float x) {
 // chunk's rows, each thread over rows rg, rg + RPI, ... in order, then the
 // RPI row groups in order. D columns a block: all of a row, or the
 // blockIdx.z-th 128 of a wider one.
-template <int D, bool PV8>
+template <int D, bool PV8, int ET>
 __global__ void __launch_bounds__(THREADS)
 prep_reduce_kernel(const PrepArgs a) {
+  using T = typename PrepElem<ET>::T;
   constexpr int TPR = D / 8;         // threads a row, 8 values each
   constexpr int RPI = THREADS / TPR; // rows an iteration
   __shared__ float red[2][RPI][D];
@@ -129,19 +182,21 @@ prep_reduce_kernel(const PrepArgs a) {
   const int d0 = (threadIdx.x % TPR) * 8;
   const int r0 = blockIdx.x * a.chunk_rows;
   const int r1 = min(a.Lk, r0 + a.chunk_rows);
-  const __nv_bfloat16* kp = a.k + b * a.sk[0] + h * a.sk[1] + c0 + d0;
-  const __nv_bfloat16* vp = a.v + b * a.sv[0] + h * a.sv[1] + c0 + d0;
+  const T* kp =
+      static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1] + c0 + d0;
+  const T* vp =
+      static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1] + c0 + d0;
   float sum[8], mx[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) sum[e] = mx[e] = 0.0f;
 #pragma unroll 4
   for (int r = r0 + rg; r < r1; r += RPI) {
     float f[8];
-    bf16x8(kp + r * a.sk[2], f);
+    load_row<ET, 8>(kp + r * a.sk[2], f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum[e] += f[e];
     if constexpr (PV8) {
-      bf16x8(vp + r * a.sv[2], f);
+      load_row<ET, 8>(vp + r * a.sv[2], f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], fabsf(f[e]));
     }
@@ -208,9 +263,10 @@ __device__ __forceinline__ void store_vt(const int8_t* vcode, int8_t* vrow,
 
 // Pass 2: a tile of ROWS token rows of one bh; warp w quantizes rows
 // t0 + w + 8i of q, k and (into shared memory) v.
-template <int D, bool PV8>
+template <int D, bool PV8, int ET>
 __global__ void __launch_bounds__(THREADS)
 prep_quant_kernel(const PrepArgs a) {
+  using T = typename PrepElem<ET>::T;
   constexpr int E = D / 32;         // values a lane of a row
   constexpr int RPW = ROWS / 8;     // rows a warp
   constexpr int VST = D + 4;        // row stride (bytes) of the v codes
@@ -255,12 +311,12 @@ prep_quant_kernel(const PrepArgs a) {
   };
 
   if (t0 < a.Lq) {
-    const __nv_bfloat16* qp = a.q + b * a.sq[0] + h * a.sq[1] + dl;
+    const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1] + dl;
     float f[RPW][E];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = t0 + warp + 8 * i;
-      if (r < a.Lq) load_row<E>(qp + r * a.sq[2], f[i]);
+      if (r < a.Lq) load_row<ET, E>(qp + r * a.sq[2], f[i]);
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
@@ -275,12 +331,12 @@ prep_quant_kernel(const PrepArgs a) {
   }
   if (t0 >= a.Lkp) return;
   {
-    const __nv_bfloat16* kp = a.k + b * a.sk[0] + h * a.sk[1] + dl;
+    const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1] + dl;
     float f[RPW][E];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = t0 + warp + 8 * i;
-      if (r < a.Lk) load_row<E>(kp + r * a.sk[2], f[i]);
+      if (r < a.Lk) load_row<ET, E>(kp + r * a.sk[2], f[i]);
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
@@ -300,12 +356,12 @@ prep_quant_kernel(const PrepArgs a) {
     }
   }
   if constexpr (PV8) {
-    const __nv_bfloat16* vp = a.v + b * a.sv[0] + h * a.sv[1] + dl;
+    const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1] + dl;
     float f[RPW][E];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = t0 + warp + 8 * i;
-      if (r < a.Lk) load_row<E>(vp + r * a.sv[2], f[i]);
+      if (r < a.Lk) load_row<ET, E>(vp + r * a.sv[2], f[i]);
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
@@ -332,9 +388,10 @@ prep_quant_kernel(const PrepArgs a) {
 // row is read twice (its clamped abs-max, then its codes); v's codes go
 // through shared memory 128 columns at a time. k's mean and v's scales are
 // the fold's (chunk 0's slots of the scratch).
-template <bool PV8>
+template <bool PV8, int ET>
 __global__ void __launch_bounds__(THREADS)
 prep_quant_wide_kernel(const PrepArgs a) {
+  using T = typename PrepElem<ET>::T;
   constexpr int RPW = ROWS / 8;  // rows a warp
   constexpr int VST = 128 + 4;   // row stride (bytes) of the v codes
   __shared__ __align__(16) int8_t vcode[PV8 ? ROWS * VST : 4];
@@ -351,12 +408,12 @@ prep_quant_wide_kernel(const PrepArgs a) {
 
   // codes rint((x - sub) / (amax / 127)) of a row, amax its clamped
   // abs-max; returns amax
-  auto quant_row = [&](const __nv_bfloat16* src, const float* sub,
+  auto quant_row = [&](const T* src, const float* sub,
                        int8_t* dst) {
     float m = 0.0f;
     for (int c = dl; c < D; c += 128) {
       float f[4];
-      bf16x4(src + c, f);
+      load_row<ET, 4>(src + c, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         m = fmaxf(m, fabsf(sub ? __fsub_rn(f[e], sub[c + e]) : f[e]));
@@ -366,7 +423,7 @@ prep_quant_wide_kernel(const PrepArgs a) {
     for (int c = dl; c < D; c += 128) {
       float f[4];
       int q[4];
-      bf16x4(src + c, f);
+      load_row<ET, 4>(src + c, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         q[e] = __float2int_rn(
@@ -381,7 +438,8 @@ prep_quant_wide_kernel(const PrepArgs a) {
     if (r >= a.Lq) break;
     const size_t row = static_cast<size_t>(bh) * a.Lq + r;
     const float amax = quant_row(
-        a.q + b * a.sq[0] + h * a.sq[1] + r * a.sq[2], nullptr,
+        static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1] + r * a.sq[2],
+        nullptr,
         a.qq + row * D);
     if (lane == 0) a.qs[row] = __fmul_rn(amax, a.qscale);
   }
@@ -393,13 +451,14 @@ prep_quant_wide_kernel(const PrepArgs a) {
       continue;
     }
     const float amax = quant_row(
-        a.k + b * a.sk[0] + h * a.sk[1] + r * a.sk[2], mean,
+        static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1] + r * a.sk[2],
+        mean,
         a.kq + (static_cast<size_t>(bh) * a.Lk + r) * D);
     if (lane == 0)
       a.ks[static_cast<size_t>(bh) * a.Lkp + r] = __fmul_rn(amax, INV127);
   }
   if constexpr (PV8) {
-    const __nv_bfloat16* vp = a.v + b * a.sv[0] + h * a.sv[1] + dl;
+    const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1] + dl;
     for (int c0 = 0; c0 < D; c0 += 128) {
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
@@ -407,7 +466,7 @@ prep_quant_wide_kernel(const PrepArgs a) {
         int q[4] = {0, 0, 0, 0};
         if (t0 + rl < a.Lk) {
           float f[4];
-          bf16x4(vp + (t0 + rl) * a.sv[2] + c0, f);
+          load_row<ET, 4>(vp + (t0 + rl) * a.sv[2] + c0, f);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             q[e] = __float2int_rn(__fdiv_rn(f[e], vsc[c0 + dl + e]));
@@ -423,24 +482,24 @@ prep_quant_wide_kernel(const PrepArgs a) {
   }
 }
 
-template <int D, bool PV8>
+template <int D, bool PV8, int ET>
 cudaError_t launch(const PrepArgs& a, int BH, cudaStream_t stream) {
-  prep_reduce_kernel<D, PV8><<<dim3(a.n_chunks, BH), THREADS, 0, stream>>>(
+  prep_reduce_kernel<D, PV8, ET><<<dim3(a.n_chunks, BH), THREADS, 0, stream>>>(
       a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int rows = a.Lq > a.Lkp ? a.Lq : a.Lkp;
-  prep_quant_kernel<D, PV8>
+  prep_quant_kernel<D, PV8, ET>
       <<<dim3((rows + ROWS - 1) / ROWS, BH), THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // a head dim past 256: pass 1 by 128-column chunks, the fold, the wide
 // pass 2
-template <bool PV8>
+template <bool PV8, int ET>
 cudaError_t launch_wide(const PrepArgs& a, int BH, cudaStream_t stream) {
   const int nc = a.D / 128;
-  prep_reduce_kernel<128, PV8>
+  prep_reduce_kernel<128, PV8, ET>
       <<<dim3(a.n_chunks, BH, nc), THREADS, 0, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -448,15 +507,16 @@ cudaError_t launch_wide(const PrepArgs& a, int BH, cudaStream_t stream) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int rows = a.Lq > a.Lkp ? a.Lq : a.Lkp;
-  prep_quant_wide_kernel<PV8>
+  prep_quant_wide_kernel<PV8, ET>
       <<<dim3((rows + ROWS - 1) / ROWS, BH), THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry (bound with ctypes). q (B, H, Lq, D), k and v (B, H, Lk, D)
-// are bf16 views with unit stride along D and 16-byte aligned rows;
+// The plain C entry (bound with ctypes), i8attn_prep_launch below. q (B,
+// H, Lq, D), k and v (B, H, Lk, D) are bf16 (elem 0), f16 (1) or f32 (2)
+// views with unit stride along D and 16-byte aligned rows;
 // strides[9] = (b, h, l) element strides of q, k and v. Lkp is Lk rounded
 // up to i8attn.cu's key tile (a multiple of 64). The outputs are
 // contiguous: qq (BH, Lq, D) s8, qs (BH, Lq) f32, kq (BH, Lk, D) s8, ks
@@ -464,15 +524,16 @@ cudaError_t launch_wide(const PrepArgs& a, int BH, cudaStream_t stream) {
 // f32 (all ones unless pv_int8); part is (BH, n_chunks, 2, D) f32 scratch,
 // chunk_rows = ceil(Lk / n_chunks). D a multiple of 128. Returns
 // cudaGetLastError().
-extern "C" int i8attn_prep_launch(
+template <int ET>
+int prep_entry(
     const void* q, const void* k, const void* v, const long long* strides,
     int B, int H, int Lq, int Lk, int Lkp, int D, int pv_int8, float qscale,
     void* qq, void* qs, void* kq, void* ks, void* vt, void* vs, void* part,
     int n_chunks, void* stream) {
   PrepArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.q = q;
+  a.k = k;
+  a.v = v;
   for (int i = 0; i < 3; ++i) {
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];
@@ -498,10 +559,35 @@ extern "C" int i8attn_prep_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
   if (D == 128)
-    return pv_int8 ? launch<128, true>(a, BH, s) : launch<128, false>(a, BH, s);
+    return pv_int8 ? launch<128, true, ET>(a, BH, s)
+                   : launch<128, false, ET>(a, BH, s);
   if (D == 256)
-    return pv_int8 ? launch<256, true>(a, BH, s) : launch<256, false>(a, BH, s);
+    return pv_int8 ? launch<256, true, ET>(a, BH, s)
+                   : launch<256, false, ET>(a, BH, s);
   if (D > 0 && D % 128 == 0)
-    return pv_int8 ? launch_wide<true>(a, BH, s) : launch_wide<false>(a, BH, s);
+    return pv_int8 ? launch_wide<true, ET>(a, BH, s)
+                   : launch_wide<false, ET>(a, BH, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int i8attn_prep_launch(
+    const void* q, const void* k, const void* v, const long long* strides,
+    int B, int H, int Lq, int Lk, int Lkp, int D, int pv_int8, float qscale,
+    void* qq, void* qs, void* kq, void* ks, void* vt, void* vs, void* part,
+    int n_chunks, int elem, void* stream) {
+  switch (elem) {
+    case 0:
+      return prep_entry<0>(q, k, v, strides, B, H, Lq, Lk, Lkp, D, pv_int8,
+                           qscale, qq, qs, kq, ks, vt, vs, part, n_chunks,
+                           stream);
+    case 1:
+      return prep_entry<1>(q, k, v, strides, B, H, Lq, Lk, Lkp, D, pv_int8,
+                           qscale, qq, qs, kq, ks, vt, vs, part, n_chunks,
+                           stream);
+    case 2:
+      return prep_entry<2>(q, k, v, strides, B, H, Lq, Lk, Lkp, D, pv_int8,
+                           qscale, qq, qs, kq, ks, vt, vs, part, n_chunks,
+                           stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -14,10 +14,8 @@ naming HunyuanVideo checkpoints ship with:
   spatial attention ``mid_block.attentions.0`` (group_norm, to_q/k/v,
   to_out.0 linears) through ``dot_product_attention``: on the card the
   flash kernel K7 at D = the block's width (512 in the published VAE).
-  K7 takes bf16 q/k/v, so the block rounds them to the compute dtype, as
-  the convolutions round their operands, on the CPU too; the reference's
-  TPU flash kernel takes the f32 projections as they are (ROADMAP queue
-  3).
+  q/k/v keep the projections' dtype, as the reference's do: f32 for the
+  f32 latents the pipelines decode, on K7's f32 instance.
 * ``up_blocks.{i}.upsamplers.0.conv``: nearest ×2 in space, and in time
   on the deepest ``temporal_ups`` stages (the first frame stays single: T
   → 2T − 1), then a causal conv.
@@ -89,9 +87,8 @@ def _mid_attn(params, p, x, qcfg):
                       params.get(f"{p}.{name}.bias"), cfg=qcfg)
 
     # heads-major (B·T, 1, H·W, C): ONE head over all spatial positions
-    q, k, v = (proj(n, h2).to(qcfg.compute_dtype)[:, None]
-               for n in ("to_q", "to_k", "to_v"))
-    o = dot_product_attention(q, k, v).reshape(B * T, H * W, C).to(x.dtype)
+    q, k, v = (proj(n, h2)[:, None] for n in ("to_q", "to_k", "to_v"))
+    o = dot_product_attention(q, k, v).reshape(B * T, H * W, C)
     return x + proj("to_out.0", o).reshape(B, T, H, W, C)
 
 

@@ -17,9 +17,9 @@ The original Wan-Video module layout, whose checkpoints ComfyUI loads:
 * ``AttentionBlock``: per-frame single-head spatial attention (``norm.gamma``,
   ``to_qkv``, ``proj``) through ``dot_product_attention``: on the card the
   flash kernel K7 at D = the block's width (384 at Wan 2.1's mid-block).
-  K7 takes bf16 q/k/v, so the block rounds them to the compute dtype, as
-  the convolutions round their operands, on the CPU too; the reference's
-  TPU flash kernel takes the f32 activations as they are (ROADMAP queue 3).
+  q/k/v keep the activations' dtype, as the reference's do (its ``conv2d``
+  returns ``x.dtype``): f32 for the f32 latents the pipelines decode, on
+  K7's f32 instance.
 
 The graph is read from the keys (block kinds and widths come from the
 weights), as in the reference. Frame bookkeeping: latent T maps to pixel
@@ -90,9 +90,9 @@ def _attention_block(params, p, x, qcfg):
                      params.get(f"{p}.to_qkv.bias"), cfg=qcfg)
         # heads-major (N, 1, H·W, C): ONE head over all spatial positions;
         # q, k and v are column slices of the projection, read in place
-        qkv = qkv.reshape(N, 1, H * W, 3 * C).to(qcfg.compute_dtype)
+        qkv = qkv.reshape(N, 1, H * W, 3 * C)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-        o = dot_product_attention(q, k, v).reshape(N, H, W, C).to(hf.dtype)
+        o = dot_product_attention(q, k, v).reshape(N, H, W, C)
         return conv2d(o, params[f"{p}.proj.weight"],
                       params.get(f"{p}.proj.bias"), cfg=qcfg)
 

@@ -5,15 +5,17 @@
 cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
-  ``csrc/flash_attn.cu`` (K7): bf16 CUDA tensors, head dims
-  ``FLASH_HEAD_DIMS`` (40, 80, 96 and 160 run the 64-, 128-, 128- and
-  192-wide instances on zero-filled pad columns; 256 has a 256-wide
-  instance on 64-key tiles; 384, the Wan VAE's single-head mid-block, an
-  instance whose blocks own 128 output columns each; 512, the HunyuanVideo
-  VAE's, the same split on 32-key tiles). Any other head dim or dtype on
-  the card raises ``NotImplementedError`` (no route exists for it yet), and so
-  does a view TMA cannot read; the same call on CPU tensors takes the plain
-  version.
+  (K7): bf16 and f16 CUDA tensors on ``csrc/flash_attn.cu`` /
+  ``flash_attn_f16.cu`` (one body, ``flash_attn.cuh``), f32 on the SIMT
+  body ``csrc/flash_attn_f32.cu``; head dims ``FLASH_HEAD_DIMS`` in each
+  dtype (on the tensor-core body 40, 80, 96 and 160 run the 64-, 128-,
+  128- and 192-wide instances on zero-filled pad columns; 256 has a
+  256-wide instance on 64-key tiles; 384, the Wan VAE's single-head
+  mid-block, an instance whose blocks own 128 output columns each; 512,
+  the HunyuanVideo VAE's, the same split on 32-key tiles). Any other head
+  dim or dtype on the card raises ``NotImplementedError``, and so does a
+  view the kernel cannot read; the same call on CPU tensors takes the
+  plain version.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
   ``jax.nn.dot_product_attention``: f32 logits, f32 softmax, probabilities
   in the value dtype, f32-accumulated probs·v.
@@ -105,31 +107,55 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
     return out.to(q.dtype)
 
 
-# head dims the flash kernel has instances for
+# head dims the flash kernel has instances for (in every dtype of
+# FLASH_DTYPES)
 FLASH_HEAD_DIMS = (40, 64, 80, 96, 128, 160, 256, 384, 512)
+# q/k/v dtype -> (C entry, launch counter): the bf16 instances count under
+# "flash_attn" and "flash_attn_d<D>", the others under their dtype's name
+FLASH_DTYPES = {
+    torch.bfloat16: ("flash_attn_launch", None),
+    torch.float16: ("flash_attn_f16_launch", "flash_attn_f16"),
+    torch.float32: ("flash_attn_f32_launch", "flash_attn_f32"),
+}
+
+
+def flash_instance(dtype, D: int) -> tuple[str, tuple[str, ...]]:
+    """The C entry and the launch counters a (dtype, head dim) takes;
+    ``NotImplementedError`` for a pair without an instance."""
+    if dtype not in FLASH_DTYPES:
+        raise NotImplementedError(
+            f"{dtype}: the flash kernel has instances for "
+            f"{', '.join(str(d).replace('torch.', '') for d in FLASH_DTYPES)}"
+            f" q/k/v (CPU tensors take plain_attention)")
+    if D not in FLASH_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {D}: the flash kernel has instances for "
+            f"{', '.join(map(str, FLASH_HEAD_DIMS))}, and the card has no "
+            f"other attention route (CPU tensors take plain_attention)")
+    entry, counter = FLASH_DTYPES[dtype]
+    return entry, ((counter,) if counter else
+                   ("flash_attn", f"flash_attn_d{D}"))
 
 
 def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
     """Launch the flash-attention kernel (K7).
 
-    q: (B, H, Lq, D), k/v: (B, H, Lk, D), bf16 CUDA tensors; strided views
-    are read in place where TMA can read them (unit stride along D, base and
-    other strides multiples of 16 bytes, as every (B, L, H·D) projection of
-    a head dim in ``FLASH_HEAD_DIMS`` is) and refused otherwise. Returns
-    (B, H, Lq, D) bf16 whose storage is (B, Lq, H, D), so merging heads
-    afterwards is free.
+    q: (B, H, Lq, D), k/v: (B, H, Lk, D) CUDA tensors of one dtype of
+    ``FLASH_DTYPES``; strided views are read in place where the kernel can
+    read them (unit stride along D, base and other strides multiples of 16
+    bytes, as every (B, L, H·D) projection of a head dim in
+    ``FLASH_HEAD_DIMS`` is) and refused otherwise. Returns (B, H, Lq, D) in
+    q's dtype whose storage is (B, Lq, H, D), so merging heads afterwards
+    is free.
     """
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if not q.is_cuda:
         raise ValueError("flash_attn_cuda takes CUDA tensors")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise NotImplementedError("the flash kernel takes bfloat16 q/k/v")
-    if D not in FLASH_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dim {D}: the flash kernel has instances for "
-            f"{', '.join(map(str, FLASH_HEAD_DIMS))}, and the card has no "
-            f"other attention route yet (CPU tensors take plain_attention)")
+    entry, counters = flash_instance(q.dtype, D)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v dtypes {q.dtype} {k.dtype} {v.dtype} "
+                         f"differ")
     if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D) or Lk < 1:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -137,21 +163,22 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
         if not _build.is_row_aligned(t):
             raise ValueError(
                 f"{name} (shape {tuple(t.shape)}, strides {t.stride()}) is "
-                f"a view TMA cannot read: it needs unit stride along D and a "
-                f"base and strides that are multiples of 16 bytes")
-    out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16,
+                f"a view the kernel cannot read (TMA, or the f32 body's "
+                f"16-byte loads): it needs unit stride along D and a base "
+                f"and strides that are multiples of 16 bytes")
+    out = torch.empty((B, Lq, H, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     if Lq:
         strides = (ctypes.c_longlong * 12)(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3])
-        rc = _build.lib().flash_attn_launch(
+        rc = getattr(_build.lib(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, Lq, Lk, D, strides, float(scale),
             ctypes.c_void_p(_build.stream_handle(q.device)))
-        _build.check(rc, "flash_attn_launch")
-        _build.count("flash_attn")
-        _build.count(f"flash_attn_d{D}")
+        _build.check(rc, entry)
+        for c in counters:
+            _build.count(c)
     return out
 
 

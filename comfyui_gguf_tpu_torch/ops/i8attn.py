@@ -23,7 +23,8 @@ contiguous and permuted inside every 16-key group, see ``KEY_ORDER``), and
   (``prep_cuda``, which computes ``kernel_operands(quantize_attn_inputs(...))``
   in two launches), then ``i8_attention_cuda_q``, the wrapper of the
   hand-written CUDA kernel ``csrc/i8attn.cu`` (K6), at every head dim the
-  gate admits (a multiple of 128).
+  gate admits (a multiple of 128), on bf16, f16 or f32 q/k/v
+  (``I8ATTN_DTYPES``), the result in q's dtype.
 * ``plain_i8_attention`` — the plain prep, then ``plain_i8_attention_q``, the
   plain PyTorch version of the kernel. ``block_kv=None``
   is the reference's ``xla_i8_attention`` (one global row maximum);
@@ -225,19 +226,41 @@ def _prep_chunks(BH: int, Lk: int) -> int:
     return max(1, min(-(-Lk // 128), -(-264 // BH)))
 
 
+# q/k/v dtype -> (the kind the C entries take: the prep's input and the
+# kernel's output type, the launch counters' suffix)
+I8ATTN_DTYPES = {torch.bfloat16: (0, ""), torch.float16: (1, "_f16"),
+                 torch.float32: (2, "_f32")}
+
+
+def i8attn_instance(dtype, pv_int8: bool = True):
+    """(type kind, prep counter, kernel counter) of q/k/v of ``dtype``;
+    ``NotImplementedError`` for a dtype without instances."""
+    if dtype not in I8ATTN_DTYPES:
+        raise NotImplementedError(
+            f"{dtype}: the int8 attention kernel and its prep have instances "
+            f"for "
+            f"{', '.join(str(d).replace('torch.', '') for d in I8ATTN_DTYPES)}"
+            f" q/k/v (CPU tensors take plain_i8_attention)")
+    kind, sfx = I8ATTN_DTYPES[dtype]
+    return (kind, "i8attn_prep" + sfx,
+            ("i8attn_pv" if pv_int8 else "i8attn_qk") + sfx)
+
+
 def prep_cuda(q, k, v, *, scale: float, pv_int8: bool = True):
     """Launch the prep kernel (``csrc/i8attn_prep.cu``): what
     ``kernel_operands(quantize_attn_inputs(q, k, v, scale, pv_int8))``
-    computes, read from (B, H, L, D) bf16 CUDA views (strided views are
-    fine) -> (qq, qs, kq, ks, v, vs) in the kernel's layout; in mode "qk" v
-    is the given view (row-aligned)."""
+    computes, read from (B, H, L, D) CUDA views of one dtype of
+    ``I8ATTN_DTYPES`` (strided views are fine) -> (qq, qs, kq, ks, v, vs) in
+    the kernel's layout; in mode "qk" v is the given view (row-aligned),
+    rounded to bf16 as ``quantize_attn_inputs`` rounds it."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if not q.is_cuda:
         raise ValueError("prep_cuda takes CUDA tensors")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise NotImplementedError("the int8 attention prep takes bfloat16 "
-                                  "q/k/v")
+    kind, counter, _ = i8attn_instance(q.dtype, pv_int8)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v dtypes {q.dtype} {k.dtype} {v.dtype} "
+                         f"differ")
     if k.shape != (B, H, Lk, D) or v.shape != (B, H, Lk, D) or Lk < 1:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -262,26 +285,31 @@ def prep_cuda(q, k, v, *, scale: float, pv_int8: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, B, H, Lq, Lk, Lkp,
         D, 1 if pv_int8 else 0, qscale, qq.data_ptr(), qs.data_ptr(),
         kq.data_ptr(), ks.data_ptr(), None if vt is None else vt.data_ptr(),
-        vs.data_ptr(), part.data_ptr(), n_chunks,
+        vs.data_ptr(), part.data_ptr(), n_chunks, kind,
         ctypes.c_void_p(_build.stream_handle(dev)))
     _build.check(rc, "i8attn_prep_launch")
-    _build.count("i8attn_prep")
+    _build.count(counter)
+    if not pv_int8 and v.dtype != torch.bfloat16:
+        v = _build.row_aligned(v.to(torch.bfloat16))
     return qq, qs, kq, ks, (vt if pv_int8 else v), vs
 
 
 def i8_attention_cuda_q(qq, qs, kq, ks, v, vs, *, B: int, H: int,
-                        pv_int8: bool = True) -> torch.Tensor:
+                        pv_int8: bool = True,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
     """Launch the int8 flash-attention kernel (K6) on operands in the layout
     of ``kernel_operands``: qq (BH, Lq, D) s8, qs (BH, Lq) f32, kq (BH, Lk,
     D) s8, ks (BH, Lkp) f32, vs (BH, D) f32, all contiguous, D a multiple of
     128, Lkp a multiple of ``kernel_block_kv(D)``; v is Vᵀ (BH, D, Lkp) s8 in
     mode "pv", a bf16 (BH, Lk, D) tensor or (B, H, Lk, D) view with unit
-    stride along D in mode "qk". Returns (B, H, Lq, D) bf16 whose storage is
-    (B, Lq, H, D), so merging heads afterwards is free."""
+    stride along D in mode "qk". Returns (B, H, Lq, D) in ``out_dtype`` (q's
+    dtype, one of ``I8ATTN_DTYPES``) whose storage is (B, Lq, H, D), so
+    merging heads afterwards is free."""
     BH, Lq, D = qq.shape
     Lk = kq.shape[1]
     if not qq.is_cuda:
         raise ValueError("i8_attention_cuda_q takes CUDA tensors")
+    kind, _, counter = i8attn_instance(out_dtype, pv_int8)
     bkv = kernel_block_kv(D)
     Lkp = ks.shape[-1]
     if (BH != B * H or kq.shape != (BH, Lk, D) or Lk < 1
@@ -310,33 +338,33 @@ def i8_attention_cuda_q(qq, qs, kq, ks, v, vs, *, B: int, H: int,
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError("prepared operands must be contiguous s8 codes "
                              "and f32 scales")
-    out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16,
+    out = torch.empty((B, Lq, H, D), dtype=out_dtype,
                       device=qq.device).permute(0, 2, 1, 3)
     if Lq:
         strides = (ctypes.c_longlong * 6)(*st_v, *out.stride()[:3])
         rc = _build.lib().i8attn_launch(
             qq.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(),
             v.data_ptr(), vs.data_ptr(), out.data_ptr(), B, H, Lq, Lk, Lkp,
-            D, 1 if pv_int8 else 0, strides,
+            D, 1 if pv_int8 else 0, strides, kind,
             ctypes.c_void_p(_build.stream_handle(qq.device)))
         _build.check(rc, "i8attn_launch")
-        _build.count("i8attn_pv" if pv_int8 else "i8attn_qk")
+        _build.count(counter)
     return out
 
 
 def i8_attention_cuda(q, k, v, *, scale: float,
                       pv_int8: bool = True) -> torch.Tensor:
     """The prep kernel, then the attention kernel. q: (B, H, Lq, D), k/v:
-    (B, H, Lk, D) bf16 CUDA tensors (strided views are fine), D a multiple
-    of 128 -> (B, H, Lq, D) bf16 stored (B, Lq, H, D)."""
+    (B, H, Lk, D) CUDA tensors of one dtype of ``I8ATTN_DTYPES`` (strided
+    views are fine), D a multiple of 128 -> (B, H, Lq, D) in q's dtype,
+    stored (B, Lq, H, D)."""
     B, H = q.shape[:2]
     if not q.is_cuda:
         raise ValueError("i8_attention_cuda takes CUDA tensors")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError("the int8 attention kernel writes "
-                                  "bfloat16; pass bfloat16 q/k/v")
+    i8attn_instance(q.dtype, pv_int8)
     ops = prep_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
-    return i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv_int8)
+    return i8_attention_cuda_q(*ops, B=B, H=H, pv_int8=pv_int8,
+                               out_dtype=q.dtype)
 
 
 def _pick_blocks(Lq, Lk, block_kv=None):

@@ -498,8 +498,9 @@ def test_flash_kernel_d96_d256_on_projection_views(cuda, D):
 def test_flash_kernel_refuses_what_it_has_no_instance_for(cuda):
     """A head dim without an instance raises and names the ones there are;
     a view TMA cannot read (an 8-byte offset) raises rather than being
-    copied; nothing falls back to another attention route."""
-    before = _build.LAUNCHES["flash_attn"]
+    copied; a dtype without instances (float64) raises and names the
+    dtypes there are; nothing falls back to another attention route."""
+    before = dict(_build.LAUNCHES)
     for D in (32, 48):
         q = torch.zeros((1, 2, 16, D), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(NotImplementedError,
@@ -509,7 +510,14 @@ def test_flash_kernel_refuses_what_it_has_no_instance_for(cuda):
     q = buf[..., 4:]
     with pytest.raises(ValueError, match="TMA"):
         flash_attn_cuda(q, q, q, 40 ** -0.5)
-    assert _build.LAUNCHES["flash_attn"] == before
+    q = torch.zeros((1, 2, 16, 128), device=cuda, dtype=torch.float64)
+    with pytest.raises(NotImplementedError,
+                       match="bfloat16, float16, float32"):
+        flash_attn_cuda(q, q, q, 128 ** -0.5)
+    with pytest.raises(NotImplementedError,
+                       match="bfloat16, float16, float32"):
+        i8_attention_cuda(q, q, q, scale=128 ** -0.5)
+    assert _build.LAUNCHES == before
 
 
 I8ATTN_CASES = [
@@ -1565,9 +1573,9 @@ def test_video_dit_forward_on_the_card_matches_cpu(cuda, tmp_path, arch, k7,
 
 @pytest.mark.parametrize("arch", ["hyvid", "ltxv"])
 def test_video_vae_decode_on_the_card_matches_cpu(cuda, arch):
-    """The small HunyuanVideo VAE (its mid-block attention on K7 at D = 64)
-    and the small LTX-Video VAE decode on the card as on the CPU, within
-    3e-2."""
+    """The small HunyuanVideo VAE (its mid-block attention on K7's f32
+    instance at D = 64: q/k/v keep the f32 of the latent) and the small
+    LTX-Video VAE decode on the card as on the CPU, within 3e-2."""
     from comfyui_gguf_tpu_torch.models import hyvid_vae, ltxv_vae, testing
 
     if arch == "hyvid":
@@ -1580,12 +1588,12 @@ def test_video_vae_decode_on_the_card_matches_cpu(cuda, arch):
         mod, z_shape = ltxv_vae, (1, 2, 2, 3, 128)
         cfg = mod.LTXVVAEConfig.from_state_dict(sd)
     z = np.random.default_rng(2).standard_normal(z_shape).astype(np.float32)
-    before = _build.LAUNCHES["flash_attn_d64"]
+    before = _build.LAUNCHES["flash_attn_f32"]
     outs = [mod.decode({k: torch.from_numpy(v).to(d) for k, v in sd.items()},
                        cfg, torch.from_numpy(z).to(d)) for d in (cuda, "cpu")]
     torch.cuda.synchronize()
     if arch == "hyvid":
-        assert _build.LAUNCHES["flash_attn_d64"] > before
+        assert _build.LAUNCHES["flash_attn_f32"] > before
     assert bool(torch.isfinite(outs[0]).all())
     assert _rel_l2(outs[0].cpu(), outs[1]) < 3e-2
 
@@ -1673,3 +1681,169 @@ def test_flash_kernel_tp_local_heads(cuda):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attn_d128"] == before + 1
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+
+
+# -- f16 and f32 attention (K7's and K6's f16 / f32 instances) -------------
+
+FLOAT_DTYPES = [torch.float16, torch.float32]
+# relative L2 against the plain version in the same dtype: f32 computes in
+# f32 on both sides (only the order of the sums differs); f16 rounds P and
+# the output as bf16 does, at eight times bf16's precision, so bf16's 1e-2
+# is an upper bound for it
+FLOAT_TOL = {torch.float16: 1e-2, torch.float32: 1e-5}
+
+
+def _flux_model_d128(tmp_path, device):
+    """A tiny flux (four heads of 128) written as a Q4_K GGUF, loaded on
+    ``device``."""
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.pipeline import load_diffusion_model
+
+    dims = testing.TinyFluxDims(hidden=512, heads=4, axes_dim=(16, 56, 56))
+    path = tmp_path / "flux_d128.gguf"
+    if not path.exists():
+        testing.write_flux_gguf(
+            testing.flux_state_dict(dims, seed=0), str(path),
+            lambda k, a: testing.flux_block_qtype(k, a, Q.Q4_K))
+    return dims, load_diffusion_model(str(path), device=device)
+
+
+@pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
+def test_flux_forward_f16_f32_activations_on_the_card(cuda, tmp_path, dt):
+    """A tiny flux forward (head dim 128) given f16 or f32 activations runs
+    on the card as on the CPU, within 3e-2, its attention on K7's instance
+    of that dtype and on no bf16 one."""
+    from comfyui_gguf_tpu_torch.models import testing
+
+    outs = []
+    for d in (cuda, "cpu"):
+        dims, model = _flux_model_d128(tmp_path, d)
+        inputs = testing.flux_example_inputs(dims, h_lat=16, w_lat=16,
+                                             txt_len=16, seed=5, dtype=dt,
+                                             device=d)
+        before = dict(_build.LAUNCHES)
+        with torch.no_grad():
+            outs.append(model.forward(*inputs))
+        if d == cuda:
+            torch.cuda.synchronize()
+            launched = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+    name = "flash_attn_f16" if dt == torch.float16 else "flash_attn_f32"
+    assert launched[name] == 4  # one joint attention a block
+    assert launched["flash_attn"] == 0
+    assert outs[0].dtype == dt and bool(torch.isfinite(outs[0]).all())
+    assert _rel_l2(outs[0].cpu(), outs[1]) < 3e-2
+
+
+FLOAT_ATTN_CASES = [
+    # B, H, Lq, Lk: a ragged query and key tile; cross attention, Lq < Lk
+    # over several key tiles
+    (2, 2, 130, 130),
+    (1, 3, 77, 300),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk", FLOAT_ATTN_CASES, ids=str)
+@pytest.mark.parametrize("D", [40, 64, 80, 96, 128, 160, 256, 384, 512])
+@pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
+def test_flash_kernel_f16_f32_match_plain(cuda, dt, D, B, H, Lq, Lk):
+    """K7's f16 and f32 instances at every head dim against
+    plain_attention in the same dtype, counted under their dtype's counter
+    only; the output keeps the dtype and the (B, Lq, H, D) storage."""
+    g = torch.Generator(device=cuda).manual_seed(D * 13 + Lk)
+    q, k, v = (torch.randn((B, H, L, D), generator=g, device=cuda).to(dt)
+               for L in (Lq, Lk, Lk))
+    name = "flash_attn_f16" if dt == torch.float16 else "flash_attn_f32"
+    before = dict(_build.LAUNCHES)
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before[name] + 1
+    assert _build.LAUNCHES["flash_attn"] == before["flash_attn"]
+    assert got.dtype == dt and got.shape == (B, H, Lq, D)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < FLOAT_TOL[dt]
+
+
+@pytest.mark.parametrize("D", [64, 128, 384])
+@pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
+def test_flash_kernel_f16_f32_on_qkv_views(cuda, dt, D):
+    """q/k/v as strided views of one fused (B, L, 3, H, D) projection, read
+    in place."""
+    B, L, H = 2, 200, 3
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).to(dt)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < FLOAT_TOL[dt]
+
+
+def _check_i8attn_dtype(q, k, v, pv_int8):
+    """K6 and its prep on q/k/v of q's dtype: the dtype's counters, the
+    output in q's dtype, and the bf16 check's limits."""
+    B, H, Lq, D = q.shape
+    scale = D ** -0.5
+    sfx = "_f16" if q.dtype == torch.float16 else "_f32"
+    key = ("i8attn_pv" if pv_int8 else "i8attn_qk") + sfx
+    before = dict(_build.LAUNCHES)
+    got = i8_attention_cuda(q, k, v, scale=scale, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert _build.LAUNCHES["i8attn_prep" + sfx] == before[
+        "i8attn_prep" + sfx] + 1
+    assert all(_build.LAUNCHES[k] == before[k]
+               for k in ("i8attn_pv", "i8attn_qk", "i8attn_prep"))
+    assert got.shape == (B, H, Lq, D) and got.dtype == q.dtype
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    want = plain_i8_attention(q, k, v, scale=scale, pv_int8=pv_int8,
+                              block_kv=kernel_block_kv(D))
+    assert want.dtype == q.dtype
+    assert _rel_l2(got, want) < 2e-3
+    assert _rel_l2(got, plain_attention(q, k, v, scale)) < 3.5e-2
+
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("D", [128, 256, 384])
+@pytest.mark.parametrize("B,H,Lq,Lk", [(1, 2, 250, 131), (2, 2, 512, 512)],
+                         ids=str)
+@pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
+def test_i8attn_kernel_f16_f32_match_plain(cuda, dt, B, H, Lq, Lk, D,
+                                           pv_int8):
+    """K6 and its prep on f16 and f32 q/k/v, both modes, at D = 128, 256
+    and the split instance (384): the result in q's dtype."""
+    q, k, v = (t.to(dt) for t in _qkv(cuda, B, H, Lq, Lk, D,
+                                      Lq * 5 + Lk + D))
+    _check_i8attn_dtype(q, k, v, pv_int8)
+
+
+@pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
+def test_i8attn_f16_f32_on_qkv_views(cuda, dt):
+    """f16 / f32 q/k/v as strided views of one fused projection."""
+    B, L, H, D = 1, 520, 2, 128
+    qkv = torch.randn((B, L, 3, H, D), device=cuda).to(dt)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for pv_int8 in (True, False):
+        _check_i8attn_dtype(q, k, v, pv_int8)
+
+
+def test_wan_vae_decode_f32_on_the_card(cuda):
+    """A small Wan VAE decode with f32 compute: its mid-block attention
+    (one head of the block's channels) takes K7's f32 instance and no bf16
+    one, within 3e-2 of the CPU."""
+    from comfyui_gguf_tpu_torch.models import testing, wan_vae
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+
+    sd = testing.wan_vae_state_dict(testing.WanVAEDims(), seed=1)
+    cfg = wan_vae.WanVAEConfig.from_state_dict(sd)
+    qcfg = QuantConfig(dequant_dtype=torch.float32,
+                       compute_dtype=torch.float32)
+    z = np.random.default_rng(2).standard_normal(
+        (1, 2, 6, 8, cfg.z_channels)).astype(np.float32)
+    before = dict(_build.LAUNCHES)
+    outs = [wan_vae.decode({k: torch.from_numpy(v).to(d)
+                            for k, v in sd.items()}, cfg,
+                           torch.from_numpy(z).to(d), qcfg=qcfg)
+            for d in (cuda, "cpu")]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn_f32"] > before["flash_attn_f32"]
+    assert _build.LAUNCHES["flash_attn"] == before["flash_attn"]
+    assert bool(torch.isfinite(outs[0]).all())
+    assert _rel_l2(outs[0].cpu(), outs[1]) < 3e-2

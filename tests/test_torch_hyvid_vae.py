@@ -72,12 +72,15 @@ def _z(shape, seed, scale=1.0):
     return jnp.asarray(z), torch.from_numpy(z)
 
 
-@pytest.mark.parametrize("mode", [(F32, JF32, 1e-4), (BF16, JBF16, 2e-2)],
+@pytest.mark.parametrize("mode", [(F32, JF32, 1e-4), (BF16, JBF16, 1e-2)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("frames", [3, 1])
 def test_decode_matches_reference(tiny, frames, mode):
     """T latent frames → 1 + 2(T − 1) pixel frames (one temporal doubling),
-    two spatial doublings; a single latent frame decodes to one image."""
+    two spatial doublings; a single latent frame decodes to one image.
+    Under bf16 compute the mid-block attention takes the f32 q/k/v of the
+    projections in both packages (found: 4.5e-3 at most, at three frames;
+    the limit leaves a factor of about two)."""
     qcfg, jqcfg, tol = mode
     jp, jcfg, tp, cfg = tiny
     assert cfg.z_channels == 4

@@ -351,3 +351,47 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     ops = ti8.kernel_operands(*ti8.quantize_attn_inputs(q, k, v, SCALE))
     with pytest.raises(ValueError, match="CUDA"):
         ti8.i8_attention_cuda_q(*ops, B=1, H=1)
+
+
+# -- f16 and f32 q/k/v ------------------------------------------------------
+
+@pytest.mark.parametrize("pv_int8", [True, False], ids=["pv", "qk"])
+@pytest.mark.parametrize("dt", ["float16", "float32"])
+@pytest.mark.parametrize("shape", [(1, 2, 256, 128), (2, 1, 100, 256),
+                                   (1, 1, 96, 384)], ids=str)
+def test_f16_f32_plain_matches_xla_same_math(shape, dt, pv_int8):
+    """``xla_i8_attention`` and the port's plain version on the same f16 /
+    f32 q/k/v, both modes: the result in q's dtype in both packages, within
+    the same-math limit of the bf16 cases (2e-3; in mode "qk" both round v
+    and p to bf16)."""
+    q, k, v = (a.astype(dt) for a in _qkv(2, *shape))
+    scale = shape[-1] ** -0.5
+    want = ji8.xla_i8_attention(*_j(q, k, v), scale=scale, pv_int8=pv_int8)
+    got = ti8.plain_i8_attention(*_t(q, k, v), scale=scale, pv_int8=pv_int8)
+    assert want.dtype == np.dtype(dt) and got.dtype == getattr(torch, dt)
+    assert got.shape == tuple(want.shape)
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= 2e-3
+
+
+@pytest.mark.parametrize("mode", ["pv", "qk"])
+@pytest.mark.parametrize("dt", ["float16", "float32"])
+def test_f16_f32_scope_routes_inside_the_gate(dt, mode):
+    """Under ``attention_i8`` an f16 / f32 call inside the gate takes the
+    int8 path in both packages (the reference's kernel in interpret mode),
+    and the output keeps q's dtype."""
+    q, k, v = (a.astype(dt) for a in _qkv(17, 1, 2, 512, 128))
+    os.environ["GGUF_TPU_PALLAS_INTERPRET"] = "1"
+    try:
+        with jattention.attention_i8(mode):
+            want = np.asarray(jattention.dot_product_attention(
+                *_j(q, k, v)))
+    finally:
+        del os.environ["GGUF_TPU_PALLAS_INTERPRET"]
+    with tattention.attention_i8(mode):
+        got = tattention.dot_product_attention(*_t(q, k, v))
+    assert got.dtype == getattr(torch, dt) and want.dtype == np.dtype(dt)
+    got = got.float().numpy()
+    exact = _ref(*(a.astype(np.float32) for a in (q, k, v)), SCALE)
+    assert 1e-6 < _rel(got, exact) < 0.035  # int8 noise: the i8 path ran
+    np.testing.assert_allclose(got, want.astype(np.float32), atol=0.05,
+                               rtol=0.05)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of the port, and none of
-chip_smoke.py and its tools_*_cuda.py scripts, imports
+chip_smoke.py, its tools_*_cuda.py scripts and the entry scripts
+examples/torch_*.py, imports
 jax, jaxlib, the reference package or safetensors (the port reads that
 format itself).
 
@@ -23,7 +24,11 @@ FILES = sorted(p for p in (ROOT / "comfyui_gguf_tpu_torch").rglob("*.py")
     ROOT / "tools_kernel_ab_cuda.py",
     ROOT / "tools_batch_invariance_cuda.py",
     # the jobs the parallel tests' ranks import under spawn
-    ROOT / "tests" / "torch_parallel_jobs.py"]
+    ROOT / "tests" / "torch_parallel_jobs.py"] + [
+    # the entry scripts a user runs the port with
+    ROOT / "examples" / f"torch_{name}.py" for name in (
+        "generate_flux", "serve_flux", "serve_multi", "serve_sd3",
+        "serve_qwen_tp", "serve_hidream_tp")]
 
 
 def _imported_roots(tree):
@@ -67,3 +72,4 @@ def test_the_port_has_its_own_sources():
                 "parallel/launch.py"):
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()
+    assert all(p.exists() for p in FILES)

@@ -144,12 +144,15 @@ def _z(shape, seed, scale=1.0):
     return jnp.asarray(z), torch.from_numpy(z)
 
 
-@pytest.mark.parametrize("mode", [(F32, JF32, 1e-4), (BF16, JBF16, 2e-2)],
+@pytest.mark.parametrize("mode", [(F32, JF32, 1e-4), (BF16, JBF16, 1e-6)],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("frames", [3, 1])
 def test_decode_matches_reference(tiny_sd, frames, mode):
     """T latent frames → 1 + 2(T − 1) pixel frames (one doubling in the
-    tiny VAE), 4× spatial; a single latent frame decodes to one image."""
+    tiny VAE), 4× spatial; a single latent frame decodes to one image.
+    Under bf16 compute the mid-block attention takes the f32 q/k/v of
+    the convolution in both packages (found: 7.8e-8 at most; the limit
+    leaves a factor of about ten)."""
     qcfg, jqcfg, tol = mode
     jp, jcfg, tp, cfg = _both(tiny_sd)
     assert cfg.z_channels == jcfg.z_channels == 4
