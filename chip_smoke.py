@@ -22,6 +22,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                           [--ltxv-steps N] [--ltxv-t5-layers N]
                           [--tools-depth-double N] [--tools-depth-single N]
                           [--tools-steps N] [--scripts-steps N]
+    python3 chip_smoke.py --only PHASE [PHASE ...] [the flags above]
 
 It drives the port's main paths — the flux denoise of ``bench.py``'s
 configuration, flux text-to-image end to end (tokenizers, T5-xxl and
@@ -40,9 +41,9 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    beside the unpatched ones; for flash attention each head-dim instance's)
    and the dynamic shared memory of the TMA-fed kernels are printed; a
    ``wgmma`` serialization advisory (ptxas C751x) or a spill in any K1/K2
-   or bf16 / f16 K7 instance fails (the f32 SIMT body's lines are
-   printed), and the wgmma body's resident blocks per K-split cluster size
-   are printed beside the plan's;
+   or K7 instance fails (K7's f32 instances, the 3xTF32 wgmma body,
+   among them), and the wgmma body's resident blocks per K-split cluster
+   size are printed beside the plan's;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, with its time (CUDA events over a CUDA
    graph of many launches), the plain version's time, the time of one
@@ -68,7 +69,7 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    must equal the unpatched launch. The f16 and f32 instances of K1/K2
    (dequant_dtype float16 / float32) run at flux's modulation (the split-K
    body, nib4 and int8), flux's qkv (K1: the wgmma body at f16, the f32
-   SIMT body) and the T5-xxl q projection (K2), with and without a rank-16
+   FMA body) and the T5-xxl q projection (K2), with and without a rank-16
    LoRA in the dequant dtype, against the plain version in the same dtype
    (f16 ≤ 2e-3, f32 ≤ 1e-5), their library call one ``torch.matmul`` in
    that dtype; K7 at D = 128 at Wan 2.1's self- and cross-attention and
@@ -77,8 +78,11 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    within bf16's 1e-2, f32 within 1e-5 of the plain version in the same
    dtype, their library call SDPA in that dtype), and the f32 one at the
    Wan and HunyuanVideo VAEs' mid-blocks (D = 384 and 512, 3 frames of 60
-   x 104); K6 "pv" and "qk" and its prep on f16 and f32 q/k/v at flux's
-   shape, the output in q's dtype;
+   x 104); the f32 rows run with TF32 matmuls off (the plain version and
+   the K1/K2 library call in full f32, both settings printed) and print
+   SDPA f32's own distance to the plain version beside the kernel's; K6
+   "pv" and "qk" and its prep on f16 and f32 q/k/v at flux's shape, the
+   output in q's dtype;
 4. tiny end to end, card against CPU: (a) a small flux GGUF mixing Q4_K,
    Q8_0 and Q6_K tensors through ``load_diffusion_model`` and a few Euler
    steps, planar and after ``requantize_i8()``; then with a LoRA of every
@@ -104,7 +108,10 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    unless the flags cut them, for two requests, on the bf16-fused tree and
    on the w8a8 tree; a w8a8 final latent more than 2e-2 (relative L2) from
    the bf16-fused one of the same request fails. One more forward of each
-   tree runs under ``torch.profiler`` for the device-time breakdown;
+   tree runs under ``torch.profiler`` for the device-time breakdown, and
+   one forward of the bf16-fused tree at ``QuantConfig(dequant_dtype=
+   torch.float32)`` (the loader's Advanced knob: K1/K2's f32 bodies) is
+   timed and its launches counted as a path of its own;
 6. text-to-image path: a ``FluxPipeline`` of seed-made parts at published
    widths — the w8a8 flux-dev tree of phase 5, T5-v1.1-xxl (24 layers,
    Q8_0, made on the card), CLIP-L, the 16-channel AutoencoderKL, synthetic
@@ -244,7 +251,8 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    window of 4, decoded to 9 frames (the VAE's mid-block attention on K7's
    f32 instance at D = 384), on the bf16-fused tree and then on the w8a8 tree,
    with phase 13's gates (K7 D = 128 twice a block a forward) and
-   records;
+   records, and the VAE decode timed alone (``vae_decode_ms``: five
+   decodes of the last latent, each between CUDA events);
    ``wan_engine`` as phase 13's engine (two steps). Published Wan 480p is
    81 frames (32760 tokens): the frame count is the cut;
 18. Cosmos: ``COSMOS_7B_DIMS`` (dim 4096, 32 heads of 128, 28 blocks unless
@@ -268,8 +276,8 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    (the VAE's mid-block attention on K7's f32 instance at D = 512), both
    trees
    (img_mod / txt_mod / modulation planar: the split-K body), phase 13's
-   gates (K7 D = 128 62 times a forward) and records; ``hyvid_engine``
-   (two steps). The reference's default is 9 latent frames (33 pixel
+   gates (K7 D = 128 62 times a forward) and records, the VAE decode
+   timed alone as in phase 17; ``hyvid_engine`` (two steps). The reference's default is 9 latent frames (33 pixel
    frames): the frame count is the cut;
 20. LTX-Video 2B: ``LTXV_2B_DIMS`` (dim 2048, 32 heads of 64, 28 blocks
    unless ``--ltxv-depth`` cuts them), seed-made Q4_K stacked, with T5-xxl
@@ -432,6 +440,9 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 # f32 FMAs outside the tensor cores (the f32 instances of K1/K2)
 PEAK_F32 = 67e12
+# TF32 on the tensor cores: K7's f32 instances run each f32 product as three
+# TF32 products (3xTF32), so their bound is 3 x operations / PEAK_TF32
+PEAK_TF32 = 495e12
 
 # most relative L2 allowed between the w8a8 and bf16-fused final latents
 LATENT_DELTA_MAX = 2e-2
@@ -560,8 +571,8 @@ QMM_SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
                "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
                "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
                "qmm_smallm_f32.cu", "qmm_simt.cu")
-# K7's sources; a C751x advisory or a spill in any instance of the wgmma
-# body (bf16 and f16) fails too, the f32 SIMT body's lines are printed
+# K7's sources; a C751x advisory or a spill in any instance fails too (the
+# bf16 / f16 wgmma body and the f32 3xTF32 one)
 FLASH_SOURCES = ("flash_attn.cu", "flash_attn_f16.cu", "flash_attn_f32.cu")
 NAMED_SOURCES = QMM_SOURCES + ("i8mm.cu", "i8mm_lora.cu",
                                "gemm_probe.cu") + FLASH_SOURCES
@@ -943,11 +954,12 @@ def kernel_phase(dev, sfu_per_s):
 
     # K7's instances by q/k/v dtype: launch counter, rel-L2 limit against
     # the plain version in that dtype, the peak of its products (f16 on the
-    # tensor cores at the bf16 rate, f32 on the FMA units)
+    # tensor cores at the bf16 rate, f32 as 3xTF32: three TF32 products
+    # each)
     attn_dtypes = {
         torch.bfloat16: (None, 1e-2, PEAK_BF16),
         torch.float16: ("flash_attn_f16", 1e-2, PEAK_BF16),
-        torch.float32: ("flash_attn_f32", 1e-5, PEAK_F32)}
+        torch.float32: ("flash_attn_f32", 1e-5, PEAK_TF32 / 3)}
 
     def attn_case(name, B, H, Lq, Lk, D, dtype=torch.bfloat16):
         q, k, v = (randn(B, H, L, D).to(dtype) for L in (Lq, Lk, Lk))
@@ -965,6 +977,9 @@ def kernel_phase(dev, sfu_per_s):
         lib = library_ms(lambda: sdpa(q, k, v, scale=scale))
         nbytes = q.element_size() * B * H * D * (2 * Lq + 2 * Lk)
         b_ms, b_by = bound(nbytes, 4.0 * B * H * Lq * Lk * D, peak)
+        extra = {}
+        if dtype == torch.float32:  # the library's own distance, a control
+            extra["sdpa_rel_l2"] = rel_l2(sdpa(q, k, v, scale=scale), want)
         rows.append(dict(name=name, kernel=kernel or f"flash_attn_d{D}",
                          shape=f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
                                f"{str(dtype).replace('torch.', '')}",
@@ -974,7 +989,7 @@ def kernel_phase(dev, sfu_per_s):
                          plain_ms=plain, library_ms=lib,
                          library="scaled_dot_product_attention in the same "
                                  "dtype",
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, **extra))
 
     def i8attn_case(name, mode, B, H, L, D=128, dtype=torch.bfloat16):
         """K6 on the operands of its prep kernel, against the plain version
@@ -1383,6 +1398,15 @@ def kernel_phase(dev, sfu_per_s):
               128)
     attn_case("flash_attn hidream joint L=4352 D=128", 1, 20, 4352, 4352,
               128)
+    # the f32 rows' oracle in full f32: no TF32 in matmuls (a TF32 product
+    # keeps about three decimal digits, far from the f32 rows' 1e-5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prec = torch.get_float32_matmul_precision()
+    log(f"  f32 oracle: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32_matmul_precision={prec!r}")
+    if prec != "highest":
+        raise SystemExit(f"float32 matmul precision {prec!r}, not 'highest'")
     # the f16 and f32 instances of K1/K2 (dequant_dtype float16 / float32:
     # f16 operands on the tensor cores, f32 on FMAs), flux's modulation
     # (the split-K body at M = 1, nib4 and int8), flux's qkv (K1's wgmma
@@ -2535,6 +2559,16 @@ def main_path_phase(dev, depth_double, depth_single, steps):
         before = dict(_build.LAUNCHES)  # the profiled forward is not a path
         res[f"profile_{tree}_forward"] = profile_forward(
             model, requests[0], secs[-1] / steps, tree)
+        if tree == "bf16_fused":
+            # the same packed tree at dequant_dtype float32: a path of its
+            # own (counts from 0), kept apart from this phase's counts
+            f32_s, f32_counts = f32_forward(model, requests[0])
+            res["f32_forward"] = dict(s=f32_s, launches=f32_counts)
+            log(f"  one forward at QuantConfig(dequant_dtype=float32), "
+                f"bf16 activations: {f32_s:.4f}s (bf16-fused step "
+                f"{secs[-1] / steps:.4f}s); K1/K2 f32 launches "
+                + str({k: n for k, n in f32_counts.items()
+                       if n and k.endswith("_f32")}))
         _build.LAUNCHES.update(before)
     launches = dict(_build.LAUNCHES)
     res["launches"] = launches
@@ -2554,6 +2588,33 @@ def main_path_phase(dev, depth_double, depth_single, steps):
         raise SystemExit(f"w8a8 final latent differs from bf16-fused by rel "
                          f"L2 {worst} > {LATENT_DELTA_MAX}")
     return res, model, requests[0]
+
+
+def f32_forward(model, inputs):
+    """One flux forward of ``model``'s packed tree at
+    ``QuantConfig(dequant_dtype=torch.float32)`` with bf16 activations, as
+    the loader's Advanced knob runs it: every planar linear at M > 8 on
+    K1/K2's f32 body, the modulation (M = 1) on the split-K body's f32
+    instances, attention on K7's bf16 instances. A warm-up forward, then
+    one timed on the host clock around a synchronize; (seconds, launches of
+    the timed forward, counted from 0)."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.nn.layers import QuantConfig
+
+    f32 = dataclasses.replace(
+        model, qcfg=QuantConfig(dequant_dtype=torch.float32))
+    f32.forward(*inputs)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out = f32.forward(*inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit("f32 forward: non-finite output")
+    return secs, dict(_build.LAUNCHES)
 
 
 def family_ms(prof):
@@ -5489,6 +5550,42 @@ WAN21_LATENTS_STD = (2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052,
 # phase 18's: one 1024² frame
 WAN_LATENT = (3, 60, 104)
 COSMOS_LATENT = (1, 128, 128)
+DECODE_REPS = 5  # timed VAE decodes of phases 17 and 19
+
+
+def vae_decode_ms(pipe, res):
+    """The VAE decode of ``pipe``'s last latent (``pipe._decode`` on the
+    f32 latent, as ``generate_video`` calls it) timed alone: a warm-up,
+    then ``DECODE_REPS`` decodes, each between its own CUDA events, into
+    ``res["vae_decode_ms"]`` (each decode's ms) and
+    ``res["vae_decode_launches"]`` (one decode's); the launch counts are
+    left as they were."""
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build
+
+    before = dict(_build.LAUNCHES)
+    z = pipe.last_latent.to(torch.float32)
+    pipe._decode(z)
+    _build.reset_launch_counts()
+    ms = []
+    for i in range(DECODE_REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        pipe._decode(z)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        if i == 0:
+            one = {k: n for k, n in _build.LAUNCHES.items() if n}
+    _build.LAUNCHES.update(before)
+    if one.get("flash_attn_f32") != 1:
+        raise SystemExit(f"a VAE decode launched {one}: not K7 f32 once")
+    res["vae_decode_ms"], res["vae_decode_launches"] = ms, one
+    log(f"  VAE decode of the {' x '.join(map(str, z.shape[1:4]))} f32 "
+        f"latent alone, {DECODE_REPS} decodes after a warm-up (CUDA "
+        f"events): mean {statistics.mean(ms):.3f} ms, min {min(ms):.3f}, "
+        f"max {max(ms):.3f}; launches a decode {one}")
 
 
 def _t5_encoder(dev, dims, layers, seed):
@@ -5531,8 +5628,9 @@ def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     must launch K7's f32 instance (D = 384). Then the arch's engine serves
     two requests for ``engine_steps`` steps, each within 1e-2 of the direct
     sampler at batch 1. The final latents' distance, s/step, the stage
-    seconds, one profiled w8a8 forward (the busy share) and the peak memory
-    are recorded. The trees are freed at the end."""
+    seconds, the Wan VAE decode timed alone (``vae_decode_ms``), one
+    profiled w8a8 forward (the busy share) and the peak memory are
+    recorded. The trees are freed at the end."""
     import numpy as np
     import torch
 
@@ -5653,6 +5751,8 @@ def video_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
         f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e}"
         + (f", decoded video {res['video_rel_delta_w8a8_vs_bf16']:.3e}"
            if is_wan else ""))
+    if is_wan:
+        vae_decode_ms(pipe, res)
     before = dict(_build.LAUNCHES)
     res["profile_w8a8_forward"] = profile_forward(
         model, (x0, cond, t), res["w8a8"]["s_per_step"] / 2, f"{arch} w8a8")
@@ -5726,9 +5826,10 @@ def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
     within ``W8A8_BLOCK_DELTA_MAX`` of the bf16-fused block). Then the
     arch's engine serves two requests for ``engine_steps`` steps, each
     within 1e-2 of the direct sampler at batch 1. The final latents' and
-    videos' distances, s/step, the stage seconds, one profiled w8a8 forward
-    (the busy share) and the peak memory are recorded. The trees are freed
-    at the end."""
+    videos' distances, s/step, the stage seconds, the HunyuanVideo VAE
+    decode timed alone (``vae_decode_ms``), one profiled w8a8 forward (the
+    busy share) and the peak memory are recorded. The trees are freed at
+    the end."""
     import numpy as np
     import torch
 
@@ -5866,6 +5967,8 @@ def video2_full_phase(dev, arch, depth, steps, enc_layers, engine_steps):
         f"forward rel L2 {res['forward_rel_delta_w8a8_vs_bf16']:.3e}, final "
         f"latent {res['latent_rel_delta_w8a8_vs_bf16']:.3e}, decoded video "
         f"{res['video_rel_delta_w8a8_vs_bf16']:.3e}")
+    if is_hy:
+        vae_decode_ms(pipe, res)
     before = dict(_build.LAUNCHES)
     res["profile_w8a8_forward"] = profile_forward(
         model, inputs, res["w8a8"]["s_per_step"] / fwd_per_step,
@@ -7277,6 +7380,12 @@ def parallel_phase(dev, flux_dims, hd_dims, wan_dims, steps, h_lat=128,
     return dict(launches=launches, ranks=a, ep_sp=b, tiny=c, wall=wall)
 
 
+# phases that run alone under --only (phase 22, or phases 5, 17 and 19 on
+# a parent commit's port, this script copied into its checkout, beside
+# this one's)
+ALONE_PHASES = (5, 17, 19, 22)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depth-double", type=int, default=19)
@@ -7326,8 +7435,11 @@ def main() -> int:
     ap.add_argument("--parallel-depth-double", type=int, default=19)
     ap.add_argument("--parallel-depth-single", type=int, default=38)
     ap.add_argument("--parallel-steps", type=int, default=4)
-    ap.add_argument("--parallel-only", action="store_true",
-                    help="build, then phase 22 alone (no result lines)")
+    ap.add_argument("--only", type=int, nargs="+", choices=ALONE_PHASES,
+                    metavar="PHASE",
+                    help="build, then only these of phases "
+                         f"{', '.join(map(str, ALONE_PHASES))}, each with "
+                         "its own gates (no build gates, no result lines)")
     args = ap.parse_args()
 
     import torch
@@ -7356,6 +7468,33 @@ def main() -> int:
     log(f"[1 device] {name} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}; {n_sm} SMs, max SM "
         f"clock {sm_mhz:.0f} MHz -> {sfu_per_s / 1e12:.2f} T exp/s")
+
+    if args.only:
+        import comfyui_gguf_tpu_torch as pkg
+        log(f"[2 build] the port in "
+            f"{os.path.dirname(os.path.dirname(pkg.__file__))}")
+        _build.lib()
+        alone = {
+            5: lambda: main_path_phase(dev, args.depth_double,
+                                       args.depth_single, args.steps),
+            17: lambda: video_full_phase(dev, "wan", args.wan_depth,
+                                         args.wan_steps, args.umt5_layers,
+                                         min(args.wan_steps, 2)),
+            19: lambda: video2_full_phase(
+                dev, "hyvid",
+                (args.hyvid_depth_double, args.hyvid_depth_single),
+                args.hyvid_steps, args.hyvid_llama_layers,
+                min(args.hyvid_steps, 2)),
+            22: lambda: parallel_phase(dev, *_p22_dims(args),
+                                       args.parallel_steps),
+        }
+        for n in args.only:
+            log(f"[{n} alone]")
+            alone[n]()
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"wall {time.perf_counter() - t_start:.1f}s")
+        return 0
 
     log("[2 build]")
     _build.lib()
@@ -7387,7 +7526,7 @@ def main() -> int:
     # K1/K2 and K7: no wgmma serialization advisory (ptxas C751x) and no
     # spill in any instance (K7's D = 512 among them)
     qmm_flags = [f"{src}: {ln.strip()[:160]}"
-                 for src in QMM_SOURCES + FLASH_SOURCES[:2]
+                 for src in QMM_SOURCES + FLASH_SOURCES
                  for ln in rep.get("ptxas", {}).get(src, [])
                  if "C751" in ln or ("spill" in ln
                                      and " 0 bytes spill stores, 0 bytes "
@@ -7421,12 +7560,6 @@ def main() -> int:
           "qmm_int8_lora.cu as qmm.cu / qmm_int8.cu, qmm_smallm.cu's as "
           "its own): the rank chunks stream through the same ring")
 
-    if args.parallel_only:
-        log("[22 parallelism: two ranks sharing the card, gloo]")
-        parallel_phase(dev, *_p22_dims(args), args.parallel_steps)
-        log(f"wall {time.perf_counter() - t_start:.1f}s")
-        return 0
-
     log("[3 kernels vs plain at the main paths' shapes]")
     rows = kernel_phase(dev, sfu_per_s)
     for r in rows:
@@ -7442,6 +7575,8 @@ def main() -> int:
             extra = (f" | k codes one step off: share "
                      f"{r['k_codes_off_by_one']:.3e}, ks max rel "
                      f"{r['ks_max_rel']:.2e}")
+        if "sdpa_rel_l2" in r:
+            extra = f" | SDPA f32 vs plain (control) {r['sdpa_rel_l2']:.2e}"
         if "tile_ms" in r:
             extra = " | by tile width " + ", ".join(
                 f"bn={bn}: {ms:.4f} ms" for bn, ms in r["tile_ms"].items())
@@ -7608,7 +7743,8 @@ def main() -> int:
                    *(v["launches"] for v in dit_tiny.values()),
                    *(v["launches"] for v in qh_tiny.values()),
                    *(v["launches"] for v in dtype_attn.values()),
-                   menu["launches"], main_res["launches"], t2i["launches"],
+                   menu["launches"], main_res["launches"],
+                   main_res["f32_forward"]["launches"], t2i["launches"],
                    serve_res["launches"], lora_res["launches"], tool_counts,
                    sd3_res["launches"], sd3_t2i["launches"],
                    unet_res["launches"], aura_res["launches"],

@@ -6,7 +6,9 @@
 // mbarriers, wgmma.mma_async with operands read from swizzled shared tiles
 // or, for A, from registers) serves every other kernel: the wgmma body of
 // the fused dequant-matmul, the w8a8 matmul and the GEMM probes, flash
-// attention and int8 flash attention.
+// attention and int8 flash attention. f32 flash attention runs its
+// products as 3xTF32 on the same asynchronous path (the helpers at the
+// end).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -1194,6 +1196,65 @@ __device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float4 v) {
   asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
+}
+
+// ---- 3xTF32: f32 products on the TF32 tensor cores ------------------------
+//
+// A TF32 tensor-core input keeps the sign, the 8 exponent bits and the top
+// 10 mantissa bits of its 32-bit word; the hardware ignores the low 13. An
+// f32 value a is fed as two TF32 halves, big = cvt.rna.tf32(a) (rounded to
+// nearest, ties away, low bits zero, so the hardware reads it exactly) and
+// small = cvt.rna.tf32(a - big) (a - big is exact in f32 and at most half
+// an ulp of big), and a product as a_small·b_big + a_big·b_small +
+// a_big·b_big: the small·small term and small's own rounding leave an
+// error near 2^-21 of |a·b|, where one TF32 product is off by up to 2^-11.
+
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(a));
+  const float rest = a - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// d(64 x 64, f32) (+)= a(64 x 8 tf32, registers) * b(8 x 64 tf32, shared,
+// K-major: TF32 operands in shared memory are K-major only, no transpose
+// bit); scale_d = 0 overwrites d. Warp w holds rows 16w..16w+15 of a and d:
+// a[0] = (row g, k t), a[1] = (row g+8, k t), a[2] = (row g, k t+4), a[3] =
+// (row g+8, k t+4); d in the layout of wgmma_m64n128k16_rs (d[4i + 2r + c]
+// = row g + 8r, column 8i + 2t + c), g = lane / 4, t = lane % 4. A 128-byte
+// swizzled K-major tile holds 32 TF32 values of k a row, so the next k8
+// step is the descriptor plus 2, as for a bf16 k16 step.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// The three TF32 products of one 3xTF32 step, d (+)= a·b with a split in
+// registers (a_big, a_small) and b as two K-major shared tiles (desc_big,
+// desc_small): the two small terms first, then big·big.
+__device__ __forceinline__ void wgmma_m64n64k8_3xtf32(
+    float (&d)[32], const uint32_t (&a_big)[4], const uint32_t (&a_small)[4],
+    uint64_t desc_big, uint64_t desc_small, int scale_d) {
+  wgmma_m64n64k8_tf32_rs(d, a_small, desc_big, scale_d);
+  wgmma_m64n64k8_tf32_rs(d, a_big, desc_small, 1);
+  wgmma_m64n64k8_tf32_rs(d, a_big, desc_big, 1);
 }
 
 }  // namespace gguf_cuda

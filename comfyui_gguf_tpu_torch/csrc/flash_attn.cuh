@@ -1,6 +1,8 @@
 // K7: flash attention forward, non-causal, bf16 or f16 in and out: the
 // body of flash_attn.cu's bf16 instances and flash_attn_f16.cu's f16 ones
-// (the f32 instances are flash_attn_f32.cu's SIMT body).
+// (the f32 instances are flash_attn_f32.cu's own 3xTF32 body, which
+// computes the scores once at D = 384 and 512 where this one splits the
+// output columns over blocks that each recompute them).
 //
 // The f16 instances are this body with wgmma's f32.f16.f16 forms, FLOAT16
 // tensor maps under the same 128-byte swizzle, and P's A fragments and the

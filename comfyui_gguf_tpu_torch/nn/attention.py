@@ -6,7 +6,7 @@ cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
   (K7): bf16 and f16 CUDA tensors on ``csrc/flash_attn.cu`` /
-  ``flash_attn_f16.cu`` (one body, ``flash_attn.cuh``), f32 on the SIMT
+  ``flash_attn_f16.cu`` (one body, ``flash_attn.cuh``), f32 on the 3xTF32
   body ``csrc/flash_attn_f32.cu``; head dims ``FLASH_HEAD_DIMS`` in each
   dtype (on the tensor-core body 40, 80, 96 and 160 run the 64-, 128-,
   128- and 192-wide instances on zero-filled pad columns; 256 has a
@@ -163,8 +163,8 @@ def flash_attn_cuda(q, k, v, scale: float) -> torch.Tensor:
         if not _build.is_row_aligned(t):
             raise ValueError(
                 f"{name} (shape {tuple(t.shape)}, strides {t.stride()}) is "
-                f"a view the kernel cannot read (TMA, or the f32 body's "
-                f"16-byte loads): it needs unit stride along D and a base "
+                f"a view the kernel cannot read (TMA): it needs unit "
+                f"stride along D and a base "
                 f"and strides that are multiples of 16 bytes")
     out = torch.empty((B, Lq, H, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)

@@ -13,9 +13,10 @@ Two implementations of one function, ``epi(x @ W^T)`` with W kept packed:
   rows of x (bound by the bytes of the packed weight), a TMA + ``wgmma``
   body for every larger M in bf16 or f16 (bound by tensor-core operations),
   whose K may be split over a cluster of blocks where its output tiles are
-  too few for the card (``wgmma_split_plan``), and an f32 SIMT body for f32
-  at M > 8 (bound by the card's f32 FMA rate: the reference's f32 product
-  has no tensor-core type). Each computes in the reference's
+  too few for the card (``wgmma_split_plan``), and an f32 body for f32 at
+  M > 8, a pipelined FMA GEMM (bound by the card's f32 FMA rate: the
+  reference's f32 product has no exact tensor-core type; it picks its
+  own token tile on the card). Each computes in the reference's
   ``dequant_dtype`` (bfloat16, float16 or float32: the weight and x rounded
   to it, as ``pallas_qmm`` casts them); all read float32 or bfloat16 scale
   planes.

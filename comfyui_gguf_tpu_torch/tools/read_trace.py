@@ -33,6 +33,7 @@ _KERNEL_FAMILIES = (
     ("qmm_simt_kernel", "K1/K2 qmm (f32 SIMT)"),
     ("gemm_wgmma_kernel", "K4 i8mm"),
     ("flash_fwd_kernel", "K7 flash_attn"),
+    ("flash_tf32_kernel", "K7 flash_attn"),  # the f32 (3xTF32) instances
     ("i8attn_kernel", "K6 i8attn"),
     ("prep_reduce_kernel", "K6 prep"),
     ("prep_quant_kernel", "K6 prep"),

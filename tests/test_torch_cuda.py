@@ -19,9 +19,12 @@ strength 0 (equal to the unpatched launch) and on stacked views. The
 wgmma body also runs with its K split over a cluster (1, 2 and 8 blocks) at
 both token-tile widths, and both bodies with bfloat16 scale planes, each
 launched twice for equal bits. The f16 and f32 instances of K1/K2 (the
-wgmma body at f16, the f32 SIMT body, the split-K body at both, and their
+wgmma body at f16, the f32 FMA body, the split-K body at both, and their
 LoRA instances) run against the plain version in the same dtype (f16
-2e-3, f32 1e-5), every format, one-hot rows bit for bit; K7's D = 384
+2e-3, f32 1e-5), every format, one-hot rows bit for bit, the f32 FMA body
+also at M and R off its tiles and at flux's deepest K; K7's f32 (3xTF32)
+instances at D = 384 and 512 with ragged query and key tiles, their shared
+memory against its Python mirror; K7's D = 384
 instance (the Wan VAE's mid-block) on contiguous tensors and on column
 slices of one projection, and its D = 512 instance (the HunyuanVideo VAE's)
 at an odd length, Lq != Lk, B > 1 and on single-head views. Tiny
@@ -1436,6 +1439,38 @@ def test_qmm_f16_f32_smallm_is_deterministic(cuda, dt):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("lora", [False, True], ids=["plain", "lora"])
+@pytest.mark.parametrize("qtype,M,R,K", [
+    # M and R off the 128 x 128 tile, both token tiles (M = 130 and 200
+    # take 64, 4097 takes 128); flux's linear2 depth (K = 15360)
+    (Q.Q4_K, 130, 328, 1792), (Q.Q8_0, 4097, 328, 512),
+    (Q.Q5_1, 200, 3072, 15360), (Q.Q4_0, 4097, 3072, 15360)], ids=str)
+def test_qmm_f32_tiles_and_deep_k(cuda, qtype, M, R, K, lora):
+    """K1/K2's f32 body at token counts and out-features that are not
+    multiples of its tiles and at the deepest K of flux (linear2), with and
+    without a rank-48 LoRA: within 1e-5 of the plain version in f32 (so
+    every output of the ragged last tiles written), and two launches
+    equal."""
+    pq = _planar(qtype, R, K, seed=M + K, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(R)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    kw = dict(bias=torch.randn((R,), generator=g, device=cuda),
+              act_from_col=R // 2, out_dtype=torch.float32,
+              dequant_dtype=torch.float32)
+    if lora:
+        kw.update(lora_h=torch.randn((M, 48), generator=g, device=cuda),
+                  lora_up=torch.randn((48, R), generator=g, device=cuda))
+    key = ("qmm_nib4" if pq.layout == "nib4" else "qmm_int8") + "_simt" + (
+        "_lora" if lora else "") + "_f32"
+    before = _build.LAUNCHES[key]
+    got = qmm_cuda(x, pq, **kw)
+    again = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    assert _rel_l2(got, plain_quantized_matmul(x, pq, **kw)) < 1e-5
+    assert torch.equal(got, again)
+
+
 def test_qmm_refuses_a_dtype_without_instances(cuda):
     pq = _planar(Q.Q4_K, 128, 512, seed=1, device=cuda)
     x = torch.randn((2, 512), device=cuda)
@@ -1748,7 +1783,8 @@ FLOAT_ATTN_CASES = [
 def test_flash_kernel_f16_f32_match_plain(cuda, dt, D, B, H, Lq, Lk):
     """K7's f16 and f32 instances at every head dim against
     plain_attention in the same dtype, counted under their dtype's counter
-    only; the output keeps the dtype and the (B, Lq, H, D) storage."""
+    only; the output keeps the dtype and the (B, Lq, H, D) storage, and two
+    launches give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(D * 13 + Lk)
     q, k, v = (torch.randn((B, H, L, D), generator=g, device=cuda).to(dt)
                for L in (Lq, Lk, Lk))
@@ -1762,9 +1798,11 @@ def test_flash_kernel_f16_f32_match_plain(cuda, dt, D, B, H, Lq, Lk):
     assert got.permute(0, 2, 1, 3).is_contiguous()
     assert bool(torch.isfinite(got).all())
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < FLOAT_TOL[dt]
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(got, flash_attn_cuda(q, k, v, D ** -0.5))
 
 
-@pytest.mark.parametrize("D", [64, 128, 384])
+@pytest.mark.parametrize("D", [64, 128, 384, 512])
 @pytest.mark.parametrize("dt", FLOAT_DTYPES, ids=["f16", "f32"])
 def test_flash_kernel_f16_f32_on_qkv_views(cuda, dt, D):
     """q/k/v as strided views of one fused (B, L, 3, H, D) projection, read
@@ -1774,6 +1812,39 @@ def test_flash_kernel_f16_f32_on_qkv_views(cuda, dt, D):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     got = flash_attn_cuda(q, k, v, D ** -0.5)
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < FLOAT_TOL[dt]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk", [
+    # Lq ragged at the 64-row query tile (two tiles and 63 rows, one and
+    # one row), Lk over several 128-key tiles with a ragged last one, and
+    # one key past a tile
+    (1, 1, 191, 1000), (2, 2, 65, 129)], ids=str)
+@pytest.mark.parametrize("D", [384, 512])
+def test_flash_f32_tiles_at_vae_head_dims(cuda, D, B, H, Lq, Lk):
+    """K7's f32 (3xTF32) instances at the VAEs' head dims, where the
+    scores are computed once for all of D and the output columns split
+    over the two consumer warpgroups: within 1e-5 of plain_attention in
+    f32, two launches equal."""
+    g = torch.Generator(device=cuda).manual_seed(D + Lq + Lk)
+    q, k, v = (torch.randn((B, H, L, D), generator=g, device=cuda)
+               for L in (Lq, Lk, Lk))
+    before = _build.LAUNCHES["flash_attn_f32"]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    again = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attn_f32"] == before + 2
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-5
+    assert torch.equal(got, again)
+
+
+def test_flash_f32_shared_memory_fits_a_block(cuda):
+    """The dynamic shared memory of each f32 instance, as its C entry
+    states it, fits the 232,448 bytes a block may have."""
+    from comfyui_gguf_tpu_torch.nn.attention import FLASH_HEAD_DIMS
+
+    lib = _build.lib()
+    for D in FLASH_HEAD_DIMS:
+        assert 0 < lib.flash_attn_f32_smem_bytes(D) <= 232448
 
 
 def _check_i8attn_dtype(q, k, v, pv_int8):

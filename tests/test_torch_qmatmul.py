@@ -31,7 +31,8 @@ from comfyui_gguf_tpu_torch.ops.qmatmul import (_RESIDENT, I8MM_WIDTHS,
                                                 WGMMA_SPLITS, i8mm_plan,
                                                 plain_quantized_matmul,
                                                 qmm_route, quantized_matmul,
-                                                smallm_plan, wgmma_cost,
+                                                smallm_plan,
+                                                wgmma_cost,
                                                 wgmma_plan, wgmma_split_ok,
                                                 wgmma_split_plan)
 from comfyui_gguf_tpu_torch.quant import codecs

@@ -37,6 +37,14 @@ NAMES = [
      "K4 i8mm", "K4 i8mm"),
     ("void flash_fwd_kernel<128, 64>(CUtensorMap, CUtensorMap, float)",
      "K7 flash_attn", "K7 flash_attn"),
+    ("void (anonymous namespace)::flash_tf32_kernel<512>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, float*, int, int, long long, long long, "
+     "long long, float)", "K7 flash_attn", "K7 flash_attn"),
+    ("_ZN50_GLOBAL__N__db2a002e_17_flash_attn_f32_cu_740d5f6717flash_tf32_"
+     "kernelILi128EEEv14CUtensorMap_stS1_S1_Pfiixxxf", "K7 flash_attn",
+     "K7 flash_attn"),
+    ("void (anonymous namespace)::qmm_simt_kernel<false, true, true, false, "
+     "128>(float const*, ...)", "K1/K2 qmm (f32 SIMT)", "K2 qmm (f32 SIMT)"),
     ("void i8attn_kernel<128, true>(CUtensorMap, CUtensorMap)",
      "K6 i8attn", "K6 i8attn"),
     ("prep_reduce_kernel(PrepArgs)", "K6 prep", "K6 prep"),
