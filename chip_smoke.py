@@ -72,14 +72,16 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    FMA body) and the T5-xxl q projection (K2), with and without a rank-16
    LoRA in the dequant dtype, against the plain version in the same dtype
    (f16 ≤ 2e-3, f32 ≤ 1e-5), their library call one ``torch.matmul`` in
-   that dtype; K7 at D = 128 at Wan 2.1's self- and cross-attention and
-   Cosmos's, and at D = 384 at the Wan VAE's mid-block (3 frames of 60 x
-   104). K7's f16 and f32 instances run at flux's joint attention (f16
-   within bf16's 1e-2, f32 within 1e-5 of the plain version in the same
-   dtype, their library call SDPA in that dtype), and the f32 one at the
-   Wan and HunyuanVideo VAEs' mid-blocks (D = 384 and 512, 3 frames of 60
-   x 104); the f32 rows run with TF32 matmuls off (the plain version and
-   the K1/K2 library call in full f32, both settings printed) and print
+   that dtype, and the f32 split-K body also at M = 2 (a CFG batch); K7
+   at D = 128 at Wan 2.1's self- and cross-attention and Cosmos's, and at
+   D = 384 and 512 (the wide-head body: the scores once) at the Wan and
+   HunyuanVideo VAEs' mid-blocks (3 frames of 60 x 104), every K7 row
+   launched twice for the same bits. K7's f16 and f32 instances run at
+   flux's joint attention (f16 within bf16's 1e-2, f32 within 1e-5 of the
+   plain version in the same dtype, their library call SDPA in that
+   dtype), and at the two VAEs' mid-blocks; the f32 rows run with TF32
+   matmuls off (the plain version and the K1/K2 library call in full f32,
+   both settings printed) and print
    SDPA f32's own distance to the plain version beside the kernel's; K6
    "pv" and "qk" and its prep on f16 and f32 q/k/v at flux's shape, the
    output in q's dtype;
@@ -513,7 +515,11 @@ SOURCES = {
                   "comfyui_gguf_tpu/ops/i8mm.py:81"),
     **{f"flash_attn_d{d}": ("comfyui_gguf_tpu_torch/csrc/flash_attn.cu",
                             "comfyui_gguf_tpu/nn/attention.py:168")
-       for d in (40, 64, 80, 96, 128, 160, 256, 384, 512)},
+       for d in (40, 64, 80, 96, 128, 160, 256)},
+    # the wide-head body (scores once), instantiated from flash_attn.cu
+    **{f"flash_attn_d{d}": (
+        "comfyui_gguf_tpu_torch/csrc/flash_attn_wide.cuh",
+        "comfyui_gguf_tpu/nn/attention.py:168") for d in (384, 512)},
     # the f16 and f32 instances (dequant_dtype float16 / float32): the
     # Pallas bodies run with compute_dtype = dequant_dtype
     **{f"qmm_{lay}{body}{lora}{dt}": (
@@ -966,11 +972,12 @@ def kernel_phase(dev, sfu_per_s):
         scale = D ** -0.5
         kernel, tol, peak = attn_dtypes[dtype]
         got = flash_attn_cuda(q, k, v, scale)
+        again = flash_attn_cuda(q, k, v, scale)
         want = plain_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err = rel_l2(got, want)
         ok = (bool(torch.isfinite(got).all()) and got.dtype == dtype
-              and err <= tol)
+              and err <= tol and torch.equal(got, again))
         ms = graph_ms([lambda: flash_attn_cuda(q, k, v, scale)])
         plain = event_ms(lambda: plain_attention(q, k, v, scale), reps=2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -985,7 +992,8 @@ def kernel_phase(dev, sfu_per_s):
                                f"{str(dtype).replace('torch.', '')}",
                          max_abs_err=float((got.float() - want.float())
                                            .abs().max()),
-                         rel_l2=err, tol=f"rel L2 <= {tol:g}", ok=ok, ms=ms,
+                         rel_l2=err, tol=f"rel L2 <= {tol:g}, two launches "
+                                         f"equal", ok=ok, ms=ms,
                          plain_ms=plain, library_ms=lib,
                          library="scaled_dot_product_attention in the same "
                                  "dtype",
@@ -1423,6 +1431,18 @@ def kernel_phase(dev, sfu_per_s):
             qmm_dt_case(f"qmm_int8 {sfx[1:]} flux img_mod M=1 3072->18432 "
                         f"Q8_0", f"qmm_int8_smallm{lt}{sfx}", Q.Q8_0, 1,
                         3072, 18432, None, 2, dt, tol, lora)
+            if dt == torch.float32:
+                # the f32 split-K body's M = 2 instance: a CFG batch
+                qmm_dt_case("qmm_nib4 f32 flux mod M=2 3072->18432 Q4_K",
+                            f"qmm_nib4_smallm{lt}{sfx}", Q.Q4_K, 2, 3072,
+                            18432, None, 4, dt, tol, lora)
+                qmm_dt_case("qmm_int8 f32 flux img_mod M=2 3072->18432 "
+                            "Q8_0", f"qmm_int8_smallm{lt}{sfx}", Q.Q8_0, 2,
+                            3072, 18432, None, 2, dt, tol, lora)
+                # the single blocks' modulation (72 strips)
+                qmm_dt_case("qmm_nib4 f32 flux single mod M=1 3072->9216 "
+                            "Q4_K", f"qmm_nib4_smallm{lt}{sfx}", Q.Q4_K, 1,
+                            3072, 9216, None, 6, dt, tol, lora)
             qmm_dt_case(f"qmm_nib4 {sfx[1:]} flux qkv M=4096 3072->9216 "
                         f"Q4_K", f"qmm_nib4{body}{lt}{sfx}", Q.Q4_K, 4096,
                         3072, 9216, None, 1, dt, tol, lora)
@@ -1461,6 +1481,11 @@ def kernel_phase(dev, sfu_per_s):
               6240, 384, torch.float32)
     attn_case("flash_attn_f32 hyvid vae mid B=3 L=6240 D=512", 3, 1, 6240,
               6240, 512, torch.float32)
+    # the wide-head body's f16 instances at the same two mid-blocks
+    attn_case("flash_attn_f16 wan vae mid B=3 L=6240 D=384", 3, 1, 6240,
+              6240, 384, torch.float16)
+    attn_case("flash_attn_f16 hyvid vae mid B=3 L=6240 D=512", 3, 1, 6240,
+              6240, 512, torch.float16)
     for dt, tag in ((torch.float16, "f16"), (torch.float32, "f32")):
         for mode in ("pv", "qk"):
             i8attn_case(f"i8attn_{mode}_{tag} flux L=4608 D=128", mode, 1,

@@ -38,7 +38,8 @@ SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
            "flash_attn.cu", "flash_attn_f16.cu", "flash_attn_f32.cu",
            "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
 HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "qmm_smallm.cuh",
-           "gemm_wgmma.cuh", "flash_attn.cuh", "tma.cuh")
+           "gemm_wgmma.cuh", "flash_attn.cuh", "flash_attn_wide.cuh",
+           "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -81,8 +82,10 @@ _SIGNATURES = {
     # arguments as qmm_smallm_ex_launch / qmm_smallm_lora_launch
     "qmm_smallm_f16_launch": [_VP] * 6 + [_I] * 11 + [_VP],
     "qmm_smallm_f16_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
-    "qmm_smallm_f32_launch": [_VP] * 6 + [_I] * 11 + [_VP],
-    "qmm_smallm_f32_lora_launch": [_VP] * 8 + [_I] * 12 + [_VP],
+    # ... and the plan's token count before the split and its shared
+    # memory after it (ops/qmatmul.py smallm_f32_plan)
+    "qmm_smallm_f32_launch": [_VP] * 6 + [_I] * 13 + [_VP],
+    "qmm_smallm_f32_lora_launch": [_VP] * 8 + [_I] * 14 + [_VP],
     # xq, xs, wq, ws, bias, out, M, K, Kp, R, Rp, out row stride,
     # act_from, tile width, stream
     "i8mm_launch": [_VP] * 6 + [_I] * 8 + [_VP],

@@ -1,7 +1,8 @@
 // K7's bf16 instances: the body of flash_attn.cuh (its header says what it
-// replaces, what bounds it and how it is laid out) at every head dim of
-// ops' FLASH_HEAD_DIMS.
-#include "flash_attn.cuh"
+// replaces, what bounds it and how it is laid out) at head dims up to 256
+// and the wide-head body of flash_attn_wide.cuh at 384 and 512: every head
+// dim of nn/attention.py's FLASH_HEAD_DIMS.
+#include "flash_attn_wide.cuh"
 
 using namespace gguf_flash;
 
@@ -16,8 +17,8 @@ extern "C" int flash_attn_smem_bytes(int D) {
     case 128: return FShape<128>::SMEM;
     case 160: return FShape<160>::SMEM;
     case 256: return FShape<256>::SMEM;
-    case 384: return FShape<384>::SMEM;
-    case 512: return FShape<512>::SMEM;
+    case 384: return WShape<384>::SMEM;
+    case 512: return WShape<512>::SMEM;
     default: return 0;
   }
 }

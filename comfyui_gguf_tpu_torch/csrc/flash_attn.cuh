@@ -1,8 +1,8 @@
 // K7: flash attention forward, non-causal, bf16 or f16 in and out: the
 // body of flash_attn.cu's bf16 instances and flash_attn_f16.cu's f16 ones
-// (the f32 instances are flash_attn_f32.cu's own 3xTF32 body, which
-// computes the scores once at D = 384 and 512 where this one splits the
-// output columns over blocks that each recompute them).
+// at head dims up to 256 (D = 384 and 512 take the wide-head body of
+// flash_attn_wide.cuh, which also holds the dispatch over D; the f32
+// instances are flash_attn_f32.cu's own 3xTF32 body).
 //
 // The f16 instances are this body with wgmma's f32.f16.f16 forms, FLOAT16
 // tensor maps under the same 128-byte swizzle, and P's A fragments and the
@@ -63,31 +63,7 @@
 // two n128 halves: one instruction reads each P fragment once and issues
 // half the wgmmas. The O rescale by the softmax correction is an in-place
 // multiply of the accumulator registers and needs no temporary.
-//
-// D = 384 (the Wan 2.1 VAE's single-head mid-block attention, one head of
-// the block's 384 channels over a frame's positions) does not fit one
-// block: Q, two K tiles and two V tiles of 64 keys would need 1 + 96 + 4 x
-// 48 = 289 KB. Its blocks split the output columns instead: grid z holds
-// B x 3 blocks for each query tile, and block s owns output columns 128s ..
-// 128s + 127. Each computes the scores over all of D (Q and the K tiles
-// whole, 6 chunks of 64) and streams only its 128 columns of V, so a block
-// needs 1 + 96 (Q) + 2 x 48 (K) + 2 x 16 (V) = 225 KB and keeps the
-// 2-stage ring. The price is the score work done three times: 3 x 2·L²·D
-// for Q·Kᵀ beside 2·L²·D for P·V, twice the operations of one pass, which
-// a first instance that is right accepts (PERF.md has its time).
-//
-// D = 512 (the HunyuanVideo VAE's single-head mid-block attention: one head
-// of the block's 512 channels over a frame's positions) splits the output
-// columns as D = 384 does, 4 blocks of 128 per query tile. With 64-key
-// tiles it would need 1 + 128 (Q) + 2 x 64 (K) + 2 x 16 (V) = 289 KB; of
-// the layouts that fit, this instance takes 32-key tiles: 1 + 128 + 2 x 32
-// + 2 x 8 = 209 KB, the 2-stage ring and the two consumer warpgroups kept,
-// so nothing else of the body changes (S is one m64n32k16 wgmma a 16-wide
-// d step, P two 16-key fragments). A 64-row, one-warpgroup block would fit
-// at 225 KB with little room left, and K streamed in d chunks through a
-// ring would need a second pipeline in the consumers. The price is again
-// the scores: 4 x 2·L²·D for Q·Kᵀ beside 2·L²·D for P·V, 2.5 times the
-// operations of one pass, and twice the tile steps of 64-key tiles.
+
 #pragma once
 
 #include "common.cuh"
@@ -129,21 +105,15 @@ template <int D>
 struct FShape {
   static constexpr int NC = (D + CHUNK - 1) / CHUNK;  // d chunks a row
   static constexpr int DP = NC * CHUNK;      // D padded to whole chunks
-  // keys a tile: 128, 64 past D = 128, 32 past D = 384
-  static constexpr int BKV = DP > 384 ? 32 : DP > 128 ? 64 : 128;
-  // output columns a block owns: all of them up to 256, else 128 (grid z
-  // holds NSLICE blocks per (b, query tile), each a slice of V and out)
-  static constexpr int DV = DP > 256 ? 128 : DP;
-  static constexpr int NSLICE = DP / DV;
+  static_assert(DP <= 256, "D past 256 takes flash_attn_wide.cuh");
+  // keys a tile: 128, 64 past D = 128
+  static constexpr int BKV = DP > 128 ? 64 : 128;
   static constexpr int CHUNK_Q = BQ * 128;   // bytes of one d chunk of Q
   static constexpr int CHUNK_KV = BKV * 128; // ... of K or V
   static constexpr int Q_BYTES = NC * CHUNK_Q;
-  static constexpr int KV_BYTES = NC * CHUNK_KV;  // one K tile
-  static constexpr int V_BYTES = DV / CHUNK * CHUNK_KV;  // one V tile
-  static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * KV_BYTES + 2 * V_BYTES + 128;
+  static constexpr int KV_BYTES = NC * CHUNK_KV;  // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 128;
   static_assert(SMEM <= 232448, "past the shared memory of a block");
-  static_assert(NSLICE * DV == DP, "output slices cover D");
 };
 
 // S (+)= Q·Kᵀ over one 16-wide d step: 64 rows x BKV keys
@@ -153,10 +123,8 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[BKV / 2],
                                          int scale_d) {
   if constexpr (BKV == 128) {
     wgmma_m64n128k16_ss<F16>(s, desc_q, desc_k, scale_d);
-  } else if constexpr (BKV == 64) {
-    wgmma_m64n64k16_ss<F16>(s, desc_q, desc_k, scale_d);
   } else {
-    wgmma_m64n32k16_ss<F16>(s, desc_q, desc_k, scale_d);
+    wgmma_m64n64k16_ss<F16>(s, desc_q, desc_k, scale_d);
   }
 }
 
@@ -189,17 +157,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
   using T = typename Elem<F16>::T;
   constexpr int BKV = S::BKV;
   constexpr int DP = S::DP;
-  constexpr int DV = S::DV;
-  // the output columns this block stores: D's (the pad columns past D are
-  // not stored), or its whole slice
-  constexpr int DOUT = S::NSLICE > 1 ? DV : D;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   uint8_t* q_s = smem;                        // NC x (BQ, 128 B)
   uint8_t* k_s = q_s + S::Q_BYTES;            // 2 stages x NC x (BKV, 128 B)
-  uint8_t* v_s = k_s + 2 * S::KV_BYTES;       // 2 stages x DV/64 x (BKV, 128 B)
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + 2 * S::V_BYTES);
+  uint8_t* v_s = k_s + 2 * S::KV_BYTES;       // the same for V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + 2 * S::KV_BYTES);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + 2;
   uint64_t* empty = v_full + 2;
@@ -207,8 +171,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int b = blockIdx.z / S::NSLICE;
-  const int col0 = (blockIdx.z % S::NSLICE) * DV;  // first output column
+  const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int n_kv = (Lk + BKV - 1) / BKV;
@@ -237,15 +200,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
         const int st = j & 1;
         mbar_wait(&empty[st], ((j >> 1) & 1) ^ 1);
         uint8_t* kd = k_s + st * S::KV_BYTES;
-        uint8_t* vd = v_s + st * S::V_BYTES;
+        uint8_t* vd = v_s + st * S::KV_BYTES;
         mbar_arrive_expect_tx(&k_full[st], S::KV_BYTES);
         for (int c = 0; c < S::NC; ++c)
           tma_load_4d(kd + c * S::CHUNK_KV, &tm_k, &k_full[st], c * CHUNK,
                       j * BKV, h, b);
-        mbar_arrive_expect_tx(&v_full[st], S::V_BYTES);
-        for (int c = 0; c < DV / CHUNK; ++c)
-          tma_load_4d(vd + c * S::CHUNK_KV, &tm_v, &v_full[st],
-                      col0 + c * CHUNK, j * BKV, h, b);
+        mbar_arrive_expect_tx(&v_full[st], S::KV_BYTES);
+        for (int c = 0; c < S::NC; ++c)
+          tma_load_4d(vd + c * S::CHUNK_KV, &tm_v, &v_full[st], c * CHUNK,
+                      j * BKV, h, b);
       }
     }
   } else {
@@ -260,11 +223,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
     const uint32_t vb = smem_u32(v_s);
     const float neg_inf = -__int_as_float(0x7f800000);
 
-    // o[4i + 2r + c] = row g + 8r, column col0 + 8i + 2t + c of this
-    // warp's rows
-    float o[DV / 2];
+    // o[4i + 2r + c] = row g + 8r, column 8i + 2t + c of this warp's rows
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
     float m_run[2] = {neg_inf, neg_inf};
     float l_run[2] = {0.0f, 0.0f};
 
@@ -273,7 +235,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
       const int st = j & 1;
       const uint32_t ph = (j >> 1) & 1;
       const uint32_t kt = kb + st * S::KV_BYTES;
-      const uint32_t vt = vb + st * S::V_BYTES;
+      const uint32_t vt = vb + st * S::KV_BYTES;
 
       // S = Q Kᵀ: 64 rows x BKV keys, k over DP in steps of 16
       float s[BKV / 2];
@@ -329,19 +291,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
         pf[kk][3] = Elem<F16>::pack(p[6], p[7]);
       }
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // O += P V: 16 keys a step; V's d chunks lie CHUNK_KV apart
       mbar_wait(&v_full[st], ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_pv<F16, DV>(o, pf[kk],
+        wgmma_pv<F16, DP>(o, pf[kk],
                      wgmma_desc_mn128(vt + kk * 16 * 128, S::CHUNK_KV));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) reg_fence(o[i]);
+      for (int i = 0; i < DP / 2; ++i) reg_fence(o[i]);
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
@@ -359,8 +321,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // (D, Lq, H, B)
     const int row0 = q0 + wg * 64 + w * 16 + g;
     T* op = out + b * ob + h * oh;
 #pragma unroll
-    for (int i = 0; i < DOUT / 8; ++i) {
-      const int c = col0 + i * 8 + 2 * t;
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = i * 8 + 2 * t;
       if (row0 < Lq) {
         *reinterpret_cast<uint32_t*>(op + row0 * ol + c) =
             Elem<F16>::pack(o[4 * i] * inv0, o[4 * i + 1] * inv0);
@@ -410,41 +372,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   ok = ok && make_bhld_map<D, F16>(&tm_k, k, B, H, Lk, st + 3, S::BKV);
   ok = ok && make_bhld_map<D, F16>(&tm_v, v, B, H, Lk, st + 6, S::BKV);
   if (!ok) return cudaErrorInvalidValue;
-  dim3 grid((Lq + BQ - 1) / BQ, H, B * S::NSLICE);
+  dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D, F16><<<grid, THREADS, S::SMEM, stream>>>(
       tm_q, tm_k, tm_v, static_cast<typename Elem<F16>::T*>(out), Lq, Lk,
       st[9], st[10], st[11], scale * 1.4426950408889634f);
   return cudaGetLastError();
-}
-
-// One launch at head dim D (the wrapper checks D, Lk >= 1 and TMA's rule
-// for the base and the strides); cudaErrorInvalidValue for another D.
-template <bool F16>
-int flash_dispatch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int Lq, int Lk, int D,
-                   const long long* st, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 40:
-      return launch<40, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 64:
-      return launch<64, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 80:
-      return launch<80, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 96:
-      return launch<96, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 128:
-      return launch<128, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 160:
-      return launch<160, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 256:
-      return launch<256, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 384:
-      return launch<384, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case 512:
-      return launch<512, F16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace gguf_flash

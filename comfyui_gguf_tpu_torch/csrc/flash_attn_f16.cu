@@ -1,6 +1,7 @@
-// K7's f16 instances: the body of flash_attn.cuh with f16 operands, P and
-// output, at every head dim of the bf16 instances (flash_attn.cu).
-#include "flash_attn.cuh"
+// K7's f16 instances: the bodies of flash_attn.cuh and flash_attn_wide.cuh
+// with f16 operands, P and output, at every head dim of the bf16 instances
+// (flash_attn.cu).
+#include "flash_attn_wide.cuh"
 
 using namespace gguf_flash;
 

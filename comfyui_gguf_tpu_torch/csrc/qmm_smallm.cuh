@@ -2,20 +2,16 @@
 // dequant-matmul, both layouts (design note: qmm.cu). Replaces
 // _make_nib4_kernel and _make_int8_kernel of
 // comfyui_gguf_tpu/ops/qmatmul.py at the modulation projections' M = batch.
-// A header: the bf16 instances are in qmm_smallm.cu, the f16 ones in
-// qmm_smallm_f16.cu and the f32 ones in qmm_smallm_f32.cu, so that the
-// three compile side by side.
+// A header: the bf16 instances are in qmm_smallm.cu and the f16 ones in
+// qmm_smallm_f16.cu, so that the two compile side by side. The f32
+// instances (dequant_dtype float32) are a body of their own,
+// qmm_smallm_f32.cu, on f32 FMAs at the real token count.
 //
 // The operand type DT follows the reference's dequant_dtype: bf16 (DT_BF16)
 // and f16 (DT_F16) round the dequantized weight and x to that type and
-// multiply on mma.sync m16n8k16; f32 (DT_F32) keeps the f32 weight and x
-// and multiplies on f32 FMAs (the reference computes a true f32 product
-// there, which no tensor-core type holds). In the f32 instances each thread
-// multiplies its four k rows of a unit into 8 columns x 8 tokens of f32
-// partial sums, and the four threads of a quad, which hold the unit's other
-// k rows, add theirs with two shuffles before the block reduction. The f16
-// and f32 instances store an f32 output; the wrapper rounds it once to the
-// caller's dtype.
+// multiply on mma.sync m16n8k16, whose N of 8 holds the 8 token rows
+// whatever M is (rows past M are zeros). The f16 instances store an f32
+// output; the wrapper rounds it once to the caller's dtype.
 //
 // Its LORA instances add the reference epilogue's rank term (the has_lora
 // operands, qmatmul.py:117 and :181) once, in cluster rank 0 after the
@@ -41,13 +37,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-enum : int { DT_BF16 = 0, DT_F16 = 1, DT_F32 = 2 };
+enum : int { DT_BF16 = 0, DT_F16 = 1 };
 
 // x's (and the LoRA operands') element type and the output type per DT
 template <int DT>
-using SmX = std::conditional_t<
-    DT == DT_BF16, __nv_bfloat16,
-    std::conditional_t<DT == DT_F16, __half, float>>;
+using SmX = std::conditional_t<DT == DT_BF16, __nv_bfloat16, __half>;
 template <int DT>
 using SmOut = std::conditional_t<DT == DT_BF16, __nv_bfloat16, float>;
 
@@ -56,10 +50,8 @@ template <int DT>
 __device__ __forceinline__ float2 ld_pair(const SmX<DT>* p, int j) {
   if constexpr (DT == DT_BF16) {
     return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[j]);
-  } else if constexpr (DT == DT_F16) {
-    return __half22float2(reinterpret_cast<const __half2*>(p)[j]);
   } else {
-    return reinterpret_cast<const float2*>(p)[j];
+    return __half22float2(reinterpret_cast<const __half2*>(p)[j]);
   }
 }
 
@@ -117,7 +109,6 @@ qmm_smallm_kernel(const SmX<DT>* __restrict__ x,        // (M, K)
   using X = SmX<DT>;
   constexpr bool FOLD = NIB4 && HAS_OFF;
   constexpr int PLANES = NIB4 ? 2 : 1;
-  constexpr bool F32 = DT == DT_F32;
   constexpr int EPV = 16 / sizeof(X);  // elements of x a 16-byte piece
   extern __shared__ __align__(16) uint8_t smem_b[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -149,14 +140,12 @@ qmm_smallm_kernel(const SmX<DT>* __restrict__ x,        // (M, K)
   const int rw = warp >> 1;
   const int col = blockIdx.x * SM_BN + cw * 64 + g * 8;
   const float neg_base = NIB4 ? -(MAGIC + zp) : -(MAGIC + 128.0f);
-  // mma: acc[i][2h + c] = token 2t + c, column 8g + 2i + h; f32: acc[c][n]
-  // = this thread's k rows' part of token n, column 8g + c
-  constexpr int NA = F32 ? 8 : 4;
-  float acc[NA][NA];
+  // acc[i][2h + c] = token 2t + c, column 8g + 2i + h
+  float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < NA; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < NA; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
   auto load8 = [&](const void* plane, int grow, float (&v)[8]) {
     const size_t at = static_cast<size_t>(grow) * Rp + col;
@@ -231,51 +220,19 @@ qmm_smallm_kernel(const SmX<DT>* __restrict__ x,        // (M, K)
       load8(scales, p * (half / gs) + grow, sc[p]);
       if constexpr (HAS_OFF) load8(offsets, p * (half / gs) + grow, of[p]);
     }
-    if constexpr (F32) {
+    uint32_t a[4][4], b0, b1;
 #pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
+    for (int p = 0; p < PLANES; ++p) {
+      smallm_frags<FOLD, HAS_OFF, DT == DT_F16>(
+          a, codes, 4 * p, NIB4 ? 0x0F0F0F0Fu : 0xFFFFFFFFu,
+          NIB4 ? 0u : 0x80808080u, sc[p], of[p], neg_base);
+      x_frag(p, u * SM_UNIT, b0, b1);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // x of k row 2t, 2t+1, 2t+8 or 2t+9 of the unit for the 8 tokens
-          float xv[SM_MT];
-#pragma unroll
-          for (int n = 0; n < SM_MT; ++n)
-            xv[n] = xs[(p * SM_MT + n) * pitch + u * SM_UNIT + 2 * t +
-                       (q & 1) + (q >> 1) * 8];
-#pragma unroll
-          for (int hw = 0; hw < 2; ++hw) {  // columns 4hw .. 4hw+3
-            const uint32_t word =
-                (((hw ? codes[q].y : codes[q].x) >> (4 * p)) &
-                 (NIB4 ? 0x0F0F0F0Fu : 0xFFFFFFFFu)) ^
-                (NIB4 ? 0u : 0x80808080u);
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              const int c = 4 * hw + b;
-              const float w = dequant1<FOLD, HAS_OFF>(
-                  magic_of_byte(word, b), sc[p][c],
-                  HAS_OFF ? of[p][c] : 0.f, -sc[p][c] * MAGIC, neg_base);
-#pragma unroll
-              for (int n = 0; n < SM_MT; ++n)
-                acc[c][n] = __fmaf_rn(w, xv[n], acc[c][n]);
-            }
-          }
-        }
-      }
-    } else {
-      uint32_t a[4][4], b0, b1;
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-        smallm_frags<FOLD, HAS_OFF, DT == DT_F16>(
-            a, codes, 4 * p, NIB4 ? 0x0F0F0F0Fu : 0xFFFFFFFFu,
-            NIB4 ? 0u : 0x80808080u, sc[p], of[p], neg_base);
-        x_frag(p, u * SM_UNIT, b0, b1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if constexpr (DT == DT_F16) {
-            mma_f16_16816(acc[i], a[i], b0, b1);
-          } else {
-            mma_bf16_16816(acc[i], a[i], b0, b1);
-          }
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (DT == DT_F16) {
+          mma_f16_16816(acc[i], a[i], b0, b1);
+        } else {
+          mma_bf16_16816(acc[i], a[i], b0, b1);
         }
       }
     }
@@ -287,33 +244,14 @@ qmm_smallm_kernel(const SmX<DT>* __restrict__ x,        // (M, K)
   // memory. acc[i][2h + c] = sum for token 2t + c, column 8g + 2i + h.
   __syncthreads();  // every warp is done with the x slice
   float* red = reinterpret_cast<float*>(smem_b);
-  if constexpr (F32) {
-    // the quad's four threads hold the unit's four pairs of k rows: their
-    // sum (a + b is b + a, so all four get the same bits); thread t then
-    // stores tokens 2t and 2t + 1
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int n = 0; n < SM_MT; ++n) {
-        acc[c][n] += __shfl_xor_sync(0xFFFFFFFFu, acc[c][n], 1);
-        acc[c][n] += __shfl_xor_sync(0xFFFFFFFFu, acc[c][n], 2);
-      }
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int n = 0; n < SM_MT; ++n)  // a static index keeps acc in registers
-        if ((n >> 1) == t)
-          red[(rw * SM_MT + n) * SM_BN + cw * 64 + 8 * g + c] = acc[c][n];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = 2 * t + (e & 1);
-        const int c = cw * 64 + 8 * g + 2 * i + (e >> 1);
-        red[(rw * SM_MT + m) * SM_BN + c] = acc[i][e];
-      }
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * t + (e & 1);
+      const int c = cw * 64 + 8 * g + 2 * i + (e >> 1);
+      red[(rw * SM_MT + m) * SM_BN + c] = acc[i][e];
+    }
   __syncthreads();
   for (int i = tid; i < SM_MT * SM_BN; i += SM_THREADS) {
     float v = 0.0f;

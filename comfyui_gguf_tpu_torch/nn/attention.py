@@ -6,16 +6,17 @@ cast to q's dtype, and cross-attention with Lq != Lk.
 
 * ``flash_attn_cuda`` — wrapper of the hand-written flash-attention kernel
   (K7): bf16 and f16 CUDA tensors on ``csrc/flash_attn.cu`` /
-  ``flash_attn_f16.cu`` (one body, ``flash_attn.cuh``), f32 on the 3xTF32
-  body ``csrc/flash_attn_f32.cu``; head dims ``FLASH_HEAD_DIMS`` in each
-  dtype (on the tensor-core body 40, 80, 96 and 160 run the 64-, 128-,
+  ``flash_attn_f16.cu`` (the body ``flash_attn.cuh`` up to D = 256, the
+  wide-head body ``flash_attn_wide.cuh`` at 384 and 512), f32 on the
+  3xTF32 body ``csrc/flash_attn_f32.cu``; head dims ``FLASH_HEAD_DIMS`` in
+  each dtype (on the bf16/f16 bodies 40, 80, 96 and 160 run the 64-, 128-,
   128- and 192-wide instances on zero-filled pad columns; 256 has a
-  256-wide instance on 64-key tiles; 384, the Wan VAE's single-head
-  mid-block, an instance whose blocks own 128 output columns each; 512,
-  the HunyuanVideo VAE's, the same split on 32-key tiles). Any other head
-  dim or dtype on the card raises ``NotImplementedError``, and so does a
-  view the kernel cannot read; the same call on CPU tensors takes the
-  plain version.
+  256-wide instance on 64-key tiles; 384 and 512, the Wan and HunyuanVideo
+  VAEs' single-head mid-blocks, compute the scores once for 64 query rows
+  a block and split the output columns over its two consumer warpgroups).
+  Any other head dim or dtype on the card raises ``NotImplementedError``,
+  and so does a view the kernel cannot read; the same call on CPU tensors
+  takes the plain version.
 * ``plain_attention`` — the plain PyTorch version, the arithmetic of
   ``jax.nn.dot_product_attention``: f32 logits, f32 softmax, probabilities
   in the value dtype, f32-accumulated probs·v.

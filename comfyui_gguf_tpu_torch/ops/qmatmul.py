@@ -111,17 +111,18 @@ _FIXED_STEPS = 11.6
 _REDUCE_STEPS = 6.4
 
 
-def smallm_plan(m: int, kp: int, r: int, nib4: bool, esize: int = 2):
-    """(split, shared-memory bytes) of the split-K launch, or None where
-    that body does not take the shape.
+def smallm_plan(m: int, kp: int, r: int, nib4: bool):
+    """(split, shared-memory bytes) of the bf16 / f16 split-K launch, or
+    None where that body does not take the shape (f32 has its own plan,
+    ``smallm_f32_plan``).
 
     A block owns a 128-column strip and ``1/split`` of the code rows
     (Kp/2 rows for nib4, Kp for int8; slices are whole units of 16 rows);
     the ``split`` blocks of a strip form one cluster (at most 8). The split
     is the smallest that puts 2 blocks on each SM, or else the largest
-    whose x slice (8 rows of ``esize``-byte elements: 2 for bf16 and f16,
-    4 for f32; 8 elements of padding a row, one plane per nibble) fits in
-    shared memory beside the 4 KB of partial sums.
+    whose x slice (8 rows of 2-byte elements, 8 elements of padding a
+    row, one plane per nibble) fits in shared memory beside the 4 KB of
+    partial sums.
     """
     if not 1 <= m <= SMALL_M_MAX:
         return None
@@ -132,7 +133,7 @@ def smallm_plan(m: int, kp: int, r: int, nib4: bool, esize: int = 2):
         if code_rows % (16 * split):
             continue
         x_bytes = ((2 if nib4 else 1) * SMALL_M_MAX
-                   * (code_rows // split + 8) * esize)
+                   * (code_rows // split + 8) * 2)
         red_bytes = 4 * SMALL_M_MAX * _STRIP * 4
         smem = max(x_bytes, red_bytes) + SMALL_M_MAX * _STRIP * 4
         if smem > _SMALLM_SMEM_MAX:
@@ -140,6 +141,58 @@ def smallm_plan(m: int, kp: int, r: int, nib4: bool, esize: int = 2):
         best = (split, smem)
         if strips * split >= _SMALLM_BLOCKS:
             break
+    return best
+
+
+# the f32 split-K body's token counts (instances): M rounded up to one
+SMALLM_F32_TOKENS = (1, 2, 4, 8)
+# a block's fixed cost (the x slice, the reductions, the cluster barrier)
+# per block of the split, in units of one strip's streaming time: fitted to
+# tools_qmm_cuda.py's split sweep at flux's modulations on the H100, where 3
+# beat 1, 2, 4, 6 and 8 (PERF.md, Findings)
+_SMALLM_F32_SPLIT_COST = 0.03
+
+
+def smallm_f32_smem(kp: int, nib4: bool, split: int, mt: int) -> int:
+    """Dynamic shared memory of the f32 split-K launch at token count
+    ``mt`` and K split ``split``: the x slice (mt f32 rows of the block's
+    code rows + 4 floats of padding, one plane per nibble) or the 8 warps'
+    partial sums (8 x mt x 128 f32), whichever is larger, plus mt x 128 f32
+    at the end for the cluster's reduction."""
+    code_rows = kp // 2 if nib4 else kp
+    x_bytes = (2 if nib4 else 1) * mt * (code_rows // split + 4) * 4
+    return max(x_bytes, 8 * mt * _STRIP * 4) + mt * _STRIP * 4
+
+
+def smallm_f32_plan(m: int, kp: int, r: int, nib4: bool):
+    """(tokens MT, split, shared-memory bytes) of the f32 split-K launch
+    (``csrc/qmm_smallm_f32.cu``), or None where it does not take the shape;
+    the launch takes all three from here.
+
+    The instance computes MT = M rounded up to 1, 2, 4 or 8 token rows
+    (its shared memory: ``smallm_f32_smem``). Two blocks fit an SM (128
+    registers a thread), so the strips x split blocks run in
+    ceil(blocks / 264) rounds of 1/split of a strip each; the split (1..8,
+    whole 16-row units, within the shared-memory limit) is the one with the
+    fewest rounds' time plus a fixed cost a block of the split,
+    ``_SMALLM_F32_SPLIT_COST``; ties take the smaller split.
+    """
+    if not 1 <= m <= SMALL_M_MAX:
+        return None
+    mt = next(t for t in SMALLM_F32_TOKENS if m <= t)
+    code_rows = kp // 2 if nib4 else kp
+    strips = -(-r // _STRIP)
+    best, best_cost = None, None
+    for split in range(1, 9):
+        if code_rows % (16 * split):
+            continue
+        smem = smallm_f32_smem(kp, nib4, split, mt)
+        if smem > _SMALLM_SMEM_MAX:
+            continue
+        rounds = -(-(strips * split) // _SMALLM_BLOCKS)
+        cost = rounds / split + _SMALLM_F32_SPLIT_COST * split
+        if best is None or cost < best_cost - 1e-12:
+            best, best_cost = (mt, split, smem), cost
     return best
 
 
@@ -151,7 +204,8 @@ def qmm_route(m: int, kp: int, r: int, nib4: bool,
               dtype=torch.bfloat16) -> str:
     """Which kernel body takes (M, padded K, R, layout) at ``dtype`` (the
     dequant dtype): "smallm", "wgmma" (bf16 and f16) or "simt" (f32)."""
-    if smallm_plan(m, kp, r, nib4, QMM_DTYPES[dtype]) is not None:
+    plan = (smallm_f32_plan if dtype == torch.float32 else smallm_plan)
+    if plan(m, kp, r, nib4) is not None:
         return "smallm"
     return "simt" if dtype == torch.float32 else "wgmma"
 
@@ -425,19 +479,22 @@ def qmm_cuda(x: torch.Tensor, pq: PlanarQuant, *, bias=None,
         sbf16 = int(sdt == torch.bfloat16)
         stream = ctypes.c_void_p(_build.stream_handle(dev))
         name = "qmm_nib4" if nib4 else "qmm_int8"
-        plan = smallm_plan(m, kp, R, nib4, QMM_DTYPES[dequant_dtype])
+        f32 = dequant_dtype == torch.float32
+        plan = (smallm_f32_plan if f32 else smallm_plan)(m, kp, R, nib4)
         if plan is not None:
             name += "_smallm"
+            # the f32 body takes its plan whole: (tokens, split, smem)
+            tail = plan if f32 else plan[:1]
             if lora:
                 launch = getattr(lib, f"qmm_smallm{sfx}_lora_launch")
                 rc = launch(*ptrs, h.data_ptr(), up.data_ptr(), *dims, rk,
-                            int(nib4), act, plan[0], sbf16, stream)
+                            int(nib4), act, *tail, sbf16, stream)
             else:
                 launch = getattr(lib, "qmm_smallm_ex_launch" if bf16
                                  else f"qmm_smallm{sfx}_launch")
-                rc = launch(*ptrs, *dims, int(nib4), act, plan[0], sbf16,
+                rc = launch(*ptrs, *dims, int(nib4), act, *tail, sbf16,
                             stream)
-        elif dequant_dtype == torch.float32:
+        elif f32:
             name += "_simt"
             if lora:
                 rc = lib.qmm_simt_lora_launch(

@@ -30,10 +30,12 @@ REGION_CATS = ("gpu_user_annotation",)
 _KERNEL_FAMILIES = (
     ("qmm_wgmma_kernel", "K1/K2 qmm (wgmma)"),
     ("qmm_smallm_kernel", "K1/K2 qmm (split-K)"),
+    ("qmm_smallm_fma_kernel", "K1/K2 qmm (split-K)"),  # its f32 body
     ("qmm_simt_kernel", "K1/K2 qmm (f32 SIMT)"),
     ("gemm_wgmma_kernel", "K4 i8mm"),
     ("flash_fwd_kernel", "K7 flash_attn"),
     ("flash_tf32_kernel", "K7 flash_attn"),  # the f32 (3xTF32) instances
+    ("flash_wide_kernel", "K7 flash_attn"),  # bf16/f16 at D = 384, 512
     ("i8attn_kernel", "K6 i8attn"),
     ("prep_reduce_kernel", "K6 prep"),
     ("prep_quant_kernel", "K6 prep"),

@@ -22,12 +22,15 @@ launched twice for equal bits. The f16 and f32 instances of K1/K2 (the
 wgmma body at f16, the f32 FMA body, the split-K body at both, and their
 LoRA instances) run against the plain version in the same dtype (f16
 2e-3, f32 1e-5), every format, one-hot rows bit for bit, the f32 FMA body
-also at M and R off its tiles and at flux's deepest K; K7's f32 (3xTF32)
-instances at D = 384 and 512 with ragged query and key tiles, their shared
-memory against its Python mirror; K7's D = 384
-instance (the Wan VAE's mid-block) on contiguous tensors and on column
-slices of one projection, and its D = 512 instance (the HunyuanVideo VAE's)
-at an odd length, Lq != Lk, B > 1 and on single-head views. Tiny
+also at M and R off its tiles and at flux's deepest K, the f32 split-K
+body at every M from 1 to 8 (its 1, 2, 4 and 8-token instances) over
+both layouts with and without offsets, both scale-plane types, every K
+split and its LoRA instance, each launched twice for equal bits; K7's f32
+(3xTF32) instances at D = 384 and 512 with ragged query and key tiles,
+their shared memory within a block's; K7's wide-head body (D = 384, the
+Wan VAE's mid-block, and 512, the HunyuanVideo VAE's) in bf16 and f16 at
+ragged lengths, Lq != Lk, B > 1 and on strided views of one projection,
+two launches equal, its shared memory within a block's. Tiny
 HunyuanVideo and LTX-Video forwards (planar and w8a8, flat and stacked)
 and their VAEs' decodes run on the card against the CPU, and the tile
 autotuner leaves a legal entry that the dispatch then takes. The
@@ -67,7 +70,7 @@ from comfyui_gguf_tpu_torch.ops.i8mm import (i8mm_cuda, i8mm_cuda_q,
 from comfyui_gguf_tpu_torch.ops.qmatmul import (I8MM_WIDTHS, SMALL_M_MAX,
                                                 plain_quantized_matmul,
                                                 qmm_cuda, qmm_route,
-                                                smallm_plan,
+                                                smallm_f32_plan, smallm_plan,
                                                 wgmma_split_plan)
 from comfyui_gguf_tpu_torch.quant import codecs, planar
 from comfyui_gguf_tpu_torch.quant.i8 import (I8Planar, quantize_rows,
@@ -1431,8 +1434,9 @@ def test_qmm_lora_f16_f32_match_plain(cuda, qtype, M, rank, dt):
 def test_qmm_f16_f32_smallm_is_deterministic(cuda, dt):
     pq = _planar(Q.Q4_K, 1024, 3072, seed=3, device=cuda)
     x = torch.randn((4, 3072), device=cuda)
-    assert smallm_plan(4, pq.padded_in, 1024, True,
-                       2 if dt == torch.float16 else 4)[0] > 1
+    plan = (smallm_plan(4, pq.padded_in, 1024, True) if dt == torch.float16
+            else smallm_f32_plan(4, pq.padded_in, 1024, True)[1:])
+    assert plan[0] > 1
     a = qmm_cuda(x, pq, dequant_dtype=dt)
     b = qmm_cuda(x, pq, dequant_dtype=dt)
     torch.cuda.synchronize()
@@ -1478,14 +1482,126 @@ def test_qmm_refuses_a_dtype_without_instances(cuda):
         qmm_cuda(x, pq, dequant_dtype=torch.float64)
 
 
+# -- the f32 split-K body (qmm_smallm_f32.cu): one instance a token count --
+
+# both layouts with and without offsets, 32- and 16-row scale groups
+F32_SPLITK_TYPES = [Q.Q4_K, Q.Q4_0, Q.Q2_K, Q.Q5_1, Q.Q8_0, Q.Q6_K]
+
+
+@pytest.mark.parametrize("sdt", SCALE_DTYPES, ids=str)
+@pytest.mark.parametrize("M", list(range(1, SMALL_M_MAX + 1)))
+@pytest.mark.parametrize("qtype", F32_SPLITK_TYPES, ids=lambda q: q.name)
+def test_qmm_f32_splitk_every_token_count(cuda, qtype, M, sdt):
+    """The f32 split-K body at every M from 1 to 8 (the instances of 1, 2,
+    4 and 8 token rows), f32 and bf16 scale planes, a ragged R (328) and a
+    K split over a cluster of 8: within 1e-5 of the plain version in f32
+    with the bias and a GELU tail, and two launches equal."""
+    R, K = 328, 3072
+    pq = _planar(qtype, R, K, seed=int(qtype) + M, device=cuda,
+                 scale_dtype=sdt)
+    mt, split, _ = smallm_f32_plan(M, pq.padded_in, R, pq.layout == "nib4")
+    assert split > 1 and mt >= M
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    kw = dict(bias=torch.randn((R,), generator=g, device=cuda),
+              act_from_col=200, out_dtype=torch.float32,
+              dequant_dtype=torch.float32)
+    key = _qmm_dt_key(pq, M, torch.float32)
+    assert key.endswith("_smallm_f32")
+    before = _build.LAUNCHES[key]
+    got = qmm_cuda(x, pq, **kw)
+    again = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    assert got.shape == (M, R) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_quantized_matmul(x, pq, **kw)) < 1e-5
+    assert torch.equal(got, again)
+
+
+# (split, R, K) where the plan takes each K split: 128 code rows admit only
+# 1, 2, 4 and 8 (8 wins at one strip), 66 / 72 / 132 / 264 strips fill the
+# card's 264 block slots at 4 / 3 / 2 / 1, and 3 strips take 6
+F32_SPLITK_SPLITS = [(1, 33792, 512), (2, 16896, 3072), (3, 9216, 3072),
+                     (4, 8448, 3072), (6, 328, 3072), (8, 128, 256)]
+
+
+@pytest.mark.parametrize("split,R,K", F32_SPLITK_SPLITS, ids=str)
+@pytest.mark.parametrize("M", [1, 5])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q6_K], ids=lambda q: q.name)
+def test_qmm_f32_splitk_every_split(cuda, qtype, M, split, R, K):
+    """The f32 split-K body at shapes whose plan takes each K split from
+    1 to 8 (a cluster of one block through eight): the cluster's reduction
+    in rank order within 1e-5 of the plain version, two launches equal."""
+    pq = _planar(qtype, R, K, seed=split, device=cuda)
+    assert smallm_f32_plan(M, pq.padded_in, R,
+                           pq.layout == "nib4")[1] == split
+    x = torch.randn((M, K), device=cuda)
+    kw = dict(out_dtype=torch.float32, dequant_dtype=torch.float32)
+    got = qmm_cuda(x, pq, **kw)
+    again = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, plain_quantized_matmul(x, pq, **kw)) < 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rank", [16, 48])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("qtype", [Q.Q4_K, Q.Q8_0], ids=lambda q: q.name)
+def test_qmm_lora_f32_splitk_every_token_count(cuda, qtype, M, rank):
+    """The f32 split-K body's LoRA instance at each token-count instance:
+    the rank term once, after the cluster's reduction, against the plain
+    version with the same f32 rank operands; two launches equal, and the
+    term is really there."""
+    R, K = 384, 1024
+    pq = _planar(qtype, R, K, seed=5, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(M + rank)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    kw = dict(bias=torch.randn((R,), generator=g, device=cuda),
+              act_from_col=128, out_dtype=torch.float32,
+              dequant_dtype=torch.float32,
+              lora_h=torch.randn((M, rank), generator=g, device=cuda),
+              lora_up=torch.randn((rank, R), generator=g, device=cuda))
+    key = _qmm_dt_key(pq, M, torch.float32, lora=True)
+    before = _build.LAUNCHES[key]
+    got = qmm_cuda(x, pq, **kw)
+    again = qmm_cuda(x, pq, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    want = plain_quantized_matmul(x, pq, **kw)
+    assert _rel_l2(got, want) < 1e-5
+    assert torch.equal(got, again)
+    kw.update(lora_h=None, lora_up=None)
+    assert _rel_l2(qmm_cuda(x, pq, **kw), want) > 1e-2
+
+
+@pytest.mark.parametrize("M", [2, 5, 8])
+def test_qmm_f32_splitk_one_hot_rows(cuda, M):
+    """One-hot x rows at the M = 2, 4 and 8 instances: each output row is
+    one dequantized f32 weight row bit for bit, at every k (both nibble
+    planes, every slice of the K split), and rows past M are not
+    written."""
+    R, K = 256, 1024
+    pq = _planar(Q.Q4_K, R, K, seed=9, device=cuda)
+    w = planar.dequantize_kmajor(pq, torch.float32).float()  # (K, R)
+    for k0 in range(0, K, 128):
+        x = torch.zeros((M, K), device=cuda)
+        ks = (torch.arange(M, device=cuda) * 37) % 128 + k0
+        x[torch.arange(M, device=cuda), ks] = 1.0
+        got = qmm_cuda(x, pq, out_dtype=torch.float32,
+                       dequant_dtype=torch.float32)
+        assert got.shape == (M, R)
+        assert torch.equal(got, w[ks])
+
+
 # -- K7 at head dim 384 (the Wan 2.1 VAE's single-head mid-block) ---------
 
 @pytest.mark.parametrize("B,H,Lq,Lk", [(3, 1, 700, 700), (1, 2, 130, 77),
                                        (2, 1, 64, 300)], ids=str)
 def test_flash_kernel_d384(cuda, B, H, Lq, Lk):
-    """The column-split instance: three blocks per query tile, each 128
-    output columns of a score computed over all 384, against the plain
-    version; ragged key and query tiles."""
+    """The wide-head instance (flash_attn_wide.cuh): the scores computed
+    once over all 384 columns, the output columns split over the two
+    consumer warpgroups, against the plain version; ragged key and query
+    tiles; two launches equal."""
     D = 384
     g = torch.Generator(device=cuda).manual_seed(Lq + Lk)
     q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
@@ -1496,6 +1612,7 @@ def test_flash_kernel_d384(cuda, B, H, Lq, Lk):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attn_d384"] == before + 1
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+    assert torch.equal(got, flash_attn_cuda(q, k, v, D ** -0.5))
 
 
 def test_flash_kernel_d384_on_qkv_views(cuda):
@@ -1514,10 +1631,9 @@ def test_flash_kernel_d384_on_qkv_views(cuda):
                                        (2, 1, 64, 333), (1, 1, 1, 31)],
                          ids=str)
 def test_flash_kernel_d512(cuda, B, H, Lq, Lk):
-    """The column-split instance on 32-key tiles: four blocks per query
-    tile, each 128 output columns of a score computed over all 512, against
-    the plain version; an odd length, Lq != Lk both ways, B > 1 and a key
-    length below one tile."""
+    """The wide-head instance: the scores computed once over all 512
+    columns, against the plain version; an odd length, Lq != Lk both ways,
+    B > 1 and a key length below one tile; two launches equal."""
     D = 512
     g = torch.Generator(device=cuda).manual_seed(Lq * 3 + Lk)
     q = torch.randn((B, H, Lq, D), generator=g, device=cuda).bfloat16()
@@ -1530,6 +1646,7 @@ def test_flash_kernel_d512(cuda, B, H, Lq, Lk):
     assert _build.LAUNCHES["flash_attn"] == before["flash_attn"] + 1
     assert got.shape == (B, H, Lq, D) and bool(torch.isfinite(got).all())
     assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+    assert torch.equal(got, flash_attn_cuda(q, k, v, D ** -0.5))
 
 
 def test_flash_kernel_d512_on_head_views(cuda):
@@ -1541,6 +1658,69 @@ def test_flash_kernel_d512_on_head_views(cuda):
                [:, None] for _ in range(3))
     got = flash_attn_cuda(q, k, v, C ** -0.5)
     assert _rel_l2(got, plain_attention(q, k, v, C ** -0.5)) < 1e-2
+
+
+# -- K7's wide-head body (D = 384 and 512) in bf16 and f16 ----------------
+
+WIDE_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk", [
+    # ragged 64-row query tiles (one cluster's second block with no rows),
+    # Lq != Lk both ways, ragged and partial 128-key tiles, B > 1, H > 1
+    (3, 1, 700, 700), (1, 2, 130, 77), (2, 1, 64, 333), (1, 1, 1, 31),
+    (2, 2, 191, 1000)], ids=str)
+@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("dt", WIDE_DTYPES, ids=["bf16", "f16"])
+def test_flash_wide_heads_match_plain(cuda, dt, D, B, H, Lq, Lk):
+    """The wide-head body in both tensor-core dtypes: within 1e-2 of
+    plain_attention in q's dtype, finite, launched once on its counters,
+    two launches equal."""
+    g = torch.Generator(device=cuda).manual_seed(D + 7 * Lq + Lk)
+    q, k, v = (torch.randn((B, H, L, D), generator=g, device=cuda).to(dt)
+               for L in (Lq, Lk, Lk))
+    key = f"flash_attn_d{D}" if dt == torch.bfloat16 else "flash_attn_f16"
+    before = _build.LAUNCHES[key]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    again = flash_attn_cuda(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 2
+    assert got.shape == (B, H, Lq, D) and got.dtype == dt
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("dt", WIDE_DTYPES, ids=["bf16", "f16"])
+def test_flash_wide_heads_on_strided_views(cuda, dt, D):
+    """Strided q/k/v read in place by the 4-D tensor maps: column slices of
+    one (N, 1, L, 3D) projection (the Wan VAE's layout) and heads of one
+    (B, L, 3, H, D) projection."""
+    qkv = torch.randn((2, 1, 900, 3 * D), device=cuda).to(dt)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+    qkv = torch.randn((2, 200, 3, 2, D), device=cuda).to(dt)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attn_cuda(q, k, v, D ** -0.5)
+    assert _rel_l2(got, plain_attention(q, k, v, D ** -0.5)) < 1e-2
+    assert torch.equal(got, flash_attn_cuda(q, k, v, D ** -0.5))
+
+
+def test_flash_shared_memory_fits_a_block(cuda):
+    """The dynamic shared memory of each bf16/f16 instance, as its C entry
+    states it, fits the 232,448 bytes a block may have; the wide-head
+    body's holds its resident Q (64 rows x D), P (64 x 128) and a ring of
+    more than one tile's 8 V chunks of 16 KB."""
+    from comfyui_gguf_tpu_torch.nn.attention import FLASH_HEAD_DIMS
+
+    lib = _build.lib()
+    for D in FLASH_HEAD_DIMS:
+        assert 0 < lib.flash_attn_smem_bytes(D) <= 232448
+    for D in (384, 512):
+        assert lib.flash_attn_smem_bytes(D) > (64 * D * 2 + 64 * 128 * 2
+                                               + 8 * 16384)
 
 
 # -- HunyuanVideo and LTX-Video on the card against the CPU ----------------

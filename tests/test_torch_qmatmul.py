@@ -31,7 +31,7 @@ from comfyui_gguf_tpu_torch.ops.qmatmul import (_RESIDENT, I8MM_WIDTHS,
                                                 WGMMA_SPLITS, i8mm_plan,
                                                 plain_quantized_matmul,
                                                 qmm_route, quantized_matmul,
-                                                smallm_plan,
+                                                smallm_f32_plan, smallm_plan,
                                                 wgmma_cost,
                                                 wgmma_plan, wgmma_split_ok,
                                                 wgmma_split_plan)
@@ -169,6 +169,61 @@ def test_smallm_plan_arithmetic(M, kp, r, layout):
           and _np_smallm_smem(kp, nib4, s) <= 96 * 1024]
     filled = [s for s in ok if strips * s >= 2 * N_SM]
     assert split == (filled[0] if filled else ok[-1])
+
+
+@pytest.mark.parametrize("M,kp,r,layout,plan", [
+    # flux's modulation: 144 strips x 3 = 432 blocks, two rounds of a third
+    # of a strip; x: 2 planes x 1 row x (512 + 4) f32 = 4128 > 4096 bytes
+    # of partial sums, + 512 for the cluster
+    (1, 3072, 18432, "nib4", (1, 3, 4640)),
+    # the single blocks' at a CFG batch: 1024 rows, 2 x (1024 + 4) x 4 =
+    # 8224, + 1024
+    (2, 3072, 9216, "int8", (2, 3, 9248)),
+    # one strip of 128 code rows: only 1, 2, 4, 8 cut it, 8 is cheapest;
+    # the partial sums (8 x 4 x 128 x 4) outweigh x, + 2048
+    (3, 256, 128, "nib4", (4, 8, 18432)),
+    # 3 strips take 6 (256 rows); M = 5 computes 8 token rows
+    (5, 3072, 328, "nib4", (8, 6, 36864)),
+    (4, 3072, 8448, "nib4", (4, 4, 18432)),  # 66 strips: one round at 4
+    (8, 3072, 16896, "int8", (8, 2, 53376)),  # 132 strips: one round at 2
+    (1, 512, 33792, "int8", (1, 1, 4608)),  # 264 strips: one round at 1
+    # 264 strips would take 1, but 8 rows of x fit 96 KB only from a split
+    # of 6 (2560 rows: 8 x 2564 x 4 = 82048, + 4096)
+    (8, 15360, 33792, "int8", (8, 6, 86144)),
+], ids=str)
+def test_smallm_f32_plan_arithmetic(M, kp, r, layout, plan):
+    """The f32 split-K body's plan at hand-computed shapes: the token count
+    is M rounded up to 1, 2, 4 or 8, the split the one of least modelled
+    time (rounds of 264 blocks, each 1/split of a strip, plus 0.03 a block
+    of the split) within 96 KB of shared memory, and the route is the
+    split-K body's."""
+    nib4 = layout == "nib4"
+    assert smallm_f32_plan(M, kp, r, nib4) == plan
+    assert qmm_route(M, kp, r, nib4, torch.float32) == "smallm"
+
+
+@pytest.mark.parametrize("layout", ["nib4", "int8"])
+def test_smallm_f32_plan_edges(layout):
+    """M outside 1..8 has no f32 split-K plan (M > 8 takes the SIMT body),
+    and an x slice too long for shared memory even at the largest split
+    goes to the SIMT body instead of failing."""
+    nib4 = layout == "nib4"
+    for kp, r in ((512, 128), (3072, 18432), (15360, 3072)):
+        assert smallm_f32_plan(0, kp, r, nib4) is None
+        assert smallm_f32_plan(SMALL_M_MAX + 1, kp, r, nib4) is None
+        assert qmm_route(SMALL_M_MAX + 1, kp, r, nib4,
+                         torch.float32) == "simt"
+    assert qmm_route(1, 1 << 20, 128, nib4, torch.float32) == "simt"
+    # flux's modulation at M = 1 (a prompt) and M = 2 (a CFG batch): a
+    # slice of x four times smaller than the bf16 body's 8-row one at
+    # twice the element size; 144 strips split in 3 (432 blocks, two
+    # rounds of a third of a strip), where 2 would leave a second round of
+    # 24 blocks; 72 strips (the single blocks' 3072 -> 9216) also in 3
+    for M in (1, 2):
+        mt, split, smem = smallm_f32_plan(M, 3072, 18432, nib4)
+        assert (mt, split) == (M, 3)
+        assert smem < smallm_plan(M, 3072, 18432, nib4)[1]
+        assert smallm_f32_plan(M, 3072, 9216, nib4)[1] == 3
 
 
 @pytest.mark.parametrize("M,R", [(9, 18432), (131, 3000), (512, 4096),

@@ -31,6 +31,14 @@ NAMES = [
      "K1/K2 qmm (split-K)", "K1 qmm (split-K)"),
     ("_Z17qmm_smallm_kernelILb0ELb0ELb0ELb0ELi0EEvPK13__nv_bfloat16",
      "K1/K2 qmm (split-K)", "K2 qmm (split-K)"),
+    ("void (anonymous namespace)::qmm_smallm_fma_kernel<true, true, false, "
+     "false, 1>(float const*, unsigned char const*, ...)",
+     "K1/K2 qmm (split-K)", "K1 qmm (split-K)"),
+    ("_ZN12_GLOBAL__N_121qmm_smallm_fma_kernelILb0ELb0ELb1ELb0ELi2EEEvPKf",
+     "K1/K2 qmm (split-K)", "K2 qmm (split-K)"),
+    ("void gguf_flash::flash_wide_kernel<512, false>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, __nv_bfloat16*, int, int, long long, long "
+     "long, long long, float)", "K7 flash_attn", "K7 flash_attn"),
     ("void qmm_simt_kernel<true, true, false, false>(float const*, ...)",
      "K1/K2 qmm (f32 SIMT)", "K1 qmm (f32 SIMT)"),
     ("void gemm_wgmma_kernel<1, 256, false>(CUtensorMap, CUtensorMap)",

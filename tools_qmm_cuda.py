@@ -3,9 +3,11 @@
 
     python3 tools_qmm_cuda.py
 
-``ops/qmatmul.py`` picks two things from the shape alone: the number of
-128-token sub-tiles of a wgmma output tile (``wgmma_plan``: 1 or 2) and the
-K split of the split-K body (``smallm_plan``: 1..8). This tool times every
+``ops/qmatmul.py`` picks three things from the shape alone: the number of
+128-token sub-tiles of a wgmma output tile (``wgmma_plan``: 1 or 2), the
+K split of the bf16 split-K body (``smallm_plan``: 1..8) and that of the
+f32 split-K body (``smallm_f32_plan``, whose ``_SMALLM_F32_SPLIT_COST`` was
+fitted to this sweep). This tool times every
 choice at the main paths' shapes on the card (CUDA events around a CUDA
 graph, enough weight copies to keep the L2 cold where a model would find it
 cold), checks each result against the plain version, and marks the choice
@@ -41,6 +43,13 @@ SMALLM_SHAPES = [
     ("single-block modulation M=1", "Q4_K", 1, 3072, 9216, 6),
     ("Q6_K modulation M=1", "Q6_K", 1, 3072, 18432, 2),
 ]
+# the f32 split-K body (dequant_dtype float32) at flux's modulations
+SMALLM_F32_SHAPES = [
+    ("double-block modulation M=1", "Q4_K", 1, 3072, 18432, 4),
+    ("double-block img_mod M=1", "Q8_0", 1, 3072, 18432, 2),
+    ("double-block modulation M=2", "Q4_K", 2, 3072, 18432, 4),
+    ("single-block modulation M=1", "Q4_K", 1, 3072, 9216, 6),
+]
 
 
 def main() -> int:
@@ -52,6 +61,8 @@ def main() -> int:
         GGMLQuantizationType as Q)
     from comfyui_gguf_tpu_torch.models.testing import random_planar
     from comfyui_gguf_tpu_torch.ops.qmatmul import (plain_quantized_matmul,
+                                                    smallm_f32_plan,
+                                                    smallm_f32_smem,
                                                     smallm_plan, wgmma_plan)
 
     if not torch.cuda.is_available():
@@ -65,19 +76,23 @@ def main() -> int:
     lib = _build.lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def launch(x, pq, *, nt=None, split=None):
+    def launch(x, pq, *, nt=None, split=None, f32_split=None):
         R, K = pq.shape
         nib4 = pq.layout == "nib4"
         kp = pq.padded_in
-        out = torch.empty((x.shape[0], R), dtype=torch.bfloat16,
-                          device="cuda")
+        out = torch.empty((x.shape[0], R), dtype=x.dtype, device="cuda")
         ptrs = (x.data_ptr(), pq.qs.data_ptr(), pq.scales.data_ptr(),
                 None if pq.offsets is None else pq.offsets.data_ptr(), None,
                 out.data_ptr())
         dims = (x.shape[0], K, kp, R, pq.padded_out, pq.group_size,
                 int(pq.zero_point))
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if split is None:
+        if f32_split is not None:
+            mt = smallm_f32_plan(x.shape[0], kp, R, nib4)[0]
+            rc = lib.qmm_smallm_f32_launch(
+                *ptrs, *dims, int(nib4), -1, mt, f32_split,
+                smallm_f32_smem(kp, nib4, f32_split, mt), 0, stream)
+        elif split is None:
             fn = (lib.qmm_wgmma_nib4_launch if nib4
                   else lib.qmm_wgmma_int8_launch)
             rc = fn(*ptrs, *dims, -1, nt, stream)
@@ -87,21 +102,20 @@ def main() -> int:
         _build.check(rc, "qmm launch")
         return out
 
-    def sweep(shapes, key, values, chosen):
+    def sweep(shapes, key, values, chosen, dt=torch.bfloat16, tol=5e-3):
         for name, fmt, M, K, R, copies in shapes:
             ws = [random_planar(Q[fmt], (R, K), gen, device="cuda")
                   for _ in range(copies)]
-            x = torch.randn((M, K), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-            want = plain_quantized_matmul(x, ws[0])
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            want = plain_quantized_matmul(x, ws[0], dequant_dtype=dt)
             pick = chosen(M, ws[0])
             cells = []
             for v in values:
                 code_rows = ws[0].qs.shape[0]
-                if key == "split" and code_rows % (16 * v):
+                if key != "nt" and code_rows % (16 * v):
                     continue
                 err = rel_l2(launch(x, ws[0], **{key: v}), want)
-                if not err <= 5e-3:
+                if not err <= tol:
                     raise SystemExit(f"{name} {key}={v}: rel L2 {err}")
                 ms = graph_ms([lambda w=w: launch(x, w, **{key: v})
                                for w in ws])
@@ -117,6 +131,13 @@ def main() -> int:
     sweep(SMALLM_SHAPES, "split", (1, 2, 3, 4, 6, 8),
           lambda M, pq: smallm_plan(M, pq.padded_in, pq.shape[0],
                                     pq.layout == "nib4")[0])
+    print("f32 split-K body, cluster size along K "
+          "(* = smallm_f32_plan's pick)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    sweep(SMALLM_F32_SHAPES, "f32_split", (1, 2, 3, 4, 6, 8),
+          lambda M, pq: smallm_f32_plan(M, pq.padded_in, pq.shape[0],
+                                        pq.layout == "nib4")[1],
+          torch.float32, 1e-5)
     return 0
 
 
