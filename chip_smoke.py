@@ -39,7 +39,10 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    for the int8 attention, its prep and the GEMM probes, spills; for the
    fused matmuls each instance's registers and spills, the LoRA instances
    beside the unpatched ones; for flash attention each head-dim instance's)
-   and the dynamic shared memory of the TMA-fed kernels are printed; a
+   and the dynamic shared memory of the TMA-fed kernels are printed; the
+   host block codecs (``native/quant_kernels.cc``) are built with the host
+   C++ compiler, and the compiler, its flags, the build seconds,
+   the thread count and the CPU model are printed; a
    ``wgmma`` serialization advisory (ptxas C751x) or a spill in any K1/K2
    or K7 instance fails (K7's f32 instances, the 3xTF32 wgmma body,
    among them), and the wgmma body's resident blocks per K-split cluster
@@ -290,13 +293,24 @@ LTX-Video (each with its causal 3-D VAE) and Cosmos — on the card through the 
    decoded to 121 × 512 × 768, both trees, phase 13's gates (K7 D = 64 56
    times a forward, self and cross) and records; ``ltxv_engine`` (two
    steps). Phases 19 and 20 free their trees when they end;
-21. the offline tools as a user runs them: a flux-dev-width checkpoint
+21. the host block codecs at published widths, on the card machine's
+   host: ``native.quantize`` Q4_K over one flux-dev double block's and one
+   single block's weights (M parameters a second, the 19 / 38 blocks of
+   the full model by extrapolation, the first rows of each weight equal
+   to numpy), then one 3072 × 12288 tensor per covered operation (encode
+   Q4_0 / Q8_0 / Q4_K / Q5_K / Q6_K on f32 and on bf16-rounded input,
+   decode Q4_0 / Q8_0 / Q4_K / Q6_K, extract Q2_K-Q6_K, the nib4 pack and
+   the int8 transpose), each byte-equal to its numpy function and timed
+   beside it (a difference fails the phase). Then the offline tools as a
+   user runs them (on the library for every covered qtype): a
+   flux-dev-width checkpoint
    (3072, 24 heads of 128, context 4096, vec 768, guidance embed; depth
    ``--tools-depth-double`` 1 + ``--tools-depth-single`` 2) with the
    published BFL key names in bf16, written by the port's safetensors
    writer under a ComfyUI-style root and found through ``ModelRegistry``;
    ``tools.convert`` (BF16 GGUF) and ``tools.quantize`` Q4_K_M (seconds,
-   GB/s, M parameters a second on the host), ``read_tensors``' census held
+   GB/s, M parameters a second on the host, beside the numpy-only
+   quantizer's figures at 2 + 4 blocks in PERF.md §5), ``read_tensors``' census held
    to the recipe over the names (Q4_K, Q5_K qkv, the no-quant list float),
    ``validate_checkpoint`` clean (exit 0, no unexpected key), then
    ``load_diffusion_model(..., "cuda")`` (seconds; one leaf of each qtype
@@ -6063,6 +6077,161 @@ TRACE_FAMILY_DELTA_MAX = 1e-2
 # image stream's 4096 and the text stream's 512
 TUNE_MS = (4608, 4096, 512)
 TUNE_FWD_REPS = 16  # forwards a turn, table against plan
+# phase 21 on the port's numpy codecs alone, 2 + 4 flux-dev blocks (PERF.md
+# §5, the same card's host): quantize M parameters a second, load seconds
+NUMPY_QUANTIZE_MPS, NUMPY_LOAD_S = 37.1, 8.05
+# the host codecs' tensor: flux-dev's img_mlp.2 weight (R, K)
+HOST_CODEC_SHAPE = (3072, 12288)
+
+
+def _cpu_model():
+    """The host CPU as ``/proc/cpuinfo`` gives its first processor: the
+    model name, its vendor, family and model numbers (the name alone where
+    a sandbox hides it reads "unknown") and its clock."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break
+                key, _, val = ln.partition(":")
+                info[key.strip()] = val.strip()
+    except OSError:
+        return platform.machine()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+            f"family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz)")
+
+
+def host_codecs_step(dev, dims, shape=HOST_CODEC_SHAPE, seed=19):
+    """Phase 21's first step, on the card machine's host: the library
+    (``native/``) against the numpy codecs, each operation byte-equal and
+    timed beside its numpy function (see the module docstring). ``dims``:
+    the flux dims whose double and single block are encoded (depth is not
+    read); ``dev`` makes the random weights. → result rows."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch import _build, native
+    from comfyui_gguf_tpu_torch.gguf.constants import (
+        GGMLQuantizationType as Q)
+    from comfyui_gguf_tpu_torch.models import testing
+    from comfyui_gguf_tpu_torch.quant import codecs, planar
+
+    fails, rows = [], []
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    native.quantize(np.zeros(256, np.float32), Q.Q4_K)  # builds or loads
+    host = _build.BUILD_REPORT["host"]
+    log(f"  host codecs: {host['compiler']} ({host['version']}) "
+        f"{host['flags']}: "
+        + ("reused" if host["cached"] else f"built in {host['s']:.2f}s")
+        + f" -> {host['path']}; {torch.get_num_threads()} threads "
+        f"(torch.get_num_threads()) of {os.cpu_count()} CPUs, "
+        f"{_cpu_model()}")
+
+    def weight(sh):
+        w = torch.randn(sh, generator=gen, device=dev) * 0.02
+        return w.to(torch.bfloat16).float().cpu().numpy()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+
+    # 1. Q4_K over one double and one single block at published width
+    _, groups = testing.flux_shape_spec(dims)
+    full = {"double_blocks": testing.FLUX_DEV_DIMS.depth_double,
+            "single_blocks": testing.FLUX_DEV_DIMS.depth_single}
+    for group, n_full in full.items():
+        n, secs = 0, 0.0
+        for suffix, sh in groups[group][1].items():
+            if len(sh) != 2 or sh[1] % 256:
+                continue
+            w = weight(sh)
+            blocks, s = timed(lambda: native.quantize(w, Q.Q4_K))
+            n, secs = n + w.size, secs + s
+            head = 16 * sh[1] // 256  # the blocks of the first 16 rows
+            if not same(blocks[:head],
+                        codecs.ENCODERS[Q.Q4_K](w[:16].reshape(-1))):
+                fails.append(f"Q4_K encode of {group} {suffix} differs "
+                             f"from numpy")
+        rows.append(dict(op="encode", qtype="Q4_K", input=f"one {group[:-1]}",
+                         params=n, lib_s=secs))
+        log(f"  Q4_K encode of one {group[:-1]} (bf16-rounded weights): "
+            f"{n / 1e6:.1f} M parameters in {secs:.3f} s = "
+            f"{n / secs / 1e6:.1f} M/s; x{n_full} blocks of the full "
+            f"model: {n * n_full / 1e9:.2f} B parameters in "
+            f"{secs * n_full:.2f} s")
+
+    # 2. one tensor per covered operation, library against numpy
+    R, K = shape
+    x32 = (torch.randn(shape, generator=gen, device=dev) * 0.02).cpu() \
+        .numpy()
+    xs = {"f32": x32, "bf16": torch.from_numpy(x32).to(torch.bfloat16)
+          .float().numpy()}
+    enc = {}
+
+    def row(op, qtype, inp, lib, numpy_version, n):
+        got, t_lib = timed(lib)
+        want, t_np = timed(numpy_version)
+        ok = (all(same(a, b) for a, b in zip(got, want))
+              if isinstance(got, tuple) else same(got, want))
+        rows.append(dict(op=op, qtype=qtype, input=inp, params=n,
+                         lib_s=t_lib, numpy_s=t_np, equal=ok))
+        log(f"  {op} {qtype} {inp} {R}x{K}: library {t_lib:.4f} s "
+            f"({n / t_lib / 1e6:.1f} M/s), numpy {t_np:.4f} s "
+            f"({n / t_np / 1e6:.1f} M/s), x{t_np / t_lib:.2f}; bytes "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            fails.append(f"{op} {qtype} {inp}: the library's bytes differ "
+                         f"from numpy's")
+        return got
+
+    for q in (Q.Q4_0, Q.Q8_0, Q.Q4_K, Q.Q5_K, Q.Q6_K):
+        for inp, x in xs.items():
+            got = row("encode", q.name, inp,
+                      lambda: native.quantize(x, q),
+                      lambda: codecs.ENCODERS[q](x.reshape(-1)), x.size)
+            if inp == "bf16":
+                enc[q] = got
+    for q in (Q.Q4_0, Q.Q8_0, Q.Q4_K, Q.Q6_K):
+        row("decode", q.name, "bf16", lambda: native.dequantize(
+                enc[q], q, R * K),
+            lambda: codecs.DECODERS[q](enc[q]).reshape(-1), R * K)
+    for q in (Q.Q2_K, Q.Q3_K):  # encoded by numpy: the library has no encoder
+        enc[q] = codecs.ENCODERS[q](xs["bf16"].reshape(-1))
+    comps = {}
+    for q, lib_fn, np_fn in (
+            (Q.Q4_K, native.extract_q4k, codecs.components_Q4_K),
+            (Q.Q5_K, native.extract_q5k, codecs.components_Q5_K),
+            (Q.Q6_K, native.extract_q6k, codecs.components_Q6_K),
+            (Q.Q3_K, native.extract_q3k, codecs.components_Q3_K),
+            (Q.Q2_K, native.extract_q2k, codecs.components_Q2_K)):
+        def numpy_version(np_fn=np_fn, q=q):
+            c = np_fn(enc[q])
+            return (c.q, c.scales) + (() if c.offsets is None
+                                      else (c.offsets,))
+        comps[q] = row("extract", q.name, "bf16",
+                       lambda: lib_fn(enc[q]), numpy_version, R * K)
+    rp = planar.padded_out_dim(R)
+    codes4 = comps[Q.Q4_K][0].reshape(R, K)
+    row("pack nib4", "Q4_K", "codes",
+        lambda: native.pack_nib4_planar(codes4, rp),
+        lambda: np.ascontiguousarray(planar.nib4_plane(codes4, rp)), R * K)
+    codes6 = comps[Q.Q6_K][0].reshape(R, K)
+    row("transpose int8", "Q6_K", "codes",
+        lambda: native.transpose_i8(codes6, rp),
+        lambda: np.ascontiguousarray(planar.int8_plane(codes6, rp)), R * K)
+    if fails:
+        raise SystemExit("phase 21 host codecs: " + "; ".join(fails))
+    return rows
 
 
 def _write_flux_checkpoint(path, dims, seed, dev):
@@ -6250,7 +6419,10 @@ def tools_phase(dev, dims, steps, tmp):
                            bytes=os.path.getsize(q4))
     log(f"  quantize {TOOLS_FTYPE} -> {os.path.basename(q4)}: {s:.2f}s, "
         f"{n_quant / 1e6:.1f} M parameters quantized at "
-        f"{res['quantize']['mparams_per_s']:.1f} M/s on the host, "
+        f"{res['quantize']['mparams_per_s']:.1f} M/s on the host "
+        f"({dims.depth_double} + {dims.depth_single} blocks, the codec "
+        f"library on {torch.get_num_threads()} threads; numpy alone: "
+        f"{NUMPY_QUANTIZE_MPS} M/s at 2 + 4 blocks), "
         f"{res['quantize']['bytes'] / 1e9:.3f} GB")
     want = {}
     qs = quantize.QuantState()
@@ -6315,7 +6487,9 @@ def tools_phase(dev, dims, steps, tmp):
                  else leaf.float())
         checked[qn] = (k, bool(np.array_equal(got_w.cpu().numpy(),
                                               want_w)))
-    log(f"  load_diffusion_model(..., {dev!r}): {res['load_s']:.2f}s; "
+    log(f"  load_diffusion_model(..., {dev!r}): {res['load_s']:.2f}s "
+        f"({dims.depth_double} + {dims.depth_single} blocks; numpy alone: "
+        f"{NUMPY_LOAD_S} s at 2 + 4 blocks); "
         f"dequantized on the device vs codecs.dequantize of the payload: "
         + ", ".join(f"{q} ({k}) {'equal' if ok else 'DIFFERENT'}"
                     for q, (k, ok) in checked.items()))
@@ -7405,10 +7579,24 @@ def parallel_phase(dev, flux_dims, hd_dims, wan_dims, steps, h_lat=128,
     return dict(launches=launches, ranks=a, ep_sp=b, tiny=c, wall=wall)
 
 
-# phases that run alone under --only (phase 22, or phases 5, 17 and 19 on
-# a parent commit's port, this script copied into its checkout, beside
-# this one's)
-ALONE_PHASES = (5, 17, 19, 22)
+# phases that run alone under --only (phases 21 and 22, or phases 5, 17
+# and 19 on a parent commit's port, this script copied into its checkout,
+# beside this one's)
+ALONE_PHASES = (5, 17, 19, 21, 22)
+
+
+def _tools_alone(dev, args):
+    """Phase 21 by itself (``--only 21``): the host codecs' step and the
+    tools at ``--tools-depth-*`` in a temporary directory."""
+    from comfyui_gguf_tpu_torch import _build
+    from comfyui_gguf_tpu_torch.models import testing
+
+    host_codecs_step(dev, testing.FLUX_DEV_DIMS)
+    dims = dataclasses.replace(
+        testing.FLUX_DEV_DIMS, depth_double=args.tools_depth_double,
+        depth_single=args.tools_depth_single)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tools_phase(dev, dims, args.tools_steps, tmp)
 
 
 def main() -> int:
@@ -7510,6 +7698,7 @@ def main() -> int:
                 (args.hyvid_depth_double, args.hyvid_depth_single),
                 args.hyvid_steps, args.hyvid_llama_layers,
                 min(args.hyvid_steps, 2)),
+            21: lambda: _tools_alone(dev, args),
             22: lambda: parallel_phase(dev, *_p22_dims(args),
                                        args.parallel_steps),
         }
@@ -7522,6 +7711,10 @@ def main() -> int:
         return 0
 
     log("[2 build]")
+    _build.host_lib()
+    host = _build.BUILD_REPORT["host"]
+    log(f"  host codecs: {host['compiler']} {host['flags']}: built in "
+        f"{host['s']:.2f}s (phase 21 holds them to numpy)")
     _build.lib()
     rep = _build.BUILD_REPORT
     if rep.get("cached"):
@@ -7734,10 +7927,12 @@ def main() -> int:
     ltxv_res = video2_full_phase(dev, "ltxv", args.ltxv_depth,
                                  args.ltxv_steps, args.ltxv_t5_layers,
                                  min(args.ltxv_steps, 2))
-    log("[21 the offline tools as a user runs them: safetensors -> BF16 "
+    log("[21 the host block codecs against numpy at published widths; "
+        "the offline tools as a user runs them: safetensors -> BF16 "
         "GGUF -> Q4_K_M -> validate -> load -> denoise, the tile "
         "autotuner]")
     from comfyui_gguf_tpu_torch.models import testing
+    host_codecs_step(dev, testing.FLUX_DEV_DIMS)
     tools_dims = dataclasses.replace(
         testing.FLUX_DEV_DIMS, depth_double=args.tools_depth_double,
         depth_single=args.tools_depth_single)

@@ -12,6 +12,10 @@ exception.
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` without the CUDA toolkit.
 
+The host block codecs (``native/quant_kernels.cc``) build here too, with
+the host C++ compiler (``host_build`` / ``host_lib``), into the same
+directory under a name of their own; ``native/`` binds them.
+
 Each kernel wrapper also counts its launches here (``count``), so a run can
 show that the main path went through the kernels.
 """
@@ -31,6 +35,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+HOST_SOURCE = _PKG / "native" / "quant_kernels.cc"
+# -ffp-contract=off: numpy rounds a product before it adds, so a fused
+# multiply-add would move near-tie codes (Q4_0's x * inv + 8.5). No
+# -march=native: a tree copied to another host must load what it built.
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-ffp-contract=off",
+              "-Wall", "-shared")
 SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
            "qmm_f16.cu", "qmm_int8_f16.cu", "qmm_lora_f16.cu",
            "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
@@ -120,6 +130,25 @@ _SIGNATURES = {
     "gemm_probe_s8_launch": [_VP] * 5 + [_I] * 5 + [_VP],
 }
 
+# the host codecs' C entries (native/quant_kernels.cc), each ending in its
+# thread count
+_U8P, _I8P = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int8)
+_F32P, _I64 = ctypes.POINTER(ctypes.c_float), ctypes.c_int64
+_HOST_SIGNATURES = {
+    # qtype, x, blocks, elements / qtype, blocks, x, elements
+    "ggqt_quantize": [_I, _F32P, _U8P, _I64, _I],
+    "ggqt_dequantize": [_I, _U8P, _F32P, _I64, _I],
+    # blocks, q, A, [B,] blocks
+    "ggqt_extract_q4k": [_U8P, _U8P, _F32P, _F32P, _I64, _I],
+    "ggqt_extract_q5k": [_U8P, _U8P, _F32P, _F32P, _I64, _I],
+    "ggqt_extract_q2k": [_U8P, _U8P, _F32P, _F32P, _I64, _I],
+    "ggqt_extract_q6k": [_U8P, _I8P, _F32P, _I64, _I],
+    "ggqt_extract_q3k": [_U8P, _I8P, _F32P, _I64, _I],
+    # codes, plane, R, K, Rp
+    "ggqt_pack_nib4_planar": [_U8P, _U8P, _I64, _I64, _I64, _I],
+    "ggqt_transpose_i8": [_I8P, _I8P, _I64, _I64, _I64, _I],
+}
+
 # launches per kernel since the last reset_launch_counts(); a "_lora" entry
 # counts the launches of that kernel's LoRA instance (and only those), an
 # "_f16" / "_f32" entry those of its f16 / f32 instances (the bf16 ones have
@@ -157,6 +186,7 @@ BUILD_REPORT: dict = {}
 
 _lock = threading.Lock()
 _lib = None
+_host_lib = None
 
 
 def count(kernel: str) -> None:
@@ -270,6 +300,69 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def cxx() -> str:
+    """Path of the host C++ compiler: ``$CXX``, else ``c++``."""
+    name = os.environ.get("CXX") or "c++"
+    found = shutil.which(name)
+    if found is None:
+        raise RuntimeError(f"C++ compiler {name!r} not found: the host "
+                           "block codecs (native/) build with it")
+    return found
+
+
+def host_build() -> Path:
+    """Compile ``native/quant_kernels.cc`` into a shared library under
+    ``_build/``, named by a digest of the compiler (its path and
+    ``--version``), the flags and the source; returns its path (an existing
+    build of the same digest is reused). A failed compile raises
+    ``RuntimeError`` with the compiler's output."""
+    exe = cxx()
+    ver = subprocess.run([exe, "--version"], capture_output=True, text=True)
+    if ver.returncode != 0:
+        raise RuntimeError(f"{exe} --version failed:\n{ver.stdout}"
+                           f"{ver.stderr}")
+    h = hashlib.sha256(" ".join((exe, *HOST_FLAGS, ver.stdout)).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    target = BUILD_DIR / f"libggqt_host_{h.hexdigest()[:16]}.so"
+    report = dict(path=str(target), source=str(HOST_SOURCE), compiler=exe,
+                  version=ver.stdout.splitlines()[0] if ver.stdout else "",
+                  flags=" ".join(HOST_FLAGS))
+    if target.exists():
+        BUILD_REPORT["host"] = dict(report, cached=True, s=0.0)
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"host_tmp_{os.getpid()}_{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        out = work / "lib.so"
+        p = subprocess.run([exe, *HOST_FLAGS, "-o", str(out),
+                            str(HOST_SOURCE)], capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"{exe} failed on {HOST_SOURCE}:\n"
+                               f"{p.stdout}{p.stderr}")
+        os.replace(out, target)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    BUILD_REPORT["host"] = dict(report, cached=False,
+                                s=time.perf_counter() - t0)
+    return target
+
+
+def host_lib() -> ctypes.CDLL:
+    """The loaded host codec library (built on first call)."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            handle = ctypes.CDLL(str(host_build()))
+            for name, argtypes in _HOST_SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _host_lib = handle
+    return _host_lib
 
 
 def check(rc: int, what: str) -> None:

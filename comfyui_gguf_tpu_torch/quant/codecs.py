@@ -1,10 +1,13 @@
-"""GGML quantization block codecs (numpy, host-side).
+"""GGML quantization block codecs (host-side).
 
 The port's own copy of ``comfyui_gguf_tpu/quant/codecs.py``: the same
 decoders (exact GGML block semantics, llama.cpp ggml-quants.c) and the same
-encoders (direct affine/absmax fits that produce valid GGML blocks). The
-reference package's multi-threaded C++ codec library is not carried over;
-the numpy decoders here are the bit-exact path it was checked against.
+encoders (direct affine/absmax fits that produce valid GGML blocks), in
+numpy. ``quantize``, ``dequantize`` and ``COMPONENT_EXTRACTORS`` send the
+qtypes the port's multi-threaded C++ library covers (``native/``: encode
+Q4_0, Q8_0, Q4_K, Q5_K, Q6_K; decode Q4_0, Q8_0, Q4_K, Q6_K; extract Q2_K
+.. Q6_K) to it, byte-equal; every other qtype runs on the numpy functions
+here, which also stay the plain version the library is tested against.
 
 These run at load/convert time on the host. The on-device inference path
 uses the planar re-tiled layout (quant/planar.py) and the CUDA kernels
@@ -13,8 +16,11 @@ uses the planar re-tiled layout (quant/planar.py) and the CUDA kernels
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
+from .. import native
 from ..gguf.constants import (
     GGML_QUANT_SIZES,
     K_SCALE_SIZE,
@@ -583,17 +589,31 @@ def encode_IQ4_XS(x: np.ndarray) -> np.ndarray:
 # registries / public API
 # --------------------------------------------------------------------------
 
+def _library_components(blocks: np.ndarray, extract,
+                        group_size: int) -> Components:
+    """A K-quant's components from the host codec library: the q, scales
+    and offsets of its numpy ``components_*`` function, byte for byte."""
+    q, scales, *offsets = extract(blocks)
+    return Components(q, scales, offsets=offsets[0] if offsets else None,
+                      group_size=group_size)
+
+
+def _on_library(extract, group_size: int):
+    return functools.partial(_library_components, extract=extract,
+                             group_size=group_size)
+
+
 COMPONENT_EXTRACTORS = {
     Q.Q8_0: components_Q8_0,
     Q.Q4_0: components_Q4_0,
     Q.Q4_1: components_Q4_1,
     Q.Q5_0: components_Q5_0,
     Q.Q5_1: components_Q5_1,
-    Q.Q2_K: components_Q2_K,
-    Q.Q3_K: components_Q3_K,
-    Q.Q4_K: components_Q4_K,
-    Q.Q5_K: components_Q5_K,
-    Q.Q6_K: components_Q6_K,
+    Q.Q2_K: _on_library(native.extract_q2k, 16),
+    Q.Q3_K: _on_library(native.extract_q3k, 16),
+    Q.Q4_K: _on_library(native.extract_q4k, 32),
+    Q.Q5_K: _on_library(native.extract_q5k, 32),
+    Q.Q6_K: _on_library(native.extract_q6k, 16),
     Q.IQ4_NL: components_IQ4_NL,
     Q.IQ4_XS: components_IQ4_XS,
 }
@@ -725,7 +745,8 @@ def dequantize(data: np.ndarray, qtype: GGMLQuantizationType,
                shape: tuple[int, ...]) -> np.ndarray:
     """Raw packed bytes -> float32 array of logical ``shape``.
 
-    Host-side equivalent of reference dequant.py:30-44.
+    Host-side equivalent of reference dequant.py:30-44; the qtypes the
+    host codec library decodes run there.
     """
     qtype = GGMLQuantizationType(qtype)
     if qtype == Q.F32:
@@ -738,6 +759,9 @@ def dequantize(data: np.ndarray, qtype: GGMLQuantizationType,
         # etc.) the reference covers via its gguf-pkg fallback
         return (np.ascontiguousarray(data).view(_SCALAR_VIEWS[qtype])
                 .reshape(shape).astype(np.float32))
+    if native.available(qtype, decode=True):
+        return native.dequantize(data, qtype,
+                                 int(np.prod(shape))).reshape(shape)
     block, type_size = GGML_QUANT_SIZES[qtype]
     raw = np.ascontiguousarray(data).view(np.uint8).reshape(-1, type_size)
     out = require_decoder(qtype)(raw)
@@ -745,7 +769,8 @@ def dequantize(data: np.ndarray, qtype: GGMLQuantizationType,
 
 
 def quantize(x: np.ndarray, qtype: GGMLQuantizationType) -> np.ndarray:
-    """float array -> packed GGUF payload bytes (n_blocks, type_size)."""
+    """float array -> packed GGUF payload bytes (n_blocks, type_size); the
+    qtypes the host codec library encodes run there."""
     qtype = GGMLQuantizationType(qtype)
     enc = ENCODERS.get(qtype)
     if enc is None:
@@ -754,5 +779,7 @@ def quantize(x: np.ndarray, qtype: GGMLQuantizationType) -> np.ndarray:
     n = x.size
     if n % block != 0:
         raise ValueError(f"{n} elements not divisible by block {block} ({qtype.name})")
+    if native.available(qtype):
+        return native.quantize(x, qtype)
     out = enc(np.ascontiguousarray(x, dtype=np.float32).reshape(-1))
     return out.reshape(-1, type_size)

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from .. import native
 from ..gguf.constants import GGMLQuantizationType
 from . import codecs
 
@@ -164,6 +165,21 @@ def planarize(data: np.ndarray, qtype: GGMLQuantizationType,
     return out.to(device)
 
 
+def nib4_plane(q: np.ndarray, rp: int) -> np.ndarray:
+    """(R, K) codes → the (K/2, rp) nib4 plane, zero lanes past R: the
+    numpy version of ``native.pack_nib4_planar``."""
+    R, K = q.shape
+    qt = q.astype(np.uint8).T
+    packed = qt[: K // 2] | (qt[K // 2:] << 4)
+    return np.pad(packed, ((0, 0), (0, rp - R)))
+
+
+def int8_plane(q: np.ndarray, rp: int) -> np.ndarray:
+    """(R, K) int8 codes → the (K, rp) plane, zero lanes past R: the numpy
+    version of ``native.transpose_i8``."""
+    return np.pad(q.T, ((0, 0), (0, rp - q.shape[0])))
+
+
 def _components_to_planar(q, scales, offsets, qtype, zero_point, gs,
                           shape, scale_dtype=torch.float32) -> PlanarQuant:
     """Assemble a PlanarQuant (CPU tensors) from extracted components.
@@ -198,16 +214,15 @@ def _components_to_planar(q, scales, offsets, qtype, zero_point, gs,
     offsets_t = (None if offsets is None
                  else np.pad(offsets.reshape(R, K // gs).T,
                              ((0, 0), (0, pad))))
+    # the (R, K) -> (K, R) byte transposes run on the host codec library
     if qtype in _NIB4_TYPES:
-        qt = q.reshape(R, K).astype(np.uint8).T
-        packed = qt[: K // 2] | (qt[K // 2:] << 4)
-        qs = np.pad(packed, ((0, 0), (0, pad)))
+        qs = native.pack_nib4_planar(q.reshape(R, K), rp)
         layout, zp = "nib4", zero_point
     else:
         qi = q.reshape(R, K).astype(np.int16) - int(zero_point)
         if qi.min(initial=0) < -128 or qi.max(initial=0) > 127:
             raise ValueError(f"{qtype!r}: codes out of int8 range")
-        qs = np.pad(qi.astype(np.int8).T, ((0, 0), (0, pad)))
+        qs = native.transpose_i8(qi.astype(np.int8), rp)
         layout, zp = "int8", 0
     return PlanarQuant(
         qs=torch.from_numpy(np.ascontiguousarray(qs)),

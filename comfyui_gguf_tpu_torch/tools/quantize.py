@@ -16,8 +16,9 @@ ComfyUI-GGUF's patched ``llama-quantize``:
 
 IQ ftypes are refused for image models, and an architecture that is
 neither an image model nor a known text encoder is an error. The block
-encoders are the port's numpy codecs (``quant/codecs.py``); the
-reference's optional C++ fast path is not part of the port.
+encoders are the port's codecs (``quant/codecs.py``): its multi-threaded
+C++ library (``native/``) for Q4_0, Q8_0, Q4_K, Q5_K and Q6_K, numpy for
+the rest, byte-equal to the reference's numpy codecs.
 
 Usage:  python -m comfyui_gguf_tpu_torch.tools.quantize --src m-F16.gguf \
             --ftype Q4_K_M [--dst out.gguf]

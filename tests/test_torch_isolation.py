@@ -73,3 +73,20 @@ def test_the_port_has_its_own_sources():
         assert f"comfyui_gguf_tpu_torch/{mod}" in names
     assert (ROOT / "chip_smoke.py").exists()
     assert all(p.exists() for p in FILES)
+
+
+def test_the_host_codecs_build_from_the_ports_own_source():
+    """The bridge (``native/``) compiles the port's ``quant_kernels.cc``
+    into the port's build directory, and names nothing of the reference's
+    ``native/`` (its source or its library)."""
+    from comfyui_gguf_tpu_torch import _build
+
+    own = ROOT / "comfyui_gguf_tpu_torch" / "native" / "quant_kernels.cc"
+    assert _build.HOST_SOURCE == own and own.exists()
+    path = _build.host_build()
+    assert path.parent == ROOT / "comfyui_gguf_tpu_torch" / "_build"
+    assert pathlib.Path(_build.BUILD_REPORT["host"]["source"]) == own
+    for f in (ROOT / "comfyui_gguf_tpu_torch" / "_build.py",
+              ROOT / "comfyui_gguf_tpu_torch" / "native" / "__init__.py"):
+        text = f.read_text()
+        assert "libggquant" not in text and "comfyui_gguf_tpu/" not in text
