@@ -6314,7 +6314,7 @@ def _trace_forward(model, inputs, tree, tmp, fails):
     d = os.path.join(tmp, f"trace_{tree}")
     before = dict(_build.LAUNCHES)
     with torch.no_grad(), observability.trace(d) as prof:
-        with observability.annotate(f"flux forward ({tree})"):
+        with observability.span(f"chip_smoke.flux_forward.{tree}"):
             model.forward(*inputs)
         torch.cuda.synchronize()
     counts = {k: n - before[k] for k, n in _build.LAUNCHES.items()

@@ -85,7 +85,6 @@ _PUBLIC = {
     "fit_latent_preview": ".preview",
     "previewer_for_vae": ".preview",
     "memory_report": ".observability",
-    "qmm_roofline": ".observability",
     "enable_compile_cache": ".compile_cache",
     "ModelRegistry": ".registry",
     "ring_attention": ".parallel.ring",

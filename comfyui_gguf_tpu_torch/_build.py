@@ -293,7 +293,10 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            from .observability import span
+
+            with span("build.cuda"):
+                handle = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
@@ -356,7 +359,10 @@ def host_lib() -> ctypes.CDLL:
     global _host_lib
     with _lock:
         if _host_lib is None:
-            handle = ctypes.CDLL(str(host_build()))
+            from .observability import span
+
+            with span("build.host"):
+                handle = ctypes.CDLL(str(host_build()))
             for name, argtypes in _HOST_SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes

@@ -7,7 +7,10 @@
 * Stage 2, ``to_torch_params``: conforming 2-D quantized weights are
   re-tiled once into the planar layout (quant/planar.py) and stay packed on
   the device; everything else is dequantized to a dense tensor. Scale and
-  offset planes stay float32.
+  offset planes stay float32. Its phases run as the spans ``loader.decode``
+  (component extraction or dequantize; stored bytes), ``loader.pack``
+  (planar packing and padding) and ``loader.copy`` (each leaf's copy to
+  the device; bytes placed).
 
 ``gguf_clip_loader`` is the text-encoder entry: key maps, tokenizer
 metadata (``TokenizerSpec``), the early decode of huge token embeddings and,
@@ -32,6 +35,7 @@ from .gguf.reader import GGUFReader
 from .maps import (CLIP_VISION_SD_MAP, LLAMA_SD_MAP, T5_SD_MAP,
                    sd_map_replace, unpermute_gqa_rows)
 from .nn.layers import DEFAULT_CONFIG, QuantConfig
+from .observability import span
 from .quant import codecs
 from .quant.planar import planarize
 
@@ -386,8 +390,15 @@ def _planarizable(qt: QTensor) -> bool:
 
 
 def _tensor(arr: np.ndarray, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
-                                                          dtype=dtype)
+    nbytes = arr.size * dtype.itemsize
+    with span("loader.copy", nbytes):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
+                                                              dtype=dtype)
+
+
+def _decoded(qt: QTensor) -> np.ndarray:
+    with span("loader.decode", qt.data.nbytes):
+        return qt.dequantize(np.float32)
 
 
 def to_torch_params(sd: dict[str, QTensor],
@@ -408,7 +419,7 @@ def to_torch_params(sd: dict[str, QTensor],
     params: dict[str, object] = {}
     for key, qt in sd.items():
         if not qt.is_quantized:
-            arr = qt.dequantize(np.float32)
+            arr = _decoded(qt)
             # F32-stored tensors are the converter's high-precision set
             # (modulation tables, pos encodings); keep them f32 unless
             # they're actually large
@@ -420,7 +431,7 @@ def to_torch_params(sd: dict[str, QTensor],
             params[key] = planarize(qt.data, qt.qtype, qt.shape,
                                     device=device, scale_dtype=scale_dtype)
         else:
-            arr = qt.dequantize(np.float32)
+            arr = _decoded(qt)
             dt = torch.float32 if arr.ndim <= 1 else cfg.dequant_dtype
             params[key] = _tensor(arr, dt, device)
     return params

@@ -27,6 +27,7 @@ from ..nn.attention import dot_product_attention
 from ..nn.layers import (QuantConfig, DEFAULT_CONFIG, in_features,
                          layer_norm, linear, linear_gelu, out_features,
                          rms_norm)
+from ..observability import span
 from ..quant.i8 import I8Planar
 from ..quant.planar import PlanarQuant
 
@@ -155,13 +156,13 @@ def _qknorm(params, prefix: str, q, k):
     return q, k
 
 
-def _attention(q, k, v, pe):
-    """(B, H, L, D) heads-major attention with RoPE; returns (B, L, H*D)."""
-    q = apply_rope(q, pe)
-    k = apply_rope(k, pe)
+def _attention(q, k, v):
+    """(B, H, L, D) heads-major attention of RoPE'd q and k; returns
+    (B, L, H*D)."""
     B, H, L, D = q.shape
     out = dot_product_attention(q, k, v)  # (B, H, L, D)
-    return out.transpose(1, 2).reshape(B, L, H * D)
+    with span("forward.qk_rope"):
+        return out.transpose(1, 2).reshape(B, L, H * D)
 
 
 def _split_heads(x, n_heads: int):
@@ -185,41 +186,50 @@ def _double_block(p: dict, img, txt, vec, pe, cfg: FluxConfig, qcfg):
     t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = _modulation(
         p, "txt_mod", vec, 6, qcfg)
 
-    img_mod = layer_norm(img, eps=1e-6) * (1 + i_scale1) + i_shift1
-    txt_mod = layer_norm(txt, eps=1e-6) * (1 + t_scale1) + t_shift1
+    with span("forward.norm_mod"):
+        img_mod = layer_norm(img, eps=1e-6) * (1 + i_scale1) + i_shift1
+        txt_mod = layer_norm(txt, eps=1e-6) * (1 + t_scale1) + t_shift1
 
-    iq, ik, iv = _split_heads(
-        linear(img_mod, p["img_attn.qkv.weight"],
-               p.get("img_attn.qkv.bias"), cfg=qcfg), H)
-    tq, tk, tv = _split_heads(
-        linear(txt_mod, p["txt_attn.qkv.weight"],
-               p.get("txt_attn.qkv.bias"), cfg=qcfg), H)
-    iq, ik = _qknorm(p, "img_attn.norm", iq, ik)
-    tq, tk = _qknorm(p, "txt_attn.norm", tq, tk)
-
-    # joint attention, text stream first (BFL ordering)
-    q = torch.cat([tq, iq], dim=2)
-    k = torch.cat([tk, ik], dim=2)
-    v = torch.cat([tv, iv], dim=2)
-    attn = _attention(q, k, v, pe)
+    img_qkv = linear(img_mod, p["img_attn.qkv.weight"],
+                     p.get("img_attn.qkv.bias"), cfg=qcfg)
+    txt_qkv = linear(txt_mod, p["txt_attn.qkv.weight"],
+                     p.get("txt_attn.qkv.bias"), cfg=qcfg)
+    with span("forward.qk_rope"):
+        iq, ik, iv = _split_heads(img_qkv, H)
+        tq, tk, tv = _split_heads(txt_qkv, H)
+        iq, ik = _qknorm(p, "img_attn.norm", iq, ik)
+        tq, tk = _qknorm(p, "txt_attn.norm", tq, tk)
+        # joint attention, text stream first (BFL ordering)
+        q = apply_rope(torch.cat([tq, iq], dim=2), pe)
+        k = apply_rope(torch.cat([tk, ik], dim=2), pe)
+        v = torch.cat([tv, iv], dim=2)
+    attn = _attention(q, k, v)
     L_txt = txt.shape[1]
     txt_attn, img_attn = attn[:, :L_txt], attn[:, L_txt:]
 
-    img = img + i_gate1 * linear(img_attn, p["img_attn.proj.weight"],
-                                 p.get("img_attn.proj.bias"), cfg=qcfg)
-    h = layer_norm(img, eps=1e-6) * (1 + i_scale2) + i_shift2
+    y = linear(img_attn, p["img_attn.proj.weight"],
+               p.get("img_attn.proj.bias"), cfg=qcfg)
+    with span("forward.gate_res"):
+        img = img + i_gate1 * y
+    with span("forward.norm_mod"):
+        h = layer_norm(img, eps=1e-6) * (1 + i_scale2) + i_shift2
     h = linear_gelu(h, p["img_mlp.0.weight"], p.get("img_mlp.0.bias"),
                     cfg=qcfg)
-    img = img + i_gate2 * linear(h, p["img_mlp.2.weight"],
-                                 p.get("img_mlp.2.bias"), cfg=qcfg)
+    y = linear(h, p["img_mlp.2.weight"], p.get("img_mlp.2.bias"), cfg=qcfg)
+    with span("forward.gate_res"):
+        img = img + i_gate2 * y
 
-    txt = txt + t_gate1 * linear(txt_attn, p["txt_attn.proj.weight"],
-                                 p.get("txt_attn.proj.bias"), cfg=qcfg)
-    h = layer_norm(txt, eps=1e-6) * (1 + t_scale2) + t_shift2
+    y = linear(txt_attn, p["txt_attn.proj.weight"],
+               p.get("txt_attn.proj.bias"), cfg=qcfg)
+    with span("forward.gate_res"):
+        txt = txt + t_gate1 * y
+    with span("forward.norm_mod"):
+        h = layer_norm(txt, eps=1e-6) * (1 + t_scale2) + t_shift2
     h = linear_gelu(h, p["txt_mlp.0.weight"], p.get("txt_mlp.0.bias"),
                     cfg=qcfg)
-    txt = txt + t_gate2 * linear(h, p["txt_mlp.2.weight"],
-                                 p.get("txt_mlp.2.bias"), cfg=qcfg)
+    y = linear(h, p["txt_mlp.2.weight"], p.get("txt_mlp.2.bias"), cfg=qcfg)
+    with span("forward.gate_res"):
+        txt = txt + t_gate2 * y
     return img, txt
 
 
@@ -231,19 +241,24 @@ def _single_block(p: dict, x, vec, pe, cfg: FluxConfig, qcfg):
                 - in_features(p["linear2.weight"])) // 2
 
     shift, scale, gate = _modulation(p, "modulation", vec, 3, qcfg)
-    x_mod = layer_norm(x, eps=1e-6) * (1 + scale) + shift
+    with span("forward.norm_mod"):
+        x_mod = layer_norm(x, eps=1e-6) * (1 + scale) + shift
 
     # fused linear1: qkv columns pass through, mlp columns get the GELU in
     # the kernel epilogue
     h = linear_gelu(x_mod, p["linear1.weight"], p.get("linear1.bias"),
                     tail_from=hid3, cfg=qcfg)
-    qkv, act = h[..., :hid3], h[..., hid3:]
-    q, k, v = _split_heads(qkv, H)
-    q, k = _qknorm(p, "norm", q, k)
-    attn = _attention(q, k, v, pe)
-    out = linear(torch.cat([attn, act], dim=-1),
-                 p["linear2.weight"], p.get("linear2.bias"), cfg=qcfg)
-    return x + gate * out
+    with span("forward.qk_rope"):
+        qkv, act = h[..., :hid3], h[..., hid3:]
+        q, k, v = _split_heads(qkv, H)
+        q, k = _qknorm(p, "norm", q, k)
+        q, k = apply_rope(q, pe), apply_rope(k, pe)
+    attn = _attention(q, k, v)
+    with span("forward.gate_res"):
+        cat = torch.cat([attn, act], dim=-1)
+    out = linear(cat, p["linear2.weight"], p.get("linear2.bias"), cfg=qcfg)
+    with span("forward.gate_res"):
+        return x + gate * out
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +294,8 @@ def _final(params, img, vec, qcfg):
     mod = linear(_silu(vec), params["final_layer.adaLN_modulation.1.weight"],
                  params.get("final_layer.adaLN_modulation.1.bias"), cfg=qcfg)
     shift, scale = torch.chunk(mod[:, None, :], 2, dim=-1)
-    img = layer_norm(img, eps=1e-6) * (1 + scale) + shift
+    with span("forward.norm_mod"):
+        img = layer_norm(img, eps=1e-6) * (1 + scale) + shift
     return linear(img, params["final_layer.linear.weight"],
                   params.get("final_layer.linear.bias"), cfg=qcfg)
 
@@ -291,17 +307,22 @@ def forward(params, cfg: FluxConfig, img, img_ids, txt, txt_ids, timesteps,
     img: (B, L_img, in_channels); txt: (B, L_txt, context_dim);
     *_ids: (B, L, 3) RoPE position ids; y: (B, vec_dim) pooled CLIP.
     """
-    img, txt, vec, pe = _prelude(params, cfg, img, img_ids, txt, txt_ids,
-                                 timesteps, y, guidance, qcfg)
+    with span("forward.prelude"):
+        img, txt, vec, pe = _prelude(params, cfg, img, img_ids, txt,
+                                     txt_ids, timesteps, y, guidance, qcfg)
     for i in range(cfg.depth_double):
-        img, txt = _double_block(block_subtree(params, f"double_blocks.{i}."),
-                                 img, txt, vec, pe, cfg, qcfg)
+        with span("forward.block"):
+            img, txt = _double_block(
+                block_subtree(params, f"double_blocks.{i}."), img, txt, vec,
+                pe, cfg, qcfg)
     x = torch.cat([txt, img], dim=1)
     for i in range(cfg.depth_single):
-        x = _single_block(block_subtree(params, f"single_blocks.{i}."),
-                          x, vec, pe, cfg, qcfg)
+        with span("forward.block"):
+            x = _single_block(block_subtree(params, f"single_blocks.{i}."),
+                              x, vec, pe, cfg, qcfg)
     img = x[:, txt.shape[1]:]
-    return _final(params, img, vec, qcfg)
+    with span("forward.final"):
+        return _final(params, img, vec, qcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -393,17 +414,21 @@ def forward_stacked(sparams: dict, cfg: FluxConfig, img, img_ids, txt,
                     qcfg: QuantConfig = DEFAULT_CONFIG):
     """forward() over stack_flux_params() output — identical math, one
     loop per block kind over views of the stacked weights."""
-    img, txt, vec, pe = _prelude(sparams, cfg, img, img_ids, txt, txt_ids,
-                                 timesteps, y, guidance, qcfg)
+    with span("forward.prelude"):
+        img, txt, vec, pe = _prelude(sparams, cfg, img, img_ids, txt,
+                                     txt_ids, timesteps, y, guidance, qcfg)
     for i in range(cfg.depth_double):
-        img, txt = _double_block(block_view(sparams["double_blocks"], i),
-                                 img, txt, vec, pe, cfg, qcfg)
+        with span("forward.block"):
+            img, txt = _double_block(block_view(sparams["double_blocks"], i),
+                                     img, txt, vec, pe, cfg, qcfg)
     x = torch.cat([txt, img], dim=1)
     for i in range(cfg.depth_single):
-        x = _single_block(block_view(sparams["single_blocks"], i),
-                          x, vec, pe, cfg, qcfg)
+        with span("forward.block"):
+            x = _single_block(block_view(sparams["single_blocks"], i),
+                              x, vec, pe, cfg, qcfg)
     img = x[:, txt.shape[1]:]
-    return _final(sparams, img, vec, qcfg)
+    with span("forward.final"):
+        return _final(sparams, img, vec, qcfg)
 
 
 # ---------------------------------------------------------------------------

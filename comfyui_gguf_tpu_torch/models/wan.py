@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..nn.attention import dot_product_attention
 from ..nn.layers import (DEFAULT_CONFIG, QuantConfig, conv3d, layer_norm,
                          linear, rms_norm)
+from ..observability import span
 from .flux import (apply_rope, block_subtree, block_view, stack_block_groups,
                    timestep_embedding)
 
@@ -124,37 +125,50 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def _block(p, x, e0, ctx, pe, cfg: WanConfig, qcfg):
     """One Wan block over its UNPREFIXED param subtree ``p``."""
     H = cfg.n_heads
-    # 6-chunk modulation: learned table + time projection
-    mod = (p["modulation"].reshape(1, 6, cfg.dim)
-           + e0.reshape(-1, 6, cfg.dim)).to(x.dtype)
-    sh1, sc1, g1, sh2, sc2, g2 = [mod[:, j][:, None] for j in range(6)]
 
     def proj(name, t):
         return linear(t, p[f"{name}.weight"], p.get(f"{name}.bias"),
                       cfg=qcfg)
 
-    # Wan applies full-width RMS norms on q/k before the head split
-    h = layer_norm(x, eps=1e-6) * (1 + sc1) + sh1
-    q = _heads(rms_norm(proj("self_attn.q", h),
-                        p["self_attn.norm_q.weight"], eps=1e-6), H)
-    k = _heads(rms_norm(proj("self_attn.k", h),
-                        p["self_attn.norm_k.weight"], eps=1e-6), H)
-    v = _heads(proj("self_attn.v", h), H)
-    a = proj("self_attn.o", _attn(_apply_rope(q, pe), _apply_rope(k, pe), v))
-    x = x + g1 * a
+    def attend(q, k, v, name, rope):
+        # Wan applies full-width RMS norms on q/k before the head split
+        with span("forward.qk_rope"):
+            q = _heads(rms_norm(q, p[f"{name}.norm_q.weight"], eps=1e-6), H)
+            k = _heads(rms_norm(k, p[f"{name}.norm_k.weight"], eps=1e-6), H)
+            v = _heads(v, H)
+            if rope:
+                q, k = _apply_rope(q, pe), _apply_rope(k, pe)
+        o = dot_product_attention(q, k, v)
+        with span("forward.qk_rope"):
+            return _unheads(o)
+
+    with span("forward.norm_mod"):
+        # 6-chunk modulation: learned table + time projection
+        mod = (p["modulation"].reshape(1, 6, cfg.dim)
+               + e0.reshape(-1, 6, cfg.dim)).to(x.dtype)
+        sh1, sc1, g1, sh2, sc2, g2 = [mod[:, j][:, None] for j in range(6)]
+        h = layer_norm(x, eps=1e-6) * (1 + sc1) + sh1
+    a = attend(proj("self_attn.q", h), proj("self_attn.k", h),
+               proj("self_attn.v", h), "self_attn", rope=True)
+    a = proj("self_attn.o", a)
+    with span("forward.gate_res"):
+        x = x + g1 * a
 
     # cross attention (an affine LN on its input)
-    h = layer_norm(x, p.get("norm3.weight"), p.get("norm3.bias"), eps=1e-6)
-    q = _heads(rms_norm(proj("cross_attn.q", h),
-                        p["cross_attn.norm_q.weight"], eps=1e-6), H)
-    k = _heads(rms_norm(proj("cross_attn.k", ctx),
-                        p["cross_attn.norm_k.weight"], eps=1e-6), H)
-    v = _heads(proj("cross_attn.v", ctx), H)
-    x = x + proj("cross_attn.o", _attn(q, k, v))
+    with span("forward.norm_mod"):
+        h = layer_norm(x, p.get("norm3.weight"), p.get("norm3.bias"),
+                       eps=1e-6)
+    a = attend(proj("cross_attn.q", h), proj("cross_attn.k", ctx),
+               proj("cross_attn.v", ctx), "cross_attn", rope=False)
+    a = proj("cross_attn.o", a)
+    with span("forward.gate_res"):
+        x = x + a
 
-    h = layer_norm(x, eps=1e-6) * (1 + sc2) + sh2
+    with span("forward.norm_mod"):
+        h = layer_norm(x, eps=1e-6) * (1 + sc2) + sh2
     h = proj("ffn.2", _gelu(proj("ffn.0", h)))
-    return x + g2 * h
+    with span("forward.gate_res"):
+        return x + g2 * h
 
 
 def _prelude(params, cfg: WanConfig, latent, context, timesteps, qcfg):
@@ -185,7 +199,8 @@ def _head(params, cfg: WanConfig, x, e, dims, qcfg):
     hm = (params["head.modulation"].reshape(1, 2, cfg.dim)
           + e.reshape(-1, 1, cfg.dim)).to(x.dtype)
     shift, scale = hm[:, 0][:, None], hm[:, 1][:, None]
-    x = layer_norm(x, eps=1e-6) * (1 + scale) + shift
+    with span("forward.norm_mod"):
+        x = layer_norm(x, eps=1e-6) * (1 + scale) + shift
     x = linear(x, params["head.head.weight"], params.get("head.head.bias"),
                cfg=qcfg)
     x = x.reshape(B, f, h, w, pt, ph, pw, cfg.out_channels)
@@ -198,12 +213,15 @@ def forward(params, cfg: WanConfig, latent: torch.Tensor,
             qcfg: QuantConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """latent (B, F, H, W, C) NDHWC, context (B, L, text_dim), timesteps
     (B,) in [0, 1] → the velocity latent, same shape."""
-    x, ctx, e, e0, pe, dims = _prelude(params, cfg, latent, context,
-                                       timesteps, qcfg)
+    with span("forward.prelude"):
+        x, ctx, e, e0, pe, dims = _prelude(params, cfg, latent, context,
+                                           timesteps, qcfg)
     for i in range(cfg.n_layers):
-        x = _block(block_subtree(params, f"blocks.{i}."), x, e0, ctx, pe,
-                   cfg, qcfg)
-    return _head(params, cfg, x, e, dims, qcfg)
+        with span("forward.block"):
+            x = _block(block_subtree(params, f"blocks.{i}."), x, e0, ctx,
+                       pe, cfg, qcfg)
+    with span("forward.final"):
+        return _head(params, cfg, x, e, dims, qcfg)
 
 
 def stack_wan_params(params: dict, cfg: WanConfig) -> dict:
@@ -216,9 +234,12 @@ def forward_stacked(sparams: dict, cfg: WanConfig, latent, context,
                     timesteps, qcfg: QuantConfig = DEFAULT_CONFIG):
     """forward() over stack_wan_params() output — identical math, one loop
     over views of the stacked blocks."""
-    x, ctx, e, e0, pe, dims = _prelude(sparams, cfg, latent, context,
-                                       timesteps, qcfg)
+    with span("forward.prelude"):
+        x, ctx, e, e0, pe, dims = _prelude(sparams, cfg, latent, context,
+                                           timesteps, qcfg)
     for i in range(cfg.n_layers):
-        x = _block(block_view(sparams["blocks"], i), x, e0, ctx, pe, cfg,
-                   qcfg)
-    return _head(sparams, cfg, x, e, dims, qcfg)
+        with span("forward.block"):
+            x = _block(block_view(sparams["blocks"], i), x, e0, ctx, pe,
+                       cfg, qcfg)
+    with span("forward.final"):
+        return _head(sparams, cfg, x, e, dims, qcfg)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..models.flux import (FluxConfig, _attention, _final, _prelude,
-                           _qknorm, _silu, block_view)
+                           _qknorm, _silu, apply_rope, block_view)
 from ..nn.layers import (DEFAULT_CONFIG, QuantConfig, layer_norm, linear,
                          linear_gelu)
 from . import collectives, tp_spec
@@ -109,7 +109,8 @@ def _tp_double_block(p, img, txt, vec, pe, cfg: FluxConfig, qcfg, tp: int,
     q = torch.cat([tq, iq], dim=2)
     k = torch.cat([tk, ik], dim=2)
     v = torch.cat([tv, iv], dim=2)
-    attn = _attention(q, k, v, pe)  # (B, L, Hl·d): the local heads
+    # (B, L, Hl·d): the local heads
+    attn = _attention(apply_rope(q, pe), apply_rope(k, pe), v)
     L_txt = txt.shape[1]
     txt_attn, img_attn = attn[:, :L_txt], attn[:, L_txt:]
 
@@ -145,7 +146,7 @@ def _tp_single_block(p, x, vec, pe, cfg: FluxConfig, qcfg, tp: int, mesh):
     qkv, act = hid[..., : 3 * h_loc], hid[..., 3 * h_loc:]
     q, k, v = _split_heads_local(qkv, Hl)
     q, k = _qknorm(p, "norm", q, k)
-    attn = _attention(q, k, v, pe)
+    attn = _attention(apply_rope(q, pe), apply_rope(k, pe), v)
     out = _psum_linear(torch.cat([attn, act], dim=-1), p["linear2.weight"],
                        p.get("linear2.bias"), qcfg, mesh)
     return x + gate * out

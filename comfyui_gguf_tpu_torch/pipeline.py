@@ -78,6 +78,7 @@ import torch
 
 from . import _safetensors
 from . import lora as lora_mod
+from . import observability
 from ._device import resolve_device
 from .loader import gguf_clip_loader, gguf_sd_loader, to_torch_params
 from .models import aura as aura_model
@@ -547,16 +548,36 @@ def _as_list(v):
 
 class _StageClock:
     """Host-clock seconds of a call's stages; the card is synchronised at
-    every mark, so a stage's time includes its device work."""
+    every mark, so a stage's time includes its device work.
 
-    def __init__(self, device: torch.device):
+    ``stages`` names the marks the call makes, in order: each stage also
+    runs as the span ``pipeline.<name without _s>`` (``tokenize_s`` ->
+    ``pipeline.tokenize``), opened at the previous mark and ended by its
+    own."""
+
+    def __init__(self, device: torch.device, *stages: str):
         self.device = device
         self.marks = [("start", time.perf_counter())]
+        self._stages = list(stages)
+        self._span = None
+        self._open()
+
+    def _open(self) -> None:
+        if self._stages:
+            name = self._stages.pop(0).removesuffix("_s")
+            self._span = observability.span(f"pipeline.{name}")
+            self._span.__enter__()
 
     def mark(self, name: str) -> None:
+        if self._span is None or self._span.name != (
+                "pipeline." + name.removesuffix("_s")):
+            raise ValueError(f"stage {name!r} is not the clock's next stage")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._span.__exit__(None, None, None)
         self.marks.append((name, time.perf_counter()))
+        self._span = None
+        self._open()
 
     def timings(self) -> dict:
         out = {name: t - self.marks[i][1]
@@ -666,7 +687,8 @@ class FluxPipeline:
         reference span is discarded each step.
         """
         device = self.model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "tokenize_s", "t5_s", "clip_s",
+                            "denoise_s", "vae_s")
         mark = clock.mark
 
         def dev(a, dtype):
@@ -894,7 +916,7 @@ class SD3Pipeline:
         ``torch.Generator(device).manual_seed(seed)``.
         """
         device = self.model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "encode_s", "denoise_s", "vae_s")
         gen = torch.Generator(device=device).manual_seed(seed)
         ctx, pooled = self._condition(_ids(clip_l_ids, device),
                                       _ids(clip_g_ids, device),
@@ -997,7 +1019,7 @@ class CFGFlowPipeline:
         cfg_scale = self.cfg_scale if cfg_scale is None else cfg_scale
         model = self.model
         device = model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "encode_s", "denoise_s")
         cond = _text_states(self.encoder, prompt, max_len)
         use_cfg = cfg_scale != 1.0
         ncond = (_text_states(self.encoder, negative_prompt, max_len)
@@ -1084,7 +1106,9 @@ class VideoFlowPipeline(CFGFlowPipeline):
         ``_denoise`` takes it."""
         model = self.model
         device = model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "encode_s", "denoise_s",
+                            *(("vae_s",) if self.vae_params is not None
+                              else ()))
         cond = _text_states(self.encoder, prompt, max_len, self.zero_masked)
         ncond = (_text_states(self.encoder, negative_prompt, max_len,
                               self.zero_masked)
@@ -1306,7 +1330,7 @@ class QwenImagePipeline:
         arguments as ``generate``."""
         model = self.model
         device = model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "encode_s", "denoise_s")
         txt = (_on(txt_override, device, torch.bfloat16)
                if txt_override is not None
                else _text_states(self.text, prompt, max_len))
@@ -1380,7 +1404,7 @@ class HiDreamPipeline:
         noise is drawn from ``torch.Generator(device).manual_seed(seed)``."""
         model = self.model
         device = model.device
-        clock = _StageClock(device)
+        clock = _StageClock(device, "encode_s", "denoise_s")
         pooled = torch.cat(
             [self.clip_l.encode(_ids(clip_l_ids, device))["pooled"],
              self.clip_g.encode(_ids(clip_g_ids, device))["pooled"]],

@@ -34,6 +34,7 @@ import torch
 
 from .. import native
 from ..gguf.constants import GGMLQuantizationType
+from ..observability import span
 from . import codecs
 
 Q = GGMLQuantizationType
@@ -158,11 +159,19 @@ def planarize(data: np.ndarray, qtype: GGMLQuantizationType,
     if len(shape) != 2:
         raise ValueError(f"planarize needs 2-D logical shape, got {shape}")
     R, K = int(shape[0]), int(shape[1])
-    comp = codecs.COMPONENT_EXTRACTORS[qtype](np.ascontiguousarray(data))
+    comp = _extract(data, qtype)
     out = _components_to_planar(comp.q, comp.scales, comp.offsets, qtype,
                                 comp.zero_point, comp.group_size, (R, K),
                                 scale_dtype=scale_dtype)
-    return out.to(device)
+    with span("loader.copy", out.nbytes_packed):
+        return out.to(device)
+
+
+def _extract(data: np.ndarray, qtype) -> codecs.Components:
+    """The stored blocks' codes, scales and offsets (span
+    ``loader.decode``, the stored bytes)."""
+    with span("loader.decode", data.nbytes):
+        return codecs.COMPONENT_EXTRACTORS[qtype](np.ascontiguousarray(data))
 
 
 def nib4_plane(q: np.ndarray, rp: int) -> np.ndarray:
@@ -194,6 +203,13 @@ def _components_to_planar(q, scales, offsets, qtype, zero_point, gs,
     if scale_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"scale_dtype must be float32 or bfloat16, got "
                          f"{scale_dtype}")
+    with span("loader.pack"):
+        return _pack(q, scales, offsets, qtype, zero_point, gs, shape,
+                     scale_dtype)
+
+
+def _pack(q, scales, offsets, qtype, zero_point, gs, shape,
+          scale_dtype) -> PlanarQuant:
     R, K = shape
     kp = padded_in_dim(K, qtype, gs)
     if kp != K:
@@ -335,7 +351,7 @@ def planarize_shards(data: np.ndarray, qtype: GGMLQuantizationType,
     """
     qtype = GGMLQuantizationType(qtype)
     R, K = int(shape[0]), int(shape[1])
-    comp = codecs.COMPONENT_EXTRACTORS[qtype](np.ascontiguousarray(data))
+    comp = _extract(data, qtype)
     gs = comp.group_size
     q = comp.q.reshape(R, K)
     scales = comp.scales.reshape(R, K // gs)

@@ -19,6 +19,14 @@ queued, and a CUDA event recorded after them marks the dispatch;
 ``pipeline_depth`` dispatches may be in flight before the engine waits on
 the newest one's event (and it always waits when a request finishes).
 
+Each tick runs under the spans ``engine.tick`` (``engine.admit``: the
+host-to-device copies of new requests, their bytes; ``engine.stack``;
+``engine.dispatch``: the ``step_fn`` call; ``engine.sync``: the wait on
+the step's event; ``engine.retire``: the device-to-host copies of finished
+results, their bytes), each over a whole batch; a request's own timeline
+is ``submitted_at`` / ``admitted_at`` / ``completed_at`` on its
+``GenRequest``.
+
 Results: numpy has no bfloat16, so ``GenRequest.result`` and
 ``snapshot()`` hold float32 numpy arrays, an exact widening of the bf16
 latents; ``restore()`` narrows a snapshot's latent back to its dtype
@@ -38,8 +46,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import observability
 from ._device import resolve_device
 from .interop import tensor_from_numpy
+from .observability import span
 
 log = logging.getLogger(__name__)
 
@@ -53,6 +63,7 @@ class GenRequest:
     cond: Any  # conditioning tree (text embeddings, pooled, guidance)
     sigmas: np.ndarray  # (steps+1,) descending to 0
     submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    admitted_at: float | None = None  # monotonic; into the pool
     step: int = 0
     done_event: threading.Event = dataclasses.field(
         default_factory=threading.Event)
@@ -90,6 +101,9 @@ class EngineStats:
     total_padding_lanes: int = 0
     total_step_time_s: float = 0.0
     total_latency_s: float = 0.0
+    admitted: int = 0
+    total_queue_wait_s: float = 0.0  # submitted -> admitted, summed
+    total_wait_s: float = 0.0  # host seconds waiting in ``engine.sync``
 
     @property
     def mean_batch_occupancy(self) -> float:
@@ -114,6 +128,10 @@ class EngineStats:
             "mean_latency_s": round(
                 self.total_latency_s / self.completed, 4
             ) if self.completed else None,
+            "mean_queue_wait_s": round(
+                self.total_queue_wait_s / self.admitted, 4
+            ) if self.admitted else None,
+            "wait_s": round(self.total_wait_s, 4),
         }
 
 
@@ -289,20 +307,30 @@ class ContinuousBatchEngine:
 
     # -- engine core --------------------------------------------------------
 
-    def _admit(self):
+    def _admit(self, sp: span):
+        dev = self.device
+
+        def h2d(a):
+            t = _to_device(a, dev)
+            sp.nbytes += t.numel() * t.element_size()
+            return t
+
         while len(self.active) < self.max_batch:
             try:
                 req = self.queue.get_nowait()
             except queue.Empty:
                 return
+            req.admitted_at = time.monotonic()
+            self.stats.admitted += 1
+            self.stats.total_queue_wait_s += (req.admitted_at
+                                              - req.submitted_at)
             # the request's one host-to-device copy
-            dev = self.device
-            req.latent = _to_device(req.latent, dev)
+            req.latent = h2d(req.latent)
             if req.latent_dtype is not None:
                 req.latent = req.latent.to(req.latent_dtype)
-            req.cond = _map(req.cond, lambda a: _to_device(a, dev))
+            req.cond = _map(req.cond, h2d)
             if req.aux is not None:
-                req.aux = _map(req.aux, lambda a: _to_device(a, dev))
+                req.aux = _map(req.aux, h2d)
             self.active.append(req)
 
     def _bucket(self, n: int) -> int:
@@ -317,7 +345,12 @@ class ContinuousBatchEngine:
 
     def tick(self):
         """Admit new requests, run ONE denoise step on the stacked pool."""
-        self._admit()
+        with span("engine.tick"):
+            self._tick()
+
+    def _tick(self):
+        with span("engine.admit") as sp:
+            self._admit(sp)
         dropped = [r for r in self.active if r.cancelled]
         if dropped:
             self.active = [r for r in self.active if not r.cancelled]
@@ -332,25 +365,28 @@ class ContinuousBatchEngine:
         pad = b - n
         lanes = batch + [batch[-1]] * pad
 
-        x = _stack([r.latent for r in lanes])
-        s_cur = self._sigma_lanes([r.sigmas[r.step] for r in lanes])
-        s_next = self._sigma_lanes([r.sigmas[r.step + 1] for r in lanes])
-        cond = _stack_cond([r.cond for r in lanes])
-
-        if self._window_t0 is None:
-            self._window_t0 = time.monotonic()
-        if self.aux_init is not None:
-            for r in batch:
-                if r.aux is None:
-                    r.aux = self.aux_init(r.latent)
-            aux = _stack_cond([r.aux for r in lanes])
+        with span("engine.stack"):
+            x = _stack([r.latent for r in lanes])
+            s_cur = self._sigma_lanes([r.sigmas[r.step] for r in lanes])
+            s_next = self._sigma_lanes([r.sigmas[r.step + 1]
+                                        for r in lanes])
+            cond = _stack_cond([r.cond for r in lanes])
+            if self._window_t0 is None:
+                self._window_t0 = time.monotonic()
+            if self.aux_init is not None:
+                for r in batch:
+                    if r.aux is None:
+                        r.aux = self.aux_init(r.latent)
+                aux = _stack_cond([r.aux for r in lanes])
 
         try:
             # no wait here: x may still be computing from the previous tick
-            if self.aux_init is not None:
-                x_next, aux_next = self.step_fn(x, s_cur, s_next, cond, aux)
-            else:
-                x_next = self.step_fn(x, s_cur, s_next, cond)
+            with span("engine.dispatch"):
+                if self.aux_init is not None:
+                    x_next, aux_next = self.step_fn(x, s_cur, s_next, cond,
+                                                    aux)
+                else:
+                    x_next = self.step_fn(x, s_cur, s_next, cond)
         except Exception as e:
             if device_fault(e):
                 raise
@@ -449,24 +485,29 @@ class ContinuousBatchEngine:
         window = self._pending
         self._pending = []
         event = window[-1][2]
-        if event is not None:
-            event.synchronize()
+        observability.resolve()  # while the card still runs the step
+        with span("engine.sync") as sp:
+            if event is not None:
+                event.synchronize()
+        self.stats.total_wait_s += sp.seconds
         dt = time.monotonic() - (self._window_t0 or time.monotonic())
         self._window_t0 = None
         self.stats.total_step_time_s += dt
 
         retired = set()
-        for _, batch, _ in window:
-            for r in batch:
-                if r.finished and id(r) not in retired:
-                    retired.add(id(r))
-                    # the request's one device-to-host copy
-                    r.result = _to_host(r.latent)
-                    r.completed_at = time.monotonic()
-                    self.stats.completed += 1
-                    self.stats.total_latency_s += (r.completed_at
-                                                   - r.submitted_at)
-                    r.done_event.set()
+        with span("engine.retire") as sp:
+            for _, batch, _ in window:
+                for r in batch:
+                    if r.finished and id(r) not in retired:
+                        retired.add(id(r))
+                        # the request's one device-to-host copy
+                        r.result = _to_host(r.latent)
+                        sp.nbytes += r.result.nbytes
+                        r.completed_at = time.monotonic()
+                        self.stats.completed += 1
+                        self.stats.total_latency_s += (r.completed_at
+                                                       - r.submitted_at)
+                        r.done_event.set()
         if retired:
             self.active = [r for r in self.active if id(r) not in retired]
 

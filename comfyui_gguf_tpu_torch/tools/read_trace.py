@@ -8,7 +8,7 @@ total duration, call count and share of each kernel family on the card
 (the hand-written kernels K1/K2, K4, K6, K7 by body, cuBLAS/cutlass GEMMs,
 PyTorch's elementwise and reduction kernels, copies, memsets, the rest),
 with an example kernel name. ``module_ms`` gives the device time of each
-``observability.annotate`` / ``record_function`` region. ``chip_smoke.py``
+``observability.span`` / ``record_function`` region. ``chip_smoke.py``
 keys its per-forward breakdown on ``_label``, so one map names the kernels.
 """
 

@@ -100,9 +100,9 @@ def _traced(tmp_path):
     x = torch.randn(128, 128)
     with observability.trace(str(tmp_path / "tr")):
         for _ in range(2):
-            with observability.annotate("block"):
+            with observability.span("block"):
                 y = torch.relu(x @ x)
-        with observability.annotate("head"):
+        with observability.span("head"):
             (y.to(torch.float64) + 1).sum()
     return str(tmp_path / "tr" / "trace.json")
 

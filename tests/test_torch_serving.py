@@ -108,7 +108,9 @@ def test_stats_snapshot_keys():
     assert snap["completed"] == 1
     assert snap["steps_per_second"] is not None
     assert snap["mean_latency_s"] is not None
-    assert set(snap) == set(jserving.EngineStats().snapshot())
+    # the reference's keys, and the port's queue and sync waits
+    assert set(snap) == set(jserving.EngineStats().snapshot()) | {
+        "mean_queue_wait_s", "wait_s"}
 
 
 def test_failed_batch_does_not_kill_engine():
