@@ -570,6 +570,10 @@ SOURCES = {
                       "tools_i8_microbench.py:37"),
     "gemm_probe_w8a8": ("comfyui_gguf_tpu_torch/csrc/gemm_probe.cu",
                         "tools_i8_microbench.py:66"),
+    # K9 replaces no Pallas kernel: XLA fused the norms and RoPE there
+    "qk_norm_rope": ("comfyui_gguf_tpu_torch/csrc/qk_norm_rope.cu",
+                     "none (XLA-fused: comfyui_gguf_tpu/models/flux.py "
+                     "_qknorm, apply_rope; models/wan.py)"),
 }
 
 
@@ -619,6 +623,99 @@ def library_ms(fn):
     except RuntimeError as e:
         log(f"    library call unavailable: {e}".splitlines()[0])
         return None
+
+
+# K9 at the cells' shapes: (name, B, [(q rows, k rows) a part], heads,
+# per-head gain, table, launches a denoise step in the cells)
+QKROPE_CASES = (
+    ("qk_norm_rope flux double B=4 txt 512 + img 4096 H=24 D=128", 4,
+     [(512, 512), (4096, 4096)], 24, True, True,
+     "19 a serve step (B = 4) and a t2i step (B = 1)"),
+    ("qk_norm_rope flux single B=4 L=4608 H=24 D=128 (linear1 view)", 4,
+     [(4608, 4608)], 24, True, True,
+     "38 a serve step (B = 4) and a t2i step (B = 1)"),
+    ("qk_norm_rope wan self L=32760 H=12 G=1536", 1, [(32760, 32760)], 12,
+     False, True, "60 a Wan step (30 a forward, CFG: 2 forwards)"),
+    ("qk_norm_rope wan cross Lq=32760 Lk=512 G=1536 (no table)", 1,
+     [(32760, 512)], 12, False, False, "60 a Wan step"),
+)
+
+
+def qkrope_rows(dev, dtype=None):
+    """K9 against the plain composition at the cells' shapes: q, k (and v)
+    read as views of one fused projection a part (flux: qkv; its single
+    block: linear1's first 3 x 3072 of 21504 columns), gains in f32, the
+    joint table of flux's prelude or Wan's 3-D table. ms: CUDA graph of
+    the launch; bound: its bytes (q, k and a joined v read and written
+    once, the table and gains read once) at 3.35 TB/s; plain: the
+    composition (rms_norm, apply_rope, torch.cat) it replaces; for the
+    double block also the ``torch.cat`` of v alone (``v_cat_ms``), what
+    joining v in the launch saves besides."""
+    import numpy as np
+    import torch
+
+    from comfyui_gguf_tpu_torch.models import flux, wan
+    from comfyui_gguf_tpu_torch.ops import qkrope
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for name, B, lens, H, per_head, rope, per_step in QKROPE_CASES:
+        D, W = 128, H * 128
+        single = "linear1" in name
+        parts, v_views = [], []
+        for Lq, Lk in lens:
+            width = 7 * W if single else 3 * W
+            x = torch.randn((B, Lq, width), generator=gen, device=dev).to(
+                dtype)
+            kv = x if Lk == Lq else torch.randn(
+                (B, Lk, 3 * W), generator=gen, device=dev).to(dtype)
+            G = D if per_head else W
+            gq, gk = (1.0 + 0.3 * torch.randn(G, generator=gen, device=dev)
+                      for _ in range(2))
+            parts.append((x[..., :W], kv[..., W:2 * W], kv[..., 2 * W:3 * W],
+                          gq, gk))
+            v_views.append(kv[..., 2 * W:3 * W])
+        Lq = sum(a for a, _ in lens)
+        pe = None
+        if rope and H == 24:
+            img = torch.as_tensor(np.array(flux.make_img_ids(64, 64, B)),
+                                  device=dev)
+            txt = torch.zeros((B, Lq - 4096, 3), dtype=torch.int32,
+                              device=dev)
+            pe = flux.rope_freqs(torch.cat([txt, img], dim=1), (16, 56, 56))
+        elif rope:
+            pe = wan.rope_3d(21, 30, 52, (44, 42, 42), device=dev)
+        got = qkrope.qk_norm_rope_cuda(parts, H, pe)
+        want = qkrope.plain_qk_norm_rope(parts, H, pe)
+        torch.cuda.synchronize()
+        err = max(rel_l2(g, w) for g, w in zip(got, want))
+        mad = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= 1e-3
+        ms = graph_ms([lambda: qkrope.qk_norm_rope_cuda(parts, H, pe)])
+        plain = event_ms(lambda: qkrope.plain_qk_norm_rope(parts, H, pe))
+        es = torch.finfo(dtype).bits // 8
+        Lk = sum(b for _, b in lens)
+        moved = (Lq + Lk + (Lk if len(parts) > 1 else 0)) * B * W * es
+        nbytes = 2 * moved + (pe.numel() * 4 if pe is not None else 0) \
+            + 4 * len(parts) * 2 * (D if per_head else W)
+        b_ms, b_by = bound(nbytes, 0.0, PEAK_BF16)
+        row = dict(name=name, kernel="qk_norm_rope",
+                   shape=f"B={B} L={lens} H={H} D={D} "
+                         f"{str(dtype).replace('torch.', '')}",
+                   max_abs_err=mad, rel_l2=err, tol="rel L2 <= 1e-3", ok=ok,
+                   ms=ms, plain_ms=plain, library_ms=None, library="none",
+                   bound_ms=b_ms, bound_by=b_by, launches_a_step=per_step)
+        if len(parts) > 1:
+            row["v_cat_ms"] = graph_ms([lambda: torch.cat(v_views, dim=1)])
+        rows.append(row)
+        log(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f}, plain {plain:.3f}) "
+            f"rel L2 {err:.2e} max abs {mad:.3g} ok={ok}"
+            + (f" v cat {row['v_cat_ms']:.4f} ms" if "v_cat_ms" in row
+               else ""))
+        del parts, v_views, got, want
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1511,6 +1608,8 @@ def kernel_phase(dev, sfu_per_s):
               64)
     # K8: the probes at the tool's problem size
     probe_cases()
+    # K9: the q/k norms, RoPE and joint concat before each attention call
+    rows.extend(qkrope_rows(dev))
     return rows + sweep_rows
 
 

@@ -46,7 +46,8 @@ SOURCES = ("qmm.cu", "qmm_int8.cu", "qmm_lora.cu", "qmm_int8_lora.cu",
            "qmm_int8_lora_f16.cu", "qmm_smallm.cu", "qmm_smallm_f16.cu",
            "qmm_smallm_f32.cu", "qmm_simt.cu", "i8mm.cu", "i8mm_lora.cu",
            "flash_attn.cu", "flash_attn_f16.cu", "flash_attn_f32.cu",
-           "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu")
+           "i8attn.cu", "i8attn_prep.cu", "gemm_probe.cu",
+           "qk_norm_rope.cu")
 HEADERS = ("common.cuh", "qmm_common.cuh", "qmm_wgmma.cuh", "qmm_smallm.cuh",
            "gemm_wgmma.cuh", "flash_attn.cuh", "flash_attn_wide.cuh",
            "tma.cuh")
@@ -119,6 +120,10 @@ _SIGNATURES = {
     # 2 f32), stream
     "i8attn_prep_launch": [_VP] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
     + [_I] * 7 + [ctypes.c_float] + [_VP] * 7 + [_I, _I, _VP],
+    # descriptors[12 n], n, B, W, D, the activations' type (0 bf16, 1 f16,
+    # 2 f32), eps, stream
+    "qk_norm_rope_launch": [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5
+    + [ctypes.c_float, _VP],
     # dynamic shared memory of a launch: tile width / head dim (and mode)
     "i8mm_smem_bytes": [_I],
     "flash_attn_smem_bytes": [_I],
@@ -171,7 +176,7 @@ LAUNCHES = {"qmm_nib4": 0, "qmm_int8": 0, "qmm_nib4_smallm": 0,
             "i8attn_pv_f16": 0, "i8attn_pv_f32": 0, "i8attn_qk_f16": 0,
             "i8attn_qk_f32": 0, "i8attn_prep_f16": 0, "i8attn_prep_f32": 0,
             "gemm_probe_bf16": 0,
-            "gemm_probe_s8": 0, "gemm_probe_w8a8": 0}
+            "gemm_probe_s8": 0, "gemm_probe_w8a8": 0, "qk_norm_rope": 0}
 # the fused dequant-matmul's f16 / f32 instances: body -> its dtypes
 _QMM_DTYPES = {"": ("_f16",), "_smallm": ("_f16", "_f32"),
                "_simt": ("_f32",)}

@@ -23,11 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from ..lora import LoRAPatch, PatchedWeight
-from ..nn.attention import dot_product_attention
+from ..nn.attention import apply_rope, dot_product_attention
 from ..nn.layers import (QuantConfig, DEFAULT_CONFIG, in_features,
                          layer_norm, linear, linear_gelu, out_features,
                          rms_norm)
 from ..observability import span
+from ..ops import qkrope
 from ..quant.i8 import I8Planar
 from ..quant.planar import PlanarQuant
 
@@ -104,22 +105,6 @@ def rope_freqs(ids: torch.Tensor, axes_dim,
     return torch.cat(parts, dim=2)  # (B, L, D/2, 2)
 
 
-def apply_rope(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
-    """x: (B, H, L, D); pe: (B, L, D/2, 2) — rotate adjacent pairs.
-
-    real = x0·cos − x1·sin and imag = x0·sin + x1·cos, computed as
-    x·[cos, cos] + swap(x)·[−sin, sin]: the same products and sums in
-    float32 (a + (−b) is a − b exactly), without strided half-pair ops.
-    """
-    B, H, L, D = x.shape
-    xf = x.to(torch.float32).reshape(B, H, L, D // 2, 2)
-    cos = pe[:, None, :, :, :1]
-    sin = pe[:, None, :, :, 1:]
-    out = xf * torch.cat([cos, cos], dim=-1) \
-        + xf.flip(-1) * torch.cat([-sin, sin], dim=-1)
-    return out.reshape(B, H, L, D).to(x.dtype)
-
-
 def make_img_ids(h_tok: int, w_tok: int, batch: int) -> np.ndarray:
     """(B, h*w, 3) position ids: axis0 unused, axis1 row, axis2 col."""
     ids = np.zeros((h_tok, w_tok, 3), dtype=np.int32)
@@ -165,11 +150,12 @@ def _attention(q, k, v):
         return out.transpose(1, 2).reshape(B, L, H * D)
 
 
-def _split_heads(x, n_heads: int):
-    """(B, L, 3*hidden) fused qkv → 3 × (B, H, L, D) views."""
-    B, L, _ = x.shape
-    qkv = x.reshape(B, L, 3, n_heads, -1)
-    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+def _qkv_part(qkv, p: dict, prefix: str):
+    """A fused (B, L, 3·hidden) projection as a part of
+    ``qkrope.qk_norm_rope``: its q, k and v views and its norm gains."""
+    W = qkv.shape[-1] // 3
+    return (qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:],
+            p[f"{prefix}.query_norm.scale"], p[f"{prefix}.key_norm.scale"])
 
 
 def block_subtree(params, prefix: str) -> dict:
@@ -195,14 +181,10 @@ def _double_block(p: dict, img, txt, vec, pe, cfg: FluxConfig, qcfg):
     txt_qkv = linear(txt_mod, p["txt_attn.qkv.weight"],
                      p.get("txt_attn.qkv.bias"), cfg=qcfg)
     with span("forward.qk_rope"):
-        iq, ik, iv = _split_heads(img_qkv, H)
-        tq, tk, tv = _split_heads(txt_qkv, H)
-        iq, ik = _qknorm(p, "img_attn.norm", iq, ik)
-        tq, tk = _qknorm(p, "txt_attn.norm", tq, tk)
         # joint attention, text stream first (BFL ordering)
-        q = apply_rope(torch.cat([tq, iq], dim=2), pe)
-        k = apply_rope(torch.cat([tk, ik], dim=2), pe)
-        v = torch.cat([tv, iv], dim=2)
+        q, k, v = qkrope.qk_norm_rope(
+            [_qkv_part(txt_qkv, p, "txt_attn.norm"),
+             _qkv_part(img_qkv, p, "img_attn.norm")], H, pe)
     attn = _attention(q, k, v)
     L_txt = txt.shape[1]
     txt_attn, img_attn = attn[:, :L_txt], attn[:, L_txt:]
@@ -249,10 +231,9 @@ def _single_block(p: dict, x, vec, pe, cfg: FluxConfig, qcfg):
     h = linear_gelu(x_mod, p["linear1.weight"], p.get("linear1.bias"),
                     tail_from=hid3, cfg=qcfg)
     with span("forward.qk_rope"):
-        qkv, act = h[..., :hid3], h[..., hid3:]
-        q, k, v = _split_heads(qkv, H)
-        q, k = _qknorm(p, "norm", q, k)
-        q, k = apply_rope(q, pe), apply_rope(k, pe)
+        act = h[..., hid3:]
+        q, k, v = qkrope.qk_norm_rope([_qkv_part(h[..., :hid3], p, "norm")],
+                                      H, pe)
     attn = _attention(q, k, v)
     with span("forward.gate_res"):
         cat = torch.cat([attn, act], dim=-1)

@@ -23,11 +23,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..nn.attention import dot_product_attention
+from ..nn.attention import (apply_rope, dot_product_attention,
+                            split_heads as _heads)
 from ..nn.layers import (DEFAULT_CONFIG, QuantConfig, conv3d, layer_norm,
-                         linear, rms_norm)
+                         linear)
 from ..observability import span
-from .flux import (apply_rope, block_subtree, block_view, stack_block_groups,
+from ..ops import qkrope
+from ..quant.planar import TPNormShard
+from .flux import (block_subtree, block_view, stack_block_groups,
                    timestep_embedding)
 
 
@@ -100,11 +103,6 @@ def _apply_rope(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     return apply_rope(x, pe[None])
 
 
-def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    B, L, D = x.shape
-    return x.reshape(B, L, n, D // n).transpose(1, 2)
-
-
 def _unheads(x: torch.Tensor) -> torch.Tensor:
     B, H, L, D = x.shape
     return x.transpose(1, 2).reshape(B, L, H * D)
@@ -112,6 +110,17 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
 
 def _attn(q, k, v):
     return _unheads(dot_product_attention(q, k, v))
+
+
+def _norm_rope(p, name: str, q, k, v, n_heads: int, pe):
+    """Wan's full-width q/k RMS norms (before the head split) and RoPE
+    where ``pe`` is given: (B, H, L, D) q, k, v. A ``TPNormShard`` gain
+    (``parallel/tp_spec.py``'s norm over a column-split row) reduces its
+    statistics over the mesh axis, which K9 does not: the composition."""
+    gq, gk = p[f"{name}.norm_q.weight"], p[f"{name}.norm_k.weight"]
+    op = (qkrope.plain_qk_norm_rope if isinstance(gq, TPNormShard)
+          else qkrope.qk_norm_rope)
+    return op([(q, k, v, gq, gk)], n_heads, pe)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -131,13 +140,8 @@ def _block(p, x, e0, ctx, pe, cfg: WanConfig, qcfg):
                       cfg=qcfg)
 
     def attend(q, k, v, name, rope):
-        # Wan applies full-width RMS norms on q/k before the head split
         with span("forward.qk_rope"):
-            q = _heads(rms_norm(q, p[f"{name}.norm_q.weight"], eps=1e-6), H)
-            k = _heads(rms_norm(k, p[f"{name}.norm_k.weight"], eps=1e-6), H)
-            v = _heads(v, H)
-            if rope:
-                q, k = _apply_rope(q, pe), _apply_rope(k, pe)
+            q, k, v = _norm_rope(p, name, q, k, v, H, pe if rope else None)
         o = dot_product_attention(q, k, v)
         with span("forward.qk_rope"):
             return _unheads(o)

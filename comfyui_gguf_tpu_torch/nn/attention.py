@@ -31,6 +31,10 @@ cast to q's dtype, and cross-attention with Lq != Lk.
   from ``GGUF_TPU_ATTN_I8`` (the reference's variable, name kept). The
   scope is read at call time, on every call; nothing caches the route.
 
+``split_heads`` and ``apply_rope`` are the head split and the pair rotation
+of RoPE on attention's (B, H, L, D) operands, shared by the models' blocks
+and ops/qkrope.py.
+
 The reference's splash/flash block-size and padding machinery is specific
 to the TPU kernels and has no counterpart: the CUDA kernels mask the ragged
 key tile themselves.
@@ -97,6 +101,28 @@ def attention_i8(mode: str = "pv"):
         yield
     finally:
         _I8_MODE.reset(tok)
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, L, H·D) → (B, H, L, D) view."""
+    B, L, W = x.shape
+    return x.reshape(B, L, n_heads, W // n_heads).transpose(1, 2)
+
+
+def apply_rope(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, L, D); pe: (B, L, D/2, 2) — rotate adjacent pairs.
+
+    real = x0·cos − x1·sin and imag = x0·sin + x1·cos, computed as
+    x·[cos, cos] + swap(x)·[−sin, sin]: the same products and sums in
+    float32 (a + (−b) is a − b exactly), without strided half-pair ops.
+    """
+    B, H, L, D = x.shape
+    xf = x.to(torch.float32).reshape(B, H, L, D // 2, 2)
+    cos = pe[:, None, :, :, :1]
+    sin = pe[:, None, :, :, 1:]
+    out = xf * torch.cat([cos, cos], dim=-1) \
+        + xf.flip(-1) * torch.cat([-sin, sin], dim=-1)
+    return out.reshape(B, H, L, D).to(x.dtype)
 
 
 def plain_attention(q, k, v, scale: float) -> torch.Tensor:

@@ -5,9 +5,9 @@ Usage: python -m comfyui_gguf_tpu_torch.tools.read_trace <trace.json or dir> [to
 
 Reads the ``trace.json`` that ``observability.trace`` writes and prints the
 total duration, call count and share of each kernel family on the card
-(the hand-written kernels K1/K2, K4, K6, K7 by body, cuBLAS/cutlass GEMMs,
-PyTorch's elementwise and reduction kernels, copies, memsets, the rest),
-with an example kernel name. ``module_ms`` gives the device time of each
+(the hand-written kernels K1/K2, K4, K6, K7 by body, K9, cuBLAS/cutlass
+GEMMs, PyTorch's elementwise and reduction kernels, copies, memsets, the
+rest), with an example kernel name. ``module_ms`` gives the device time of each
 ``observability.span`` / ``record_function`` region. ``chip_smoke.py``
 keys its per-forward breakdown on ``_label``, so one map names the kernels.
 """
@@ -41,6 +41,7 @@ _KERNEL_FAMILIES = (
     ("prep_quant_kernel", "K6 prep"),
     ("prep_fold_kernel", "K6 prep"),
     ("prep_quant_wide_kernel", "K6 prep"),
+    ("qk_norm_rope_kernel", "K9 qk_norm_rope"),
 )
 # (regex on the lowercased name, family) for library kernels
 _LIBRARY_FAMILIES = (

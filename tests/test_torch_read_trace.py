@@ -58,6 +58,8 @@ NAMES = [
     ("prep_reduce_kernel(PrepArgs)", "K6 prep", "K6 prep"),
     ("void prep_quant_wide_kernel<256>(PrepArgs)", "K6 prep", "K6 prep"),
     ("prep_fold_kernel(PrepArgs)", "K6 prep", "K6 prep"),
+    ("void (anonymous namespace)::qk_norm_rope_kernel<0>((anonymous "
+     "namespace)::Args)", "K9 qk_norm_rope", "K9 qk_norm_rope"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroup"
      "size1x1x1_execute_segment_k_off_kernel__5x_cublas",
      "dense GEMM (cuBLAS)", "dense GEMM (cuBLAS)"),
